@@ -1,0 +1,148 @@
+"""Sign-compression primitives (plain PyTorch).
+
+The coordinate-wise building blocks of HierSignSGD / DC-HierSignSGD,
+bit for bit the functions of the JAX package's ``core/signs.py``:
+
+  * ``sgn``           -- the paper's element-wise sign into {-1, +1}.
+  * ``pack_signs``    -- 1 bit/coordinate wire format, 32 signs a word.
+  * ``unpack_signs``  -- inverse of ``pack_signs``.
+  * ``majority_vote`` -- s_q = sgn(sum_k w_k sgn(g_k)), optional weights.
+  * ``majority_vote_packed`` -- the same vote from packed words.
+  * ``uplink_bits``   -- Table II wire cost.
+
+Conventions
+-----------
+``sgn(0) = +1`` (``torch.sign(0)`` is 0, so it is not used), ``-0.0``
+and negative subnormals map to +1 (the reference flushes subnormals) and
+NaN to -1.  Vote ties resolve to +1.  Weights are {0,1}
+masks or nonnegative integer data shares; an edge whose whole quorum
+has weight 0 votes 0.
+
+Wire words are carried as **int32 with the uint32 bit pattern**: bit j
+of word w is the sign of coordinate 32w + j (set = +1), and the padding
+bits of a ragged tail are 1.  PyTorch's uint32 has no shifts or sums on
+the CPU; ``np.uint32`` words compare through ``.view(np.int32)``.
+"""
+from __future__ import annotations
+
+import torch
+
+PACK_WIDTH = 32  # sign bits per word
+
+
+def nonneg(x: torch.Tensor) -> torch.Tensor:
+    """``x >= 0`` as the reference evaluates it: a float compare that
+    treats subnormals as zero (the JAX package runs on XLA's CPU backend,
+    which flushes subnormals, and on the TPU, which has none), so a
+    negative subnormal counts as 0 -> +1.  NaN is never >= 0."""
+    if x.dtype.is_floating_point:
+        return x > -torch.finfo(x.dtype).tiny
+    return x >= 0
+
+
+def sgn(x: torch.Tensor) -> torch.Tensor:
+    """Element-wise sign into {-1, +1} (int8); sgn(0) = +1."""
+    one = torch.ones((), dtype=torch.int8, device=x.device)
+    return torch.where(nonneg(x), one, -one)
+
+
+def packed_size(n: int) -> int:
+    """Number of 32-bit words used to carry ``n`` sign bits."""
+    return (n + PACK_WIDTH - 1) // PACK_WIDTH
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 32*w) bool -> (..., w) int32; bit j of word w = bits[32w+j]."""
+    b = bits.to(torch.int64).reshape(bits.shape[:-1] + (-1, PACK_WIDTH))
+    shifts = torch.arange(PACK_WIDTH, dtype=torch.int64, device=bits.device)
+    s = torch.sum(b << shifts, dim=-1)                # in [0, 2^32)
+    return torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """(..., w) int32 -> (..., 32*w) int32 bits in {0, 1}."""
+    shifts = torch.arange(PACK_WIDTH, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(words.shape[:-1] + (-1,))
+
+
+def pack_signs(signs: torch.Tensor) -> torch.Tensor:
+    """(..., n) int8 {-1, +1} -> (..., ceil(n/32)) int32 words.
+
+    Positive sign -> bit 1; padding bits are 1 (+1 sign)."""
+    pad = (-signs.shape[-1]) % PACK_WIDTH
+    bits = signs > 0
+    if pad:
+        bits = torch.cat([bits, bits.new_ones(bits.shape[:-1] + (pad,))], -1)
+    return pack_bits(bits)
+
+
+def unpack_signs(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_signs`; returns (..., n) int8 in {-1, +1}."""
+    bits = unpack_bits(words)[..., :n]
+    return (2 * bits - 1).to(torch.int8)
+
+
+def majority_vote(signs: torch.Tensor, mask: torch.Tensor | None = None,
+                  axis: int = 0) -> torch.Tensor:
+    """Edge vote ``s = sgn(sum_k w_k sgn_k)`` over ``axis``.
+
+    mask: optional per-voter weights broadcastable to ``signs`` ({0,1}
+    or nonnegative integer shares; a [K] vector broadcasts over the
+    leaf).  Ties -> +1; an empty quorum (all weights 0) votes 0."""
+    tally = signs.to(torch.int32)
+    if mask is None:
+        return sgn(torch.sum(tally, dim=axis))
+    m = torch.as_tensor(mask, device=signs.device)
+    if m.dim() < tally.dim():
+        m = m.reshape(m.shape + (1,) * (tally.dim() - m.dim()))
+    m = m.to(torch.int32)
+    vote = sgn(torch.sum(tally * m, dim=axis))
+    n_eff = torch.sum(m, dim=axis)
+    return torch.where(n_eff > 0, vote, torch.zeros_like(vote))
+
+
+def majority_vote_packed(words: torch.Tensor, n: int,
+                         mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Majority vote from packed per-voter words.
+
+    words: (K, ceil(n/32)) int32, one packed sign row per voter; mask:
+    optional (K,) {0,1} mask or integer weights.  Returns (n,) int8,
+    equal to ``majority_vote(unpack_signs(words, n), mask, axis=0)``."""
+    bits = unpack_bits(words)[:, :n]                          # (K, n)
+    if mask is not None:
+        m = torch.as_tensor(mask, device=words.device).to(torch.int32)
+        pos = torch.sum(bits * m.reshape(-1, 1), dim=0, dtype=torch.int32)
+        k_eff = torch.sum(m)
+    else:
+        pos = torch.sum(bits, dim=0, dtype=torch.int32)
+        k_eff = words.shape[0]
+    one = torch.ones((), dtype=torch.int8, device=words.device)
+    vote = torch.where(2 * pos >= k_eff, one, -one)
+    if mask is not None:
+        vote = torch.where(k_eff > 0, vote, torch.zeros_like(vote))
+    return vote
+
+
+def uplink_bits(method: str, d: int, t_e: int, clients: int = 1,
+                participation_rate: float = 1.0) -> int | float:
+    """Device->edge uplink bits per device per global round (Table II).
+
+    With K virtual clients per slice the expectation is
+    ``clients * participation_rate * base``; the single-client call
+    returns the exact integer Table II entry."""
+    if method == "hier_sgd":
+        base = 32 * t_e * d
+    elif method == "hier_local_qsgd":        # sign+support bits + scale
+        base = t_e * (2 * d + 32)
+    elif method == "hier_signsgd":
+        base = t_e * d
+    elif method == "dc_hier_signsgd":        # + one full-precision anchor
+        base = t_e * d + 32 * d
+    elif method in ("scaffold_hier_signsgd", "mtgc_hier_signsgd"):
+        base = t_e * d + 32 * d
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    if clients == 1 and participation_rate >= 1.0:
+        return base
+    return clients * participation_rate * base

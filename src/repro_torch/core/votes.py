@@ -1,0 +1,257 @@
+"""Majority-vote transports over the device tier, on one card.
+
+The local arithmetic of the JAX package's ``core/votes.py``.  Inputs are
+per-device quantities ``[P, D, *leaf]`` (P edges, D devices); outputs
+are per-edge votes ``[P, *leaf]``.  On one card the "transport" is a
+choice of arithmetic, and all three sign transports are bitwise
+identical (ties -> +1):
+
+``ag_packed``  each device's signs packed to 1 bit/coordinate, then a
+    popcount vote over the packed rows (the paper's uplink payload).
+``ar_int8``    an integer tally of the signs (int8 while the weight sum
+    fits, int16/int32 beyond), then its sign.
+``fused``      the whole tree as ONE flat buffer (``core.flatbuf``):
+    the DC correction folded in pre-sign, ONE ``sign_pack`` launch over
+    all P*D rows and ONE ``vote_update`` launch over all pods
+    (``kernels.ops``; the CUDA kernels on the card, their plain versions
+    on the CPU).  With the flat state layout the vote never forms: the
+    kernel updates the master buffer in place.
+
+Masks are [P, D] {0,1} voter masks or nonnegative integer vote weights
+(weighted popcount; an edge whose quorum has weight 0 votes 0).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import flatbuf, pytree, signs
+from repro_torch.kernels import ops as kops
+
+PACK = signs.PACK_WIDTH
+
+SIGN_TRANSPORTS = ("ag_packed", "ar_int8", "fused")
+
+
+def _mask_bcast(mask: torch.Tensor | None, ndim_leaf: int):
+    """[P, D] voter mask/weights -> broadcastable to [P, D, *leaf]."""
+    if mask is None:
+        return None
+    return mask.reshape(mask.shape + (1,) * ndim_leaf)
+
+
+def _is_int_weights(mask: torch.Tensor) -> bool:
+    return not mask.dtype.is_floating_point and mask.dtype != torch.bool
+
+
+def _tally_acc(weight_bound: int) -> torch.dtype:
+    """Smallest int dtype holding a tally of range ``weight_bound``."""
+    if weight_bound <= 127:
+        return torch.int8
+    if weight_bound <= 32767:
+        return torch.int16
+    return torch.int32
+
+
+def _abstain(vote: torch.Tensor, n_eff: torch.Tensor) -> torch.Tensor:
+    """Vote 0 where the quorum's weight sum is not positive."""
+    return torch.where(n_eff > 0, vote, torch.zeros_like(vote))
+
+
+def vote_ar_int8(s_dev: torch.Tensor, mask: torch.Tensor | None,
+                 weight_bound: int | None = None) -> torch.Tensor:
+    """sgn(sum_k w_k s_k) via an integer tally over the device dim.
+
+    The tally is int8 while its range ``sum(w) <= 127`` fits and int16 /
+    int32 beyond; ``weight_bound`` is the static per-edge range
+    ``max_q sum_k w_qk``, required for integer weights (None means unit
+    weights: the voter count D).  Integer weights without a bound raise:
+    defaulting to the voter count could wrap the tally."""
+    if weight_bound is None and mask is not None and _is_int_weights(mask):
+        raise ValueError(
+            "vote_ar_int8: integer vote weights need an explicit static "
+            "weight_bound (max per-edge sum(w)) to size the tally dtype; "
+            "the voter-count default only covers {0,1} masks")
+    bound = weight_bound if weight_bound is not None else s_dev.shape[1]
+    acc = _tally_acc(bound)
+    tally = s_dev.to(acc)
+    m = _mask_bcast(mask, s_dev.dim() - 2)
+    if m is not None:
+        tally = tally * m.to(acc)
+    tally = torch.sum(tally, dim=1, dtype=acc)                 # [P, *leaf]
+    vote = signs.sgn(tally.to(torch.int32))
+    if mask is not None:
+        n_eff = torch.sum(mask.to(torch.int32), dim=1)
+        vote = _abstain(vote, n_eff.reshape((-1,) + (1,) * (vote.dim() - 1)))
+    return vote
+
+
+def vote_ag_packed(s_dev: torch.Tensor,
+                   mask: torch.Tensor | None) -> torch.Tensor:
+    """Bit-packed popcount vote: s_dev [P, D, *leaf] int8 with the leaf's
+    minor dim % 32 == 0 -> [P, *leaf] int8."""
+    if s_dev.shape[-1] % PACK:
+        raise ValueError("vote_ag_packed needs a minor dim % 32 == 0")
+    bits = signs.unpack_bits(signs.pack_signs(s_dev))          # [P, D, *leaf]
+    if mask is not None:
+        m = _mask_bcast(mask, bits.dim() - 2).to(torch.int32)
+        pos = torch.sum(bits * m, dim=1, dtype=torch.int32)
+        n_eff = torch.sum(mask.to(torch.int32), dim=1)
+        n_eff = n_eff.reshape((-1,) + (1,) * (pos.dim() - 1))
+    else:
+        pos = torch.sum(bits, dim=1, dtype=torch.int32)
+        n_eff = s_dev.shape[1]
+    one = torch.ones((), dtype=torch.int8, device=s_dev.device)
+    vote = torch.where(2 * pos >= n_eff, one, -one)
+    if mask is not None:
+        vote = _abstain(vote, n_eff)
+    return vote
+
+
+def _popcount_vote_words(words: torch.Tensor, mask: torch.Tensor | None,
+                         n_dev: int) -> torch.Tensor:
+    """[P, D, W] packed words (+ [P, D] mask/weights) -> [P, W*32] int8.
+
+    The voter dim is folded one voter at a time, so the [P, D, W*32] bit
+    tensor never forms."""
+    pos = None
+    for k in range(words.shape[1]):
+        b = signs.unpack_bits(words[:, k])                     # [P, W*32]
+        if mask is not None:
+            b = b * mask[:, k].to(torch.int32)[:, None]
+        pos = b if pos is None else pos + b
+    if mask is not None:
+        n_eff = torch.sum(mask.to(torch.int32), dim=1)[:, None]
+    else:
+        n_eff = n_dev
+    one = torch.ones((), dtype=torch.int8, device=words.device)
+    vote = torch.where(2 * pos >= n_eff, one, -one)
+    if mask is not None:
+        vote = _abstain(vote, n_eff)
+    return vote
+
+
+def _fused_kernel_bufs(layout: flatbuf.FlatLayout, u_dev, delta_tree,
+                       delta_buf, rho: float):
+    """Fold rule + flat views for the kernel route.
+
+    ``sign_pack`` adds rho*delta in f32; folding it there equals the
+    per-leaf arithmetic only when every leaf is f32.  Other trees add
+    the correction first, in each leaf's own dtype, exactly as the tree
+    path does, and hand the kernel no correction.  The correction may
+    arrive as a tree ([P, *leaf]) or as a [P, n_pad] buffer."""
+    leaves = pytree.flatten_up_to(layout.treedef, u_dev)
+    have_delta = (delta_tree is not None or delta_buf is not None) and rho
+    fold_in_kernel = (have_delta
+                      and all(leaf.dtype == torch.float32 for leaf in leaves))
+    if have_delta and not fold_in_kernel:
+        if delta_tree is None:
+            delta_tree = flatbuf.unflatten_tree(layout, delta_buf,
+                                                batch_dims=1, cast=False)
+        u_dev = pytree.tree_map(
+            lambda u, dl: u + flatbuf.scaled(dl[:, None].to(u.dtype), rho),
+            u_dev, delta_tree)
+    dt = leaves[0].dtype
+    for leaf in leaves[1:]:
+        dt = torch.promote_types(dt, leaf.dtype)
+    # widening casts never move a value across zero: the signs stay those
+    # of the per-leaf arithmetic
+    u_buf = flatbuf.flatten_tree(layout, u_dev, batch_dims=2, dtype=dt)
+    if not u_buf.dtype.is_floating_point:
+        u_buf = u_buf.to(torch.float32)      # pre-signed int8: exact
+    d_buf = None
+    if fold_in_kernel:
+        d_buf = (delta_buf.to(u_buf.dtype) if delta_buf is not None
+                 else flatbuf.flatten_tree(layout, delta_tree, batch_dims=1,
+                                           dtype=u_buf.dtype))
+    return u_buf, d_buf
+
+
+def _packed_vote(layout: flatbuf.FlatLayout, u_dev, delta_tree, rho: float,
+                 mask: torch.Tensor | None) -> torch.Tensor:
+    """The per-leaf route of the fused transport: per-leaf fused pack
+    (correction added pre-sign in the leaf's dtype), word-level concat,
+    one popcount vote -> [P, n_pad] int8.  It shares no code with the
+    kernels, and the tests hold the kernel route against it."""
+    n_dev = pytree.flatten_up_to(layout.treedef, u_dev)[0].shape[1]
+    words = flatbuf.pack_tree(layout, u_dev, batch_dims=2, delta=delta_tree,
+                              rho=rho, delta_batch_dims=1)
+    return _popcount_vote_words(words, mask, n_dev)
+
+
+def fused_sign_vote(u_dev, delta=None, rho: float = 0.0,
+                    mask: torch.Tensor | None = None):
+    """Whole-tree fused sign transport: tree in, vote tree out.
+
+    u_dev: tree of [P, D, *leaf] pre-sign directions; delta: optional
+    tree of [P, *leaf] DC corrections, fused pre-sign as
+    ``u + rho * delta``; mask: optional [P, D] voter mask or integer
+    weights.  Returns the [P, *leaf] int8 vote tree, bit-identical to
+    ``ag_packed`` / ``ar_int8`` applied leaf by leaf."""
+    layout = flatbuf.make_layout(u_dev, batch_dims=2)
+    u_buf, d_buf = _fused_kernel_bufs(layout, u_dev, delta, None, rho)
+    vote = kops.fused_sign_vote_flat(u_buf, d_buf, rho, mask)
+    return flatbuf.unflatten_tree(layout, vote, batch_dims=1, cast=False)
+
+
+def fused_sign_vote_update(layout: flatbuf.FlatLayout, u_dev,
+                           delta_buf: torch.Tensor | None, rho: float,
+                           mask: torch.Tensor | None, v_buf: torch.Tensor,
+                           mu: torch.Tensor,
+                           mu_static: float | None = None) -> torch.Tensor:
+    """Flat-state fused transport: ``v_buf <- v_buf - mu * vote``.
+
+    u_dev: tree of [P, D, *leaf] pre-sign directions; delta_buf:
+    optional [P, n_pad] DC correction; v_buf: [P, n_pad] master buffer;
+    mu: the step size as a 0-dim tensor; mu_static: its Python value when
+    it does not change with the step.  An f32 master with ``mu_static``
+    goes through the ``vote_update`` kernel's read-modify-write and is
+    **updated in place**; otherwise (e.g. ``decay``) the vote-only kernel
+    route runs and ``v_buf - mu * vote`` is a new tensor.  Either way
+    the arithmetic is the tree path's ``v - mu * vote``."""
+    u_buf, d_buf = _fused_kernel_bufs(layout, u_dev, None, delta_buf, rho)
+    if mu_static is not None and v_buf.dtype == torch.float32:
+        return kops.fused_vote_update_flat(u_buf, d_buf, rho, mask, v_buf,
+                                           float(mu_static))
+    vote = kops.fused_sign_vote_flat(u_buf, d_buf, rho, mask)
+    return v_buf - mu * vote.to(v_buf.dtype)
+
+
+def majority_vote_dev(s_dev: torch.Tensor, mask: torch.Tensor | None,
+                      transport: str,
+                      weight_bound: int | None = None) -> torch.Tensor:
+    """Vote [P, D, *leaf] -> [P, *leaf] by transport and leaf shape: a
+    minor dim that is not a multiple of 32 takes the integer tally."""
+    if transport in ("ag_packed", "fused") and s_dev.shape[-1] % PACK == 0:
+        return vote_ag_packed(s_dev, mask)
+    return vote_ar_int8(s_dev, mask, weight_bound=weight_bound)
+
+
+def weighted_mean_dev(g_dev: torch.Tensor, dev_weights: torch.Tensor,
+                      clients: int = 1) -> torch.Tensor:
+    """Edge aggregation ``sum_k (|D_qk|/D_q) g_k`` -> [P, *leaf].
+
+    The device sum is a fold in voter order, so a leaf and its slice of
+    the flat buffer add in the same order and the two state layouts stay
+    bitwise identical."""
+    if clients != 1:
+        raise NotImplementedError(
+            "weighted_mean_dev over K > 1 virtual clients is not ported "
+            "yet: ROADMAP queue 1 item 10")
+    w = dev_weights.reshape(dev_weights.shape + (1,) * (g_dev.dim() - 2))
+    w = w.to(g_dev.dtype)
+    acc = g_dev[:, 0] * w[:, 0]
+    for k in range(1, g_dev.shape[1]):
+        acc = acc + g_dev[:, k] * w[:, k]
+    return acc
+
+
+def pod_weighted_average(v: torch.Tensor,
+                         edge_weights: torch.Tensor) -> torch.Tensor:
+    """Cloud aggregation ``w = sum_q (D_q/N) v_q``, copied back to every
+    pod: a new [P, *leaf] tensor (never a broadcast view, since the
+    fused update writes each pod's row in place)."""
+    w = edge_weights.reshape((-1,) + (1,) * (v.dim() - 1)).to(v.dtype)
+    glob = v[0] * w[0]
+    for q in range(1, v.shape[0]):
+        glob = glob + v[q] * w[q]
+    return glob.unsqueeze(0).expand_as(v).contiguous()

@@ -1,0 +1,83 @@
+"""The fused transport's local compute on a flat buffer (kernel route).
+
+The counterparts of the JAX package's ``kernels/ops.py:194-331``.  On one
+card the P (edge) and D (device) tiers are the leading dims of one
+``[P, D, n_pad]`` buffer from ``core.flatbuf`` (``n_pad % 4096 == 0``),
+so each function is at most two launches, whatever P is:
+
+  * :func:`fused_pack_flat` -- ONE ``sign_pack`` over all P*D voter rows;
+  * :func:`fused_vote_update_words` -- ONE ``vote_update`` over all pods
+    (the TPU version loops one call per pod);
+  * :func:`fused_sign_vote_flat` -- the two, vote-only ([P, n] int8);
+  * :func:`fused_vote_update_flat` -- the two, updating ``v`` in place.
+
+Padding contract: coordinates between leaves and at the buffer tail are
+zero floats, so they pack to +1 bits and are updated like any other
+coordinate; no view ever reads them back.
+
+On CPU tensors the kernels' plain versions run (see the wrappers); on
+CUDA tensors the kernels launch.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.sign_pack import sign_pack
+from repro_torch.kernels.vote_update import vote_update
+
+TILE = 4096
+
+
+def _check_buf(u_buf: torch.Tensor) -> None:
+    if u_buf.dim() != 3 or u_buf.shape[-1] % TILE:
+        raise ValueError(f"flat buffers are [P, D, n_pad] with n_pad % "
+                         f"{TILE} == 0, got {tuple(u_buf.shape)}")
+
+
+def fused_pack_flat(u_buf: torch.Tensor, d_buf: torch.Tensor | None,
+                    rho: float) -> torch.Tensor:
+    """Device-side half: [P, D, n_pad] float (+ [P, n_pad] correction,
+    cast to u's dtype) -> the 1-bit payload [P, D, n_pad/32] int32.
+
+    The caller folds the correction here only for all-f32 trees: the
+    kernel adds ``rho * delta`` in f32."""
+    _check_buf(u_buf)
+    d2 = None
+    if d_buf is not None and rho:
+        d2 = d_buf.to(u_buf.dtype).contiguous()
+    return sign_pack(u_buf.contiguous(), d2, rho)
+
+
+def fused_vote_update_words(words: torch.Tensor, v_buf: torch.Tensor | None,
+                            mask: torch.Tensor | None,
+                            mu: float) -> torch.Tensor:
+    """Edge-side half: [P, D, n_words] voter words -> vote (+ update).
+
+    v_buf: [P, n_pad] f32 master buffer, **updated in place** and
+    returned, or None for the [P, n_pad] int8 vote; mask: [P, D] voter
+    mask, integer vote weights (empty quorum abstains) or None."""
+    return vote_update(words, v_buf, mu, mask)
+
+
+def fused_sign_vote_flat(u_buf: torch.Tensor, d_buf: torch.Tensor | None,
+                         rho: float,
+                         mask: torch.Tensor | None) -> torch.Tensor:
+    """Kernel route of the fused transport, vote only: [P, n_pad] int8."""
+    words = fused_pack_flat(u_buf, d_buf, rho)
+    return fused_vote_update_words(words, None, mask, 0.0)
+
+
+def fused_vote_update_flat(u_buf: torch.Tensor, d_buf: torch.Tensor | None,
+                           rho: float, mask: torch.Tensor | None,
+                           v_buf: torch.Tensor, mu: float) -> torch.Tensor:
+    """Flat-state fused local step: ``v <- v - mu * vote`` in place.
+
+    One ``sign_pack`` sweep over all P*D rows, then one ``vote_update``
+    read-modify-write of the [P, n_pad] master buffer: the vote never
+    reaches device memory."""
+    p, _, n = u_buf.shape
+    if tuple(v_buf.shape) != (p, n):
+        raise ValueError(f"v_buf must be [P, n_pad] = {(p, n)}, got "
+                         f"{tuple(v_buf.shape)}")
+    words = fused_pack_flat(u_buf, d_buf, rho)
+    return fused_vote_update_words(words, v_buf, mask, mu)

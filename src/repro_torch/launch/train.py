@@ -1,0 +1,146 @@
+"""The paper's EMNIST-like task (Figs. 2-4) through the port's train step.
+
+``run_paper_task`` builds the federated task of ``data.emnist_like``
+(Q edges x D devices, Dirichlet(alpha=0.1) inter-edge skew), trains the
+784-64-10 MLP with ``core.hier.make_hier_step`` for ``rounds * t_e``
+local steps -- each device samples exactly B rows per step, with
+replacement -- and after every round evaluates the cloud aggregate
+``sum_q (D_q/N) v_q`` on the test set.  The anchor pass of a round reads
+that round's first batch, as the JAX package's train loop does.
+
+CLI (the paper's setup on the card):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --rounds 2 \\
+      --batch 400 --n_train 20000
+
+``--device cpu`` runs the same code with the kernels' plain versions.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import hier, signs, votes
+from repro_torch.core.topology import Topology, resolve_device
+from repro_torch.data import emnist_like
+from repro_torch.models import mlp
+
+N_TEST = 1500
+
+@dataclasses.dataclass
+class FedBenchCfg:
+    """The JAX package's ``benchmarks/fed_runner.FedBenchCfg`` fields (same
+    defaults: B=64 at n_train=6000 is its CPU scaling of the paper's
+    B=400 at 20000; the test set is ``N_TEST`` rows, as there), plus the
+    port's transport and state layout."""
+    method: str = "dc_hier_signsgd"
+    rho: float = 0.2
+    iid: bool = False
+    rounds: int = 8
+    t_e: int = 15
+    batch: int = 64
+    mu: float = 5e-3
+    mu_sgd: float = 0.5
+    seed: int = 0
+    q_edges: int = 4
+    devices_per_edge: int = 5
+    n_train: int = 6000
+    decay: bool = False
+    transport: str = "fused"
+    state_layout: str = "flat"
+
+
+def _stack_batches(device_data, cfg: FedBenchCfg, rng, dev):
+    """One step's [P, D, B, ...] batch: B rows per device, sampled in
+    (edge, device) order."""
+    rows = [[emnist_like.device_batches(device_data, q, k, cfg.batch, rng)
+             for k in range(cfg.devices_per_edge)]
+            for q in range(cfg.q_edges)]
+    return {key: torch.from_numpy(np.stack(
+        [np.stack([r[key] for r in edge]) for edge in rows])).to(dev)
+        for key in ("x", "y")}
+
+
+def run_paper_task(cfg: FedBenchCfg, device: str = "cuda",
+                   log=print) -> dict:
+    """Train and evaluate; returns per-round curves, timings, the final
+    state and its edge models.  Deterministic given ``cfg.seed``."""
+    dev = resolve_device(device)
+    dcfg = emnist_like.FedDataCfg(
+        n_train=cfg.n_train, n_test=N_TEST, alpha=0.1, iid=cfg.iid,
+        seed=cfg.seed, q_edges=cfg.q_edges,
+        devices_per_edge=cfg.devices_per_edge)
+    data, test, ew, dw = emnist_like.make_federated_data(dcfg)
+    smallest = min(len(d["y"]) for edge in data for d in edge)
+    if smallest < cfg.batch:
+        raise ValueError(
+            f"the smallest device holds {smallest} rows < batch {cfg.batch}: "
+            "raise n_train or lower the batch")
+    topo = Topology(cfg.q_edges, cfg.devices_per_edge, dev)
+    algo = hier.AlgoConfig(
+        method=cfg.method, mu=cfg.mu, mu_sgd=cfg.mu_sgd, t_e=cfg.t_e,
+        rho=cfg.rho, transport=cfg.transport, state_layout=cfg.state_layout,
+        compute_dtype=torch.float32, master_dtype=torch.float32,
+        delta_dtype=torch.float32, decay=cfg.decay)
+    init_fn, step = hier.make_hier_step(topo, algo, mlp.make_bundle())
+    params0 = mlp.init_mlp(torch.Generator().manual_seed(cfg.seed))
+    state = init_fn(params0, cfg.seed)
+    ew_t = torch.tensor(ew, dtype=torch.float32, device=dev)
+    dw_t = torch.tensor(dw, dtype=torch.float32, device=dev)
+    mask = torch.ones((cfg.q_edges, cfg.devices_per_edge), device=dev)
+    test_t = {"x": torch.from_numpy(test["x"]).to(dev),
+              "y": torch.from_numpy(test["y"]).to(dev)}
+    sub = {k: v[:512] for k, v in test_t.items()}
+    rng = np.random.default_rng(cfg.seed)
+    out = {"loss": [], "acc": [], "train_loss": [], "ms_per_step": [],
+           "data_ms_per_step": []}
+    for t in range(cfg.rounds):
+        step_s = data_s = 0.0
+        for _ in range(cfg.t_e):
+            t0 = time.perf_counter()
+            batch = {"train": _stack_batches(data, cfg, rng, dev)}
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch, ew_t, dw_t, mask)
+            train_loss = float(metrics["loss"])      # waits for the step
+            step_s += time.perf_counter() - t1
+            data_s += t1 - t0
+        w = {k: votes.pod_weighted_average(v, ew_t)[0]
+             for k, v in hier.edge_params(state).items()}
+        out["train_loss"].append(train_loss)
+        out["loss"].append(float(mlp.loss_fn(w, sub)))
+        out["acc"].append(float(mlp.accuracy(w, test_t)))
+        out["ms_per_step"].append(1e3 * step_s / cfg.t_e)
+        out["data_ms_per_step"].append(1e3 * data_s / cfg.t_e)
+        log(f"[train] round {t} train_loss {train_loss:.4f} "
+            f"test_loss {out['loss'][-1]:.4f} acc {out['acc'][-1]:.4f} "
+            f"ms/step {out['ms_per_step'][-1]:.3f} "
+            f"(+ data {out['data_ms_per_step'][-1]:.3f})")
+    d = mlp.param_count(params0)
+    out.update(state=state, params=hier.edge_params(state), d=d,
+               uplink_bits_per_round=signs.uplink_bits(cfg.method, d,
+                                                       cfg.t_e))
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    for f in dataclasses.fields(FedBenchCfg):
+        if f.type == "bool":
+            ap.add_argument(f"--{f.name}", action="store_true")
+        else:
+            ap.add_argument(f"--{f.name}", default=f.default,
+                            type={"int": int, "float": float}.get(f.type, str))
+    ap.add_argument("--device", default="cuda")
+    args = vars(ap.parse_args(argv))
+    device = args.pop("device")
+    res = run_paper_task(FedBenchCfg(**args), device=device)
+    print(f"[train] done: test loss {res['loss'][0]:.4f} -> "
+          f"{res['loss'][-1]:.4f}, acc {res['acc'][-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

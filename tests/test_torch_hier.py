@@ -1,0 +1,371 @@
+"""The port's votes and train step against the JAX package.
+
+  * ``votes.fused_sign_vote`` / ``fused_sign_vote_update`` are bitwise
+    the JAX functions on the same numpy directions, correction, mask and
+    master (P=2 edges x D=3 devices, f32 and bf16 leaves);
+  * across {ag_packed, ar_int8, fused} x {tree, flat} the port's
+    trajectories are bitwise identical;
+  * the whole step agrees with JAX ``make_hier_step`` (P=D=1, the parity
+    toy of ``tests/helpers/parity_harness.py``) and with the
+    ``ref_fed.global_round`` oracle (P=4, D=5, the MLP narrowed to
+    64-16-10) within atol 1e-5, the oracle cells' tolerance: autograd in
+    PyTorch and XLA sum in different orders, so only the float path may
+    differ.
+"""
+import pathlib
+import sys
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).parent / "helpers"))
+import parity_harness as H  # noqa: E402
+
+from repro.core import flatbuf as jflat  # noqa: E402
+from repro.core import hier as jhier  # noqa: E402
+from repro.core import ref_fed  # noqa: E402
+from repro.core import votes as jvotes  # noqa: E402
+from repro.core.topology import single_device_topology  # noqa: E402
+from repro.models import mlp as jmlp  # noqa: E402
+from repro_torch.convert import (params_from_numpy,  # noqa: E402
+                                 params_to_numpy, tensor_from_numpy)
+from repro_torch.core import flatbuf, hier, pytree, votes  # noqa: E402
+from repro_torch.core.topology import Topology  # noqa: E402
+from repro_torch.kernels.sign_pack import sign_pack  # noqa: E402
+from repro_torch.models import mlp  # noqa: E402
+
+P, D = 2, 3
+RHO, MU = 0.2, 5e-3
+NP_DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
+
+
+def toy_shapes():
+    return {"w": (16, 64), "b": (33,), "w2": (64, 33)}
+
+
+def rand_tree(lead, dtype, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return {k: (rng.standard_normal(lead + s) * scale).astype(dtype)
+            for k, s in toy_shapes().items()}
+
+
+def make_mask(kind):
+    return {"none": None,
+            "bool": np.array([[True, False, True], [True, True, True]]),
+            "int": np.array([[2, 0, 1], [0, 0, 0]], np.int32)}[kind]
+
+
+def jtree(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def as_np(tree):
+    return jax.tree.map(lambda a: np.asarray(a).astype(np.float32), tree)
+
+
+def assert_trees_equal(got, want):
+    got = params_to_numpy(got)
+    for k in want:
+        np.testing.assert_array_equal(
+            np.asarray(got[k]).astype(np.float32).view(np.int32),
+            np.asarray(want[k]).astype(np.float32).view(np.int32), err_msg=k)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("mask_kind", ["none", "bool", "int"])
+def test_fused_sign_vote_matches_reference(dt, mask_kind):
+    u = rand_tree((P, D), NP_DTYPES[dt], 0)
+    delta = rand_tree((P,), NP_DTYPES[dt], 1, scale=2.0)
+    mask = make_mask(mask_kind)
+    jm = None if mask is None else jnp.asarray(mask)
+    want = jvotes.fused_sign_vote(single_device_topology(), jtree(u),
+                                  jtree(delta), RHO, jm)
+    tm = None if mask is None else torch.from_numpy(mask)
+    got = votes.fused_sign_vote(params_from_numpy(u),
+                                params_from_numpy(delta), RHO, tm)
+    assert_trees_equal(got, as_np(want))
+    # the per-leaf route (no kernel code) agrees as well
+    tl = flatbuf.make_layout(params_from_numpy(u), batch_dims=2)
+    per_leaf = votes._packed_vote(tl, params_from_numpy(u),
+                                  params_from_numpy(delta), RHO, tm)
+    assert_trees_equal(flatbuf.unflatten_tree(tl, per_leaf, 1, cast=False),
+                       as_np(want))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("mask_kind", ["none", "bool", "int"])
+@pytest.mark.parametrize("mu_static", [MU, None], ids=["kernel_mu",
+                                                        "traced_mu"])
+def test_fused_sign_vote_update_matches_reference(dt, mask_kind, mu_static):
+    """The flat-state update: through the vote_update kernel's in-place
+    read-modify-write for an f32 master with a static mu, else the
+    vote-only route and ``v - mu * vote``."""
+    u = rand_tree((P, D), NP_DTYPES[dt], 2)
+    v = rand_tree((P,), np.float32, 3)
+    delta = rand_tree((P,), np.float32, 4, scale=2.0)
+    mask = make_mask(mask_kind)
+    jl = jflat.make_layout(jtree(v), batch_dims=1)
+    jv = jflat.flatten_tree(jl, jtree(v), batch_dims=1)
+    jd = jflat.flatten_tree(jl, jtree(delta), batch_dims=1)
+    want = jvotes.fused_sign_vote_update(
+        single_device_topology(), jl, jtree(u), jd, RHO,
+        None if mask is None else jnp.asarray(mask), jv,
+        jnp.float32(MU), mu_static=mu_static)
+    tl = flatbuf.make_layout(params_from_numpy(v), batch_dims=1)
+    tv = tensor_from_numpy(np.asarray(jv))
+    td = tensor_from_numpy(np.asarray(jd))
+    got = votes.fused_sign_vote_update(
+        tl, params_from_numpy(u), td, RHO,
+        None if mask is None else torch.from_numpy(mask), tv,
+        torch.tensor(MU, dtype=torch.float32), mu_static=mu_static)
+    assert (got is tv) == (mu_static is not None)    # in place via kernel
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+
+
+def test_vote_ar_int8_refuses_unbounded_integer_weights():
+    s = torch.ones((P, D, 32), dtype=torch.int8)
+    w = torch.ones((P, D), dtype=torch.int32)
+    with pytest.raises(ValueError, match="weight_bound"):
+        votes.vote_ar_int8(s, w)
+    assert votes.vote_ar_int8(s, w, weight_bound=3).dtype == torch.int8
+    assert votes._tally_acc(127) == torch.int8
+    assert votes._tally_acc(128) == torch.int16
+    assert votes._tally_acc(40000) == torch.int32
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "bool", "int"])
+def test_vote_transports_match_reference(mask_kind):
+    rng = np.random.default_rng(5)
+    s = rng.choice([-1, 1], size=(P, D, 7, 64)).astype(np.int8)
+    mask = make_mask(mask_kind)
+    jm = None if mask is None else jnp.asarray(mask)
+    tm = None if mask is None else torch.from_numpy(mask)
+    topo = single_device_topology()
+    want_ag = np.asarray(jvotes.vote_ag_packed(topo, jnp.asarray(s), jm,
+                                               jax.sharding.PartitionSpec()))
+    want_ar = np.asarray(jvotes.vote_ar_int8(topo, jnp.asarray(s), jm,
+                                             weight_bound=3))
+    np.testing.assert_array_equal(
+        votes.vote_ag_packed(torch.from_numpy(s), tm).numpy(), want_ag)
+    np.testing.assert_array_equal(
+        votes.vote_ar_int8(torch.from_numpy(s), tm, weight_bound=3).numpy(),
+        want_ar)
+    np.testing.assert_array_equal(want_ag, want_ar)
+
+
+def test_means_match_reference():
+    rng = np.random.default_rng(6)
+    g = rng.standard_normal((4, 5, 33)).astype(np.float32)
+    w = rng.random((4, 5)).astype(np.float32)
+    ew = rng.random(4).astype(np.float32)
+    topo = single_device_topology()
+    np.testing.assert_allclose(
+        votes.weighted_mean_dev(torch.from_numpy(g),
+                                torch.from_numpy(w)).numpy(),
+        np.asarray(jvotes.weighted_mean_dev(topo, jnp.asarray(g),
+                                            jnp.asarray(w))),
+        rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        votes.pod_weighted_average(torch.from_numpy(g[:, 0]),
+                                   torch.from_numpy(ew)).numpy(),
+        np.asarray(jvotes.pod_weighted_average(topo, jnp.asarray(g[:, 0]),
+                                               jnp.asarray(ew))),
+        rtol=0, atol=1e-6)
+
+
+# -- the whole step ---------------------------------------------------------
+
+def toy_loss(params, batch):
+    """The parity toy's loss (tests/helpers/parity_harness.py) on [P, D]
+    copies: mean squared error per (edge, device)."""
+    pred = batch["x"] @ params["w"] @ params["w2"] + \
+        params["b"].unsqueeze(-2)
+    return torch.mean((pred - batch["y"]) ** 2, dim=(-2, -1))
+
+
+def run_port(problem, bundle, transport, layout, steps=None, ew=None,
+             dw=None, anchors=True, **kw):
+    """The port's trajectory on a problem dict (numpy xs/ys [S, P, D,
+    ...]); returns the final [P, *leaf] edge models as numpy."""
+    pods, devs, t_e = problem["pods"], problem["devs"], problem["t_e"]
+    base = dict(method="dc_hier_signsgd", mu=MU, t_e=t_e, rho=1.0,
+                transport=transport, state_layout=layout,
+                compute_dtype=torch.float32, master_dtype=torch.float32,
+                delta_dtype=torch.float32)
+    base.update(kw)
+    algo = hier.AlgoConfig(**base)
+    init_fn, step = hier.make_hier_step(Topology(pods, devs, "cpu"), algo,
+                                        bundle)
+    state = init_fn(params_from_numpy(problem["w0"]))
+    ew = np.full(pods, 1.0 / pods, np.float32) if ew is None else ew
+    dw = np.full((pods, devs), 1.0 / devs, np.float32) if dw is None else dw
+    xs, ys = problem["xs"], problem["ys"]
+    for s in range(steps or problem["rounds"] * t_e):
+        batch = {"train": {"x": torch.from_numpy(xs[s]),
+                           "y": torch.from_numpy(ys[s])}}
+        if anchors:
+            a = s - s % t_e
+            batch["anchor"] = {"x": torch.from_numpy(xs[a]),
+                               "y": torch.from_numpy(ys[a])}
+        state, metrics = step(state, batch, torch.from_numpy(ew),
+                              torch.from_numpy(dw), torch.ones(pods, devs))
+        assert torch.isfinite(metrics["loss"])
+    return {k: v.clone() for k, v in hier.edge_params(state).items()}
+
+
+CELLS = [(t, lay) for t in ("ag_packed", "ar_int8", "fused")
+         for lay in ("tree", "flat")]
+
+
+@pytest.fixture(scope="module")
+def toy_problem():
+    prob = H.make_problem(pods=1, devs=1)
+    return dict(prob, w0=jax.tree.map(np.asarray, prob["w0"]),
+                xs=np.asarray(prob["xs"]), ys=np.asarray(prob["ys"]))
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("dc_hier_signsgd", {}), ("hier_signsgd", {}),
+    ("dc_hier_signsgd", {"decay": True}),
+    ("dc_hier_signsgd", {"anchor_staleness": 0})],
+    ids=["dc", "hier", "dc_decay", "dc_fresh"])
+def test_step_matches_jax_make_hier_step(toy_problem, method, kw):
+    """P=D=1 parity toy, 3 rounds of T_E=3: every port cell is bitwise the
+    others and within atol 1e-5 of the JAX step."""
+    want, _ = H.run_hier(single_device_topology(), toy_problem, method,
+                         "ag_packed", "tree", **kw)
+    bundle = hier.ModelBundle(loss=toy_loss)
+    runs = {c: run_port(toy_problem, bundle, *c, method=method, **kw)
+            for c in CELLS}
+    ref = runs[("ag_packed", "tree")]
+    for cell, got in runs.items():
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), (cell, k)
+    for k in want:
+        np.testing.assert_allclose(ref[k][0].numpy(), want[k][0], rtol=0,
+                                   atol=1e-5, err_msg=k)
+
+
+def mlp_problem(pods, devs, t_e, rounds, b=16, seed=0):
+    rng = np.random.default_rng(seed)
+    steps = t_e * rounds
+    w0 = jax.tree.map(np.asarray, jmlp.init_mlp(jax.random.PRNGKey(seed),
+                                                dim=64, hidden=16))
+    xs = rng.standard_normal((steps, pods, devs, b, 64)).astype(np.float32)
+    ys = rng.integers(0, 10, size=(steps, pods, devs, b)).astype(np.int32)
+    return {"w0": w0, "xs": xs, "ys": ys, "pods": pods, "devs": devs,
+            "t_e": t_e, "rounds": rounds}
+
+
+@pytest.mark.parametrize("method", ["dc_hier_signsgd", "hier_signsgd"])
+def test_step_matches_ref_fed_oracle(method):
+    """P=4 edges x D=5 devices, MLP 64-16-10, unequal edge and device
+    weights, 2 rounds of T_E=3: the cloud aggregate of the port's edge
+    models is the oracle's w within atol 1e-5."""
+    prob = mlp_problem(4, 5, 3, 2)
+    rng = np.random.default_rng(7)
+    ew = rng.random(4).astype(np.float32)
+    ew /= ew.sum()
+    dw = rng.random((4, 5)).astype(np.float32)
+    dw /= dw.sum(1, keepdims=True)
+    got = run_port(prob, mlp.make_bundle(), "fused", "flat", ew=ew, dw=dw,
+                   anchors=False, method=method, rho=RHO)
+    grad_fn = jax.jit(lambda p, b, r: jax.grad(jmlp.loss_fn)(p, b))
+    state = ref_fed.init_state(jtree(prob["w0"]), 4)
+    cfg = ref_fed.HierConfig(mu=MU, t_e=3, rho=RHO, method=method)
+    xs, ys = prob["xs"], prob["ys"]
+    for t in range(2):
+        batches = [[[{"x": xs[t * 3 + tau, q, k], "y": ys[t * 3 + tau, q, k]}
+                     for tau in range(3)] for k in range(5)]
+                   for q in range(4)]
+        anchors = [[{"x": xs[t * 3, q, k], "y": ys[t * 3, q, k]}
+                    for k in range(5)] for q in range(4)]
+        state = ref_fed.global_round(state, cfg, grad_fn, batches, anchors,
+                                     [float(x) for x in ew],
+                                     [[float(x) for x in row] for row in dw],
+                                     jax.random.PRNGKey(0))
+    for k, leaf in got.items():
+        agg = np.tensordot(ew.astype(np.float64), leaf.numpy(), axes=1)
+        np.testing.assert_allclose(agg, np.asarray(state.w[k]), rtol=0,
+                                   atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [{}, {"decay": True},
+                                {"anchor_staleness": 0},
+                                {"method": "hier_signsgd"}],
+                         ids=["dc", "decay", "fresh", "hier"])
+def test_transports_and_layouts_bitwise(compute, kw):
+    """P=2 x D=3 MLP, 2 rounds: the six cells give identical bits, in f32
+    and in the default bf16 compute/delta dtypes (where the correction is
+    added in bf16 before the kernel, not inside it)."""
+    prob = mlp_problem(P, D, 3, 2, seed=1)
+    opts = dict(compute_dtype=compute, delta_dtype=compute, rho=RHO)
+    opts.update(kw)
+    runs = {c: run_port(prob, mlp.make_bundle(), *c, anchors=False, **opts)
+            for c in CELLS}
+    ref = runs[("ag_packed", "tree")]
+    for cell, got in runs.items():
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), (cell, k)
+    assert sign_pack.launches == 0                    # the CPU route
+
+
+def test_flat_fused_update_is_in_place():
+    prob = mlp_problem(P, D, 3, 1, seed=2)
+    algo = hier.AlgoConfig(method="dc_hier_signsgd", mu=MU, t_e=3,
+                           transport="fused", state_layout="flat",
+                           compute_dtype=torch.float32)
+    init_fn, step = hier.make_hier_step(Topology(P, D, "cpu"), algo,
+                                        mlp.make_bundle())
+    state = init_fn(params_from_numpy(prob["w0"]))
+    batch = {"train": {"x": torch.from_numpy(prob["xs"][1]),
+                       "y": torch.from_numpy(prob["ys"][1])}}
+    state = state._replace(step=1)                  # no prologue this step
+    buf = state.params.buf
+    before = buf.clone()
+    new, _ = step(state, batch, torch.full((P,), 1 / P),
+                  torch.full((P, D), 1 / D), torch.ones(P, D))
+    assert new.params.buf is buf and not torch.equal(buf, before)
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"method": "hier_sgd"}, "item 8"), ({"method": "hier_local_qsgd"},
+                                         "item 8"),
+    ({"method": "scaffold_hier_signsgd"}, "item 9"),
+    ({"method": "mtgc_hier_signsgd"}, "item 9"),
+    ({"error_feedback": True}, "item 8"), ({"momentum": 0.9}, "item 8"),
+    ({"cloud_overlap": "overlap"}, "item 12"),
+    ({"clients": hier.vclients.ClientConfig(count=2)}, "item 10")])
+def test_unported_options_raise_with_their_roadmap_item(kw, item):
+    algo = hier.AlgoConfig(**kw)
+    with pytest.raises(NotImplementedError, match=item):
+        hier.make_hier_step(Topology(1, 1, "cpu"), algo,
+                            mlp.make_bundle())
+    with pytest.raises(NotImplementedError, match="item 17"):
+        hier.make_hier_step(Topology(1, 1, "cpu"), hier.AlgoConfig(),
+                            hier.ModelBundle(loss=None, param_mode="fsdp"))
+
+
+def test_algo_config_validates_like_reference():
+    with pytest.raises(ValueError) as exc:
+        hier.AlgoConfig(method="hier_signsg")
+    for m in jhier.ALL_METHODS:
+        assert m in str(exc.value)
+    for bad in ({"transport": "x"}, {"state_layout": "x"},
+                {"cloud_period": 0}, {"cloud_overlap": "x"}):
+        with pytest.raises(ValueError):
+            hier.AlgoConfig(**bad)
+    assert hier.ALL_METHODS == jhier.ALL_METHODS
+
+
+def test_pytree_order_is_sorted_keys():
+    leaves, td = pytree.tree_flatten({"w2": 1, "b": {"z": 2, "a": 3}})
+    assert leaves == [3, 2, 1]
+    assert pytree.tree_unflatten(td, [3, 2, 1]) == {"w2": 1,
+                                                    "b": {"z": 2, "a": 3}}

@@ -1,0 +1,187 @@
+"""The paper task on the port: data copies, the MLP, conversion, the
+training entry point, and the port's independence from JAX."""
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.core import flatbuf as jflat
+from repro.data import cluster as jcluster
+from repro.data import emnist_like as jemnist
+from repro.models import mlp as jmlp
+from repro_torch import convert
+from repro_torch.core import flatbuf
+from repro_torch.core.topology import Topology
+from repro_torch.data import cluster, emnist_like
+from repro_torch.launch import train
+from repro_torch.models import mlp
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"iid": True}, {"alpha_client": 0.3},
+    {"edge_assign": "random"}, {"edge_assign": "clustered"}],
+    ids=["fixed", "iid", "alpha_client", "random", "clustered"])
+def test_data_matches_reference(kw):
+    cfg = dict(n_train=1200, n_test=200, seed=3, **kw)
+    want = jemnist.make_federated_data(jemnist.FedDataCfg(**cfg))
+    got = emnist_like.make_federated_data(emnist_like.FedDataCfg(**cfg))
+    (wd, wt, wew, wdw), (gd, gt, gew, gdw) = want, got
+    assert (gew, gdw) == (wew, wdw)
+    for k in ("x", "y"):
+        np.testing.assert_array_equal(gt[k], wt[k])
+    for we, ge in zip(wd, gd):
+        for w, g in zip(we, ge):
+            for k in ("x", "y"):
+                np.testing.assert_array_equal(g[k], w[k])
+    rw, rg = np.random.default_rng(1), np.random.default_rng(1)
+    for q, k in ((0, 0), (3, 4), (2, 1)):
+        bw = jemnist.device_batches(wd, q, k, 32, rw)
+        bg = emnist_like.device_batches(gd, q, k, 32, rg)
+        np.testing.assert_array_equal(bg["x"], bw["x"])
+
+
+def test_cluster_helpers_match_reference():
+    rng = np.random.default_rng(0)
+    sigs = rng.random((12, 5))
+    assert (cluster.cluster_edges(sigs, 4)
+            == jcluster.cluster_edges(sigs, 4)).all()
+    assert (cluster.random_assignment(12, 3, seed=2)
+            == jcluster.random_assignment(12, 3, seed=2)).all()
+    for n in (0, 7, 100):
+        p = rng.dirichlet(np.full(4, 0.1))
+        assert (cluster.largest_remainder(p, n)
+                == jcluster.largest_remainder(p, n)).all()
+
+
+def test_mlp_matches_reference():
+    params = jax.tree.map(np.asarray, jmlp.init_mlp(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    batch = {"x": rng.standard_normal((64, 784)).astype(np.float32),
+             "y": rng.integers(0, 10, 64).astype(np.int32)}
+    tp = convert.params_from_numpy(params)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    np.testing.assert_allclose(
+        float(mlp.loss_fn(tp, tb)),
+        float(jmlp.loss_fn(jax.tree.map(jnp.asarray, params), batch)),
+        rtol=1e-6)
+    assert float(mlp.accuracy(tp, tb)) == float(jmlp.accuracy(params, batch))
+    assert mlp.param_count(tp) == jmlp.param_count(params) == 50890
+    model = mlp.MLP(tp)
+    assert torch.equal(model(tb["x"]), mlp.logits_fn(tp, tb["x"]))
+    grads = jmlp.grad_fn(params, batch, None)
+    tg = convert.params_from_numpy(params)
+    for v in tg.values():
+        v.requires_grad_(True)
+    mlp.loss_fn(tg, tb).backward()
+    for k, v in tg.items():
+        np.testing.assert_allclose(v.grad.numpy(), np.asarray(grads[k]),
+                                   rtol=0, atol=1e-6, err_msg=k)
+
+
+def test_convert_round_trips_bitwise():
+    params = jax.tree.map(np.asarray, jmlp.init_mlp(jax.random.PRNGKey(1)))
+    params["b1"] = (params["b1"] + 1.5).astype(ml_dtypes.bfloat16)
+    tp = convert.params_from_numpy(params)
+    assert tp["b1"].dtype == torch.bfloat16 and tp["w1"].dtype == \
+        torch.float32
+    back = convert.params_to_numpy(tp)
+    for k in params:
+        np.testing.assert_array_equal(back[k],
+                                      params[k].astype(np.float32))
+
+
+def test_flat_state_from_numpy_matches_reference_buffer():
+    params = jax.tree.map(np.asarray, jmlp.init_mlp(jax.random.PRNGKey(2)))
+    stacked = jax.tree.map(lambda a: np.stack([a, 2 * a]), params)
+    jfs = jflat.from_tree(jax.tree.map(jnp.asarray, stacked), batch_dims=1)
+    tp = convert.params_from_numpy(stacked)
+    layout = flatbuf.make_layout(tp, batch_dims=1)
+    fs = convert.flat_state_from_numpy(np.asarray(jfs.buf), layout)
+    for k, v in fs.tree().items():
+        assert torch.equal(v, tp[k])
+    assert torch.equal(fs.buf, flatbuf.flatten_tree(layout, tp, 1))
+    with pytest.raises(ValueError, match="n_pad"):
+        convert.flat_state_from_numpy(np.zeros((2, 4096), np.float32),
+                                      layout)
+
+
+def test_run_paper_task_on_cpu(capsys):
+    cfg = train.FedBenchCfg(rounds=1, t_e=2)
+    res = train.run_paper_task(cfg, device="cpu")
+    assert len(res["loss"]) == len(res["acc"]) == 1
+    assert np.isfinite(res["loss"]).all() and 0 <= res["acc"][0] <= 1
+    assert res["state"].step == 2
+    assert res["params"]["w1"].shape == (4, 784, 64)
+    assert res["d"] == 50890
+    assert res["uplink_bits_per_round"] == 2 * 50890 + 32 * 50890
+    assert "[train] round 0" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="smallest device"):
+        train.run_paper_task(dataclasses.replace(cfg, batch=10_000),
+                             device="cpu")
+
+
+def test_cuda_is_the_default_and_is_refused_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.run_paper_task(train.FedBenchCfg(rounds=1, t_e=1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Topology(4, 5)
+    assert Topology(4, 5, "cpu").device == torch.device("cpu")
+
+
+def test_cli_parses_config_fields(monkeypatch):
+    seen = {}
+    monkeypatch.setattr(train, "run_paper_task", lambda cfg, device: (
+        seen.update(cfg=cfg, device=device) or
+        {"loss": [1.0], "acc": [0.5]}))
+    train.main(["--rounds", "2", "--batch", "400", "--iid", "--rho", "0.5",
+                "--device", "cpu", "--transport", "ar_int8"])
+    assert seen["device"] == "cpu"
+    assert (seen["cfg"].rounds, seen["cfg"].batch, seen["cfg"].iid,
+            seen["cfg"].rho, seen["cfg"].transport) == (2, 400, True, 0.5,
+                                                        "ar_int8")
+
+
+def _imported_modules(path: pathlib.Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        bad = _imported_modules(f) & {"jax", "jaxlib", "repro"}
+        assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
+    mods = [".".join(f.relative_to(ROOT / "src").with_suffix("").parts)
+            for f in sorted(PORT.rglob("*.py"))]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
