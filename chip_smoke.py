@@ -17,12 +17,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      both with CUDA events (median over
      repeats, the L2 cache flushed before each launch), plus each
      kernel's own device time from ``torch.profiler``;
+     The same for ``tally_acc`` (2 shapes x f32/bf16 x int8/int16/int32
+     tallies that do not start at zero x correction on/off, vote weights
+     with zeros and pod 1's quorum empty, plus a fold of K=2 clients
+     that must give ``vote_update``'s vote on the merged [P, D*K] words)
+     and ``ternary_quant`` (the MLP's padded size and 2^22 x f32/bf16,
+     zeros and subnormals in x where u = 0, the l2 norm and norm = 0);
   3. train the paper's task (MLP 784-64-10, Q=4 edges x D=5 devices,
      Dirichlet(0.1), B=400, T_E=15, mu=5e-3, rho=0.2, 2 rounds = 30 steps)
      with ``dc_hier_signsgd`` on the fused transport and the flat state,
      counting kernel launches; then rerun the same steps on the pure
      PyTorch ``ag_packed``/``tree`` path and require bitwise equal edge
-     models.
+     models;
+  4. ``clients``: the same task with K=2 virtual clients per device
+     (40 clients), Bernoulli(0.5) participation and |D_qk| row-count
+     vote weights (an int16 tally): the streamed sweep on fused/flat
+     (``tally_acc`` once per client and step, no ``sign_pack`` or
+     ``vote_update``), the merged voter axis on fused/flat (one
+     ``sign_pack`` and one ``vote_update`` per step) and on
+     ag_packed/tree (no kernel).  Merged fused/flat must equal
+     ag_packed/tree bitwise; stream must equal merged bitwise when one
+     step's per-client gradients of the two forms are bitwise equal on
+     the card (else its final test loss within 1e-3, with the count of
+     differing coordinates printed).  The same triple with the
+     gradients injected (``tests/helpers/injected_grads.py``) must be
+     bitwise in any case;
+  5. ``quantize``: the entry point ``ops.ternary_quant_nd`` (the QSGD
+     baseline's compressor) on the MLP's four gradient leaves, one
+     ``ternary_quant`` launch each, held against its plain version.
 
 It prints the card's name and power limit first, one JSON line per
 kernel case, a ``{"kernels": [...]}`` line, and as its last line
@@ -44,11 +66,16 @@ CUDA_CORE_OPS_PER_S = 67e12      # same sheet: f32 outside the tensor cores
 MAIN_SHAPE = (4, 5, 53248)       # the MLP's flat buffer: 13 tiles of 4096
 LARGE_SHAPE = (4, 5, 1 << 22)
 RHO, MU = 0.2, 5e-3
+K_CLIENTS = 2
 SOURCES = {
     "sign_pack": ("src/repro_torch/csrc/sign_pack.cu",
                   "src/repro/kernels/sign_pack.py:48"),
     "vote_update": ("src/repro_torch/csrc/vote_update.cu",
                     "src/repro/kernels/vote_update.py:60"),
+    "tally_acc": ("src/repro_torch/csrc/tally_acc.cu",
+                  "src/repro/kernels/tally_acc.py:55"),
+    "ternary_quant": ("src/repro_torch/csrc/ternary_quant.cu",
+                      "src/repro/kernels/ternary_quant.py:31"),
 }
 
 
@@ -138,6 +165,31 @@ def vote_update_ops(shape, update: bool) -> int:
     compare and select, and the multiply and subtract of the update."""
     p, d, n = shape
     return p * n * (2 * d + 2 + (2 if update else 0))
+
+
+def tally_acc_bytes(shape, u_elt: int, t_elt: int, with_delta: bool) -> int:
+    """u read once, the tally read and written once, the correction once
+    per pod, the [P, D] int32 weights once."""
+    p, d, n = shape
+    delta_bytes = p * n * u_elt if with_delta else 0
+    return p * d * n * (u_elt + 2 * t_elt) + delta_bytes + 4 * p * d
+
+
+def tally_acc_ops(shape, with_delta: bool) -> int:
+    """Per coordinate: the compare, the multiply and add of w*s, plus the
+    multiply and add of rho*delta."""
+    p, d, n = shape
+    return p * d * n * (5 if with_delta else 3)
+
+
+def ternary_quant_bytes(n: int, elt: int) -> int:
+    """x read and the output written once, u read once, the norm once."""
+    return n * (2 * elt + 4) + 4
+
+
+def ternary_quant_ops(n: int) -> int:
+    """Per coordinate: abs, divide, compare, multiply, two selects."""
+    return 6 * n
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -256,6 +308,148 @@ def phase_kernels(torch, timer):
     return main_rows
 
 
+def timed_row(timer, row, kfn, pfn, kernel, nbytes, ops):
+    row.update(kernel_ms=timer(kfn),
+               kernel_device_ms=timer.device_ms(kfn, kernel),
+               plain_ms=timer(pfn))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+    emit(row)
+    return row
+
+
+def phase_tally(torch, timer):
+    """tally_acc vs its plain version, bitwise, and the K-client fold vs
+    vote_update's merged vote; returns the main-path row."""
+    from repro_torch.core import votes
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.tally_acc import tally_acc
+    from repro_torch.kernels.vote_update import vote_update
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    main_row = None
+    for shape in (MAIN_SHAPE, LARGE_SHAPE):
+        p, d, n = shape
+        # zeros, and pod 1's whole quorum at weight 0
+        w_unit = torch.tensor(
+            [[3, 0, 1, 2, 5], [0] * d, [1, 1, 1, 1, 0], [7, 1, 1, 1, 1]],
+            dtype=torch.int32, device="cuda")[:p, :d]
+        for dtype in (torch.float32, torch.bfloat16):
+            u = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            delta = torch.randn((p, n), generator=gen, device="cuda").to(dtype)
+            u[0, 0, :64] = 0.0
+            u[0, 0, 64:128] = -0.0
+            u[0, 1, :32] = float("nan")
+            u[0, 2, :32] = -1e-40
+            u[2, :, :4096] = (-(ref.f32(RHO) * delta[2, :4096].float())
+                              ).to(dtype)
+            for tdt, scale in ((torch.int8, 1), (torch.int16, 300),
+                               (torch.int32, 20000)):
+                w = w_unit * scale
+                require(votes.tally_dtype(int(w.sum(1).max())) == tdt,
+                        f"weights {w.tolist()} do not need {tdt}")
+                t0 = torch.randint(-20, 20, shape, generator=gen,
+                                   device="cuda").to(tdt)
+                for with_delta in (False, True):
+                    dl = delta if with_delta else None
+                    got = tally_acc(u, dl, RHO, w, t0.clone())
+                    want = ref.tally_acc_ref(u, dl, RHO, w, t0)
+                    torch.cuda.synchronize()
+                    mism = int((got != want).sum())
+                    err = float((got.to(torch.int64)
+                                 - want.to(torch.int64)).abs().max())
+                    untouched = torch.equal(got[1], t0[1])
+                    tt = t0.clone()
+                    row = timed_row(
+                        timer,
+                        {"kernel": "tally_acc", "shape": list(shape),
+                         "dtype": str(dtype).split(".")[-1],
+                         "tally": str(tdt).split(".")[-1],
+                         "delta": with_delta, "mismatched": mism,
+                         "max_abs_err": err},
+                        lambda: tally_acc(u, dl, RHO, w, tt),
+                        lambda: ref.tally_acc_ref(u, dl, RHO, w, t0),
+                        "tally_acc_kernel",
+                        tally_acc_bytes(shape, u.element_size(),
+                                        t0.element_size(), with_delta),
+                        tally_acc_ops(shape, with_delta))
+                    require(mism == 0, f"tally_acc disagrees with its "
+                            f"plain version: {row}")
+                    require(untouched, f"pod 1's weight-0 tally moved: {row}")
+                    if (shape, dtype, tdt, with_delta) == (
+                            MAIN_SHAPE, torch.float32, torch.int16, True):
+                        main_row = row
+        # K clients folded into the tally, then thresholded, is the
+        # weighted vote of the merged [P, D*K] voter axis (voter d*K + c)
+        us = [torch.randn(shape, generator=gen, device="cuda")
+              for _ in range(K_CLIENTS)]
+        ws = [w_unit, torch.roll(w_unit, 1, dims=1)]
+        tally = torch.zeros(shape, dtype=torch.int16, device="cuda")
+        for u_c, w_c in zip(us, ws):
+            tally_acc(u_c, delta.float(), RHO, w_c, tally)
+        n_eff = sum(w_c.sum(1) for w_c in ws).to(torch.int32)
+        fold = votes.tally_vote_dev(tally, n_eff)
+        words = sign_pack(torch.stack(us, 2).reshape(p, d * K_CLIENTS, n),
+                          delta.float(), RHO)
+        merged = vote_update(words, None, 0.0,
+                             torch.stack(ws, 2).reshape(p, d * K_CLIENTS))
+        torch.cuda.synchronize()
+        mism = int((fold != merged).sum())
+        emit({"check": "tally_acc K-client fold == vote_update merged vote",
+              "shape": list(shape), "clients": K_CLIENTS,
+              "mismatched": mism, "pod1_votes": int(fold[1].abs().sum())})
+        require(mism == 0 and not fold[1].any(),
+                "the K-client tally fold disagrees with the merged vote")
+    return main_row
+
+
+def phase_ternary(torch, timer):
+    """ternary_quant vs its plain version, bitwise; returns the main row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ternary_quant import ternary_quant
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    main_row = None
+    for n in (MAIN_SHAPE[2], LARGE_SHAPE[2]):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(n, generator=gen, device="cuda").to(dtype)
+            x[:64] = 0.0
+            x[64:96] = 1e-40            # subnormal: quantizes to 0 at u = 0
+            x[96:128] = -1e-39
+            u = torch.rand(n, generator=gen, device="cuda")
+            u[:256] = 0.0
+            for norm_kind in ("l2", "zero"):
+                nrm = (torch.linalg.vector_norm(x.float())
+                       if norm_kind == "l2"
+                       else torch.zeros((), device="cuda"))
+                got = ternary_quant(x, u, nrm)
+                want = ref.ternary_quant_ref(x, u, nrm)
+                torch.cuda.synchronize()
+                gi = got.float().view(torch.int32)
+                mism = int((gi != want.float().view(torch.int32)).sum())
+                err = float((got.float() - want.float()).abs().max())
+                zeros_ok = (not got.float().any() if norm_kind == "zero"
+                            else not got[:128].float().any())
+                row = timed_row(
+                    timer,
+                    {"kernel": "ternary_quant", "shape": [n],
+                     "dtype": str(dtype).split(".")[-1], "norm": norm_kind,
+                     "mismatched": mism, "max_abs_err": err},
+                    lambda: ternary_quant(x, u, nrm),
+                    lambda: ref.ternary_quant_ref(x, u, nrm),
+                    "ternary_quant_kernel",
+                    ternary_quant_bytes(n, x.element_size()),
+                    ternary_quant_ops(n))
+                require(mism == 0, f"ternary_quant disagrees with its "
+                        f"plain version: {row}")
+                require(zeros_ok, f"ternary_quant gave nonzeros where it "
+                        f"must give 0: {row}")
+                if (n, dtype, norm_kind) == (MAIN_SHAPE[2], torch.float32,
+                                             "l2"):
+                    main_row = row
+    return main_row
+
+
 def phase_slice(torch):
     """The paper task on the fused/flat path, then on ag_packed/tree."""
     from repro_torch.kernels.sign_pack import sign_pack
@@ -297,11 +491,206 @@ def phase_slice(torch):
     return fused, plain, launches
 
 
+def client_grads_bitwise(torch, cfg) -> tuple[bool, int]:
+    """One step's per-client MLP gradients in the merged form (batch dims
+    [P, D*K]) and the streamed form ([P, D] per client), on the slice's
+    first batch: (bitwise equal, coordinates that differ)."""
+    import numpy as np
+
+    from repro_torch.core import clients as vclients
+    from repro_torch.data import emnist_like
+    from repro_torch.launch import train
+    from repro_torch.models import mlp
+
+    k, p, d = cfg.clients_per_device, cfg.q_edges, cfg.devices_per_edge
+    data = emnist_like.make_federated_data(emnist_like.FedDataCfg(
+        n_train=cfg.n_train, n_test=train.N_TEST, alpha=0.1, seed=cfg.seed,
+        q_edges=p, devices_per_edge=d * k))[0]
+    batch = train._stack_batches(data, cfg, np.random.default_rng(cfg.seed),
+                                 "cuda")
+    params = mlp.init_mlp(torch.Generator(device="cuda").manual_seed(0))
+
+    def grads(voters, b):
+        cp = {n: v.expand((p, voters) + tuple(v.shape)).contiguous()
+              .requires_grad_(True) for n, v in params.items()}
+        losses = mlp.loss_fn(cp, b)
+        return dict(zip(cp, torch.autograd.grad(losses.sum(),
+                                                list(cp.values()))))
+
+    merged = grads(d * k, vclients.carve_batch(batch, k))
+    differ = 0
+    for c in range(k):
+        per = grads(d, vclients.client_slice(batch, k, c))
+        for n, g in per.items():
+            m = merged[n].reshape((p, d, k) + tuple(g.shape[2:]))[:, :, c]
+            differ += int((m.contiguous().view(torch.int32)
+                           != g.view(torch.int32)).sum())
+    return differ == 0, differ
+
+
+def count_differing(torch, a: dict, b: dict) -> int:
+    return sum(int((a[n].contiguous().view(torch.int32)
+                    != b[n].contiguous().view(torch.int32)).sum())
+               for n in a)
+
+
+def phase_clients(torch):
+    """The paper task with K=2 virtual clients per device: stream and
+    merged on the kernels, merged on the plain path, then the same triple
+    with injected gradients.  Returns the stream run's launch counts."""
+    import numpy as np
+
+    import injected_grads
+    from repro_torch.core import hier
+    from repro_torch.core.topology import Topology
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.tally_acc import tally_acc
+    from repro_torch.kernels.vote_update import vote_update
+    from repro_torch.launch.train import FedBenchCfg, run_paper_task
+
+    kernels = {"sign_pack": sign_pack, "vote_update": vote_update,
+               "tally_acc": tally_acc}
+    cfg = FedBenchCfg(method="dc_hier_signsgd", rounds=2, t_e=15, batch=400,
+                      mu=MU, rho=RHO, n_train=20000, q_edges=4,
+                      devices_per_edge=5, clients_per_device=K_CLIENTS,
+                      participation="bernoulli", rate=0.5, client_seed=11,
+                      data_weights=True, client_mode="stream",
+                      transport="fused", state_layout="flat")
+    steps = cfg.rounds * cfg.t_e
+    same_grads, grad_differ = client_grads_bitwise(torch, cfg)
+    print(f"[clients] one step's per-client gradients, merged [P, D*K] vs "
+          f"streamed [P, D] form: bitwise {same_grads} ({grad_differ} "
+          f"coordinates differ)", flush=True)
+    runs = {}
+    for name, kw, want in (
+            ("stream fused/flat", {},
+             {"tally_acc": K_CLIENTS * steps, "sign_pack": 0,
+              "vote_update": 0}),
+            ("merged fused/flat", {"client_mode": "merged"},
+             {"tally_acc": 0, "sign_pack": steps, "vote_update": steps}),
+            ("merged ag_packed/tree", {"client_mode": "merged",
+                                       "transport": "ag_packed",
+                                       "state_layout": "tree"},
+             {"tally_acc": 0, "sign_pack": 0, "vote_update": 0})):
+        for kern in kernels.values():
+            kern.launches = 0
+        res = run_paper_task(dataclasses.replace(cfg, **kw), device="cuda",
+                             log=lambda line: None)
+        launches = {n: kern.launches for n, kern in kernels.items()}
+        res["launches"] = launches
+        cc = res["clients"]
+        print(f"[clients] {name}: test loss {res['loss']} acc {res['acc']} "
+              f"ms/step {res['ms_per_step']} data ms/step "
+              f"{res['data_ms_per_step']} launches {launches}", flush=True)
+        require(launches == want, f"{name}: launches {launches}, want {want}")
+        require(res["loss"][-1] < res["loss"][0],
+                f"{name}: test loss did not fall: {res['loss']}")
+        for n, leaf in res["params"].items():
+            require(bool(torch.isfinite(leaf).all()), f"{name}/{n}: "
+                    "non-finite")
+        runs[name] = res
+    weights = np.asarray(cc.weights)
+    print(f"[clients] {cc.count} clients per device, client rows "
+          f"{int(weights.min())}..{int(weights.max())}, edge totals "
+          f"{weights.sum(axis=(1, 2)).tolist()}, weight bound "
+          f"{cc.weight_bound(4, 5)}", flush=True)
+    stream, merged, tree = (runs[n]["params"] for n in runs)
+    diff = count_differing(torch, merged, tree)
+    require(diff == 0, f"merged fused/flat and ag_packed/tree differ in "
+            f"{diff} coordinates")
+    diff = count_differing(torch, stream, merged)
+    loss_s = runs["stream fused/flat"]["loss"][-1]
+    loss_m = runs["merged fused/flat"]["loss"][-1]
+    print(f"[clients] stream vs merged: {diff} coordinates differ, final "
+          f"test loss {loss_s} vs {loss_m}", flush=True)
+    if same_grads:
+        require(diff == 0, "stream and merged differ although their "
+                "gradients are bitwise equal")
+    else:
+        require(abs(loss_s - loss_m) <= 1e-3, "stream and merged final "
+                "test losses differ by more than 1e-3")
+    print("[clients] merged fused/flat == merged ag_packed/tree, bitwise",
+          flush=True)
+
+    # the triple with the gradients injected: bitwise by construction
+    shapes = {n: tuple(v.shape[1:]) for n, v in stream.items()}
+    grads = injected_grads.make_grads(
+        shapes, 4, 5, K_CLIENTS, steps,
+        torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    finals = []
+    for mode, transport, layout in (("stream", "fused", "flat"),
+                                    ("merged", "fused", "flat"),
+                                    ("merged", "ag_packed", "tree")):
+        algo = hier.AlgoConfig(
+            method="dc_hier_signsgd", mu=MU, t_e=cfg.t_e, rho=RHO,
+            transport=transport, state_layout=layout,
+            compute_dtype=torch.float32, delta_dtype=torch.float32,
+            clients=dataclasses.replace(cc, mode=mode))
+        init_fn, step = hier.make_hier_step(
+            Topology(4, 5, "cuda"), algo, injected_grads.make_bundle())
+        state = init_fn({n: torch.zeros(s_, device="cuda")
+                         for n, s_ in shapes.items()})
+        ew = torch.tensor([0.25] * 4, device="cuda")
+        ones = torch.ones((4, 5), device="cuda")
+        for s_, g in enumerate(grads):
+            state, _ = step(state, {"train": g,
+                                    "anchor": grads[s_ - s_ % cfg.t_e]},
+                            ew, ones, ones)
+        finals.append({n: v.clone()
+                       for n, v in hier.edge_params(state).items()})
+    d1 = count_differing(torch, finals[0], finals[1])
+    d2 = count_differing(torch, finals[1], finals[2])
+    moved = float(finals[0]["w1"].abs().sum())
+    print(f"[clients] injected gradients: stream vs merged {d1}, merged vs "
+          f"tree {d2} coordinates differ (|w1|_1 = {moved})", flush=True)
+    require(d1 == 0 and d2 == 0 and moved > 0,
+            "the injected-gradient stream/merged/tree triple is not bitwise")
+    return runs
+
+
+def phase_quantize(torch):
+    """ops.ternary_quant_nd (the QSGD baseline's compressor) on the MLP's
+    four gradient leaves: one launch each, against the plain version on
+    the same uniforms.  Returns the launch count."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ternary_quant import ternary_quant
+    from repro_torch.models import mlp
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = {n: v.requires_grad_(True) for n, v in mlp.init_mlp(
+        torch.Generator(device="cuda").manual_seed(0)).items()}
+    batch = {"x": torch.randn((400, 784), generator=gen, device="cuda"),
+             "y": torch.randint(0, 10, (400,), generator=gen,
+                                device="cuda")}
+    grads = torch.autograd.grad(mlp.loss_fn(params, batch),
+                                list(params.values()))
+    ternary_quant.launches = 0
+    quantized = [ops.ternary_quant_nd(
+        g, torch.Generator(device="cuda").manual_seed(10 + i))
+        for i, g in enumerate(grads)]
+    launches = ternary_quant.launches
+    for i, (g, q) in enumerate(zip(grads, quantized)):
+        u = torch.rand(g.numel(), device="cuda",
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(10 + i))
+        want = ref.ternary_quant_ref(g.reshape(-1), u,
+                                     torch.linalg.vector_norm(g))
+        require(torch.equal(q.reshape(-1).view(torch.int32),
+                            want.view(torch.int32)),
+                f"ternary_quant_nd leaf {i} disagrees with its plain version")
+    print(f"[quantize] ternary_quant_nd over the MLP's {len(grads)} gradient "
+          f"leaves: {launches} launches", flush=True)
+    require(launches == len(grads), f"ternary_quant launched {launches} "
+            f"times for {len(grads)} leaves")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests" / "helpers"))
     try:
         from repro_torch.kernels import build
     except ImportError as e:
@@ -321,22 +710,32 @@ def main() -> None:
     resolve_device("cuda")
     timer = Timer(torch)
     main_rows = phase_kernels(torch, timer)
+    main_rows["tally_acc"] = phase_tally(torch, timer)
+    main_rows["ternary_quant"] = phase_ternary(torch, timer)
     fused, plain, launches = phase_slice(torch)
+    print(f"[slice] ms/step fused/flat {fused['ms_per_step']} "
+          f"ag_packed/tree {plain['ms_per_step']}", flush=True)
+    runs = phase_clients(torch)
+    launches["tally_acc"] = runs["stream fused/flat"]["launches"]["tally_acc"]
+    launches["ternary_quant"] = phase_quantize(torch)
+    paths = {"sign_pack": "paper task, fused/flat (30 steps)",
+             "vote_update": "paper task, fused/flat (30 steps)",
+             "tally_acc": "clients, stream fused/flat (30 steps, K=2)",
+             "ternary_quant": "ops.ternary_quant_nd on the MLP's 4 "
+                              "gradient leaves"}
 
     kernels = []
-    for name in ("sign_pack", "vote_update"):
+    for name in SOURCES:
         row = main_rows[name]
         src, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": row["max_abs_err"],
+            "path": paths[name], "max_abs_err": row["max_abs_err"],
             "ms": row["kernel_ms"], "device_ms": row["kernel_device_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None})
-    print(f"[slice] ms/step fused/flat {fused['ms_per_step']} "
-          f"ag_packed/tree {plain['ms_per_step']}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -28,11 +28,23 @@ and with ``fused`` the whole update is one ``sign_pack`` and one
 state passed in is updated; clone it first to keep it).  Both layouts
 give bitwise identical trajectories.
 
+Virtual clients (``AlgoConfig.clients``, ``core.clients``): with an
+active config each device hosts K clients.  A per-round participation
+mask (pinned to ``(seed, step // t_e)``) times ``dev_mask`` and the
+integer |D_qk| weights give the int32 vote weights of the weighted
+popcount, and the anchor mean reweights to the participating shares.
+``mode="merged"`` carves the device batch into the voter axis
+``[P, D*K, b/K, ...]`` and votes as above; ``mode="stream"`` loops over
+the K clients inside the step, one client's gradient live at a time,
+folding each one's signs into an integer tally (on the fused transport
+one ``tally_acc`` launch per client) and thresholding after the loop --
+bitwise the merged trajectory.
+
 Ported: methods ``hier_signsgd`` and ``dc_hier_signsgd``, ``decay``,
-``anchor_staleness`` 0 and 1, the inactive client config, the sync
-cloud schedule (the cloud mean is applied at the boundary that issues
-it).  Everything else raises ``NotImplementedError`` naming its ROADMAP
-item.
+``anchor_staleness`` 0 and 1, virtual clients (merged and stream), the
+sync cloud schedule (the cloud mean is applied at the boundary that
+issues it).  Everything else raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -145,7 +157,6 @@ def _refuse_unported(algo: AlgoConfig, bundle: ModelBundle) -> None:
         raise NotImplementedError(
             "cloud_overlap='overlap' is not ported yet: ROADMAP queue 1 "
             "item 12")
-    vclients.require_inactive(algo.clients)
 
 
 def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
@@ -155,10 +166,12 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
         -> (state, metrics)
 
     batch: {'train': tree of [P, D, b, ...], 'anchor': optional same};
-    edge_weights: [P] = D_q/N; dev_weights: [P, D] = |D_qk|/D_q;
-    dev_mask: [P, D] float in {0, 1}, the vote quorum.  Inputs are moved
-    to ``topo.device``.  The returned state may share (and, with the
-    fused flat update, has overwritten) the input state's buffers.
+    edge_weights: [P] = D_q/N; dev_weights: [P, D] = |D_qk|/D_q (with
+    active clients, the per-device factor of the participating shares);
+    dev_mask: [P, D] float in {0, 1}, the vote quorum, or with active
+    clients optionally [P, D, K] per client.  Inputs are moved to
+    ``topo.device``.  The returned state may share (and, with the fused
+    flat update, has overwritten) the input state's buffers.
     """
     _refuse_unported(algo, bundle)
     p, d = topo.pods, topo.devices_per_pod
@@ -166,15 +179,38 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
     flat = algo.state_layout == "flat"
     fold_dc = algo.transport == "fused" and algo.is_dc
     dev = topo.device
+    cc = algo.clients
+    virtual = cc.active
+    k = cc.count
+    stream = virtual and cc.mode == "stream"
+    d_virtual = d * k                 # the merged voter axis
+    # merged means re-associate to the streamed fold order (K clients,
+    # then D devices) so both modes share one trajectory
+    k_merge = k if virtual else None
+    vote_bound = cc.weight_bound(p, d) if virtual else None
+    w_int = (torch.as_tensor(cc.weight_array(p, d), device=dev)
+             if virtual else None)                          # [P, D, K] int32
+    part_cache: dict[int, torch.Tensor] = {}
 
-    def per_device_grads(params_tree, batch):
-        """[P, D, *leaf] gradients of every device's loss at its copy of
-        its edge's model, in the compute dtype, plus the [P, D] losses.
+    def participation(rnd_index: int) -> torch.Tensor:
+        """The round's [P, D, K] mask, drawn on the host once per round."""
+        if rnd_index not in part_cache:
+            part_cache.clear()
+            part_cache[rnd_index] = torch.as_tensor(
+                vclients.participation_mask(cc, p, d, rnd_index),
+                device=dev)
+        return part_cache[rnd_index]
+
+    def per_device_grads(params_tree, batch, devices=d_virtual):
+        """[P, V, *leaf] gradients of every voter's loss at its copy of
+        its edge's model (V = D*K merged voters, or the D devices of one
+        streamed client), in the compute dtype, plus the [P, V] losses.
         The copies are fresh contiguous tensors, so the gradient is the
         same whether the model came from a tree or from flat views."""
         leaves, td = pytree.tree_flatten(params_tree)
         copies = [
-            leaf.detach().unsqueeze(1).expand((p, d) + tuple(leaf.shape[1:]))
+            leaf.detach().unsqueeze(1)
+            .expand((p, devices) + tuple(leaf.shape[1:]))
             .to(algo.compute_dtype).contiguous().requires_grad_(True)
             for leaf in leaves]
         with torch.enable_grad():
@@ -189,21 +225,53 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
         return pytree.tree_map(
             lambda v: votes.pod_weighted_average(v, edge_w), params)
 
+    def anchor_fold_stream(params_tree, batch, shares3, to_acc):
+        """The streamed anchor: a zeros-initialised fold over the K
+        clients of each device's share-weighted gradient, one client's
+        gradient live at a time -- the order ``weighted_mean_dev(...,
+        clients=K)`` adds the merged voter axis in."""
+        acc = None
+        for c in range(k):
+            g_c, _ = per_device_grads(
+                params_tree, vclients.client_slice(batch, k, c),
+                devices=d)
+            g_c = to_acc(g_c)
+            sh = shares3[:, :, c]
+            term = pytree.tree_map(
+                lambda g: g * sh.reshape(sh.shape + (1,) * (g.dim() - 2)),
+                g_c)
+            if acc is None:
+                acc = pytree.tree_map(torch.zeros_like, term)
+            acc = pytree.tree_map(torch.add, acc, term)
+        return pytree.tree_map(votes.fold_devices, acc)
+
     def compute_delta(params, batch, edge_w, dev_w):
-        """The anchor pass at the freshly aggregated edge models."""
+        """The anchor pass at the freshly aggregated edge models; dev_w is
+        [P, D] (no clients), [P, D*K] (merged) or [P, D, K] (stream)."""
         dd = algo.delta_dtype
         if flat:
             layout = params.layout
-            g_dev, _ = per_device_grads(params.tree(), batch)
-            g_buf = flatbuf.flatten_tree(layout, g_dev, 2, torch.float32)
-            c_q = votes.weighted_mean_dev(g_buf, dev_w)
+            if stream:
+                c_q = anchor_fold_stream(
+                    params.tree(), batch, dev_w,
+                    lambda g: flatbuf.flatten_tree(layout, g, 2,
+                                                   torch.float32))
+            else:
+                g_dev, _ = per_device_grads(params.tree(), batch)
+                g_buf = flatbuf.flatten_tree(layout, g_dev, 2, torch.float32)
+                c_q = votes.weighted_mean_dev(g_buf, dev_w, clients=k_merge)
             c = votes.pod_weighted_average(c_q, edge_w)
             return flatbuf.FlatState((c - c_q).to(dd),
                                      flatbuf.with_dtype(layout, dd))
-        g_dev, _ = per_device_grads(params, batch)
-        c_q = pytree.tree_map(
-            lambda g: votes.weighted_mean_dev(g.to(torch.float32), dev_w),
-            g_dev)
+        if stream:
+            c_q = anchor_fold_stream(
+                params, batch, dev_w,
+                lambda g: pytree.tree_map(lambda x: x.to(torch.float32), g))
+        else:
+            g_dev, _ = per_device_grads(params, batch)
+            c_q = pytree.tree_map(
+                lambda g: votes.weighted_mean_dev(g.to(torch.float32), dev_w,
+                                                  clients=k_merge), g_dev)
         c = pytree.tree_map(
             lambda v: votes.pod_weighted_average(v, edge_w), c_q)
         return pytree.tree_map(lambda a, b: (a - b).to(dd), c, c_q)
@@ -217,7 +285,8 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
 
     def vote_tree(s_dev, vote_w):
         return pytree.tree_map(
-            lambda s: votes.majority_vote_dev(s, vote_w, algo.transport),
+            lambda s: votes.majority_vote_dev(s, vote_w, algo.transport,
+                                              weight_bound=vote_bound),
             s_dev)
 
     def local_step_tree(params, delta, batch, vote_w, mu):
@@ -251,6 +320,69 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
         dir_buf = flatbuf.flatten_tree(layout, direction, 1, params.buf.dtype)
         return params.replace(params.buf - mu * dir_buf), losses
 
+    def local_step_stream(params, delta, batch, vote_w3, mu):
+        """mode='stream': loop over the K clients with one client's
+        gradient live at a time; each client's signs fold, weighted, into
+        a persistent integer tally (a flat [P, D, n_pad] buffer and one
+        ``tally_acc`` launch per client on the fused transport, per-leaf
+        tallies otherwise), thresholded after the loop.  vote_w3 is the
+        [P, D, K] int32 vote weight."""
+        params_tree = params.tree() if flat else params
+        acc_dt = votes.tally_dtype(vote_bound)
+        delta_tree = None
+        if algo.is_dc and not fold_dc:
+            delta_tree = delta.tree(cast=False) if flat else delta
+        if algo.transport == "fused":
+            if flat:
+                vlayout = params.layout
+            else:     # only the per-device shapes matter to the layout
+                vlayout = flatbuf.make_layout(pytree.tree_map(
+                    lambda v: torch.empty((p, d) + tuple(v.shape[1:]),
+                                          device="meta"), params_tree),
+                    batch_dims=2)
+            tally = torch.zeros((p, d, vlayout.n_pad), dtype=acc_dt,
+                                device=dev)
+        else:
+            tally = pytree.tree_map(
+                lambda v: torch.zeros((p, d) + tuple(v.shape[1:]),
+                                      dtype=acc_dt, device=dev), params_tree)
+        losses = []
+        for c in range(k):
+            u_c, loss_c = per_device_grads(
+                params_tree, vclients.client_slice(batch, k, c),
+                devices=d)
+            losses.append(loss_c)
+            w_c = vote_w3[:, :, c]
+            if delta_tree is not None:
+                u_c = corrected(u_c, delta_tree)
+            if algo.transport == "fused":
+                tally = votes.fused_sign_tally_accumulate(
+                    vlayout, u_c,
+                    delta if (fold_dc and not flat) else None,
+                    delta.buf if (fold_dc and flat) else None,
+                    algo.rho if fold_dc else 0.0, w_c, tally)
+            else:
+                tally = pytree.tree_map(
+                    lambda t, s: votes.tally_add_signs(t, s, w_c), tally,
+                    pytree.tree_map(signs.sgn, u_c))
+        losses = torch.stack(losses, dim=2).reshape(p, d * k)
+        n_eff = torch.sum(vote_w3, dim=(1, 2), dtype=torch.int32)
+        if algo.transport == "fused":
+            if flat:
+                return params.replace(votes.fused_tally_finish(
+                    vlayout, tally, n_eff, params.buf, mu)), losses
+            direction = votes.fused_tally_finish(vlayout, tally, n_eff,
+                                                 None, None)
+        else:
+            direction = pytree.tree_map(
+                lambda t: votes.tally_vote_dev(t, n_eff), tally)
+        if flat:
+            dir_buf = flatbuf.flatten_tree(params.layout, direction, 1,
+                                           params.buf.dtype)
+            return params.replace(params.buf - mu * dir_buf), losses
+        return pytree.tree_map(lambda v, s: v - mu * s.to(v.dtype), params,
+                               direction), losses
+
     def on_device(tree):
         return pytree.tree_map(lambda x: torch.as_tensor(x, device=dev), tree)
 
@@ -259,21 +391,43 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
         edge_weights, dev_weights, dev_mask = (
             torch.as_tensor(x, device=dev)
             for x in (edge_weights, dev_weights, dev_mask))
-        if dev_mask.dim() != 2:
-            raise ValueError(
-                "dev_mask must be the [P, D] device mask (a client-granular "
-                "[P, D, K] mask needs active virtual clients, not ported)")
-        vote_w = dev_mask.to(torch.float32) > 0.5
-        train_batch = on_device(batch["train"])
-        anchor_batch = on_device(batch.get("anchor", batch["train"]))
-        params, delta, delta_next = state.params, state.delta, state.delta_next
+        maskf = dev_mask.to(torch.float32)
         rnd_index = state.step // t_e
+        vote_w3 = None
+        if not virtual:
+            if maskf.dim() != 2:
+                raise ValueError(
+                    "a client-granular [P, D, K] dev_mask requires an "
+                    "active AlgoConfig.clients; without virtual clients "
+                    "the step takes the [P, D] device mask")
+            vote_w = maskf > 0.5
+            shares = dev_weights
+            carve = lambda b: b                                # noqa: E731
+        else:
+            if maskf.dim() == 3 and maskf.shape[2] != k:
+                raise ValueError(
+                    f"dev_mask client dim {maskf.shape[2]} != K={k}")
+            maskf3 = maskf if maskf.dim() == 3 else maskf[:, :, None]
+            part = participation(rnd_index) * maskf3           # [P, D, K]
+            # int32 vote weights: |D_qk| never round through a float
+            vote_w3 = w_int * part.to(torch.int32)
+            vote_w = vote_w3.reshape(p, d_virtual)
+            shares = vclients.participating_shares(
+                dev_weights.to(torch.float32), w_int.to(torch.float32), part)
+            if stream:
+                shares = shares.reshape(p, d, k)
+                carve = lambda b: b                            # noqa: E731
+            else:
+                carve = lambda b: vclients.carve_batch(b, k)   # noqa: E731
+        train_batch = carve(on_device(batch["train"]))
+        anchor_batch = carve(on_device(batch.get("anchor", batch["train"])))
+        params, delta, delta_next = state.params, state.delta, state.delta_next
         if state.step % t_e == 0:
             # the prologue: the cloud mean (sync), then the anchor
             params = pod_avg(params, edge_weights)
             if algo.is_dc:
                 fresh = compute_delta(params, anchor_batch, edge_weights,
-                                      dev_weights)
+                                      shares)
                 if algo.anchor_staleness == 1:
                     delta, delta_next = delta_next, fresh
                 else:
@@ -282,8 +436,12 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
         if algo.decay:
             mu = mu / torch.sqrt(torch.tensor(
                 float(rnd_index), dtype=algo.master_dtype, device=dev) + 1.0)
-        step_fn = local_step_flat if flat else local_step_tree
-        params, losses = step_fn(params, delta, train_batch, vote_w, mu)
+        if stream:
+            params, losses = local_step_stream(params, delta, train_batch,
+                                               vote_w3, mu)
+        else:
+            step_fn = local_step_flat if flat else local_step_tree
+            params, losses = step_fn(params, delta, train_batch, vote_w, mu)
         new_state = state._replace(step=state.step + 1, params=params,
                                    delta=delta, delta_next=delta_next)
         losses = losses.to(torch.float32)

@@ -18,7 +18,11 @@ identical (ties -> +1):
     kernel updates the master buffer in place.
 
 Masks are [P, D] {0,1} voter masks or nonnegative integer vote weights
-(weighted popcount; an edge whose quorum has weight 0 votes 0).
+(weighted popcount; an edge whose quorum has weight 0 votes 0); with
+merged virtual clients the voter axis is D*K wide.  The streamed client
+sweep keeps the voter axis at D and folds each client's weighted signs
+into a signed integer tally instead (``tally_*`` below; on the fused
+transport one ``tally_acc`` launch per client), bitwise the merged vote.
 """
 from __future__ import annotations
 
@@ -227,22 +231,128 @@ def majority_vote_dev(s_dev: torch.Tensor, mask: torch.Tensor | None,
 
 
 def weighted_mean_dev(g_dev: torch.Tensor, dev_weights: torch.Tensor,
-                      clients: int = 1) -> torch.Tensor:
+                      clients: int | None = None) -> torch.Tensor:
     """Edge aggregation ``sum_k (|D_qk|/D_q) g_k`` -> [P, *leaf].
 
     The device sum is a fold in voter order, so a leaf and its slice of
     the flat buffer add in the same order and the two state layouts stay
-    bitwise identical."""
-    if clients != 1:
-        raise NotImplementedError(
-            "weighted_mean_dev over K > 1 virtual clients is not ported "
-            "yet: ROADMAP queue 1 item 10")
+    bitwise identical.  ``clients=K`` (active virtual clients, merged
+    voter axis [P, D*K]) re-associates it as the streamed sweep adds:
+    per device a zeros-initialised fold over its K clients, then the
+    fold over D (:func:`fold_devices`), so the merged and streamed
+    modes give the same bits."""
+    if clients is not None:
+        p, dk = g_dev.shape[:2]
+        g3 = g_dev.reshape((p, dk // clients, clients) + g_dev.shape[2:])
+        w3 = dev_weights.reshape(p, dk // clients, clients)
+        acc = torch.zeros((p, dk // clients) + g_dev.shape[2:],
+                          dtype=g_dev.dtype, device=g_dev.device)
+        for c in range(clients):
+            w_c = w3[:, :, c].reshape((p, dk // clients)
+                                      + (1,) * (g_dev.dim() - 2))
+            acc = acc + g3[:, :, c] * w_c.to(g_dev.dtype)
+        return fold_devices(acc)
     w = dev_weights.reshape(dev_weights.shape + (1,) * (g_dev.dim() - 2))
     w = w.to(g_dev.dtype)
     acc = g_dev[:, 0] * w[:, 0]
     for k in range(1, g_dev.shape[1]):
         acc = acc + g_dev[:, k] * w[:, k]
     return acc
+
+
+def fold_devices(acc: torch.Tensor) -> torch.Tensor:
+    """[P, D, *leaf] -> [P, *leaf], summed over D one device at a time
+    (a fixed order: ``torch.sum`` may reduce a leaf and its flat slice
+    in different orders)."""
+    out = acc[:, 0]
+    for k in range(1, acc.shape[1]):
+        out = out + acc[:, k]
+    return out
+
+
+# -- the streamed client sweep (ClientConfig.mode="stream") ------------------
+#
+# The sweep never widens the voter axis: each client's signs fold into a
+# persistent SIGNED tally t += w_c * sgn(u_c), in the tally_dtype of the
+# weight bound (every partial sum lies within it), and the threshold is
+# deferred until after the client loop: t = 2*pos - n_eff, so t >= 0 is
+# exactly the merged transports' 2*pos >= n_eff tie rule, and the two
+# modes are bitwise identical by integer associativity.
+
+def tally_dtype(weight_bound: int) -> torch.dtype:
+    """The streamed tally's dtype: ``vote_ar_int8``'s promotion rule on
+    the static weight bound (int8 / int16 / int32)."""
+    return _tally_acc(weight_bound)
+
+
+def tally_add_signs(tally: torch.Tensor, s: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """One client's weighted signs: ``tally + w * s``.  tally: [P, D,
+    *leaf] signed tally; s: [P, D, *leaf] int8 signs of ONE client;
+    weights: [P, D] integer vote weights (0 = abstains).  The product is
+    int32, narrowed to the tally dtype (exact within the weight bound)."""
+    w = weights.to(torch.int32).reshape(weights.shape
+                                        + (1,) * (s.dim() - 2))
+    return tally + (s.to(torch.int32) * w).to(tally.dtype)
+
+
+def tally_accumulate_words(words: torch.Tensor, weights: torch.Tensor,
+                           tally: torch.Tensor) -> torch.Tensor:
+    """Fold ONE client's packed sign words into the tally: words [P, D,
+    W] int32, weights [P, D], tally [P, D, W*32]; per coordinate
+    ``tally += w * (2*bit - 1)``."""
+    sgn_c = 2 * signs.unpack_bits(words) - 1                 # [P, D, W*32]
+    add = sgn_c * weights.to(torch.int32)[:, :, None]
+    return tally + add.to(tally.dtype)
+
+
+def tally_vote(tally: torch.Tensor, n_eff: torch.Tensor) -> torch.Tensor:
+    """Deferred threshold: [P, *leaf] edge tally (int), [P] int32
+    participating weight sum -> int8 vote, ``t >= 0 -> +1`` (merged's
+    tie rule), 0 where the quorum is empty."""
+    t = tally.to(torch.int32)
+    one = torch.ones((), dtype=torch.int8, device=t.device)
+    vote = torch.where(t >= 0, one, -one)
+    n = n_eff.reshape((-1,) + (1,) * (vote.dim() - 1))
+    return torch.where(n > 0, vote, torch.zeros_like(vote))
+
+
+def tally_vote_dev(tally: torch.Tensor, n_eff: torch.Tensor) -> torch.Tensor:
+    """[P, D, *leaf] per-device tallies -> [P, *leaf] int8 vote: the sum
+    over D in int32 (exact, any order), then :func:`tally_vote`."""
+    return tally_vote(torch.sum(tally, dim=1, dtype=torch.int32), n_eff)
+
+
+def fused_sign_tally_accumulate(layout: flatbuf.FlatLayout, u_dev,
+                                delta_tree, delta_buf: torch.Tensor | None,
+                                rho: float, weights: torch.Tensor,
+                                tally: torch.Tensor) -> torch.Tensor:
+    """Device-side half of the streamed fused transport: fold ONE
+    client's (DC-corrected) signs into the [P, D, n_pad] tally with one
+    ``tally_acc`` launch (**in place**; the tally is returned).
+
+    u_dev: tree of [P, D, *leaf] directions of the current client;
+    delta_tree / delta_buf: optional correction as a [P, *leaf] tree or
+    a [P, n_pad] buffer, folded by the rule of :func:`fused_sign_vote`
+    (in the kernel for all-f32 trees, else added first per leaf);
+    weights: [P, D] integer vote weights of this client this round."""
+    u_buf, d_buf = _fused_kernel_bufs(layout, u_dev, delta_tree, delta_buf,
+                                      rho)
+    return kops.fused_tally_acc_flat(u_buf, d_buf, rho, weights, tally)
+
+
+def fused_tally_finish(layout: flatbuf.FlatLayout, tally: torch.Tensor,
+                       n_eff: torch.Tensor, v_buf: torch.Tensor | None,
+                       mu: torch.Tensor | None):
+    """Edge-side half of the streamed fused transport, once per local
+    step: sum the [P, D, n_pad] tallies over D, threshold them into the
+    vote, and return ``v_buf - mu * vote`` (a new [P, n_pad] buffer) or,
+    without ``v_buf``, the vote as a [P, *leaf] int8 tree."""
+    vote = tally_vote_dev(tally, n_eff)                      # [P, n_pad]
+    if v_buf is None:
+        return flatbuf.unflatten_tree(layout, vote, batch_dims=1,
+                                      cast=False)
+    return v_buf - mu * vote.to(v_buf.dtype)
 
 
 def pod_weighted_average(v: torch.Tensor,

@@ -1,6 +1,6 @@
 """The fused transport's local compute on a flat buffer (kernel route).
 
-The counterparts of the JAX package's ``kernels/ops.py:194-331``.  On one
+The counterparts of the JAX package's ``kernels/ops.py:172-331``.  On one
 card the P (edge) and D (device) tiers are the leading dims of one
 ``[P, D, n_pad]`` buffer from ``core.flatbuf`` (``n_pad % 4096 == 0``),
 so each function is at most two launches, whatever P is:
@@ -9,7 +9,12 @@ so each function is at most two launches, whatever P is:
   * :func:`fused_vote_update_words` -- ONE ``vote_update`` over all pods
     (the TPU version loops one call per pod);
   * :func:`fused_sign_vote_flat` -- the two, vote-only ([P, n] int8);
-  * :func:`fused_vote_update_flat` -- the two, updating ``v`` in place.
+  * :func:`fused_vote_update_flat` -- the two, updating ``v`` in place;
+  * :func:`fused_tally_acc_flat` -- ONE ``tally_acc`` over all P*D rows,
+    the streamed client sweep's per-client fold into the tally;
+
+and :func:`ternary_quant_nd`, the public entry point of the
+``ternary_quant`` kernel (any shape).
 
 Padding contract: coordinates between leaves and at the buffer tail are
 zero floats, so they pack to +1 bits and are updated like any other
@@ -23,6 +28,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.sign_pack import sign_pack
+from repro_torch.kernels.tally_acc import tally_acc
+from repro_torch.kernels.ternary_quant import ternary_quant
 from repro_torch.kernels.vote_update import vote_update
 
 TILE = 4096
@@ -81,3 +88,39 @@ def fused_vote_update_flat(u_buf: torch.Tensor, d_buf: torch.Tensor | None,
                          f"{tuple(v_buf.shape)}")
     words = fused_pack_flat(u_buf, d_buf, rho)
     return fused_vote_update_words(words, v_buf, mask, mu)
+
+
+def fused_tally_acc_flat(u_buf: torch.Tensor, d_buf: torch.Tensor | None,
+                         rho: float, weights: torch.Tensor,
+                         tally: torch.Tensor) -> torch.Tensor:
+    """Streamed-client local step: fold ONE client's signs into the tally.
+
+    u_buf: [P, D, n_pad] float pre-sign directions of the current client
+    (the device axis D, not the merged D*K); d_buf: [P, n_pad] correction
+    or None (cast to u's dtype; the same fold rule as
+    :func:`fused_pack_flat`); weights: [P, D] integer vote weights of
+    this client; tally: [P, D, n_pad] signed tally, **updated in place**
+    and returned."""
+    _check_buf(u_buf)
+    d2 = None
+    if d_buf is not None and rho:
+        d2 = d_buf.to(u_buf.dtype).contiguous()
+    return tally_acc(u_buf.contiguous(), d2, rho, weights, tally)
+
+
+def ternary_quant_nd(x: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:
+    """Any-shape unbiased ternary quantization (the QSGD baseline's
+    compressor): ``||x||_2 * sign(x_i)`` with probability
+    ``|x_i| / ||x||_2``, else 0, in x's dtype.
+
+    The norm is one PyTorch reduction in float32, kept on the device;
+    the uniforms come from ``generator`` (on x's device), so a seeded
+    generator repeats the draw.  The reference draws them from
+    ``jax.random``, which no torch generator reproduces: tests hand both
+    sides the same uniforms at the kernel (``kernels.ternary_quant``)."""
+    flat = x.reshape(-1).contiguous()
+    norm = torch.linalg.vector_norm(flat.to(torch.float32))
+    u = torch.rand(flat.shape, generator=generator, dtype=torch.float32,
+                   device=x.device)
+    return ternary_quant(flat, u, norm).reshape(x.shape)

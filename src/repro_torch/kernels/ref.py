@@ -2,8 +2,9 @@
 
 Each function computes exactly what its kernel computes, with the
 reference arithmetic of the JAX package (``kernels/ref.py`` and the
-Pallas kernel bodies): the wrappers in ``sign_pack.py`` and
-``vote_update.py`` run these on CPU tensors, the CPU tests hold them
+Pallas kernel bodies): the wrappers in ``sign_pack.py``,
+``vote_update.py``, ``tally_acc.py`` and ``ternary_quant.py`` run these
+on CPU tensors, the CPU tests hold them
 bitwise against the JAX kernels, and ``chip_smoke.py`` holds the CUDA
 kernels bitwise against them on the card.  They are not yardsticks of
 speed.
@@ -61,3 +62,44 @@ def vote_update_ref(words: torch.Tensor, v: torch.Tensor | None, mu: float,
     if v is None:
         return vote
     return v - f32(mu) * vote.to(v.dtype)
+
+
+def tally_acc_ref(u: torch.Tensor, delta: torch.Tensor | None, rho: float,
+                  weights: torch.Tensor, tally: torch.Tensor) -> torch.Tensor:
+    """u: [P, D, n] float pre-sign directions of ONE client; delta: [P, n]
+    or None; weights: [P, D] integer vote weights; tally: [P, D, n]
+    int8/int16/int32 signed tally.
+
+    Returns a new tally ``t + w * sgn(f32(u) + rho*f32(delta))``: the sign
+    as in :func:`sign_pack_ref` (product rounded before the add, 0 and
+    subnormals -> +1, NaN -> -1), the product ``w * s`` and the add in
+    int32, the sum narrowed back to the tally's dtype."""
+    x = u.to(torch.float32)
+    if delta is not None and rho:
+        x = x + f32(rho) * delta.to(torch.float32)[:, None]
+    s = signs.sgn(x).to(torch.int32)
+    add = weights.to(torch.int32)[:, :, None] * s
+    return (tally.to(torch.int32) + add).to(tally.dtype)
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values -> 0, as XLA's CPU backend (and the TPU)
+    treat them in the reference's arithmetic."""
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny,
+                       torch.zeros_like(x), x)
+
+
+def ternary_quant_ref(x: torch.Tensor, u: torch.Tensor,
+                      norm: torch.Tensor) -> torch.Tensor:
+    """x: float32/bfloat16; u: float32 uniforms of x's shape; norm: the
+    0-dim float32 l2 norm of x.  Returns, in x's dtype,
+    ``norm * sign(x)`` where ``u < |x| / max(norm, 1e-30)`` and 0
+    elsewhere; all zeros when ``norm <= 0``.  ``sign(0) = 0`` (unlike
+    ``signs.sgn``).  Subnormal |x|, norm and probabilities count as 0,
+    as in the reference (so with u = 0 a subnormal x quantizes to 0)."""
+    xf = x.to(torch.float32)
+    nrm = flush_subnormal(norm.to(torch.float32))
+    p = flush_subnormal(flush_subnormal(xf.abs()) / torch.clamp_min(nrm,
+                                                                   1e-30))
+    q = torch.where(u < p, nrm * torch.sign(xf), torch.zeros_like(xf))
+    return torch.where(nrm > 0, q, torch.zeros_like(q)).to(x.dtype)

@@ -1,0 +1,60 @@
+"""Stochastic ternary quantizer: norm * sign(x) with probability |x|/norm.
+
+The wrapper of the CUDA kernel ``csrc/ternary_quant.cu``, which replaces
+the TPU kernel ``src/repro/kernels/ternary_quant.py::ternary_quant``:
+the unbiased compressor of the Hier-Local-QSGD baseline, given the
+uniforms ``u`` and the l2 norm of ``x`` (a device scalar, so nothing
+waits for it).  The public entry point is ``ops.ternary_quant_nd``.
+
+CPU tensors take the plain version (``ref.ternary_quant_ref``); CUDA
+tensors launch the kernel or raise -- there is no fallback.
+``ternary_quant.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor) -> None:
+    if x.dtype not in DTYPES:
+        raise ValueError(f"ternary_quant: x dtype {x.dtype} not in {DTYPES}")
+    if u.shape != x.shape or u.dtype != torch.float32:
+        raise ValueError(f"ternary_quant: u must be float32 of x's shape "
+                         f"{tuple(x.shape)}, got {tuple(u.shape)} {u.dtype}")
+    if norm.dim() != 0 or norm.dtype != torch.float32:
+        raise ValueError(f"ternary_quant: norm must be a 0-dim float32 "
+                         f"tensor, got {tuple(norm.shape)} {norm.dtype}")
+    if u.device != x.device or norm.device != x.device:
+        raise ValueError("ternary_quant: inputs lie on different devices")
+    if not (x.is_contiguous() and u.is_contiguous()):
+        raise ValueError("ternary_quant: x and u must be contiguous")
+
+
+def ternary_quant(x: torch.Tensor, u: torch.Tensor,
+                  norm: torch.Tensor) -> torch.Tensor:
+    """x: float32/bfloat16 (any shape); u: float32 uniforms of x's shape;
+    norm: 0-dim float32 ``||x||_2``.  Returns a new tensor of x's dtype:
+    ``norm * sign(x)`` where ``u < |x| / max(norm, 1e-30)``, else 0, and
+    all zeros when ``norm <= 0``."""
+    _check(x, u, norm)
+    if x.device.type == "cpu":
+        return ref.ternary_quant_ref(x, u, norm)
+    if x.device.type != "cuda":
+        raise ValueError(f"ternary_quant: unsupported device {x.device}")
+    out = torch.empty_like(x)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        status = lib.repro_ternary_quant(
+            x.data_ptr(), u.data_ptr(), norm.data_ptr(), out.data_ptr(),
+            int(x.dtype == torch.bfloat16), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "ternary_quant")
+    ternary_quant.launches += 1
+    return out
+
+
+ternary_quant.launches = 0

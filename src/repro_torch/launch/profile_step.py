@@ -1,7 +1,10 @@
 """Where the paper task's time goes on the card.
 
-Runs one warm-up round, then one round of ``run_paper_task`` (the fused
-transport on the flat state, B=400, Q=4 x D=5, T_E=15 steps) under
+For each of two runs -- the paper task (the fused transport on the flat
+state, B=400, Q=4 x D=5, T_E=15 steps) and the same task with K=2
+virtual clients per device on the streamed sweep (Bernoulli(0.5)
+participation, |D_qk| weights, one ``tally_acc`` launch per client) --
+runs one warm-up round, then one round of ``run_paper_task`` under
 ``torch.profiler`` and prints one JSON line: the host-clock step and
 data times per step, the device time per step of kernels and of copies
 (the round's evaluation included), the kernels' share of the step time
@@ -14,6 +17,7 @@ from here.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import torch
@@ -35,8 +39,7 @@ def on_device(event) -> bool:
     return str(getattr(event, "device_type", "")).endswith("CUDA")
 
 
-def main() -> None:
-    cfg = FedBenchCfg(rounds=1, t_e=15, batch=400, n_train=20000)
+def profile_run(name: str, cfg: FedBenchCfg) -> dict:
     run_paper_task(cfg, device="cuda", log=lambda line: None)   # warm-up
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -50,16 +53,26 @@ def main() -> None:
     kernels = [e for e in events if e not in copies]
     per_step = lambda evs: sum(map(device_us, evs)) / 1e3 / steps  # noqa
     step_ms, data_ms = res["ms_per_step"][0], res["data_ms_per_step"][0]
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "steps": steps,
-        "step_ms": step_ms, "data_ms": data_ms,
+    return {
+        "run": name, "device": torch.cuda.get_device_name(0),
+        "steps": steps, "step_ms": step_ms, "data_ms": data_ms,
         "kernel_ms_per_step": per_step(kernels),
         "copy_ms_per_step": per_step(copies),
         "kernel_share_of_step": per_step(kernels) / step_ms,
         "kernels_per_step": sum(e.count for e in kernels) / steps,
         "top": [{"name": e.key[:120], "calls": e.count,
                  "device_ms_per_step": device_us(e) / 1e3 / steps}
-                for e in events[:12]]}))
+                for e in events[:12]]}
+
+
+def main() -> None:
+    cfg = FedBenchCfg(rounds=1, t_e=15, batch=400, n_train=20000)
+    clients = dataclasses.replace(
+        cfg, clients_per_device=2, participation="bernoulli", rate=0.5,
+        client_seed=11, data_weights=True, client_mode="stream")
+    for name, c in (("paper task, fused/flat", cfg),
+                    ("clients K=2, stream fused/flat", clients)):
+        print(json.dumps(profile_run(name, c)), flush=True)
 
 
 if __name__ == "__main__":

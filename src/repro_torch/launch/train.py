@@ -8,10 +8,20 @@ replacement -- and after every round evaluates the cloud aggregate
 ``sum_q (D_q/N) v_q`` on the test set.  The anchor pass of a round reads
 that round's first batch, as the JAX package's train loop does.
 
+Virtual clients (``--clients_per_device K`` and the other client
+fields): the data is split over D*K clients per edge, client c of device
+d being data client ``d*K + c``; each device's batch stacks its K
+clients' B/K rows in carve order, and the step votes with the
+participation and |D_qk| weights of ``core.clients``.
+
 CLI (the paper's setup on the card):
 
   PYTHONPATH=src python -m repro_torch.launch.train --rounds 2 \\
       --batch 400 --n_train 20000
+  PYTHONPATH=src python -m repro_torch.launch.train --rounds 2 \\
+      --batch 400 --n_train 20000 --clients_per_device 2 \\
+      --participation bernoulli --rate 0.5 --client_seed 11 \\
+      --data_weights --client_mode stream
 
 ``--device cpu`` runs the same code with the kernels' plain versions.
 """
@@ -24,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import clients as vclients
 from repro_torch.core import hier, signs, votes
 from repro_torch.core.topology import Topology, resolve_device
 from repro_torch.data import emnist_like
@@ -36,7 +47,11 @@ class FedBenchCfg:
     """The JAX package's ``benchmarks/fed_runner.FedBenchCfg`` fields (same
     defaults: B=64 at n_train=6000 is its CPU scaling of the paper's
     B=400 at 20000; the test set is ``N_TEST`` rows, as there), plus the
-    port's transport and state layout."""
+    port's transport and state layout, and the virtual-client fields of
+    the JAX launchers: K clients per device, participation (full |
+    bernoulli | fixed) at ``rate`` drawn from ``client_seed``, merged or
+    stream ``client_mode``, and ``data_weights`` (vote weights |D_qk| =
+    each client's row count, else unit weights)."""
     method: str = "dc_hier_signsgd"
     rho: float = 0.2
     iid: bool = False
@@ -52,16 +67,41 @@ class FedBenchCfg:
     decay: bool = False
     transport: str = "fused"
     state_layout: str = "flat"
+    clients_per_device: int = 1
+    participation: str = "full"
+    rate: float = 1.0
+    client_seed: int = 0
+    client_mode: str = "merged"
+    data_weights: bool = False
 
 
-def _stack_batches(device_data, cfg: FedBenchCfg, rng, dev):
-    """One step's [P, D, B, ...] batch: B rows per device, sampled in
-    (edge, device) order."""
-    rows = [[emnist_like.device_batches(device_data, q, k, cfg.batch, rng)
-             for k in range(cfg.devices_per_edge)]
+def client_config(cfg: FedBenchCfg, data) -> vclients.ClientConfig:
+    """The run's ClientConfig; ``data`` is the [Q][D*K] client split."""
+    k = cfg.clients_per_device
+    weights = None
+    if cfg.data_weights:
+        weights = tuple(tuple(tuple(len(data[q][d * k + c]["y"])
+                                    for c in range(k))
+                              for d in range(cfg.devices_per_edge))
+                        for q in range(cfg.q_edges))
+    return vclients.ClientConfig(
+        count=k, participation=cfg.participation, rate=cfg.rate,
+        seed=cfg.client_seed, weights=weights, mode=cfg.client_mode)
+
+
+def _stack_batches(client_data, cfg: FedBenchCfg, rng, dev):
+    """One step's [P, D, B, ...] batch: per device its K clients' B/K
+    rows each, stacked in carve order (client c of device d is data
+    client ``d*K + c``), sampled in (edge, device, client) order."""
+    k = cfg.clients_per_device
+    rows = [[[emnist_like.device_batches(client_data, q, d * k + c,
+                                         cfg.batch // k, rng)
+              for c in range(k)]
+             for d in range(cfg.devices_per_edge)]
             for q in range(cfg.q_edges)]
     return {key: torch.from_numpy(np.stack(
-        [np.stack([r[key] for r in edge]) for edge in rows])).to(dev)
+        [np.stack([np.concatenate([r[key] for r in dev_rows])
+                   for dev_rows in edge]) for edge in rows])).to(dev)
         for key in ("x", "y")}
 
 
@@ -70,22 +110,30 @@ def run_paper_task(cfg: FedBenchCfg, device: str = "cuda",
     """Train and evaluate; returns per-round curves, timings, the final
     state and its edge models.  Deterministic given ``cfg.seed``."""
     dev = resolve_device(device)
+    k = cfg.clients_per_device
+    vclients.validate_batch_carve(cfg.batch, k)
     dcfg = emnist_like.FedDataCfg(
         n_train=cfg.n_train, n_test=N_TEST, alpha=0.1, iid=cfg.iid,
         seed=cfg.seed, q_edges=cfg.q_edges,
-        devices_per_edge=cfg.devices_per_edge)
+        devices_per_edge=cfg.devices_per_edge * k)
     data, test, ew, dw = emnist_like.make_federated_data(dcfg)
     smallest = min(len(d["y"]) for edge in data for d in edge)
-    if smallest < cfg.batch:
+    if smallest < cfg.batch // k:
         raise ValueError(
-            f"the smallest device holds {smallest} rows < batch {cfg.batch}: "
-            "raise n_train or lower the batch")
+            f"the smallest {'client' if k > 1 else 'device'} holds "
+            f"{smallest} rows < its batch {cfg.batch // k}: raise n_train "
+            "or lower the batch")
     topo = Topology(cfg.q_edges, cfg.devices_per_edge, dev)
+    cc = client_config(cfg, data)
     algo = hier.AlgoConfig(
         method=cfg.method, mu=cfg.mu, mu_sgd=cfg.mu_sgd, t_e=cfg.t_e,
         rho=cfg.rho, transport=cfg.transport, state_layout=cfg.state_layout,
         compute_dtype=torch.float32, master_dtype=torch.float32,
-        delta_dtype=torch.float32, decay=cfg.decay)
+        delta_dtype=torch.float32, decay=cfg.decay, clients=cc)
+    if cc.active:
+        # the participating shares |D_qk| m_qk / sum_j |D_qj| m_qj come
+        # from the client weights; the per-device factor is one
+        dw = np.ones((cfg.q_edges, cfg.devices_per_edge), np.float32)
     init_fn, step = hier.make_hier_step(topo, algo, mlp.make_bundle())
     params0 = mlp.init_mlp(torch.Generator().manual_seed(cfg.seed))
     state = init_fn(params0, cfg.seed)
@@ -120,9 +168,12 @@ def run_paper_task(cfg: FedBenchCfg, device: str = "cuda",
             f"ms/step {out['ms_per_step'][-1]:.3f} "
             f"(+ data {out['data_ms_per_step'][-1]:.3f})")
     d = mlp.param_count(params0)
+    rate = cfg.rate if cfg.participation != "full" else 1.0
     out.update(state=state, params=hier.edge_params(state), d=d,
-               uplink_bits_per_round=signs.uplink_bits(cfg.method, d,
-                                                       cfg.t_e))
+               clients=cc,
+               uplink_bits_per_round=signs.uplink_bits(
+                   cfg.method, d, cfg.t_e, clients=k,
+                   participation_rate=rate))
     return out
 
 

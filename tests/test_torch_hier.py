@@ -10,8 +10,16 @@
     ``ref_fed.global_round`` oracle (P=4, D=5, the MLP narrowed to
     64-16-10) within atol 1e-5, the oracle cells' tolerance: autograd in
     PyTorch and XLA sum in different orders, so only the float path may
-    differ.
+    differ;
+  * with active virtual clients the streamed client sweep is bitwise the
+    merged voter axis for both sign methods x 3 transports x 2 layouts x
+    the parity harness's five participation regimes, the step agrees
+    with JAX ``make_hier_step`` on the same ``ClientConfig`` (merged and
+    stream) within atol 1e-5, and with gradients injected
+    (``tests/helpers/injected_grads.py``) bitwise.
 """
+import dataclasses
+import functools
 import pathlib
 import sys
 
@@ -23,6 +31,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent / "helpers"))
+import injected_grads  # noqa: E402
 import parity_harness as H  # noqa: E402
 
 from repro.core import flatbuf as jflat  # noqa: E402
@@ -189,7 +198,7 @@ def toy_loss(params, batch):
 
 
 def run_port(problem, bundle, transport, layout, steps=None, ew=None,
-             dw=None, anchors=True, **kw):
+             dw=None, anchors=True, mask=None, **kw):
     """The port's trajectory on a problem dict (numpy xs/ys [S, P, D,
     ...]); returns the final [P, *leaf] edge models as numpy."""
     pods, devs, t_e = problem["pods"], problem["devs"], problem["t_e"]
@@ -213,7 +222,9 @@ def run_port(problem, bundle, transport, layout, steps=None, ew=None,
             batch["anchor"] = {"x": torch.from_numpy(xs[a]),
                                "y": torch.from_numpy(ys[a])}
         state, metrics = step(state, batch, torch.from_numpy(ew),
-                              torch.from_numpy(dw), torch.ones(pods, devs))
+                              torch.from_numpy(dw),
+                              torch.ones(pods, devs) if mask is None
+                              else mask)
         assert torch.isfinite(metrics["loss"])
     return {k: v.clone() for k, v in hier.edge_params(state).items()}
 
@@ -340,8 +351,7 @@ def test_flat_fused_update_is_in_place():
     ({"method": "scaffold_hier_signsgd"}, "item 9"),
     ({"method": "mtgc_hier_signsgd"}, "item 9"),
     ({"error_feedback": True}, "item 8"), ({"momentum": 0.9}, "item 8"),
-    ({"cloud_overlap": "overlap"}, "item 12"),
-    ({"clients": hier.vclients.ClientConfig(count=2)}, "item 10")])
+    ({"cloud_overlap": "overlap"}, "item 12")])
 def test_unported_options_raise_with_their_roadmap_item(kw, item):
     algo = hier.AlgoConfig(**kw)
     with pytest.raises(NotImplementedError, match=item):
@@ -369,3 +379,213 @@ def test_pytree_order_is_sorted_keys():
     assert leaves == [3, 2, 1]
     assert pytree.tree_unflatten(td, [3, 2, 1]) == {"w2": 1,
                                                     "b": {"z": 2, "a": 3}}
+
+
+# -- virtual clients: merged and stream ---------------------------------------
+
+PC, DC, KC = 2, 3, 2          # the client cells' fleet: P x D devices x K
+
+
+def stream_of(cc):
+    return hier.vclients.ClientConfig(**{**cc.__dict__, "mode": "stream"})
+
+
+@functools.lru_cache(maxsize=None)
+def client_run(method, transport, layout, regime, mode):
+    """Final edge models (numpy) of the 64-16-10 MLP, P=2 x D=3 devices x
+    K=2 clients, 2 rounds of T_E=3, under a parity-harness regime."""
+    cc = H.client_cfg(PC, DC, KC, regime)
+    if mode == "stream":
+        cc = stream_of(cc)
+    prob = mlp_problem(PC, DC, 3, 2, b=8, seed=4)
+    rng = np.random.default_rng(9)
+    ew = rng.random(PC).astype(np.float32)
+    dw = rng.random((PC, DC)).astype(np.float32)
+    got = run_port(prob, mlp.make_bundle(), transport, layout,
+                   ew=ew / ew.sum(), dw=dw, anchors=False, method=method,
+                   rho=RHO, clients=cc)
+    return {k: v.numpy() for k, v in got.items()}
+
+
+@pytest.mark.parametrize("regime", H.CLIENT_REGIMES)
+@pytest.mark.parametrize("transport,layout", CELLS)
+@pytest.mark.parametrize("method", ["dc_hier_signsgd", "hier_signsgd"])
+def test_stream_matches_merged(method, transport, layout, regime):
+    """The streamed client loop (integer tally, deferred threshold) is
+    bitwise the merged [P, D*K] voter axis, and every cell is bitwise the
+    merged ag_packed/tree run."""
+    merged = client_run(method, transport, layout, regime, "merged")
+    stream = client_run(method, transport, layout, regime, "stream")
+    base = client_run(method, "ag_packed", "tree", regime, "merged")
+    for k in base:
+        np.testing.assert_array_equal(stream[k].view(np.int32),
+                                      merged[k].view(np.int32), err_msg=k)
+        np.testing.assert_array_equal(merged[k].view(np.int32),
+                                      base[k].view(np.int32), err_msg=k)
+
+
+@pytest.mark.parametrize("mode", ["merged", "stream"])
+@pytest.mark.parametrize("regime", H.CLIENT_REGIMES)
+@pytest.mark.parametrize("method", ["dc_hier_signsgd", "hier_signsgd"])
+def test_step_with_clients_matches_jax_make_hier_step(toy_problem, method,
+                                                      regime, mode):
+    """P=D=1 parity toy with K=4 clients: the port's fused/flat and
+    ag_packed/tree runs are bitwise each other and within atol 1e-5 of
+    the JAX step with the same ClientConfig."""
+    cc = H.client_cfg(1, 1, 4, regime)
+    tc = hier.vclients.ClientConfig(**cc.__dict__)
+    if mode == "stream":
+        cc = dataclasses.replace(cc, mode="stream")
+        tc = stream_of(tc)
+    want, _ = H.run_hier(single_device_topology(), toy_problem, method,
+                         "ag_packed", "tree", clients=cc)
+    bundle = hier.ModelBundle(loss=toy_loss)
+    runs = [run_port(toy_problem, bundle, t, lay, method=method, clients=tc)
+            for t, lay in (("fused", "flat"), ("ag_packed", "tree"))]
+    for k in want:
+        assert torch.equal(runs[0][k], runs[1][k]), k
+        np.testing.assert_allclose(runs[0][k][0].numpy(), want[k][0],
+                                   rtol=0, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("mode", ["merged", "stream"])
+@pytest.mark.parametrize("transport,layout", [("fused", "flat"),
+                                              ("ar_int8", "tree")])
+def test_client_granular_mask_and_empty_quorum(mode, transport, layout):
+    """A [P, D, K] dev_mask multiplies the round's participation; a pod
+    whose clients all abstain votes 0 and its edge model stays put, in
+    both modes alike."""
+    cc = H.client_cfg(PC, DC, KC, "sampled_weighted")
+    if mode == "stream":
+        cc = stream_of(cc)
+    prob = mlp_problem(PC, DC, 3, 1, b=8, seed=5)
+    algo = hier.AlgoConfig(method="dc_hier_signsgd", mu=MU, t_e=3, rho=RHO,
+                           transport=transport, state_layout=layout,
+                           compute_dtype=torch.float32, clients=cc)
+    init_fn, step = hier.make_hier_step(Topology(PC, DC, "cpu"), algo,
+                                        mlp.make_bundle())
+    state = init_fn(params_from_numpy(prob["w0"]))
+    ew, dw = torch.full((PC,), 1 / PC), torch.ones(PC, DC)
+    mask = torch.ones(PC, DC, KC)
+    mask[1] = 0.0                                   # pod 1: empty quorum
+    mask[0, 0, 1] = 0.0                             # one client of pod 0
+    before = None
+    finals = []
+    for s in range(3):
+        batch = {"train": {"x": torch.from_numpy(prob["xs"][s]),
+                           "y": torch.from_numpy(prob["ys"][s])}}
+        state, _ = step(state, batch, ew, dw, mask)
+        now = {k: v.clone() for k, v in hier.edge_params(state).items()}
+        if before is not None:
+            for k in now:
+                assert torch.equal(now[k][1], before[k][1]), k
+                assert not torch.equal(now[k][0], before[k][0]), k
+        before = now
+        finals.append(now)
+    other = "stream" if mode == "merged" else "merged"
+    algo2 = dataclasses.replace(
+        algo, clients=hier.vclients.ClientConfig(
+            **{**cc.__dict__, "mode": other}))
+    init2, step2 = hier.make_hier_step(Topology(PC, DC, "cpu"), algo2,
+                                       mlp.make_bundle())
+    state2 = init2(params_from_numpy(prob["w0"]))
+    for s in range(3):
+        batch = {"train": {"x": torch.from_numpy(prob["xs"][s]),
+                           "y": torch.from_numpy(prob["ys"][s])}}
+        state2, _ = step2(state2, batch, ew, dw, mask)
+    for k, v in hier.edge_params(state2).items():
+        assert torch.equal(v, finals[-1][k]), k
+    with pytest.raises(ValueError, match="client dim"):
+        step(state, batch, ew, dw, torch.ones(PC, DC, KC + 1))
+
+
+def test_client_granular_mask_needs_active_clients():
+    init_fn, step = hier.make_hier_step(
+        Topology(1, 1, "cpu"), hier.AlgoConfig(compute_dtype=torch.float32),
+        hier.ModelBundle(loss=toy_loss))
+    state = init_fn(params_from_numpy(
+        jax.tree.map(np.asarray, H.make_problem(1, 1)["w0"])))
+    with pytest.raises(ValueError, match="active"):
+        step(state, {"train": {}}, torch.ones(1), torch.ones(1, 1),
+             torch.ones(1, 1, 2))
+
+
+# -- injected gradients: bitwise against the JAX step -------------------------
+
+def jax_injected_bundle():
+    def loss(params, batch, rng):
+        return sum(jnp.sum(batch["g"][k][0] * params[k]) for k in params)
+    return jhier.ModelBundle(loss=loss, compute_specs=H.COMPUTE_SPECS,
+                             master_specs=H.COMPUTE_SPECS)
+
+
+def injected_problem(pods, devs, k, steps, seed):
+    gen = torch.Generator().manual_seed(seed)
+    w0 = rand_tree((), np.float32, seed)
+    grads = injected_grads.make_grads(toy_shapes(), pods, devs, k, steps, gen)
+    return w0, grads
+
+
+def run_port_injected(w0, grads, pods, devs, cc, transport, layout, t_e=3,
+                      **kw):
+    algo = hier.AlgoConfig(
+        mu=MU, t_e=t_e, rho=1.0, transport=transport, state_layout=layout,
+        compute_dtype=torch.float32, master_dtype=torch.float32,
+        delta_dtype=torch.float32, clients=cc, **kw)
+    init_fn, step = hier.make_hier_step(Topology(pods, devs, "cpu"), algo,
+                                        injected_grads.make_bundle())
+    state = init_fn(params_from_numpy(w0))
+    for s, g in enumerate(grads):
+        batch = {"train": g, "anchor": grads[s - s % t_e]}
+        state, _ = step(state, batch, torch.full((pods,), 1.0 / pods),
+                        torch.ones(pods, devs), torch.ones(pods, devs))
+    return {k: v.clone() for k, v in hier.edge_params(state).items()}
+
+
+@pytest.mark.parametrize("mode", ["merged", "stream"])
+@pytest.mark.parametrize("regime", ["sampled_weighted", "fixed"])
+@pytest.mark.parametrize("method", ["dc_hier_signsgd", "hier_signsgd"])
+def test_injected_grads_match_jax_step_bitwise(method, regime, mode):
+    """With the per-client gradients fed in, the port's step is bitwise the
+    JAX step (P=D=1, K=4, 3 rounds): the votes, weights, participation,
+    anchor and update see identical directions."""
+    cc = H.client_cfg(1, 1, 4, regime)
+    if mode == "stream":
+        cc = dataclasses.replace(cc, mode="stream")
+    w0, grads = injected_problem(1, 1, 4, 9, seed=12)
+    algo = H._algo(method, "ag_packed", "tree", t_e=3, clients=cc)
+    init_fn, step = jhier.make_hier_step(single_device_topology(), algo,
+                                         jax_injected_bundle())
+    state = jax.jit(init_fn)(jtree(w0), jax.random.PRNGKey(1))
+    jstep = jax.jit(step)
+    jgrads = [{"g": {k: jnp.asarray(v.numpy()) for k, v in g["g"].items()}}
+              for g in grads]
+    for s, g in enumerate(jgrads):
+        batch = {"train": g, "anchor": jgrads[s - s % 3]}
+        state, _ = jstep(state, batch, jnp.ones(1), jnp.ones((1, 1)),
+                         jnp.ones((1, 1)))
+    want = jax.tree.map(np.asarray, state.params)
+    tc = hier.vclients.ClientConfig(**cc.__dict__)
+    for transport, layout in (("fused", "flat"), ("ag_packed", "tree")):
+        got = run_port_injected(w0, grads, 1, 1, tc, transport, layout,
+                                method=method)
+        for k in want:
+            np.testing.assert_array_equal(got[k].numpy().view(np.int32),
+                                          want[k].view(np.int32), err_msg=k)
+
+
+@pytest.mark.parametrize("method", ["dc_hier_signsgd", "hier_signsgd"])
+def test_injected_grads_stream_merged_tree_bitwise(method):
+    """P=2 x D=3 x K=2 with injected gradients: streamed fused/flat ==
+    merged fused/flat == merged ag_packed/tree, bitwise (the triple that
+    chip_smoke.py runs on the card)."""
+    w0, grads = injected_problem(PC, DC, KC, 6, seed=13)
+    cc = H.client_cfg(PC, DC, KC, "sampled_weighted")
+    tc = hier.vclients.ClientConfig(**cc.__dict__)
+    runs = [run_port_injected(w0, grads, PC, DC, c, t, lay, method=method)
+            for c, t, lay in ((stream_of(tc), "fused", "flat"),
+                              (tc, "fused", "flat"),
+                              (tc, "ag_packed", "tree"))]
+    for k in runs[0]:
+        assert torch.equal(runs[0][k], runs[1][k]), k
+        assert torch.equal(runs[1][k], runs[2][k]), k

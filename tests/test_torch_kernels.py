@@ -1,5 +1,8 @@
 """The port's kernel plain versions and ``kernels.ops`` (CPU route) are
-bitwise the JAX package's Pallas kernels, run in interpret mode.
+bitwise the JAX package's Pallas kernels, run in interpret mode:
+``sign_pack``, ``vote_update``, ``tally_acc`` (int8 / int16 / int32
+tallies that do not start at zero, vote weights with zeros and an empty
+pod) and ``ternary_quant`` (uniforms injected at the JAX 2-D shape).
 
 P=2 edges x D=3 devices over n = 2*4096 coordinates, u in f32 and bf16,
 the DC correction re-read per voter (the slab map on the TPU, the (p, i)
@@ -17,12 +20,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import votes as jvotes
+from repro.core.topology import single_device_topology
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import signs
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import build, ops, ref
+from repro_torch.core import votes
 from repro_torch.kernels.sign_pack import sign_pack
+from repro_torch.kernels.tally_acc import tally_acc
+from repro_torch.kernels.ternary_quant import ternary_quant
 from repro_torch.kernels.vote_update import vote_update
 
 P, D, N = 2, 3, 2 * 4096
@@ -72,12 +80,16 @@ def as_i32(a) -> np.ndarray:
     return np.asarray(a).view(np.int32)
 
 
+KERNELS = (sign_pack, vote_update, tally_acc, ternary_quant)
+
+
 @pytest.fixture(autouse=True)
 def no_launches():
     """The CPU route never launches a kernel."""
-    sign_pack.launches = vote_update.launches = 0
+    for k in KERNELS:
+        k.launches = 0
     yield
-    assert sign_pack.launches == 0 and vote_update.launches == 0
+    assert all(k.launches == 0 for k in KERNELS)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -205,4 +217,233 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(build.os.path, "isfile", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
-    assert len(build.sources()) == 2
+    assert [p.name for p in build.sources()] == [
+        "sign_pack.cu", "tally_acc.cu", "ternary_quant.cu", "vote_update.cu"]
+    assert set(build.SIGNATURES) == {
+        "repro_sign_pack_f32", "repro_sign_pack_bf16", "repro_vote_update",
+        "repro_tally_acc", "repro_ternary_quant"}
+
+
+# -- tally_acc: the streamed client sweep's per-client fold -----------------
+
+TALLY_DTYPES = {torch.int8: (np.int8, 4), torch.int16: (np.int16, 700),
+                torch.int32: (np.int32, 40000)}
+
+
+def tally_inputs(tally_dtype, seed):
+    """Starting tallies that are not zero and vote weights with zeros and
+    an empty pod (pod 1), within the tally dtype's range."""
+    np_dt, hi = TALLY_DTYPES[tally_dtype]
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, hi, (P, D)).astype(np.int32)
+    w[0, 1] = 0
+    w[1] = 0
+    t0 = rng.integers(-20, 20, (P, D, N)).astype(np_dt)
+    return w, t0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tally_dtype", list(TALLY_DTYPES))
+@pytest.mark.parametrize("rho", [0.0, RHO])
+def test_tally_acc_matches_pallas(dtype, tally_dtype, rho):
+    u, delta = make_inputs(dtype, seed=5)
+    w, t0 = tally_inputs(tally_dtype, 6)
+    d = delta if rho else None
+    want = jops.fused_tally_acc_flat(jnp.asarray(u), jnp_or_none(d), rho,
+                                     jnp.asarray(w), jnp.asarray(t0),
+                                     interpret=True)
+    want_eager = jref.tally_acc_ref(jnp.asarray(u), jnp_or_none(d), rho,
+                                    jnp.asarray(w), jnp.asarray(t0))
+    u_t, d_t = tensor_from_numpy(u), tensor_or_none(d)
+    w_t, t_t = torch.from_numpy(w), torch.from_numpy(t0.copy())
+    got_ref = ref.tally_acc_ref(u_t, d_t, rho, w_t, t_t)
+    got = ops.fused_tally_acc_flat(u_t, d_t, rho, w_t, t_t)
+    assert got is t_t and got.dtype == tally_dtype     # updated in place
+    for g in (got_ref, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want_eager))
+    np.testing.assert_array_equal(got[1].numpy(), t0[1])   # weight 0
+    if not rho:       # the -1e-40 coordinates count as 0 -> +1 (w * 1)
+        np.testing.assert_array_equal(
+            got[0, 2, :32].numpy().astype(np.int64),
+            t0[0, 2, :32].astype(np.int64) + w[0, 2])
+
+
+def test_tally_acc_exact_cancellation_rounds_like_the_eager_reference():
+    """As for sign_pack: where u + rho*delta cancels exactly in f32 the
+    port (and the eager reference) add +w, the FMA-contracted interpret
+    run takes the sign of the product's rounding error."""
+    u, delta = make_inputs(torch.float32, cancel=True)
+    w, t0 = tally_inputs(torch.int16, 7)
+    w[1] = 3                                   # pod 1 votes
+    got = ref.tally_acc_ref(tensor_from_numpy(u), tensor_from_numpy(delta),
+                            RHO, torch.from_numpy(w), torch.from_numpy(t0))
+    eager = jref.tally_acc_ref(jnp.asarray(u), jnp.asarray(delta), RHO,
+                               jnp.asarray(w), jnp.asarray(t0))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(eager))
+    np.testing.assert_array_equal(got[1, :, :256].numpy(),
+                                  t0[1, :, :256] + 3)
+    fused = np.asarray(jops.fused_tally_acc_flat(
+        jnp.asarray(u), jnp.asarray(delta), RHO, jnp.asarray(w),
+        jnp.asarray(t0), interpret=True))
+    differ = np.argwhere(fused != got.numpy())
+    assert len(differ) and (differ[:, 0] == 1).all() and \
+        (differ[:, 2] < 256).all()
+
+
+@pytest.mark.parametrize("tally_dtype", list(TALLY_DTYPES))
+def test_tally_accumulate_words_matches_reference(tally_dtype):
+    """The word-level fold (one client's packed uplink into the tally) is
+    the reference's, and equals tally_acc on the unpacked directions."""
+    u, delta = make_inputs(torch.float32, seed=11)
+    w, t0 = tally_inputs(tally_dtype, 12)
+    words = ops.fused_pack_flat(tensor_from_numpy(u),
+                                tensor_from_numpy(delta), RHO)
+    got = votes.tally_accumulate_words(words, torch.from_numpy(w),
+                                       torch.from_numpy(t0))
+    want = jvotes.tally_accumulate_words(
+        jnp.asarray(words.numpy()).view(jnp.uint32), jnp.asarray(w),
+        jnp.asarray(t0))
+    assert got.dtype == tally_dtype
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    direct = ops.fused_tally_acc_flat(
+        tensor_from_numpy(u), tensor_from_numpy(delta), RHO,
+        torch.from_numpy(w), torch.from_numpy(t0.copy()))
+    np.testing.assert_array_equal(got.numpy(), direct.numpy())
+
+
+@pytest.mark.parametrize("rho", [0.0, RHO])
+def test_tally_fold_equals_merged_vote(rho):
+    """Folding K clients through tally_acc and thresholding the summed
+    tally is the weighted vote of the merged [P, D*K] voter axis (voter
+    d*K + c), as vote_update computes it from the packed words and as
+    the reference's int-tally vote computes it -- the CPU twin of the
+    card-side check in chip_smoke.py."""
+    k = 4
+    rng = np.random.default_rng(8)
+    us = rng.standard_normal((k, P, D, N)).astype(np.float32)
+    delta = rng.standard_normal((P, N)).astype(np.float32)
+    ws = rng.integers(0, 3, (k, P, D)).astype(np.int32)
+    ws[:, 1, :] = 0                                 # pod 1 abstains
+    bound = int(ws.sum(axis=(0, 2)).max())
+    tally = torch.zeros((P, D, N), dtype=votes.tally_dtype(bound))
+    d_t = torch.from_numpy(delta)
+    for c in range(k):
+        ops.fused_tally_acc_flat(torch.from_numpy(us[c]), d_t, rho,
+                                 torch.from_numpy(ws[c]), tally)
+    n_eff = torch.from_numpy(ws.sum(axis=(0, 2)).astype(np.int32))
+    got = votes.tally_vote_dev(tally, n_eff)
+    u_m = torch.from_numpy(np.ascontiguousarray(
+        us.transpose(1, 2, 0, 3).reshape(P, D * k, N)))
+    w_m = torch.from_numpy(np.ascontiguousarray(
+        ws.transpose(1, 2, 0).reshape(P, D * k)))
+    merged = ops.fused_sign_vote_flat(u_m, d_t, rho, w_m)
+    np.testing.assert_array_equal(got.numpy(), merged.numpy())
+    assert not got[1].any()
+    s_m = signs.sgn(u_m + ref.f32(rho) * d_t[:, None]) if rho else \
+        signs.sgn(u_m)
+    want = jvotes.vote_ar_int8(single_device_topology(),
+                               jnp.asarray(s_m.numpy()),
+                               jnp.asarray(w_m.numpy()), weight_bound=bound)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- ternary_quant ------------------------------------------------------------
+
+def ternary_inputs(dtype, seed):
+    """x [64, 4096] (the JAX kernel's block) with zeros, signed zeros,
+    subnormals, a NaN and values whose |x|/norm is subnormal, and u with
+    zeros where those sit."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((64, 4096)).astype(np.float32)
+    x[0, :16] = 0.0
+    x[0, 16:32] = -0.0
+    x[0, 32:48] = 1e-40
+    x[0, 48:64] = -1e-39
+    x[0, 64:80] = 1e-37 * np.sign(x[0, 64:80])
+    x[1, 0] = np.nan
+    u = rng.random((64, 4096)).astype(np.float32)
+    u[0, :80] = 0.0
+    return x.astype(NP_DTYPES[dtype]), u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", ["l2", "big", "zero"])
+def test_ternary_quant_matches_pallas(dtype, norm):
+    x, u = ternary_inputs(dtype, 9)
+    finite = np.nan_to_num(x.astype(np.float32))
+    n = {"l2": np.float32(np.linalg.norm(finite)), "big": np.float32(1e4),
+         "zero": np.float32(0.0)}[norm]
+    from repro.kernels import ternary_quant as jtq
+    want = np.asarray(jtq.ternary_quant(jnp.asarray(x), jnp.asarray(u),
+                                        jnp.asarray(n), interpret=True))
+    want_eager = np.asarray(jref.ternary_quant_ref(
+        jnp.asarray(x), jnp.asarray(u), jnp.asarray(n)))
+    x_t, u_t = tensor_from_numpy(x), torch.from_numpy(u)
+    n_t = torch.tensor(n)
+    got = ternary_quant(x_t, u_t, n_t)
+    assert got.dtype == dtype and got.shape == x_t.shape
+    for w in (want, want_eager):
+        np.testing.assert_array_equal(
+            got.to(torch.float32).numpy().view(np.int32),
+            w.astype(np.float32).view(np.int32))
+    np.testing.assert_array_equal(
+        ref.ternary_quant_ref(x_t, u_t, n_t).to(torch.float32).numpy(),
+        got.to(torch.float32).numpy())
+    if norm == "zero":
+        assert not got.to(torch.float32).any()
+    else:              # zeros and subnormals give 0 even with u = 0
+        assert not got[0, :64].to(torch.float32).any()
+
+
+@pytest.mark.parametrize("shape", [(500,), (32, 48), (3, 4096)])
+def test_ternary_quant_nd_draws_from_its_generator(shape):
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        shape).astype(np.float32))
+    got = ops.ternary_quant_nd(x, torch.Generator().manual_seed(3))
+    assert got.shape == x.shape
+    u = torch.rand(x.numel(), generator=torch.Generator().manual_seed(3))
+    norm = torch.linalg.vector_norm(x.reshape(-1))
+    np.testing.assert_array_equal(
+        got.numpy(), ref.ternary_quant_ref(x.reshape(-1), u,
+                                           norm).reshape(shape).numpy())
+    vals = set(np.unique(np.abs(got.numpy())))
+    assert vals <= {0.0, float(norm)} and len(vals) == 2
+    assert np.array_equal(np.sign(got.numpy())[got.numpy() != 0],
+                          np.sign(x.numpy())[got.numpy() != 0])
+
+
+def test_ternary_quant_nd_is_unbiased():
+    """E[q] = x: the mean of many draws is within 5 standard errors."""
+    x = torch.tensor([0.5, -1.0, 2.0, 0.0, -0.25])
+    gen = torch.Generator().manual_seed(4)
+    draws = torch.stack([ops.ternary_quant_nd(x, gen) for _ in range(4000)])
+    norm = float(torch.linalg.vector_norm(x))
+    se = norm / np.sqrt(4000)
+    np.testing.assert_allclose(draws.mean(0).numpy(), x.numpy(),
+                               atol=5 * se)
+
+
+def test_new_wrappers_check_their_inputs():
+    u = torch.zeros(P, D, N)
+    w = torch.ones(P, D, dtype=torch.int32)
+    t = torch.zeros(P, D, N, dtype=torch.int16)
+    with pytest.raises(ValueError, match="tally must be"):
+        tally_acc(u, None, 0.0, w, t.to(torch.float32))
+    with pytest.raises(ValueError, match="weights must be"):
+        tally_acc(u, None, 0.0, w.float(), t)
+    with pytest.raises(ValueError, match="delta must be"):
+        tally_acc(u, torch.zeros(P, N, dtype=torch.bfloat16), RHO, w, t)
+    with pytest.raises(ValueError, match="contiguous"):
+        tally_acc(u, None, 0.0, w, torch.zeros(D, P, N,
+                                                dtype=torch.int16)
+                  .transpose(0, 1))
+    with pytest.raises(ValueError, match="u must be"):
+        tally_acc(u.double(), None, 0.0, w, t)
+    x = torch.zeros(8)
+    with pytest.raises(ValueError, match="u must be"):
+        ternary_quant(x, torch.zeros(9), torch.tensor(1.0))
+    with pytest.raises(ValueError, match="norm must be"):
+        ternary_quant(x, torch.zeros(8), torch.ones(1))
+    with pytest.raises(ValueError, match="dtype"):
+        ternary_quant(x.double(), torch.zeros(8), torch.tensor(1.0))

@@ -152,6 +152,66 @@ def test_cli_parses_config_fields(monkeypatch):
     assert (seen["cfg"].rounds, seen["cfg"].batch, seen["cfg"].iid,
             seen["cfg"].rho, seen["cfg"].transport) == (2, 400, True, 0.5,
                                                         "ar_int8")
+    train.main(["--clients_per_device", "2", "--participation", "fixed",
+                "--rate", "0.5", "--client_seed", "11", "--client_mode",
+                "stream", "--data_weights", "--device", "cpu"])
+    cfg = seen["cfg"]
+    assert (cfg.clients_per_device, cfg.participation, cfg.rate,
+            cfg.client_seed, cfg.client_mode, cfg.data_weights) == (
+        2, "fixed", 0.5, 11, "stream", True)
+
+
+def test_virtual_clients_stream_equals_merged_on_cpu():
+    """The launcher with K=2 clients per device, Bernoulli(0.5) participation
+    and |D_qk| row-count weights: the streamed fused/flat run is bitwise
+    the merged fused/flat and ag_packed/tree runs, and its test loss
+    falls."""
+    cfg = train.FedBenchCfg(rounds=2, t_e=2, clients_per_device=2,
+                            participation="bernoulli", rate=0.5,
+                            client_seed=11, data_weights=True,
+                            client_mode="stream")
+    res = train.run_paper_task(cfg, device="cpu", log=lambda line: None)
+    assert res["loss"][-1] < res["loss"][0]
+    cc = res["clients"]
+    assert cc.active and cc.mode == "stream" and cc.count == 2
+    data = emnist_like.make_federated_data(emnist_like.FedDataCfg(
+        n_train=cfg.n_train, n_test=train.N_TEST, q_edges=4,
+        devices_per_edge=10))[0]
+    assert cc.weights[2][3][1] == len(data[2][7]["y"])
+    assert res["uplink_bits_per_round"] == 2 * 0.5 * (2 * 50890
+                                                      + 32 * 50890)
+    for mode, transport, layout in (("merged", "fused", "flat"),
+                                    ("merged", "ag_packed", "tree")):
+        other = train.run_paper_task(
+            dataclasses.replace(cfg, client_mode=mode, transport=transport,
+                                state_layout=layout),
+            device="cpu", log=lambda line: None)
+        for k, v in res["params"].items():
+            assert torch.equal(v, other["params"][k]), (mode, k)
+        assert other["loss"] == res["loss"]
+
+
+def test_launcher_rejects_a_batch_the_clients_do_not_divide():
+    with pytest.raises(ValueError, match="does not divide"):
+        train.run_paper_task(train.FedBenchCfg(rounds=1, t_e=1, batch=63,
+                                               clients_per_device=2),
+                             device="cpu")
+
+
+def test_batches_stack_clients_in_carve_order():
+    """Device d's rows [c*B/K, (c+1)*B/K) are data client d*K + c's."""
+    cfg = train.FedBenchCfg(q_edges=2, devices_per_edge=2, batch=6,
+                            clients_per_device=3)
+    rng = np.random.default_rng(0)
+    data = [[{"x": np.full((4, 2), 10 * q + j, np.float32),
+              "y": np.full(4, j, np.int32)} for j in range(6)]
+            for q in range(2)]
+    b = train._stack_batches(data, cfg, rng, "cpu")
+    assert b["x"].shape == (2, 2, 6, 2)
+    for q in range(2):
+        for d in range(2):
+            want = np.repeat([d * 3 + c for c in range(3)], 2)
+            np.testing.assert_array_equal(b["y"][q, d].numpy(), want)
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
