@@ -7,16 +7,24 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-  1. build the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc);
+  1. build the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc),
+     and print ``-Xptxas -v``'s registers, shared memory and spills of
+     ``sign_pack`` and ``vote_update``, one line each;
   2. hold each kernel bitwise against its plain PyTorch version on the
      card -- at the main path's shape [4, 5, 53248] and at [4, 5, 2^22],
      u in f32 and bf16, the DC correction on and off, voter masks none /
      bool (all voters, as the main path passes it, and with voters
      dropped and one pod's quorum empty) / integer weights with one
-     pod's quorum empty, the update and the vote-only forms -- and time
-     both with CUDA events (median over
-     repeats, the L2 cache flushed before each launch), plus each
-     kernel's own device time from ``torch.profiler``;
+     pod's quorum empty, the update and the vote-only forms, v with
+     subnormal coordinates (flushed to signed zeros, the empty quorum's
+     row otherwise untouched) -- and time both with CUDA events (median
+     over repeats, the L2 cache flushed before each launch), plus each
+     kernel's own device time from ``torch.profiler``.  Then the same
+     for the edges of the tiled designs: n of one 1024-coordinate tile,
+     of one 4096 flat-buffer tile, of 3 x 4096 and of 3 x 4096 + 384 (a
+     ragged last tile), P = D = 1, and D = 10 (the clients phase's
+     merged voter axis); and inputs that are not 16-byte aligned, which
+     the wrappers must refuse with ``ValueError`` and no launch.
      The same for ``tally_acc`` (2 shapes x f32/bf16 x int8/int16/int32
      tallies that do not start at zero x correction on/off, vote weights
      with zeros and pod 1's quorum empty, plus a fold of K=2 clients
@@ -55,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -77,6 +86,31 @@ SOURCES = {
     "ternary_quant": ("src/repro_torch/csrc/ternary_quant.cu",
                       "src/repro/kernels/ternary_quant.py:31"),
 }
+
+
+def ptxas_entries(report: str, kernel: str) -> list:
+    """Registers, static shared memory and spill bytes of every
+    instantiation of ``kernel`` in an ``nvcc -Xptxas -v`` report."""
+    entries, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"function": m.group(1)} if kernel in m.group(1) else None
+            if cur is not None:
+                entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return entries
 
 
 def fail(msg: str) -> None:
@@ -201,52 +235,120 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
                                                             "operations")
 
 
-def phase_kernels(torch, timer):
-    """Kernels vs plain versions, bitwise; returns the main-path rows."""
+SUBNORMALS = (1e-40, -1e-40, -1e-45, 3e-39)    # in v: each flushes to +-0
+
+
+def sign_pack_case(torch, timer, u, dl, extra: dict) -> dict:
+    """sign_pack on u (and the correction dl, or None) against its plain
+    version, bitwise and timed; returns the emitted row."""
     from repro_torch.core import signs
     from repro_torch.kernels import ref
     from repro_torch.kernels.sign_pack import sign_pack
+
+    got = sign_pack(u, dl, RHO)
+    want = ref.sign_pack_ref(u, dl, RHO)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum())
+    err = float((signs.unpack_bits(got) - signs.unpack_bits(want)).abs().max())
+    row = {"kernel": "sign_pack", "shape": list(u.shape), **extra,
+           "dtype": str(u.dtype).split(".")[-1], "delta": dl is not None,
+           "mismatched_words": mism, "max_abs_err": err}
+    row = timed_row(timer, row, lambda: sign_pack(u, dl, RHO),
+                    lambda: ref.sign_pack_ref(u, dl, RHO), "sign_pack_kernel",
+                    sign_pack_bytes(u.shape, u.element_size(), dl is not None),
+                    sign_pack_ops(u.shape, dl is not None))
+    require(mism == 0, f"sign_pack disagrees with its plain version: {row}")
+    return row
+
+
+def vote_update_case(torch, timer, words, v0, mname, mask, update: bool,
+                     extra: dict) -> dict:
+    """vote_update (the update form on a copy of v0, or the vote-only
+    form) against its plain version, bitwise and timed.  A pod whose
+    quorum is empty (pod 1 of the *_empty_quorum masks) must keep its row
+    of v but for the flush of its subnormals, and vote 0."""
+    from repro_torch.core import signs
+    from repro_torch.kernels import ref
     from repro_torch.kernels.vote_update import vote_update
+
+    p, d, w = words.shape
+    if update:
+        got = vote_update(words, v0.clone(), MU, mask)
+        want = ref.vote_update_ref(words, v0, MU, mask)
+        torch.cuda.synchronize()
+        mism = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        err = float((got - want).abs().max())
+        untouched = p < 2 or torch.equal(
+            got[1].view(torch.int32), signs.ftz(v0[1]).view(torch.int32))
+        v = v0.clone()
+        kfn = lambda: vote_update(words, v, MU, mask)
+        pfn = lambda: ref.vote_update_ref(words, v0, MU, mask)
+    else:
+        got = vote_update(words, None, 0.0, mask)
+        want = ref.vote_update_ref(words, None, 0.0, mask)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        err = float((got.float() - want.float()).abs().max())
+        untouched = p < 2 or not bool(got[1].any())
+        kfn = lambda: vote_update(words, None, 0.0, mask)
+        pfn = lambda: ref.vote_update_ref(words, None, 0.0, mask)
+    wbytes = 0 if mask is None else mask.numel() * mask.element_size()
+    row = {"kernel": "vote_update", "shape": [p, d, w * 32], **extra,
+           "mask": mname, "form": "update" if update else "vote",
+           "subnormal_v": update, "mismatched": mism, "max_abs_err": err}
+    row = timed_row(timer, row, kfn, pfn, "vote_update_kernel",
+                    vote_update_bytes((p, d, w * 32), update, wbytes),
+                    vote_update_ops((p, d, w * 32), update))
+    require(mism == 0, f"vote_update disagrees with its plain version: {row}")
+    if mname.endswith("empty_quorum"):
+        require(untouched, f"pod 1's empty quorum moved its model (beyond "
+                f"flushing its subnormals) or voted: {row}")
+    return row
+
+
+def special_inputs(torch, gen, shape, dtype):
+    """u and delta of ``shape`` with signed zeros, NaN, subnormals, and
+    coordinates where u + rho*delta is exactly 0 in separate f32 rounding
+    (an FMA would not be), wherever the shape has room for them."""
+    from repro_torch.kernels import ref
+
+    p, d, n = shape
+    u = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    delta = torch.randn((p, n), generator=gen, device="cuda").to(dtype)
+    u[0, 0, :64] = 0.0
+    u[0, 0, 64:128] = -0.0
+    # NaN, and a subnormal (counts as 0): rows 1 and 2, or past the zeros
+    nan_at = (0, 1, slice(0, 32)) if d >= 3 else (0, d - 1, slice(128, 160))
+    sub_at = (0, 2, slice(0, 32)) if d >= 3 else (0, d - 1, slice(160, 192))
+    u[nan_at] = float("nan")
+    u[sub_at] = -1e-40
+    q, c = (1, slice(0, 4096)) if p > 1 else (0, slice(n // 2, n))
+    u[q, :, c] = (-(ref.f32(RHO) * delta[q, c].float())).to(dtype)
+    return u, delta
+
+
+def model_rows(torch, gen, shape):
+    """v of [P, n] with subnormal coordinates in every pod."""
+    p, _, n = shape
+    v0 = torch.randn((p, n), generator=gen, device="cuda")
+    for i, x in enumerate(SUBNORMALS):
+        v0[:, 32 * i:32 * (i + 1)] = x
+    return v0
+
+
+def phase_kernels(torch, timer):
+    """Kernels vs plain versions, bitwise; returns the main-path rows."""
+    from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_rows = {}
     for shape in (MAIN_SHAPE, LARGE_SHAPE):
         p, d, n = shape
         for dtype in (torch.float32, torch.bfloat16):
-            u = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            delta = torch.randn((p, n), generator=gen, device="cuda").to(dtype)
-            # signed zeros, NaN, subnormals, and coordinates where
-            # u + rho*delta is exactly 0 in separate f32 rounding (an FMA
-            # would not be)
-            u[0, 0, :64] = 0.0
-            u[0, 0, 64:128] = -0.0
-            u[0, 1, :32] = float("nan")
-            u[0, 2, :32] = -1e-40           # subnormal in f32: counts as 0
-            u[1, :, :4096] = (-(ref.f32(RHO) * delta[1, :4096].float())
-                              ).to(dtype)
+            u, delta = special_inputs(torch, gen, shape, dtype)
             for with_delta in (False, True):
-                dl = delta if with_delta else None
-                got = sign_pack(u, dl, RHO)
-                want = ref.sign_pack_ref(u, dl, RHO)
-                torch.cuda.synchronize()
-                mism = int((got != want).sum())
-                err = float((signs.unpack_bits(got)
-                             - signs.unpack_bits(want)).abs().max())
-                row = {"kernel": "sign_pack", "shape": list(shape),
-                       "dtype": str(dtype).split(".")[-1],
-                       "delta": with_delta, "mismatched_words": mism,
-                       "max_abs_err": err,
-                       "kernel_ms": timer(lambda: sign_pack(u, dl, RHO)),
-                       "kernel_device_ms": timer.device_ms(
-                           lambda: sign_pack(u, dl, RHO), "sign_pack_kernel"),
-                       "plain_ms": timer(
-                           lambda: ref.sign_pack_ref(u, dl, RHO))}
-                row["bound_ms"], row["bound_by"] = bound(
-                    sign_pack_bytes(shape, u.element_size(), with_delta),
-                    sign_pack_ops(shape, with_delta))
-                emit(row)
-                require(mism == 0, f"sign_pack disagrees with its plain "
-                        f"version: {row}")
+                row = sign_pack_case(torch, timer, u,
+                                     delta if with_delta else None, {})
                 if (shape, dtype, with_delta) == (MAIN_SHAPE, torch.float32,
                                                   True):
                     main_rows["sign_pack"] = row
@@ -263,49 +365,89 @@ def phase_kernels(torch, timer):
                 dtype=torch.int32, device="cuda")[:p, :d],
         }
         for mname, mask in masks.items():
-            v0 = torch.randn((p, n), generator=gen, device="cuda")
+            v0 = model_rows(torch, gen, shape)
             for update in (True, False):
-                if update:
-                    got = vote_update(words, v0.clone(), MU, mask)
-                    want = ref.vote_update_ref(words, v0, MU, mask)
-                    torch.cuda.synchronize()
-                    mism = int((got.view(torch.int32)
-                                != want.view(torch.int32)).sum())
-                    err = float((got - want).abs().max())
-                    untouched = torch.equal(got[1], v0[1])
-                    v = v0.clone()
-                    kfn = lambda: vote_update(words, v, MU, mask)
-                    pfn = lambda: ref.vote_update_ref(words, v0, MU, mask)
-                else:
-                    got = vote_update(words, None, 0.0, mask)
-                    want = ref.vote_update_ref(words, None, 0.0, mask)
-                    torch.cuda.synchronize()
-                    mism = int((got != want).sum())
-                    err = float((got.float() - want.float()).abs().max())
-                    untouched = not bool(got[1].any())
-                    kfn = lambda: vote_update(words, None, 0.0, mask)
-                    pfn = lambda: ref.vote_update_ref(words, None, 0.0, mask)
-                wbytes = 0 if mask is None else mask.numel() * \
-                    mask.element_size()
-                row = {"kernel": "vote_update", "shape": list(shape),
-                       "mask": mname, "form": "update" if update else "vote",
-                       "mismatched": mism, "max_abs_err": err,
-                       "kernel_ms": timer(kfn),
-                       "kernel_device_ms": timer.device_ms(
-                           kfn, "vote_update_kernel"),
-                       "plain_ms": timer(pfn)}
-                row["bound_ms"], row["bound_by"] = bound(
-                    vote_update_bytes(shape, update, wbytes),
-                    vote_update_ops(shape, update))
-                emit(row)
-                require(mism == 0, f"vote_update disagrees with its plain "
-                        f"version: {row}")
-                if mname.endswith("empty_quorum"):
-                    require(untouched, f"pod 1's empty quorum moved its "
-                            f"model or voted: {row}")
+                row = vote_update_case(torch, timer, words, v0, mname, mask,
+                                       update, {})
                 if (shape, mname, update) == (MAIN_SHAPE, "bool", True):
                     main_rows["vote_update"] = row
     return main_rows
+
+
+# The tiled designs' edges: tiles of 1024 coordinates (which divide every
+# multiple of 4096, so the ragged case is n = 3*4096 + 384), one pod and
+# one voter, the clients phase's merged voter axis D*K = 10, and more
+# voters than vote_update's byte counters hold (it counts them in int32).
+EDGE_SHAPES = {
+    "one kernel tile": (4, 5, 1024),
+    "one flat-buffer tile": (4, 5, 4096),
+    "odd number of 4096-tiles": (4, 5, 3 * 4096),
+    "ragged last kernel tile": (4, 5, 3 * 4096 + 384),
+    "P = D = 1": (1, 1, 53248),
+    "D = 10": (4, 10, 53248),
+    "D = 300": (2, 300, 4096),     # vote_update's int32 counters
+}
+
+
+def edge_masks(torch, gen, p, d):
+    """none, and bool / int32 weights with zeros and pod 1's quorum empty
+    (pod 0 keeps at least one voter)."""
+    bits = torch.rand((p, d), generator=gen, device="cuda") < 0.6
+    ints = torch.randint(0, 8, (p, d), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    bits[0, 0], ints[0, 0] = True, 3
+    if p > 1:
+        bits[1], ints[1] = False, 0
+    return {"none": None, "bool_empty_quorum": bits,
+            "int_empty_quorum": ints}
+
+
+def phase_edges(torch, timer):
+    """sign_pack and vote_update at EDGE_SHAPES, bitwise and timed; then
+    inputs that are not 16-byte aligned, which the wrappers must refuse
+    without launching."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.vote_update import vote_update
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, shape in EDGE_SHAPES.items():
+        p, d, n = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            u, delta = special_inputs(torch, gen, shape, dtype)
+            sign_pack_case(torch, timer, u, delta, {"case": name})
+        words = ref.sign_pack_ref(
+            torch.randn(shape, generator=gen, device="cuda"), None, 0.0)
+        v0 = model_rows(torch, gen, shape)
+        for mname, mask in edge_masks(torch, gen, p, d).items():
+            for update in (True, False):
+                vote_update_case(torch, timer, words, v0, mname, mask,
+                                 update, {"case": name})
+
+    p, d, n = MAIN_SHAPE
+    off = lambda *dims, **kw: torch.empty(
+        int(torch.tensor(dims).prod()) + 1, device="cuda", **kw)[1:].view(dims)
+    u = torch.randn(MAIN_SHAPE, device="cuda")
+    words = sign_pack(u)
+    refused = []
+    for what, call in (
+            ("sign_pack u", lambda: sign_pack(off(p, d, n))),
+            ("sign_pack delta", lambda: sign_pack(u, off(p, n), RHO)),
+            ("vote_update words", lambda: vote_update(
+                off(p, d, n // 32, dtype=torch.int32), None, 0.0)),
+            ("vote_update v", lambda: vote_update(words, off(p, n), MU))):
+        launches = (sign_pack.launches, vote_update.launches)
+        try:
+            call()
+        except ValueError as e:
+            refused.append(what)
+            print(f"[edges] misaligned {what} refused: {e}", flush=True)
+        torch.cuda.synchronize()
+        require((sign_pack.launches, vote_update.launches) == launches,
+                f"a kernel launched on a misaligned {what}")
+    emit({"check": "inputs not 16-byte aligned are refused",
+          "refused": refused})
+    require(len(refused) == 4, f"only {refused} were refused")
 
 
 def timed_row(timer, row, kfn, pfn, kernel, nbytes, ops):
@@ -313,6 +455,8 @@ def timed_row(timer, row, kfn, pfn, kernel, nbytes, ops):
                kernel_device_ms=timer.device_ms(kfn, kernel),
                plain_ms=timer(pfn))
     row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+    if row["kernel_device_ms"]:
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_device_ms"]
     emit(row)
     return row
 
@@ -705,11 +849,15 @@ def main() -> None:
     t0 = time.perf_counter()
     build.load()
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
+    for kernel in ("sign_pack_kernel", "vote_update_kernel"):
+        emit({"ptxas": kernel,
+              "instances": ptxas_entries(build.ptxas_report(), kernel)})
 
     from repro_torch.core.topology import resolve_device
     resolve_device("cuda")
     timer = Timer(torch)
     main_rows = phase_kernels(torch, timer)
+    phase_edges(torch, timer)
     main_rows["tally_acc"] = phase_tally(torch, timer)
     main_rows["ternary_quant"] = phase_ternary(torch, timer)
     fused, plain, launches = phase_slice(torch)

@@ -299,7 +299,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
                 algo.rho if fold_dc else 0.0, vote_w)
         else:
             direction = vote_tree(pytree.tree_map(signs.sgn, u_dev), vote_w)
-        new = pytree.tree_map(lambda v, s: v - mu * s.to(v.dtype), params,
+        new = pytree.tree_map(lambda v, s: signs.descend(v, mu, s), params,
                               direction)
         return new, losses
 
@@ -318,7 +318,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
             return params.replace(new_buf), losses
         direction = vote_tree(pytree.tree_map(signs.sgn, u_dev), vote_w)
         dir_buf = flatbuf.flatten_tree(layout, direction, 1, params.buf.dtype)
-        return params.replace(params.buf - mu * dir_buf), losses
+        return params.replace(signs.descend(params.buf, mu, dir_buf)), losses
 
     def local_step_stream(params, delta, batch, vote_w3, mu):
         """mode='stream': loop over the K clients with one client's
@@ -379,8 +379,9 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
         if flat:
             dir_buf = flatbuf.flatten_tree(params.layout, direction, 1,
                                            params.buf.dtype)
-            return params.replace(params.buf - mu * dir_buf), losses
-        return pytree.tree_map(lambda v, s: v - mu * s.to(v.dtype), params,
+            return (params.replace(signs.descend(params.buf, mu, dir_buf)),
+                    losses)
+        return pytree.tree_map(lambda v, s: signs.descend(v, mu, s), params,
                                direction), losses
 
     def on_device(tree):
@@ -432,10 +433,12 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
                     delta, delta_next = delta_next, fresh
                 else:
                     delta = fresh
-        mu = torch.tensor(algo.mu, dtype=algo.master_dtype, device=dev)
+        # flushed once here (signs.descend takes it so): on the host, and
+        # with decay once more on the card
+        mu = signs.ftz(torch.tensor(algo.mu, dtype=algo.master_dtype)).to(dev)
         if algo.decay:
-            mu = mu / torch.sqrt(torch.tensor(
-                float(rnd_index), dtype=algo.master_dtype, device=dev) + 1.0)
+            mu = signs.ftz(mu / torch.sqrt(torch.tensor(
+                float(rnd_index), dtype=algo.master_dtype, device=dev) + 1.0))
         if stream:
             params, losses = local_step_stream(params, delta, train_batch,
                                                vote_w3, mu)

@@ -4,6 +4,7 @@ The coordinate-wise building blocks of HierSignSGD / DC-HierSignSGD,
 bit for bit the functions of the JAX package's ``core/signs.py``:
 
   * ``sgn``           -- the paper's element-wise sign into {-1, +1}.
+  * ``descend``       -- the update ``v - mu * vote``, flushed like XLA.
   * ``pack_signs``    -- 1 bit/coordinate wire format, 32 signs a word.
   * ``unpack_signs``  -- inverse of ``pack_signs``.
   * ``majority_vote`` -- s_q = sgn(sum_k w_k sgn(g_k)), optional weights.
@@ -38,6 +39,38 @@ def nonneg(x: torch.Tensor) -> torch.Tensor:
     if x.dtype.is_floating_point:
         return x > -torch.finfo(x.dtype).tiny
     return x >= 0
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal floats -> the zero of their sign (``-1e-40 -> -0.0``),
+    others (NaN and infinities included) unchanged: how XLA's CPU backend
+    (and the TPU) treat a subnormal operand or result of the reference's
+    arithmetic.  Two elementwise passes: ``hardshrink`` zeroes every |x|
+    up to the largest subnormal (as +0.0), ``copysign`` gives the zeros
+    back the sign of x and leaves every other value as it was."""
+    fin = torch.finfo(x.dtype)
+    largest_subnormal = fin.tiny * (1.0 - fin.eps)      # exact in x's dtype
+    return torch.copysign(
+        torch.nn.functional.hardshrink(x, largest_subnormal), x)
+
+
+def descend(v: torch.Tensor, mu, vote: torch.Tensor) -> torch.Tensor:
+    """The sign-method update ``v - mu * vote`` (``vote`` in {-1, 0, +1})
+    as the reference computes it: subnormal operands count as zeros of
+    their sign and a subnormal result flushes to one, so an abstaining
+    edge's (vote 0) subnormal coordinates become signed zeros.  Every
+    sign-method update of the port goes through here or through the
+    ``vote_update`` kernel, which does the same.
+
+    ``mu`` is a float, flushed here, or a 0-dim tensor the caller has
+    flushed with ``ftz`` (the train step flushes its step size once, not
+    once per leaf).  ``mu * vote`` is exact, so ``addcmul`` (one pass, in
+    v's dtype, also where it fuses the multiply and add) gives the
+    reference's separate multiply and subtract bit for bit: five
+    elementwise passes in all, two more than the unflushed update."""
+    if not isinstance(mu, torch.Tensor):
+        mu = ftz(torch.tensor(mu, dtype=torch.float32)).to(v.device)
+    return ftz(torch.addcmul(ftz(v), mu, vote, value=-1))
 
 
 def sgn(x: torch.Tensor) -> torch.Tensor:

@@ -206,18 +206,19 @@ def fused_sign_vote_update(layout: flatbuf.FlatLayout, u_dev,
 
     u_dev: tree of [P, D, *leaf] pre-sign directions; delta_buf:
     optional [P, n_pad] DC correction; v_buf: [P, n_pad] master buffer;
-    mu: the step size as a 0-dim tensor; mu_static: its Python value when
-    it does not change with the step.  An f32 master with ``mu_static``
-    goes through the ``vote_update`` kernel's read-modify-write and is
-    **updated in place**; otherwise (e.g. ``decay``) the vote-only kernel
-    route runs and ``v_buf - mu * vote`` is a new tensor.  Either way
-    the arithmetic is the tree path's ``v - mu * vote``."""
+    mu: the step size as a 0-dim tensor, flushed (``signs.descend``);
+    mu_static: its Python value when it does not change with the step.
+    An f32 master with ``mu_static`` goes through the ``vote_update``
+    kernel's read-modify-write and is **updated in place**; otherwise
+    (e.g. ``decay``) the vote-only kernel route runs and ``v_buf - mu *
+    vote`` is a new tensor.  Either way the arithmetic is the tree
+    path's ``v - mu * vote``."""
     u_buf, d_buf = _fused_kernel_bufs(layout, u_dev, None, delta_buf, rho)
     if mu_static is not None and v_buf.dtype == torch.float32:
         return kops.fused_vote_update_flat(u_buf, d_buf, rho, mask, v_buf,
                                            float(mu_static))
     vote = kops.fused_sign_vote_flat(u_buf, d_buf, rho, mask)
-    return v_buf - mu * vote.to(v_buf.dtype)
+    return signs.descend(v_buf, mu, vote)
 
 
 def majority_vote_dev(s_dev: torch.Tensor, mask: torch.Tensor | None,
@@ -346,13 +347,14 @@ def fused_tally_finish(layout: flatbuf.FlatLayout, tally: torch.Tensor,
                        mu: torch.Tensor | None):
     """Edge-side half of the streamed fused transport, once per local
     step: sum the [P, D, n_pad] tallies over D, threshold them into the
-    vote, and return ``v_buf - mu * vote`` (a new [P, n_pad] buffer) or,
-    without ``v_buf``, the vote as a [P, *leaf] int8 tree."""
+    vote, and return ``v_buf - mu * vote`` (a new [P, n_pad] buffer; mu
+    a flushed 0-dim tensor, as ``signs.descend`` takes it) or, without
+    ``v_buf``, the vote as a [P, *leaf] int8 tree."""
     vote = tally_vote_dev(tally, n_eff)                      # [P, n_pad]
     if v_buf is None:
         return flatbuf.unflatten_tree(layout, vote, batch_dims=1,
                                       cast=False)
-    return v_buf - mu * vote.to(v_buf.dtype)
+    return signs.descend(v_buf, mu, vote)
 
 
 def pod_weighted_average(v: torch.Tensor,

@@ -28,9 +28,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch"
 
 # -fmad=false on top of the __fmul_rn/__fadd_rn intrinsics: no multiply
-# and add anywhere in the kernels may contract into an FMA.
+# and add anywhere in the kernels may contract into an FMA.  -Xptxas -v
+# reports each kernel's registers, shared memory and spills; the report
+# is kept beside the library (ptxas_report).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes (restype is c_int for all of them)
@@ -100,8 +102,22 @@ def build() -> pathlib.Path:
         tmp_lib = pathlib.Path(tmp) / lib_path.name
         subprocess.run([nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)],
                        check=True)
+        tmp_log = pathlib.Path(tmp) / "ptxas.txt"
+        tmp_log.write_text("".join(f"--- {src.name}\n{out}"
+                                   for src, out in zip(srcs, outs)))
+        os.replace(tmp_log, _report_path(lib_path))
         os.replace(tmp_lib, lib_path)    # atomic: concurrent builders agree
     return lib_path
+
+
+def _report_path(lib_path: pathlib.Path) -> pathlib.Path:
+    return lib_path.with_suffix(".ptxas.txt")
+
+
+def ptxas_report() -> str:
+    """What ``nvcc -Xptxas -v`` printed for each source when the current
+    library was built (builds it first if needed)."""
+    return _report_path(build()).read_text()
 
 
 def load() -> ctypes.CDLL:
@@ -115,6 +131,21 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+ALIGN = 16      # bytes: the address granularity of a bulk async copy
+
+
+def require_aligned(kernel: str, **tensors) -> None:
+    """Raise ``ValueError`` for a tensor (``None`` is skipped) whose first
+    byte is not ``ALIGN``-byte aligned: the kernels read it by bulk async
+    copies, which need 16-byte addresses."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % ALIGN:
+            raise ValueError(
+                f"{kernel}: {name} must start on a {ALIGN}-byte boundary "
+                f"(address {t.data_ptr():#x}): the kernel reads it by bulk "
+                f"async copies")
 
 
 def check(status: int, name: str) -> None:

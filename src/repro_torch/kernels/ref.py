@@ -45,7 +45,8 @@ def vote_update_ref(words: torch.Tensor, v: torch.Tensor | None, mu: float,
     Per pod the weighted popcount ``pos = sum_k w_k bit_k`` (int32) votes
     +1 when ``2 pos >= sum_k w_k`` (D without weights) and -1 otherwise;
     with weights an empty quorum votes 0.  Returns ``v - mu * vote`` (a
-    new tensor) or, with ``v=None``, the [P, n] int8 vote."""
+    new tensor, subnormals flushed to signed zeros by ``signs.descend``)
+    or, with ``v=None``, the [P, n] int8 vote."""
     p, d, w = words.shape
     bits = signs.unpack_bits(words)                           # [P, D, n]
     if weights is None:
@@ -61,7 +62,7 @@ def vote_update_ref(words: torch.Tensor, v: torch.Tensor | None, mu: float,
         vote = torch.where(n_eff > 0, vote, torch.zeros_like(vote))
     if v is None:
         return vote
-    return v - f32(mu) * vote.to(v.dtype)
+    return signs.descend(v, f32(mu), vote)
 
 
 def tally_acc_ref(u: torch.Tensor, delta: torch.Tensor | None, rho: float,
@@ -82,13 +83,6 @@ def tally_acc_ref(u: torch.Tensor, delta: torch.Tensor | None, rho: float,
     return (tally.to(torch.int32) + add).to(tally.dtype)
 
 
-def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
-    """Subnormal float32 values -> 0, as XLA's CPU backend (and the TPU)
-    treat them in the reference's arithmetic."""
-    return torch.where(x.abs() < torch.finfo(torch.float32).tiny,
-                       torch.zeros_like(x), x)
-
-
 def ternary_quant_ref(x: torch.Tensor, u: torch.Tensor,
                       norm: torch.Tensor) -> torch.Tensor:
     """x: float32/bfloat16; u: float32 uniforms of x's shape; norm: the
@@ -98,8 +92,7 @@ def ternary_quant_ref(x: torch.Tensor, u: torch.Tensor,
     ``signs.sgn``).  Subnormal |x|, norm and probabilities count as 0,
     as in the reference (so with u = 0 a subnormal x quantizes to 0)."""
     xf = x.to(torch.float32)
-    nrm = flush_subnormal(norm.to(torch.float32))
-    p = flush_subnormal(flush_subnormal(xf.abs()) / torch.clamp_min(nrm,
-                                                                   1e-30))
+    nrm = signs.ftz(norm.to(torch.float32))
+    p = signs.ftz(signs.ftz(xf.abs()) / torch.clamp_min(nrm, 1e-30))
     q = torch.where(u < p, nrm * torch.sign(xf), torch.zeros_like(xf))
     return torch.where(nrm > 0, q, torch.zeros_like(q)).to(x.dtype)

@@ -2,8 +2,11 @@
 
 The wrapper of the CUDA kernel ``csrc/sign_pack.cu``, which replaces the
 TPU kernel ``src/repro/kernels/sign_pack.py::sign_pack``.  One launch
-packs all P*D voter rows of the flat buffer; the per-pod correction is
-read as (p, i) inside the kernel, never broadcast to [P, D, n].
+packs all P*D voter rows of the flat buffer; a block reads a tile of its
+pod's correction once for the pod's D rows, so no [P, D, n] copy of it
+exists.  The kernel moves u and delta by 16-byte bulk copies: on CUDA
+both must be 16-byte aligned, with n a multiple of 128
+(``check_kernel_inputs``); the plain version takes any n % 32 == 0.
 
 CPU tensors take the plain version (``ref.sign_pack_ref``); CUDA tensors
 launch the kernel or raise -- there is no fallback.  ``sign_pack.launches``
@@ -16,6 +19,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 PACK = 32
+BLOCK = 128     # coordinates: the kernel copies whole 16-byte runs of words
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -44,12 +48,22 @@ def _check(u: torch.Tensor, delta: torch.Tensor | None) -> None:
         raise ValueError("sign_pack: delta must be contiguous")
 
 
+def check_kernel_inputs(u: torch.Tensor, delta: torch.Tensor | None) -> None:
+    """What the CUDA kernel needs beyond ``_check``: whole 16-byte runs of
+    words (n % 128 == 0) and 16-byte aligned u and delta, which it reads
+    by bulk async copies.  Raises ``ValueError``; there is no fallback."""
+    if u.shape[-1] % BLOCK:
+        raise ValueError(f"sign_pack: n={u.shape[-1]} is not a multiple of "
+                         f"{BLOCK}")
+    build.require_aligned("sign_pack", u=u, delta=delta)
+
+
 def sign_pack(u: torch.Tensor, delta: torch.Tensor | None = None,
               rho: float = 0.0) -> torch.Tensor:
     """u: [P, D, n] f32/bf16 (n % 32 == 0); delta: [P, n] of u's dtype or
-    None.  Returns the packed signs of ``f32(u) + rho*f32(delta)`` as
-    [P, D, n/32] int32 words (uint32 bit pattern).  ``rho == 0`` drops
-    delta."""
+    None (on CUDA also ``check_kernel_inputs``).  Returns the packed signs
+    of ``f32(u) + rho*f32(delta)`` as [P, D, n/32] int32 words (uint32 bit
+    pattern).  ``rho == 0`` drops delta."""
     _check(u, delta)
     if not rho:
         delta = None
@@ -57,6 +71,7 @@ def sign_pack(u: torch.Tensor, delta: torch.Tensor | None = None,
         return ref.sign_pack_ref(u, delta, rho)
     if u.device.type != "cuda":
         raise ValueError(f"sign_pack: unsupported device {u.device}")
+    check_kernel_inputs(u, delta)
     p, d, n = u.shape
     words = torch.empty((p, d, n // PACK), dtype=torch.int32, device=u.device)
     lib = build.load()

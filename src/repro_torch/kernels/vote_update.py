@@ -4,6 +4,9 @@ The wrapper of the CUDA kernel ``csrc/vote_update.cu``, which replaces
 the TPU kernel ``src/repro/kernels/vote_update.py::vote_update``.  One
 launch covers all P pods: the weighted popcount vote over each pod's D
 packed voter rows, then one read-modify-write of the pod's model row.
+The kernel moves words and v by 16-byte bulk copies: on CUDA both must
+be 16-byte aligned, with n a multiple of 128, and D is at most 512
+(``check_kernel_inputs``); the plain version takes any D.
 
 **``v`` is updated in place**, as the TPU kernel's
 ``input_output_aliases={1: 0}`` updates it, and returned; callers that
@@ -21,6 +24,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 PACK = 32
+BLOCK_WORDS = 4        # words: the kernel copies whole 16-byte runs
+MAX_VOTERS = 512       # D: two stages of the kernel's ring still fit
 
 
 def _check(words: torch.Tensor, v: torch.Tensor | None,
@@ -53,20 +58,37 @@ def _check(words: torch.Tensor, v: torch.Tensor | None,
                              "different devices")
 
 
+def check_kernel_inputs(words: torch.Tensor, v: torch.Tensor | None) -> None:
+    """What the CUDA kernel needs beyond ``_check``: whole 16-byte runs of
+    words (n % 128 == 0), 1..512 voters (two stages of its ring fit in
+    shared memory) and 16-byte aligned words and v, which it reads by bulk
+    async copies.  Raises ``ValueError``; there is no fallback."""
+    _, d, w = words.shape
+    if w % BLOCK_WORDS:
+        raise ValueError(f"vote_update: n={w * PACK} is not a multiple of "
+                         f"{BLOCK_WORDS * PACK}")
+    if not 1 <= d <= MAX_VOTERS:
+        raise ValueError(f"vote_update: D={d} voters, want 1..{MAX_VOTERS}")
+    build.require_aligned("vote_update", words=words, v=v)
+
+
 def vote_update(words: torch.Tensor, v: torch.Tensor | None, mu: float,
                 weights: torch.Tensor | None = None) -> torch.Tensor:
     """words: [P, D, n/32] int32; v: [P, n] float32 (updated in place) or
     None; weights: [P, D] bool/integer voter weights or None.
 
-    Returns ``v`` after ``v <- v - mu * vote``, or the [P, n] int8 vote
-    when ``v`` is None.  Ties vote +1; with weights an empty quorum votes
-    0 and leaves its row of v unchanged."""
+    Returns ``v`` after ``v <- v - mu * vote`` (``signs.descend``: a
+    subnormal result is a zero of its sign, as in the reference), or the
+    [P, n] int8 vote when ``v`` is None.  Ties vote +1; with weights an
+    empty quorum votes 0, which leaves its row of v unchanged but for
+    subnormal coordinates."""
     _check(words, v, weights)
     if words.device.type == "cpu":
         out = ref.vote_update_ref(words, v, mu, weights)
         return out if v is None else v.copy_(out)
     if words.device.type != "cuda":
         raise ValueError(f"vote_update: unsupported device {words.device}")
+    check_kernel_inputs(words, v)
     p, d, w = words.shape
     wt, as_bool = None, False
     if weights is not None:

@@ -1,17 +1,18 @@
 """Where the paper task's time goes on the card.
 
-For each of two runs -- the paper task (the fused transport on the flat
-state, B=400, Q=4 x D=5, T_E=15 steps) and the same task with K=2
-virtual clients per device on the streamed sweep (Bernoulli(0.5)
-participation, |D_qk| weights, one ``tally_acc`` launch per client) --
-runs one warm-up round, then one round of ``run_paper_task`` under
-``torch.profiler`` and prints one JSON line: the host-clock step and
-data times per step, the device time per step of kernels and of copies
-(the round's evaluation included), the kernels' share of the step time
--- the rest the device sat idle -- and the activities that took the
-most device time.  The profiler's own overhead lengthens the host
-times, so read the step time from ``chip_smoke.py`` and the shares
-from here.
+For each of three runs -- the paper task (the fused transport on the
+flat state, B=400, Q=4 x D=5, T_E=15 steps), the same task on the plain
+ag_packed transport and tree state (no kernel; the update runs per
+leaf), and the fused task with K=2 virtual clients per device on the
+streamed sweep (Bernoulli(0.5) participation, |D_qk| weights, one
+``tally_acc`` launch per client) -- runs one warm-up round, then one
+round of ``run_paper_task`` under ``torch.profiler`` and prints one JSON
+line: the host-clock step and data times per step, the device time per
+step of kernels and of copies (the round's evaluation included), the
+kernels' share of the step time -- the rest the device sat idle -- and
+the activities that took the most device time. The profiler's own
+overhead lengthens the host times, so read the step time from
+``chip_smoke.py`` and the shares from here.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step
 """
@@ -70,7 +71,10 @@ def main() -> None:
     clients = dataclasses.replace(
         cfg, clients_per_device=2, participation="bernoulli", rate=0.5,
         client_seed=11, data_weights=True, client_mode="stream")
+    tree = dataclasses.replace(cfg, transport="ag_packed",
+                               state_layout="tree")
     for name, c in (("paper task, fused/flat", cfg),
+                    ("paper task, ag_packed/tree", tree),
                     ("clients K=2, stream fused/flat", clients)):
         print(json.dumps(profile_run(name, c)), flush=True)
 

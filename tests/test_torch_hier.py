@@ -527,7 +527,7 @@ def injected_problem(pods, devs, k, steps, seed):
 
 
 def run_port_injected(w0, grads, pods, devs, cc, transport, layout, t_e=3,
-                      **kw):
+                      dev_mask=None, **kw):
     algo = hier.AlgoConfig(
         mu=MU, t_e=t_e, rho=1.0, transport=transport, state_layout=layout,
         compute_dtype=torch.float32, master_dtype=torch.float32,
@@ -538,7 +538,9 @@ def run_port_injected(w0, grads, pods, devs, cc, transport, layout, t_e=3,
     for s, g in enumerate(grads):
         batch = {"train": g, "anchor": grads[s - s % t_e]}
         state, _ = step(state, batch, torch.full((pods,), 1.0 / pods),
-                        torch.ones(pods, devs), torch.ones(pods, devs))
+                        torch.ones(pods, devs),
+                        torch.ones(pods, devs) if dev_mask is None
+                        else dev_mask)
     return {k: v.clone() for k, v in hier.edge_params(state).items()}
 
 
@@ -568,6 +570,41 @@ def test_injected_grads_match_jax_step_bitwise(method, regime, mode):
     tc = hier.vclients.ClientConfig(**cc.__dict__)
     for transport, layout in (("fused", "flat"), ("ag_packed", "tree")):
         got = run_port_injected(w0, grads, 1, 1, tc, transport, layout,
+                                method=method)
+        for k in want:
+            np.testing.assert_array_equal(got[k].numpy().view(np.int32),
+                                          want[k].view(np.int32), err_msg=k)
+
+
+@pytest.mark.parametrize("method", ["dc_hier_signsgd", "hier_signsgd"])
+def test_abstaining_edge_flushes_subnormal_params_like_jax(method):
+    """Subnormal parameters (+-1e-40, 3e-39, -1e-45) under an abstaining
+    edge (mask 0), injected gradients, one step: the port is bitwise the
+    jitted JAX step on fused/flat and ag_packed/tree.  The JAX step turns
+    them into zeros of their sign (the round prologue's cloud mean
+    multiplies them on XLA's CPU backend, which flushes subnormals); the
+    port, whose mean keeps them, now flushes in the update
+    (``signs.descend`` and the ``vote_update`` kernel), as the eager
+    reference does -- before, it kept them."""
+    w0, grads = injected_problem(1, 1, 1, 1, seed=14)
+    for leaf in w0.values():
+        leaf.reshape(-1)[:4] = (1e-40, -1e-40, 3e-39, -1e-45)
+    algo = H._algo(method, "ag_packed", "tree", t_e=3)
+    init_fn, step = jhier.make_hier_step(single_device_topology(), algo,
+                                         jax_injected_bundle())
+    state = jax.jit(init_fn)(jtree(w0), jax.random.PRNGKey(1))
+    g = {"g": {k: jnp.asarray(v.numpy()) for k, v in grads[0]["g"].items()}}
+    state, _ = jax.jit(step)(state, {"train": g, "anchor": g}, jnp.ones(1),
+                             jnp.ones((1, 1)), jnp.zeros((1, 1)))
+    want = jax.tree.map(np.asarray, state.params)
+    for leaf in want.values():
+        head = leaf.reshape(-1)[:4]
+        assert not head.any() and np.signbit(head).tolist() == [
+            False, True, False, True]
+    for transport, layout in (("fused", "flat"), ("ag_packed", "tree")):
+        got = run_port_injected(w0, grads, 1, 1,
+                                hier.vclients.ClientConfig(), transport,
+                                layout, dev_mask=torch.zeros(1, 1),
                                 method=method)
         for k in want:
             np.testing.assert_array_equal(got[k].numpy().view(np.int32),

@@ -28,6 +28,8 @@ from repro_torch.core import signs
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import build, ops, ref
 from repro_torch.core import votes
+from repro_torch.kernels import sign_pack as sign_pack_mod
+from repro_torch.kernels import vote_update as vote_update_mod
 from repro_torch.kernels.sign_pack import sign_pack
 from repro_torch.kernels.tally_acc import tally_acc
 from repro_torch.kernels.ternary_quant import ternary_quant
@@ -137,6 +139,55 @@ def test_vote_update_matches_pallas(mask_kind):
         np.testing.assert_array_equal(got[1].numpy(), v[1])
 
 
+@pytest.mark.parametrize("mask_kind", ["bool", "int"])
+def test_vote_update_flushes_subnormal_results(mask_kind):
+    """v with +-1e-40, -1e-45 and 3e-39 entries; pod 0 votes, pod 1's
+    quorum is empty (vote 0).  The update flushes a subnormal operand or
+    result to the zero of its sign, so pod 1's subnormals become signed
+    zeros and its other coordinates stay; bitwise the JAX package's eager
+    reference (``repro.kernels.ref.vote_update_ref``, whose XLA CPU ops
+    flush subnormals), with mu = 5e-3 and with mu = 0 (a vote of -1 then
+    adds -0.0: a flush where the reference's subtract runs).
+
+    Against the Pallas kernel in interpret mode: bitwise on the voting
+    pod, and on pod 1 apart from the subnormal coordinates, which the
+    jitted kernel keeps -- XLA folds ``v - mu * 0`` to ``v`` at compile
+    time, so the flush never runs there.  Like the FMA contraction above,
+    the port follows the eager reference where jitted code differs."""
+    u, _ = make_inputs(torch.float32, seed=5)
+    mask = np.array([[1, 0, 1], [0, 0, 0]],
+                    bool if mask_kind == "bool" else np.int32)
+    words_j = jops.fused_pack_flat(jnp.asarray(u), None, 0.0, interpret=True)
+    words = torch.from_numpy(as_i32(words_j).copy())
+    v = np.random.default_rng(6).standard_normal((P, N)).astype(np.float32)
+    sub = np.zeros(N, bool)
+    sub[:128] = True
+    v[:, :32], v[:, 32:64], v[:, 64:96], v[:, 96:128] = (1e-40, -1e-40,
+                                                         -1e-45, 3e-39)
+    packed = np.asarray(words_j).reshape(P, D, N // 4096, 4096 // 32)
+    for mu in (MU, 0.0):
+        got = vote_update(words, torch.from_numpy(v.copy()), mu,
+                          torch.from_numpy(mask)).numpy()
+        eager = np.stack([np.asarray(jref.vote_update_ref(
+            jnp.asarray(packed[q]), jnp.asarray(v[q].reshape(-1, 4096)), mu,
+            jnp.asarray(mask[q]))).reshape(N) for q in range(P)])
+        np.testing.assert_array_equal(as_i32(got), as_i32(eager))
+        # pod 1 abstains: signed zeros where v was subnormal, v elsewhere
+        assert not got[1, sub].any()
+        np.testing.assert_array_equal(np.signbit(got[1, sub]),
+                                      np.signbit(v[1, sub]))
+        np.testing.assert_array_equal(as_i32(got[1, ~sub]),
+                                      as_i32(v[1, ~sub]))
+    interp = np.asarray(jops.fused_vote_update_words(
+        words_j, jnp.asarray(v), jnp.asarray(mask), MU, interpret=True))
+    got = vote_update(words, torch.from_numpy(v.copy()), MU,
+                      torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(as_i32(got[0]), as_i32(interp[0]))
+    np.testing.assert_array_equal(as_i32(got[1, ~sub]),
+                                  as_i32(interp[1, ~sub]))
+    np.testing.assert_array_equal(as_i32(interp[1, sub]), as_i32(v[1, sub]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask_kind", ["none", "bool", "int"])
 def test_fused_flat_ops_match_pallas(dtype, mask_kind):
@@ -207,6 +258,44 @@ def test_wrappers_check_their_inputs():
         vote_update(words, None, MU, torch.ones(P, D))
     with pytest.raises(ValueError, match="n_pad"):
         ops.fused_pack_flat(torch.zeros(P, D, 4096 + 32), None, 0.0)
+    # the bulk-copy kernels' refusals, made on the CUDA route only: whole
+    # 16-byte runs (n % 128), 16-byte aligned tensors, 1..512 voters
+    w96 = torch.zeros(P, D, 3, dtype=torch.int32)
+    bad_u = torch.zeros(P * D * N + 1)[1:].view(P, D, N)
+    bad_d = torch.zeros(P * N + 1)[1:].view(P, N)
+    bad_w = torch.zeros(words.numel() + 1, dtype=torch.int32)[1:].view(
+        words.shape)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        sign_pack_mod.check_kernel_inputs(torch.zeros(P, D, 96), None)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        vote_update_mod.check_kernel_inputs(w96, None)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        sign_pack_mod.check_kernel_inputs(bad_u, None)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        sign_pack_mod.check_kernel_inputs(u, bad_d)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        vote_update_mod.check_kernel_inputs(bad_w, None)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        vote_update_mod.check_kernel_inputs(words, bad_d)
+    for voters in (0, 513):
+        with pytest.raises(ValueError, match="voters"):
+            vote_update_mod.check_kernel_inputs(
+                torch.zeros(P, voters, 4, dtype=torch.int32), None)
+    sign_pack_mod.check_kernel_inputs(u, torch.zeros(P, N))
+    vote_update_mod.check_kernel_inputs(words, torch.zeros(P, N))
+    # the plain version, which CPU tensors take, needs none of it
+    sign_pack(torch.zeros(P, D, 96))
+    vote_update(w96, None, MU)
+    assert torch.equal(sign_pack(bad_u, bad_d, RHO),
+                       sign_pack(u, torch.zeros(P, N), RHO))
+    assert torch.equal(vote_update(bad_w, bad_d, MU),
+                       vote_update(words, torch.zeros(P, N), MU))
+    assert vote_update(torch.zeros(P, 513, 4, dtype=torch.int32), None,
+                       MU).shape == (P, 128)
+    # a 16-byte offset is aligned: accepted, and the same words
+    off = torch.zeros(P * D * N + 4)[4:].view(P, D, N)
+    sign_pack_mod.check_kernel_inputs(off, None)
+    assert torch.equal(sign_pack(off), sign_pack(u))
 
 
 def test_build_without_nvcc_raises(monkeypatch):

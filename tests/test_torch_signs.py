@@ -4,12 +4,14 @@ Inputs are drawn from a seed with numpy and fed to both packages; packed
 words compare through their 32-bit pattern (the port carries them as
 int32, the JAX package as uint32)."""
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
 from repro.core import signs as jsigns
+from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import signs
 
 
@@ -25,6 +27,41 @@ def test_sgn_matches_reference_on_special_values():
     np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int8
     np.testing.assert_array_equal(got[:4], [-1, 1, 1, 1])
+
+
+@pytest.mark.parametrize("mu_kind", ["float", "tensor"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_descend_matches_eager_reference(dtype, mu_kind):
+    """``v - mu * vote`` with subnormal, signed-zero and non-finite v
+    against every vote, and mu = 5e-3 and 0: bitwise the eager JAX
+    expression, whose XLA CPU ops treat subnormal operands as zeros of
+    their sign and flush subnormal results (``-1e-40 -> -0.0``)."""
+    npd = {torch.float32: np.float32, torch.bfloat16: ml_dtypes.bfloat16}
+    vals = np.array([1e-40, -1e-40, 1e-45, -1e-45, 3e-39, -0.0, 0.0, 1.0,
+                     -2.5, np.nan, np.inf], np.float32)
+    v = np.repeat(vals, 3).astype(npd[dtype])
+    vote = np.tile(np.array([-1, 0, 1], np.int8), len(vals))
+    for mu in (5e-3, 0.0):
+        # a weakly typed mu keeps v's dtype, as the port's 0-dim tensor
+        want = np.asarray(jnp.asarray(v) - float(np.float32(mu))
+                          * jnp.asarray(vote).astype(v.dtype))
+        tmu = (float(np.float32(mu)) if mu_kind == "float"
+               else torch.tensor(mu, dtype=torch.float32))
+        got = signs.descend(tensor_from_numpy(v), tmu,
+                            torch.from_numpy(vote))
+        assert got.dtype == dtype
+        # NaN payloads aside (bf16 NaNs come back with other payload bits)
+        nan = np.isnan(want.astype(np.float32))
+        np.testing.assert_array_equal(got.float().isnan().numpy(), nan)
+        ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        np.testing.assert_array_equal(
+            got.view(ints).numpy()[~nan],
+            want.view(np.int16 if dtype == torch.bfloat16
+                      else np.int32)[~nan])
+    # the abstaining coordinates (vote 0) of the subnormals: signed zeros
+    zeros = got[1:12:3][:4].float().numpy()
+    assert not zeros.any() and np.signbit(zeros).tolist() == [
+        False, True, False, True]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
