@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
   1. build the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc),
      and print ``-Xptxas -v``'s registers, shared memory and spills of
-     ``sign_pack`` and ``vote_update``, one line each;
+     each of the four kernels, one line each;
   2. hold each kernel bitwise against its plain PyTorch version on the
      card -- at the main path's shape [4, 5, 53248] and at [4, 5, 2^22],
      u in f32 and bf16, the DC correction on and off, voter masks none /
@@ -19,18 +19,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      subnormal coordinates (flushed to signed zeros, the empty quorum's
      row otherwise untouched) -- and time both with CUDA events (median
      over repeats, the L2 cache flushed before each launch), plus each
-     kernel's own device time from ``torch.profiler``.  Then the same
-     for the edges of the tiled designs: n of one 1024-coordinate tile,
-     of one 4096 flat-buffer tile, of 3 x 4096 and of 3 x 4096 + 384 (a
-     ragged last tile), P = D = 1, and D = 10 (the clients phase's
-     merged voter axis); and inputs that are not 16-byte aligned, which
-     the wrappers must refuse with ``ValueError`` and no launch.
+     kernel's own device time from ``torch.profiler`` (or, where the
+     profiler sees no launch, CUDA events over back-to-back launches, as
+     the row says).  Then the same for the edges of the tiled designs: n
+     of one 1024-coordinate tile, of one 4096 flat-buffer tile, of 3 x
+     4096 and of 3 x 4096 + 384 (a ragged last tile), P = D = 1, D = 10
+     (the clients phase's merged voter axis), D = 300 and, counted over
+     voter groups, D = 513, 1024 and 5000; and inputs that are not
+     16-byte aligned (or, for ``tally_acc``, n % 128 != 0), which the
+     wrappers must refuse with ``ValueError`` and no launch.
      The same for ``tally_acc`` (2 shapes x f32/bf16 x int8/int16/int32
      tallies that do not start at zero x correction on/off, vote weights
      with zeros and pod 1's quorum empty, plus a fold of K=2 clients
-     that must give ``vote_update``'s vote on the merged [P, D*K] words)
-     and ``ternary_quant`` (the MLP's padded size and 2^22 x f32/bf16,
-     zeros and subnormals in x where u = 0, the l2 norm and norm = 0);
+     that must give ``vote_update``'s vote on the merged [P, D*K] words;
+     then the tiled design's edges) and ``ternary_quant`` (the MLP's
+     padded size and 2^22 x f32/bf16, zeros and subnormals in x where
+     u = 0, the l2 norm and norm = 0; then n = 10, 64, 640, 50176 and
+     2^22 + 3, whose ragged tails the kernel takes itself);
   3. train the paper's task (MLP 784-64-10, Q=4 edges x D=5 devices,
      Dirichlet(0.1), B=400, T_E=15, mu=5e-3, rho=0.2, 2 rounds = 30 steps)
      with ``dc_hier_signsgd`` on the fused transport and the flat state,
@@ -49,7 +54,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the card (else its final test loss within 1e-3, with the count of
      differing coordinates printed).  The same triple with the
      gradients injected (``tests/helpers/injected_grads.py``) must be
-     bitwise in any case;
+     bitwise in any case, and so must one merged step of 640 voters a
+     pod (K=128 clients per device, ``vote_update`` over voter groups)
+     on fused/flat against ag_packed/tree;
   5. ``quantize``: the entry point ``ops.ternary_quant_nd`` (the QSGD
      baseline's compressor) on the MLP's four gradient leaves, one
      ``ternary_quant`` launch each, held against its plain version.
@@ -154,6 +161,22 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    def back_to_back_ms(self, fn) -> float:
+        """Mean milliseconds of ``reps`` calls issued back to back between
+        two CUDA events (no flush): the device time of launches that keep
+        the device busy, else the rate at which the host issues them."""
+        torch = self.torch
+        for _ in range(self.warmup):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(self.reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / self.reps
 
     def device_ms(self, fn, kernel: str) -> float | None:
         """Mean device time of the launches whose name holds ``kernel``
@@ -386,7 +409,16 @@ EDGE_SHAPES = {
     "P = D = 1": (1, 1, 53248),
     "D = 10": (4, 10, 53248),
     "D = 300": (2, 300, 4096),     # vote_update's int32 counters
+    # vote_update over voter groups (at most 512 a stage): 2 groups of
+    # 257 / 256, 2 of 512 (past the bit-sliced planes' 1023), 10 of 500
+    "D = 513": (2, 513, 4096),
+    "D = 1024": (2, 1024, 4096),
+    "D = 5000": (2, 5000, 4096),
 }
+# tally_acc's edges (its tiles need n % 128 == 0, as every shape here has)
+TALLY_EDGES = ("one flat-buffer tile", "odd number of 4096-tiles",
+               "ragged last kernel tile", "P = D = 1", "D = 10")
+TERNARY_EDGES = (10, 64, 640, 50176, (1 << 22) + 3)    # MLP leaves, tails
 
 
 def edge_masks(torch, gen, p, d):
@@ -404,10 +436,13 @@ def edge_masks(torch, gen, p, d):
 
 def phase_edges(torch, timer):
     """sign_pack and vote_update at EDGE_SHAPES, bitwise and timed; then
-    inputs that are not 16-byte aligned, which the wrappers must refuse
-    without launching."""
+    inputs that are not 16-byte aligned (or, for tally_acc, n % 128 !=
+    0), which the wrappers of all four kernels must refuse without
+    launching."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.tally_acc import tally_acc
+    from repro_torch.kernels.ternary_quant import ternary_quant
     from repro_torch.kernels.vote_update import vote_update
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -429,31 +464,53 @@ def phase_edges(torch, timer):
         int(torch.tensor(dims).prod()) + 1, device="cuda", **kw)[1:].view(dims)
     u = torch.randn(MAIN_SHAPE, device="cuda")
     words = sign_pack(u)
+    w = torch.ones((p, d), dtype=torch.int32, device="cuda")
+    t16 = torch.zeros(MAIN_SHAPE, dtype=torch.int16, device="cuda")
+    x, ux = u.reshape(-1), torch.rand(u.numel(), device="cuda")
+    nrm = torch.linalg.vector_norm(x)
+    kernels = (sign_pack, vote_update, tally_acc, ternary_quant)
     refused = []
     for what, call in (
             ("sign_pack u", lambda: sign_pack(off(p, d, n))),
             ("sign_pack delta", lambda: sign_pack(u, off(p, n), RHO)),
             ("vote_update words", lambda: vote_update(
                 off(p, d, n // 32, dtype=torch.int32), None, 0.0)),
-            ("vote_update v", lambda: vote_update(words, off(p, n), MU))):
-        launches = (sign_pack.launches, vote_update.launches)
+            ("vote_update v", lambda: vote_update(words, off(p, n), MU)),
+            ("tally_acc u", lambda: tally_acc(off(p, d, n), None, 0.0, w,
+                                              t16)),
+            ("tally_acc delta", lambda: tally_acc(u, off(p, n), RHO, w,
+                                                  t16)),
+            ("tally_acc tally", lambda: tally_acc(
+                u, None, 0.0, w, off(p, d, n, dtype=torch.int16))),
+            ("tally_acc n % 128", lambda: tally_acc(
+                u[..., :n - 64].contiguous(), None, 0.0, w,
+                t16[..., :n - 64].contiguous())),
+            ("ternary_quant x", lambda: ternary_quant(off(x.numel()), ux,
+                                                      nrm)),
+            ("ternary_quant u", lambda: ternary_quant(x, off(x.numel()),
+                                                      nrm))):
+        launches = [k.launches for k in kernels]
         try:
             call()
         except ValueError as e:
             refused.append(what)
-            print(f"[edges] misaligned {what} refused: {e}", flush=True)
+            print(f"[edges] {what} refused: {e}", flush=True)
         torch.cuda.synchronize()
-        require((sign_pack.launches, vote_update.launches) == launches,
-                f"a kernel launched on a misaligned {what}")
-    emit({"check": "inputs not 16-byte aligned are refused",
-          "refused": refused})
-    require(len(refused) == 4, f"only {refused} were refused")
+        require([k.launches for k in kernels] == launches,
+                f"a kernel launched on {what}")
+    emit({"check": "inputs not 16-byte aligned (or n % 128 for tally_acc) "
+                   "are refused", "refused": refused})
+    require(len(refused) == 10, f"only {refused} were refused")
 
 
 def timed_row(timer, row, kfn, pfn, kernel, nbytes, ops):
     row.update(kernel_ms=timer(kfn),
                kernel_device_ms=timer.device_ms(kfn, kernel),
-               plain_ms=timer(pfn))
+               device_ms_by="torch.profiler", plain_ms=timer(pfn))
+    if row["kernel_device_ms"] is None:
+        row["kernel_device_ms"] = timer.back_to_back_ms(kfn)
+        row["device_ms_by"] = ("CUDA events over back-to-back launches: "
+                               "the profiler saw no launch")
     row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
     if row["kernel_device_ms"]:
         row["share_of_bound"] = row["bound_ms"] / row["kernel_device_ms"]
@@ -461,9 +518,40 @@ def timed_row(timer, row, kfn, pfn, kernel, nbytes, ops):
     return row
 
 
+def tally_case(torch, timer, u, dl, w, t0, extra: dict) -> dict:
+    """tally_acc (on a copy of t0) against its plain version, bitwise and
+    timed; pod 1, all of whose weights are 0, must keep its tally."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tally_acc import tally_acc
+
+    got = tally_acc(u, dl, RHO, w, t0.clone())
+    want = ref.tally_acc_ref(u, dl, RHO, w, t0)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum())
+    err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    untouched = u.shape[0] < 2 or torch.equal(got[1], t0[1])
+    tt = t0.clone()
+    row = timed_row(
+        timer,
+        {"kernel": "tally_acc", "shape": list(u.shape), **extra,
+         "dtype": str(u.dtype).split(".")[-1],
+         "tally": str(t0.dtype).split(".")[-1], "delta": dl is not None,
+         "mismatched": mism, "max_abs_err": err},
+        lambda: tally_acc(u, dl, RHO, w, tt),
+        lambda: ref.tally_acc_ref(u, dl, RHO, w, t0),
+        "tally_acc_kernel",
+        tally_acc_bytes(u.shape, u.element_size(), t0.element_size(),
+                        dl is not None),
+        tally_acc_ops(u.shape, dl is not None))
+    require(mism == 0, f"tally_acc disagrees with its plain version: {row}")
+    require(untouched, f"pod 1's weight-0 tally moved: {row}")
+    return row
+
+
 def phase_tally(torch, timer):
     """tally_acc vs its plain version, bitwise, and the K-client fold vs
-    vote_update's merged vote; returns the main-path row."""
+    vote_update's merged vote, then the tiled design's edges; returns the
+    main-path row."""
     from repro_torch.core import votes
     from repro_torch.kernels import ref
     from repro_torch.kernels.sign_pack import sign_pack
@@ -495,31 +583,9 @@ def phase_tally(torch, timer):
                 t0 = torch.randint(-20, 20, shape, generator=gen,
                                    device="cuda").to(tdt)
                 for with_delta in (False, True):
-                    dl = delta if with_delta else None
-                    got = tally_acc(u, dl, RHO, w, t0.clone())
-                    want = ref.tally_acc_ref(u, dl, RHO, w, t0)
-                    torch.cuda.synchronize()
-                    mism = int((got != want).sum())
-                    err = float((got.to(torch.int64)
-                                 - want.to(torch.int64)).abs().max())
-                    untouched = torch.equal(got[1], t0[1])
-                    tt = t0.clone()
-                    row = timed_row(
-                        timer,
-                        {"kernel": "tally_acc", "shape": list(shape),
-                         "dtype": str(dtype).split(".")[-1],
-                         "tally": str(tdt).split(".")[-1],
-                         "delta": with_delta, "mismatched": mism,
-                         "max_abs_err": err},
-                        lambda: tally_acc(u, dl, RHO, w, tt),
-                        lambda: ref.tally_acc_ref(u, dl, RHO, w, t0),
-                        "tally_acc_kernel",
-                        tally_acc_bytes(shape, u.element_size(),
-                                        t0.element_size(), with_delta),
-                        tally_acc_ops(shape, with_delta))
-                    require(mism == 0, f"tally_acc disagrees with its "
-                            f"plain version: {row}")
-                    require(untouched, f"pod 1's weight-0 tally moved: {row}")
+                    row = tally_case(torch, timer, u,
+                                     delta if with_delta else None, w, t0,
+                                     {})
                     if (shape, dtype, tdt, with_delta) == (
                             MAIN_SHAPE, torch.float32, torch.int16, True):
                         main_row = row
@@ -544,53 +610,84 @@ def phase_tally(torch, timer):
               "mismatched": mism, "pod1_votes": int(fold[1].abs().sum())})
         require(mism == 0 and not fold[1].any(),
                 "the K-client tally fold disagrees with the merged vote")
+
+    # the edges: every u and tally type, with the correction
+    for name in TALLY_EDGES:
+        shape = EDGE_SHAPES[name]
+        p, d, n = shape
+        w = edge_masks(torch, gen, p, d)["int_empty_quorum"]
+        for dtype in (torch.float32, torch.bfloat16):
+            u, delta = special_inputs(torch, gen, shape, dtype)
+            for tdt in (torch.int8, torch.int16, torch.int32):
+                t0 = torch.randint(-20, 20, shape, generator=gen,
+                                   device="cuda").to(tdt)
+                tally_case(torch, timer, u, delta, w, t0, {"case": name})
     return main_row
 
 
-def phase_ternary(torch, timer):
-    """ternary_quant vs its plain version, bitwise; returns the main row."""
+def ternary_inputs(torch, gen, n, dtype):
+    """x with zeros and subnormals (which quantize to 0 even at u = 0)
+    where n has room for them, and uniforms u with zeros there."""
+    x = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    u = torch.rand(n, generator=gen, device="cuda")
+    if n >= 256:
+        x[:64] = 0.0
+        x[64:96] = 1e-40            # subnormal: quantizes to 0 at u = 0
+        x[96:128] = -1e-39
+        u[:256] = 0.0
+    return x, u
+
+
+def ternary_case(torch, timer, x, u, norm_kind: str, extra: dict) -> dict:
+    """ternary_quant against its plain version, bitwise and timed."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ternary_quant import ternary_quant
 
+    n = x.numel()
+    nrm = (torch.linalg.vector_norm(x.float()) if norm_kind == "l2"
+           else torch.zeros((), device="cuda"))
+    got = ternary_quant(x, u, nrm)
+    want = ref.ternary_quant_ref(x, u, nrm)
+    torch.cuda.synchronize()
+    gi = got.float().view(torch.int32)
+    mism = int((gi != want.float().view(torch.int32)).sum())
+    err = float((got.float() - want.float()).abs().max())
+    zeros_ok = (not got.float().any() if norm_kind == "zero"
+                else n < 256 or not got[:128].float().any())
+    row = timed_row(
+        timer,
+        {"kernel": "ternary_quant", "shape": [n], **extra,
+         "dtype": str(x.dtype).split(".")[-1], "norm": norm_kind,
+         "mismatched": mism, "max_abs_err": err},
+        lambda: ternary_quant(x, u, nrm),
+        lambda: ref.ternary_quant_ref(x, u, nrm),
+        "ternary_quant_kernel",
+        ternary_quant_bytes(n, x.element_size()),
+        ternary_quant_ops(n))
+    require(mism == 0, f"ternary_quant disagrees with its plain version: "
+            f"{row}")
+    require(zeros_ok, f"ternary_quant gave nonzeros where it must give 0: "
+            f"{row}")
+    return row
+
+
+def phase_ternary(torch, timer):
+    """ternary_quant vs its plain version, bitwise, then any n (ragged
+    tails); returns the main row."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     main_row = None
     for n in (MAIN_SHAPE[2], LARGE_SHAPE[2]):
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(n, generator=gen, device="cuda").to(dtype)
-            x[:64] = 0.0
-            x[64:96] = 1e-40            # subnormal: quantizes to 0 at u = 0
-            x[96:128] = -1e-39
-            u = torch.rand(n, generator=gen, device="cuda")
-            u[:256] = 0.0
+            x, u = ternary_inputs(torch, gen, n, dtype)
             for norm_kind in ("l2", "zero"):
-                nrm = (torch.linalg.vector_norm(x.float())
-                       if norm_kind == "l2"
-                       else torch.zeros((), device="cuda"))
-                got = ternary_quant(x, u, nrm)
-                want = ref.ternary_quant_ref(x, u, nrm)
-                torch.cuda.synchronize()
-                gi = got.float().view(torch.int32)
-                mism = int((gi != want.float().view(torch.int32)).sum())
-                err = float((got.float() - want.float()).abs().max())
-                zeros_ok = (not got.float().any() if norm_kind == "zero"
-                            else not got[:128].float().any())
-                row = timed_row(
-                    timer,
-                    {"kernel": "ternary_quant", "shape": [n],
-                     "dtype": str(dtype).split(".")[-1], "norm": norm_kind,
-                     "mismatched": mism, "max_abs_err": err},
-                    lambda: ternary_quant(x, u, nrm),
-                    lambda: ref.ternary_quant_ref(x, u, nrm),
-                    "ternary_quant_kernel",
-                    ternary_quant_bytes(n, x.element_size()),
-                    ternary_quant_ops(n))
-                require(mism == 0, f"ternary_quant disagrees with its "
-                        f"plain version: {row}")
-                require(zeros_ok, f"ternary_quant gave nonzeros where it "
-                        f"must give 0: {row}")
+                row = ternary_case(torch, timer, x, u, norm_kind, {})
                 if (n, dtype, norm_kind) == (MAIN_SHAPE[2], torch.float32,
                                              "l2"):
                     main_row = row
+    for n in TERNARY_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, u = ternary_inputs(torch, gen, n, dtype)
+            ternary_case(torch, timer, x, u, "l2", {"case": "any n"})
     return main_row
 
 
@@ -826,7 +923,76 @@ def phase_quantize(torch):
           f"leaves: {launches} launches", flush=True)
     require(launches == len(grads), f"ternary_quant launched {launches} "
             f"times for {len(grads)} leaves")
+    # a flat view off a 16-byte boundary is copied, then quantized
+    g = torch.cat([grads[0].reshape(-1)[:1], grads[0].reshape(-1)])[1:]
+    q = ops.ternary_quant_nd(g, torch.Generator(device="cuda").manual_seed(9))
+    u = torch.rand(g.numel(), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(9))
+    want = ref.ternary_quant_ref(g, u, torch.linalg.vector_norm(g))
+    require(g.data_ptr() % 16 != 0 and ternary_quant.launches == launches + 1
+            and torch.equal(q.view(torch.int32), want.view(torch.int32)),
+            "ternary_quant_nd on a misaligned view: not one launch, or "
+            "not its plain version")
+    print("[quantize] a misaligned flat view: copied, one launch, bitwise",
+          flush=True)
     return launches
+
+
+def phase_many_voters(torch):
+    """One merged step with K=128 clients per device (640 voters a pod,
+    more than one 512-voter group of vote_update), injected gradients,
+    Bernoulli(0.5) participation and integer weights: fused/flat (one
+    sign_pack and one vote_update launch) bitwise ag_packed/tree."""
+    import numpy as np
+
+    import injected_grads
+    from repro_torch.core import hier
+    from repro_torch.core.clients import ClientConfig
+    from repro_torch.core.topology import Topology
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.vote_update import vote_update
+    from repro_torch.models import mlp
+
+    k, p, d = 128, 4, 5
+    weights = np.random.default_rng(12).integers(1, 50, (p, d, k))
+    cc = ClientConfig(count=k, participation="bernoulli", rate=0.5, seed=11,
+                      weights=tuple(tuple(tuple(int(x) for x in dev)
+                                          for dev in q) for q in weights),
+                      mode="merged")
+    shapes = {n: tuple(v.shape) for n, v in mlp.init_mlp(
+        torch.Generator(device="cuda").manual_seed(0)).items()}
+    g = injected_grads.make_grads(
+        shapes, p, d, k, 1, torch.Generator(device="cuda").manual_seed(13),
+        device="cuda")[0]
+    finals, launches = [], []
+    for transport, layout in (("fused", "flat"), ("ag_packed", "tree")):
+        algo = hier.AlgoConfig(
+            method="dc_hier_signsgd", mu=MU, t_e=15, rho=RHO,
+            transport=transport, state_layout=layout,
+            compute_dtype=torch.float32, delta_dtype=torch.float32,
+            clients=cc)
+        init_fn, step = hier.make_hier_step(Topology(p, d, "cuda"), algo,
+                                            injected_grads.make_bundle())
+        state = init_fn({n: torch.zeros(s_, device="cuda")
+                         for n, s_ in shapes.items()})
+        sign_pack.launches = vote_update.launches = 0
+        state, _ = step(state, {"train": g, "anchor": g},
+                        torch.tensor([0.25] * p, device="cuda"),
+                        torch.ones((p, d), device="cuda"),
+                        torch.ones((p, d), device="cuda"))
+        torch.cuda.synchronize()
+        launches.append((sign_pack.launches, vote_update.launches))
+        finals.append({n: v.clone()
+                       for n, v in hier.edge_params(state).items()})
+    diff = count_differing(torch, finals[0], finals[1])
+    moved = float(finals[0]["w1"].abs().sum())
+    print(f"[voters] one merged step, {d * k} voters a pod: fused/flat vs "
+          f"ag_packed/tree {diff} coordinates differ (|w1|_1 = {moved}); "
+          f"launches (sign_pack, vote_update) {launches}", flush=True)
+    require(launches == [(1, 1), (0, 0)], f"launches {launches}, want one "
+            f"sign_pack and one vote_update on fused/flat, none on the tree")
+    require(diff == 0 and moved > 0, "the 640-voter merged step is not "
+            "bitwise between fused/flat and ag_packed/tree")
 
 
 def main() -> None:
@@ -849,7 +1015,8 @@ def main() -> None:
     t0 = time.perf_counter()
     build.load()
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
-    for kernel in ("sign_pack_kernel", "vote_update_kernel"):
+    for kernel in ("sign_pack_kernel", "vote_update_kernel",
+                   "tally_acc_kernel", "ternary_quant_kernel"):
         emit({"ptxas": kernel,
               "instances": ptxas_entries(build.ptxas_report(), kernel)})
 
@@ -865,6 +1032,7 @@ def main() -> None:
           f"ag_packed/tree {plain['ms_per_step']}", flush=True)
     runs = phase_clients(torch)
     launches["tally_acc"] = runs["stream fused/flat"]["launches"]["tally_acc"]
+    phase_many_voters(torch)
     launches["ternary_quant"] = phase_quantize(torch)
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",

@@ -65,40 +65,14 @@ constexpr int kBlocksPerSm = 2;
 constexpr int kRingBytes = 32 * 1024;
 constexpr int kMaxStages = 16;     // kRingBytes over a one-chunk bf16 stage
 
-// kVec coordinates per 16-byte lane read; kTile / kVec consumer threads.
-template <typename T> struct Layout;
-template <> struct Layout<float> {
-  static constexpr int kVec = 4;
-};
-template <> struct Layout<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-};
-
-__device__ __forceinline__ void unpack(uint4 raw, float (&x)[4]) {
-  x[0] = __uint_as_float(raw.x);
-  x[1] = __uint_as_float(raw.y);
-  x[2] = __uint_as_float(raw.z);
-  x[3] = __uint_as_float(raw.w);
-}
-
-// bf16 -> f32 is exact: the 16 bits become the high half of the float.
-__device__ __forceinline__ void unpack(uint4 raw, float (&x)[8]) {
-  const uint32_t h[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(h[i] << 16);
-    x[2 * i + 1] = __uint_as_float(h[i] & 0xffff0000u);
-  }
-}
-
 // Each stage holds `chunks` x kTile coordinates of one row: of the
 // correction (row -1, first of each tile when kDelta) or of voter row r.
 template <typename T, bool kDelta>
-__global__ void __launch_bounds__(kTile / Layout<T>::kVec + 32)
+__global__ void __launch_bounds__(kTile / ring::Lane<T>::kVec + 32)
     sign_pack_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                      float rho, int32_t* __restrict__ words, int devices,
                      int n, int chunks, int stages, int rows) {
-  constexpr int V = Layout<T>::kVec;
+  constexpr int V = ring::Lane<T>::kVec;
   constexpr int kConsumerWarps = kTile / V / 32;  // 8 (f32) or 4 (bf16)
   constexpr int kLanesPerWord = 32 / V;           // 8 (f32) or 4 (bf16)
   constexpr int kWordsPerWarp = 32 / kLanesPerWord;
@@ -181,7 +155,7 @@ __global__ void __launch_bounds__(kTile / Layout<T>::kVec + 32)
 #pragma unroll
       for (int k = 0; k < kMaxChunks; ++k) {
         float dv[V];
-        unpack(raw[k], dv);
+        ring::unpack(raw[k], dv);
 #pragma unroll
         for (int i = 0; i < V; ++i) rd[k][i] = __fmul_rn(rho, dv[i]);
       }
@@ -190,7 +164,7 @@ __global__ void __launch_bounds__(kTile / Layout<T>::kVec + 32)
       for (int k = 0; k < kMaxChunks; ++k) {
         if (k >= chunks) continue;                    // uniform
         float x[V];
-        unpack(raw[k], x);
+        ring::unpack(raw[k], x);
         unsigned bits = 0;
 #pragma unroll
         for (int i = 0; i < V; ++i) {
@@ -239,7 +213,7 @@ int launch_t(const void* u, const void* delta, float rho, void* words,
   const int groups = (devices + rows - 1) / rows;
   sign_pack_kernel<T, kDelta>
       <<<dim3((unsigned)g.gx, (unsigned)pods, (unsigned)groups),
-         kTile / Layout<T>::kVec + 32, smem, stream>>>(
+         kTile / ring::Lane<T>::kVec + 32, smem, stream>>>(
       (const T*)u, (const T*)delta, rho, (int32_t*)words, devices, n,
       g.chunks, stages, rows);
   return (int)cudaGetLastError();

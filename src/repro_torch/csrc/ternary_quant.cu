@@ -13,8 +13,24 @@
 // (sizeof(x) each), u read once (4 B): N*(2*sizeof(x) + 4) bytes at
 // 3.35 TB/s.
 //
-// Design: one thread per coordinate, coalesced loads and store; the
-// norm is a broadcast load.
+// Design: a streaming pass.  The first design (one thread per
+// coordinate: one 4 B or 2 B load of x, one 4 B load of u and one narrow
+// store) kept too few bytes in flight per thread for a 50 MB stream, with
+// half-width transactions for bf16 (52 % and 40 % of the bound at 2^22).
+// Here a thread takes one 16-byte vector of x (4 f32 or 8 bf16
+// coordinates) and issues its independent 16-byte loads at once, x and
+// u (2 for f32; 3 for bf16, whose 8 uniforms are 32 B), before it
+// computes; it stores the result as 16 B.  Blocks of 128 threads take
+// consecutive runs of 128 vectors, so the scheduler refills an SM as its
+// blocks finish and short vectors still spread over the SMs.  (A grid of
+// one wave walking the vector in strides, and 4 vectors a thread, were
+// no faster at 2^22 and slower at the MLP's sizes: PERF.md.)  The last
+// n % 4 (f32) or n % 8 (bf16) coordinates, which fill no vector, take a
+// scalar path in the last block.  x, u and out are 16-byte aligned (the
+// wrapper refuses other x and u and allocates out).
+// The first design's times, which this one replaces (chip_smoke.py on an
+// H100 80GB HBM3 at a 700 W power limit): 0.002321 ms device at 53248
+// f32 coordinates; at 2^22 0.02882 ms (f32) and 0.0250 ms (bf16).
 //
 // Subnormals: the reference runs on XLA's CPU backend, which flushes
 // them, and on the TPU, which has none.  So a subnormal |x|, norm or p
@@ -25,9 +41,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_ring.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -46,39 +64,96 @@ __device__ __forceinline__ float flush(float x) {
   return fabsf(x) < FLT_MIN ? 0.0f : x;
 }
 
-template <typename T>
-__global__ void ternary_quant_kernel(const T* __restrict__ x,
-                                     const float* __restrict__ u,
-                                     const float* __restrict__ norm_ptr,
-                                     T* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const float norm = flush(*norm_ptr);
-  const float xv = to_f32(x[i]);
-  const float p = flush(__fdiv_rn(flush(fabsf(xv)), fmaxf(norm, 1e-30f)));
+// One coordinate, given the flushed norm.  A zero |x| (after the flush)
+// gives p = 0 whatever the norm, without the division, whose IEEE
+// sequence takes its slow path on a zero numerator: a thread of 4 or 8
+// coordinates would pay it for each zero, and gradients hold many.
+__device__ __forceinline__ float quant(float xv, float uv, float norm) {
+  const float ax = flush(fabsf(xv));
+  const float p = ax == 0.0f ? 0.0f
+                             : flush(__fdiv_rn(ax, fmaxf(norm, 1e-30f)));
   const float sign = xv > 0.0f ? 1.0f : (xv < 0.0f ? -1.0f : 0.0f);
-  const float q = u[i] < p ? __fmul_rn(norm, sign) : 0.0f;
-  out[i] = from_f32<T>(norm > 0.0f ? q : 0.0f);
+  const float q = uv < p ? __fmul_rn(norm, sign) : 0.0f;
+  return norm > 0.0f ? q : 0.0f;
+}
+
+// The 16-byte output vector of V coordinates.
+__device__ __forceinline__ uint4 pack(const float (&q)[4]) {
+  return make_uint4(__float_as_uint(q[0]), __float_as_uint(q[1]),
+                    __float_as_uint(q[2]), __float_as_uint(q[3]));
+}
+
+__device__ __forceinline__ uint4 pack(const float (&q)[8]) {
+  uint32_t h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(q[2 * i])) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(q[2 * i + 1]))
+            << 16);
+  return make_uint4(h[0], h[1], h[2], h[3]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ternary_quant_kernel(const T* __restrict__ x,
+                         const float* __restrict__ u,
+                         const float* __restrict__ norm_ptr,
+                         T* __restrict__ out, int64_t n) {
+  constexpr int V = ring::Lane<T>::kVec;    // coordinates of a vector
+  constexpr int kUVecs = V / 4;             // 16-byte vectors of u in one
+  const float norm = flush(__ldg(norm_ptr));
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const uint4* uv = reinterpret_cast<const uint4*>(u);
+  uint4* ov = reinterpret_cast<uint4*>(out);
+  const int64_t n_vec = n / V;
+  const int64_t v = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (v < n_vec) {
+    uint4 ur[kUVecs];                        // every load first ...
+    const uint4 xr = __ldcs(xv + v);
+#pragma unroll
+    for (int h = 0; h < kUVecs; ++h) ur[h] = __ldcs(uv + v * kUVecs + h);
+    float xf[V], q[V];                       // ... then the arithmetic
+    ring::unpack(xr, xf);
+#pragma unroll
+    for (int h = 0; h < kUVecs; ++h) {
+      float uf[4];
+      ring::unpack(ur[h], uf);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        q[4 * h + e] = quant(xf[4 * h + e], uf[e], norm);
+    }
+    __stcs(ov + v, pack(q));
+  }
+  // the ragged tail: fewer than V coordinates, in the last block
+  const int64_t i = n_vec * V + threadIdx.x;
+  if (blockIdx.x == gridDim.x - 1 && i < n)
+    out[i] = from_f32<T>(quant(to_f32(x[i]), u[i], norm));
+}
+
+template <typename T>
+int launch(const void* x, const void* u, const void* norm, void* out,
+           int64_t n, cudaStream_t s) {
+  const int64_t n_vec = n / ring::Lane<T>::kVec;
+  int64_t blocks = (n_vec + kThreads - 1) / kThreads;
+  if (blocks < 1) blocks = 1;                // the tail alone
+  ternary_quant_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
+      (const T*)x, (const float*)u, (const float*)norm, (T*)out, n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, out: [N] contiguous, f32 or (x_is_bf16) bf16; u: [N] f32; norm: one
-// f32 in device memory.  Returns cudaGetLastError() after the launch.
+// x, out: [N] contiguous, f32 or (x_is_bf16) bf16; u: [N] f32; all three
+// 16-byte aligned; norm: one f32 in device memory.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_ternary_quant(const void* x, const void* u,
                                    const void* norm, void* out,
                                    int x_is_bf16, int n, void* stream) {
   if (n == 0) return (int)cudaSuccess;
-  const unsigned blocks = (unsigned)(((int64_t)n + kThreads - 1) / kThreads);
+  if (((uintptr_t)x & 15) != 0 || ((uintptr_t)u & 15) != 0 ||
+      ((uintptr_t)out & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (x_is_bf16) {
-    ternary_quant_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, (const float*)u, (const float*)norm,
-        (__nv_bfloat16*)out, n);
-  } else {
-    ternary_quant_kernel<float><<<blocks, kThreads, 0, s>>>(
-        (const float*)x, (const float*)u, (const float*)norm, (float*)out,
-        n);
-  }
-  return (int)cudaGetLastError();
+  return x_is_bf16 ? launch<__nv_bfloat16>(x, u, norm, out, n, s)
+                   : launch<float>(x, u, norm, out, n, s);
 }

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.sign_pack import sign_pack
 from repro_torch.kernels.tally_acc import tally_acc
 from repro_torch.kernels.ternary_quant import ternary_quant
@@ -118,8 +119,14 @@ def ternary_quant_nd(x: torch.Tensor,
     the uniforms come from ``generator`` (on x's device), so a seeded
     generator repeats the draw.  The reference draws them from
     ``jax.random``, which no torch generator reproduces: tests hand both
-    sides the same uniforms at the kernel (``kernels.ternary_quant``)."""
+    sides the same uniforms at the kernel (``kernels.ternary_quant``).
+
+    A flat view that does not start on a 16-byte boundary (a slice of a
+    larger buffer) is copied first, as ``.contiguous()`` copies a strided
+    one: the kernel reads x as 16-byte vectors."""
     flat = x.reshape(-1).contiguous()
+    if flat.data_ptr() % build.ALIGN:
+        flat = flat.clone()
     norm = torch.linalg.vector_norm(flat.to(torch.float32))
     u = torch.rand(flat.shape, generator=generator, dtype=torch.float32,
                    device=x.device)

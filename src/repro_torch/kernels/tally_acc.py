@@ -4,7 +4,11 @@ The wrapper of the CUDA kernel ``csrc/tally_acc.cu``, which replaces the
 TPU kernel ``src/repro/kernels/tally_acc.py::tally_acc``.  One launch
 folds one client's DC-corrected sign plane, weighted by each voter's
 integer vote weight, into the [P, D, n] signed tally of all P*D voter
-rows; the per-pod correction is read as (p, i), never broadcast.
+rows; the per-pod correction is read as (p, i), never broadcast.  The
+kernel moves u, delta and the tally by 16-byte bulk copies: on CUDA all
+three must be 16-byte aligned, with n a multiple of 128 (a whole 16-byte
+run of an int8 tally; ``check_kernel_inputs``); the plain version takes
+any n.
 
 **``tally`` is updated in place**, as the TPU kernel's
 ``input_output_aliases`` updates it, and returned; callers that need the
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
+BLOCK = 128     # coordinates: the kernel copies whole 16-byte int8 runs
 DTYPES = (torch.float32, torch.bfloat16)
 TALLY_DTYPES = (torch.int8, torch.int16, torch.int32)
 
@@ -52,12 +57,25 @@ def _check(u: torch.Tensor, delta: torch.Tensor | None,
         raise ValueError("tally_acc: u, delta and tally must be contiguous")
 
 
+def check_kernel_inputs(u: torch.Tensor, delta: torch.Tensor | None,
+                        tally: torch.Tensor) -> None:
+    """What the CUDA kernel needs beyond ``_check``: n % 128 == 0 and
+    16-byte aligned u, delta and tally, which it reads (and the tally
+    writes back) by bulk async copies.  Raises ``ValueError``; there is no
+    fallback."""
+    if u.shape[-1] % BLOCK:
+        raise ValueError(f"tally_acc: n={u.shape[-1]} is not a multiple of "
+                         f"{BLOCK}")
+    build.require_aligned("tally_acc", u=u, delta=delta, tally=tally)
+
+
 def tally_acc(u: torch.Tensor, delta: torch.Tensor | None, rho: float,
               weights: torch.Tensor, tally: torch.Tensor) -> torch.Tensor:
     """u: [P, D, n] f32/bf16; delta: [P, n] of u's dtype or None;
     weights: [P, D] integer vote weights; tally: [P, D, n] int8/int16/
     int32, **updated in place** to ``tally + w * sgn(f32(u) +
-    rho*f32(delta))`` and returned.  ``rho == 0`` drops delta."""
+    rho*f32(delta))`` and returned (on CUDA also
+    ``check_kernel_inputs``).  ``rho == 0`` drops delta."""
     _check(u, delta, weights, tally)
     if not rho:
         delta = None
@@ -65,6 +83,7 @@ def tally_acc(u: torch.Tensor, delta: torch.Tensor | None, rho: float,
         return tally.copy_(ref.tally_acc_ref(u, delta, rho, weights, tally))
     if u.device.type != "cuda":
         raise ValueError(f"tally_acc: unsupported device {u.device}")
+    check_kernel_inputs(u, delta, tally)
     p, d, n = u.shape
     w = weights.to(torch.int32).contiguous()
     lib = build.load()

@@ -4,7 +4,9 @@ The wrapper of the CUDA kernel ``csrc/ternary_quant.cu``, which replaces
 the TPU kernel ``src/repro/kernels/ternary_quant.py::ternary_quant``:
 the unbiased compressor of the Hier-Local-QSGD baseline, given the
 uniforms ``u`` and the l2 norm of ``x`` (a device scalar, so nothing
-waits for it).  The public entry point is ``ops.ternary_quant_nd``.
+waits for it).  The public entry point is ``ops.ternary_quant_nd``.  The
+kernel reads x and u as 16-byte vectors: on CUDA both must be 16-byte
+aligned (``check_kernel_inputs``); any n is taken.
 
 CPU tensors take the plain version (``ref.ternary_quant_ref``); CUDA
 tensors launch the kernel or raise -- there is no fallback.
@@ -34,17 +36,25 @@ def _check(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor) -> None:
         raise ValueError("ternary_quant: x and u must be contiguous")
 
 
+def check_kernel_inputs(x: torch.Tensor, u: torch.Tensor) -> None:
+    """What the CUDA kernel needs beyond ``_check``: 16-byte aligned x
+    and u, which it reads as 16-byte vectors.  Raises ``ValueError``;
+    there is no fallback."""
+    build.require_aligned("ternary_quant", x=x, u=u)
+
+
 def ternary_quant(x: torch.Tensor, u: torch.Tensor,
                   norm: torch.Tensor) -> torch.Tensor:
     """x: float32/bfloat16 (any shape); u: float32 uniforms of x's shape;
     norm: 0-dim float32 ``||x||_2``.  Returns a new tensor of x's dtype:
     ``norm * sign(x)`` where ``u < |x| / max(norm, 1e-30)``, else 0, and
-    all zeros when ``norm <= 0``."""
+    all zeros when ``norm <= 0``.  On CUDA also ``check_kernel_inputs``."""
     _check(x, u, norm)
     if x.device.type == "cpu":
         return ref.ternary_quant_ref(x, u, norm)
     if x.device.type != "cuda":
         raise ValueError(f"ternary_quant: unsupported device {x.device}")
+    check_kernel_inputs(x, u)
     out = torch.empty_like(x)
     lib = build.load()
     with torch.cuda.device(x.device):

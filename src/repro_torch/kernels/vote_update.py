@@ -5,8 +5,9 @@ the TPU kernel ``src/repro/kernels/vote_update.py::vote_update``.  One
 launch covers all P pods: the weighted popcount vote over each pod's D
 packed voter rows, then one read-modify-write of the pod's model row.
 The kernel moves words and v by 16-byte bulk copies: on CUDA both must
-be 16-byte aligned, with n a multiple of 128, and D is at most 512
-(``check_kernel_inputs``); the plain version takes any D.
+be 16-byte aligned, with n a multiple of 128 (``check_kernel_inputs``).
+Both routes take any number of voters D >= 1: past 512 a pod the kernel
+counts them group by group.
 
 **``v`` is updated in place**, as the TPU kernel's
 ``input_output_aliases={1: 0}`` updates it, and returned; callers that
@@ -25,7 +26,6 @@ from repro_torch.kernels import build, ref
 
 PACK = 32
 BLOCK_WORDS = 4        # words: the kernel copies whole 16-byte runs
-MAX_VOTERS = 512       # D: two stages of the kernel's ring still fit
 
 
 def _check(words: torch.Tensor, v: torch.Tensor | None,
@@ -60,15 +60,15 @@ def _check(words: torch.Tensor, v: torch.Tensor | None,
 
 def check_kernel_inputs(words: torch.Tensor, v: torch.Tensor | None) -> None:
     """What the CUDA kernel needs beyond ``_check``: whole 16-byte runs of
-    words (n % 128 == 0), 1..512 voters (two stages of its ring fit in
-    shared memory) and 16-byte aligned words and v, which it reads by bulk
-    async copies.  Raises ``ValueError``; there is no fallback."""
+    words (n % 128 == 0), at least one voter, and 16-byte aligned words
+    and v, which it reads by bulk async copies.  Raises ``ValueError``;
+    there is no fallback."""
     _, d, w = words.shape
     if w % BLOCK_WORDS:
         raise ValueError(f"vote_update: n={w * PACK} is not a multiple of "
                          f"{BLOCK_WORDS * PACK}")
-    if not 1 <= d <= MAX_VOTERS:
-        raise ValueError(f"vote_update: D={d} voters, want 1..{MAX_VOTERS}")
+    if d < 1:
+        raise ValueError(f"vote_update: D={d} voters, want at least 1")
     build.require_aligned("vote_update", words=words, v=v)
 
 

@@ -29,6 +29,8 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import build, ops, ref
 from repro_torch.core import votes
 from repro_torch.kernels import sign_pack as sign_pack_mod
+from repro_torch.kernels import tally_acc as tally_acc_mod
+from repro_torch.kernels import ternary_quant as ternary_quant_mod
 from repro_torch.kernels import vote_update as vote_update_mod
 from repro_torch.kernels.sign_pack import sign_pack
 from repro_torch.kernels.tally_acc import tally_acc
@@ -277,10 +279,13 @@ def test_wrappers_check_their_inputs():
         vote_update_mod.check_kernel_inputs(bad_w, None)
     with pytest.raises(ValueError, match="16-byte boundary"):
         vote_update_mod.check_kernel_inputs(words, bad_d)
-    for voters in (0, 513):
+    for voters in (0,):
         with pytest.raises(ValueError, match="voters"):
             vote_update_mod.check_kernel_inputs(
                 torch.zeros(P, voters, 4, dtype=torch.int32), None)
+    for voters in (513, 5000):        # counted over voter groups
+        vote_update_mod.check_kernel_inputs(
+            torch.zeros(P, voters, 4, dtype=torch.int32), None)
     sign_pack_mod.check_kernel_inputs(u, torch.zeros(P, N))
     vote_update_mod.check_kernel_inputs(words, torch.zeros(P, N))
     # the plain version, which CPU tensors take, needs none of it
@@ -296,6 +301,44 @@ def test_wrappers_check_their_inputs():
     off = torch.zeros(P * D * N + 4)[4:].view(P, D, N)
     sign_pack_mod.check_kernel_inputs(off, None)
     assert torch.equal(sign_pack(off), sign_pack(u))
+
+
+@pytest.mark.parametrize("voters", [600, 1030])
+@pytest.mark.parametrize("mask_kind", ["bool", "int"])
+@pytest.mark.parametrize("form", ["update", "vote"])
+def test_vote_update_many_voters_matches_pallas(voters, mask_kind, form):
+    """More voters a pod than one 512-voter group of the CUDA kernel (and,
+    at 1030, than the bit-sliced count's 1023): the port's
+    ``fused_vote_update_words`` is bitwise the JAX package's at P = 1,
+    n = 4096, with integer weights (zeros among them) and with a bool
+    mask, neither of which empties the quorum."""
+    rng = np.random.default_rng(voters)
+    words = rng.integers(-2**31, 2**31, (1, voters, 128)).astype(np.int32)
+    if mask_kind == "int":
+        mask = rng.integers(0, 8, (1, voters)).astype(np.int32)
+        mask[0, 0] = 5
+    else:
+        mask = rng.random((1, voters)) < 0.6
+        mask[0, 0] = True
+    v = rng.standard_normal((1, 4096)).astype(np.float32)
+    words_j = jnp.asarray(words.view(np.uint32))
+    words_t, mask_t = torch.from_numpy(words), torch.from_numpy(mask)
+    if form == "update":
+        want = jops.fused_vote_update_words(words_j, jnp.asarray(v),
+                                            jnp.asarray(mask), MU,
+                                            interpret=True)
+        v_t = torch.from_numpy(v.copy())
+        got = ops.fused_vote_update_words(words_t, v_t, mask_t, MU)
+        assert got is v_t                             # updated in place
+        np.testing.assert_array_equal(as_i32(got.numpy()), as_i32(want))
+    else:
+        want = jops.fused_vote_update_words(words_j, None,
+                                            jnp.asarray(mask), -1.0,
+                                            interpret=True)
+        got = ops.fused_vote_update_words(words_t, None, mask_t, 0.0)
+        assert got.dtype == torch.int8 and got.any()
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want).astype(np.int8))
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -536,3 +579,49 @@ def test_new_wrappers_check_their_inputs():
         ternary_quant(x, torch.zeros(8), torch.ones(1))
     with pytest.raises(ValueError, match="dtype"):
         ternary_quant(x.double(), torch.zeros(8), torch.tensor(1.0))
+
+
+def test_new_wrappers_check_their_kernel_inputs():
+    """The bulk-copy and 16-byte-vector kernels' refusals, made on the
+    CUDA route only: tally_acc wants n % 128 == 0 and 16-byte aligned u,
+    delta and tally, ternary_quant 16-byte aligned x and u.  The plain
+    version, which CPU tensors take, needs none of it; and
+    ``ops.ternary_quant_nd`` copies a misaligned flat view first."""
+    u = torch.randn(P, D, N, generator=torch.Generator().manual_seed(0))
+    d = torch.randn(P, N, generator=torch.Generator().manual_seed(1))
+    w = torch.tensor([[1, 2, 0], [0, 0, 0]], dtype=torch.int32)
+    t = torch.zeros(P, D, N, dtype=torch.int8)
+
+    def off(src):                     # the same values, 4 bytes off
+        buf = torch.zeros(src.numel() + 1, dtype=src.dtype)
+        buf[1:] = src.reshape(-1)
+        return buf[1:].view(src.shape)
+
+    bad_u, bad_d, bad_t = off(u), off(d), off(t)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tally_acc_mod.check_kernel_inputs(u[..., :N - 64].contiguous(),
+                                          None, t[..., :N - 64].contiguous())
+    for args in ((bad_u, None, t), (u, bad_d, t), (u, d, bad_t)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            tally_acc_mod.check_kernel_inputs(*args)
+    tally_acc_mod.check_kernel_inputs(u, d, t)
+    want = tally_acc(u, d, RHO, w, t.clone())
+    for uu, dd, tt in ((bad_u, bad_d, bad_t),
+                       (u[..., :N - 64].contiguous(), d[:, :N - 64]
+                        .contiguous(), t[..., :N - 64].contiguous())):
+        got = tally_acc(uu, dd, RHO, w, tt)
+        assert got is tt
+        np.testing.assert_array_equal(got.numpy(),
+                                      want[..., :uu.shape[-1]].numpy())
+    x = u.reshape(-1)[:1000]
+    ux = torch.rand(1000, generator=torch.Generator().manual_seed(2))
+    nrm = torch.linalg.vector_norm(x)
+    for args in ((off(x), ux), (x, off(ux))):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ternary_quant_mod.check_kernel_inputs(*args)
+    ternary_quant_mod.check_kernel_inputs(x, ux)
+    want = ternary_quant(x, ux, nrm)
+    assert torch.equal(ternary_quant(off(x), off(ux), nrm), want)
+    q = ops.ternary_quant_nd(off(x), torch.Generator().manual_seed(3))
+    assert torch.equal(q, ops.ternary_quant_nd(
+        x, torch.Generator().manual_seed(3)))
