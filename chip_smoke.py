@@ -57,9 +57,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bitwise in any case, and so must one merged step of 640 voters a
      pod (K=128 clients per device, ``vote_update`` over voter groups)
      on fused/flat against ag_packed/tree;
-  5. ``quantize``: the entry point ``ops.ternary_quant_nd`` (the QSGD
-     baseline's compressor) on the MLP's four gradient leaves, one
-     ``ternary_quant`` launch each, held against its plain version.
+  5. ``quantize``: the entry point ``ops.ternary_quant_nd`` on the MLP's
+     four gradient leaves, one ``ternary_quant`` launch each, held
+     against its plain version;
+  6. ``methods``: the rest of the step on the paper task (Q=4 x D=5,
+     B=400, 2 rounds of T_E=15, the batches sampled once and reused):
+     ``hier_sgd``, ``hier_local_qsgd`` (``ternary_quant`` with per-row
+     norms, 4 launches a step and no other kernel),
+     ``scaffold_hier_signsgd``, ``mtgc_hier_signsgd`` (cloud_period=2),
+     and ``dc_hier_signsgd`` with error feedback, with momentum 0.9 and
+     with the overlapped cloud tier.  Each run on fused/flat must equal
+     ag_packed/tree bitwise, launch exactly its kernels, and end below
+     the initial model's test loss; for QSGD, SCAFFOLD, MTGC and EF
+     with K=2 clients (Bernoulli(0.5), |D_qk| weights) stream must
+     equal merged bitwise under the ``clients`` phase's rule.
+
+The ``ternary`` cases of phase 2 include the QSGD step's per-row form:
+rows of the MLP's leaf lengths 10, 64, 640 and 50176, R = 20 and 40 rows
+(a zero row, a row of subnormals), each row with its own norm from
+``signs.row_norms`` -- whose values must not depend on the row count.
 
 It prints the card's name and power limit first, one JSON line per
 kernel case, a ``{"kernels": [...]}`` line, and as its last line
@@ -69,6 +85,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -688,7 +705,63 @@ def phase_ternary(torch, timer):
         for dtype in (torch.float32, torch.bfloat16):
             x, u = ternary_inputs(torch, gen, n, dtype)
             ternary_case(torch, timer, x, u, "l2", {"case": "any n"})
+    for cols in TERNARY_ROWS:
+        for rows in (20, 40):
+            for dtype in (torch.float32, torch.bfloat16):
+                row = ternary_rows_case(torch, timer, gen, rows, cols, dtype)
+                if (rows, cols, dtype) == (20, 50176, torch.float32):
+                    main_row = row
     return main_row
+
+
+TERNARY_ROWS = (10, 64, 640, 50176)     # the MLP's leaves, a row a voter
+
+
+def ternary_rows_case(torch, timer, gen, rows: int, cols: int,
+                      dtype) -> dict:
+    """The QSGD step's form: x [rows, cols] with its own norm a row
+    (``signs.row_norms``), row 1 zero, row 2 subnormal, zeros and
+    subnormals at u = 0 in row 0; bitwise against the plain version on
+    the same uniforms and norms, timed.  The norms of the first rows must
+    be those of a call that holds only them."""
+    from repro_torch.core import signs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ternary_quant import ternary_quant
+
+    x = torch.randn((rows, cols), generator=gen, device="cuda").to(dtype)
+    u = torch.rand((rows, cols), generator=gen, device="cuda")
+    x[0, :2] = 0.0
+    x[0, 2:4] = 1e-40
+    u[0, :4] = 0.0
+    x[1] = 0.0
+    x[2] = -1e-39
+    u[2] = 0.0
+    nrm = signs.row_norms(x)
+    half = signs.row_norms(x[:rows // 2].contiguous())
+    require(torch.equal(half, nrm[:rows // 2]),
+            f"row norms depend on the row count ({rows} vs {rows // 2})")
+    got = ternary_quant(x, u, nrm)
+    want = ref.ternary_quant_ref(x, u, nrm)
+    torch.cuda.synchronize()
+    mism = int((got.float().view(torch.int32)
+                != want.float().view(torch.int32)).sum())
+    err = float((got.float() - want.float()).abs().max())
+    zeros_ok = not got[1:3].float().any() and not got[0, :4].float().any()
+    row = timed_row(
+        timer,
+        {"kernel": "ternary_quant", "shape": [rows, cols], "case": "rows",
+         "dtype": str(x.dtype).split(".")[-1], "norm": "per row",
+         "mismatched": mism, "max_abs_err": err},
+        lambda: ternary_quant(x, u, nrm),
+        lambda: ref.ternary_quant_ref(x, u, nrm),
+        "ternary_quant_kernel",
+        ternary_quant_bytes(rows * cols, x.element_size()) + 4 * (rows - 1),
+        ternary_quant_ops(rows * cols))
+    require(mism == 0, f"ternary_quant (per row) disagrees with its plain "
+            f"version: {row}")
+    require(zeros_ok, f"ternary_quant (per row) gave nonzeros where it must "
+            f"give 0: {row}")
+    return row
 
 
 def phase_slice(torch):
@@ -995,6 +1068,151 @@ def phase_many_voters(torch):
             "bitwise between fused/flat and ag_packed/tree")
 
 
+METHOD_RUNS = (
+    ("hier_sgd", "hier_sgd", {}),
+    ("hier_local_qsgd", "hier_local_qsgd", {}),
+    ("scaffold", "scaffold_hier_signsgd", {}),
+    ("mtgc", "mtgc_hier_signsgd", {"cloud_period": 2}),
+    ("dc + EF", "dc_hier_signsgd", {"error_feedback": True}),
+    ("dc + momentum", "dc_hier_signsgd", {"momentum": 0.9}),
+    ("dc + overlap", "dc_hier_signsgd", {"cloud_overlap": "overlap"}),
+)
+STREAMED_RUNS = ("hier_local_qsgd", "scaffold", "mtgc", "dc + EF")
+KERNELS = ("sign_pack", "vote_update", "tally_acc", "ternary_quant")
+
+
+def method_launches(method: str, kw: dict, transport: str, mode: str,
+                    steps: int, k: int) -> dict:
+    """The kernel launches a run must make: none for hier_sgd; 4
+    ternary_quant a step for QSGD (one a leaf, per client when
+    streamed); for the sign methods on fused, sign_pack + vote_update a
+    merged step, tally_acc a streamed client, nothing streamed under EF
+    (its per-leaf tally); nothing on the other transports."""
+    want = dict.fromkeys(KERNELS, 0)
+    if method == "hier_local_qsgd":
+        want["ternary_quant"] = 4 * steps * (k if mode == "stream" else 1)
+    elif method != "hier_sgd" and transport == "fused":
+        if mode == "stream":
+            if not kw.get("error_feedback"):
+                want["tally_acc"] = k * steps
+        else:
+            want["sign_pack"] = want["vote_update"] = steps
+    return want
+
+
+def phase_methods(torch, slice_ms: float) -> dict:
+    """The rest of the step on the paper task (see the module docstring).
+    Returns {run name: result} of the fused/flat runs."""
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.tally_acc import tally_acc
+    from repro_torch.kernels.ternary_quant import ternary_quant
+    from repro_torch.kernels.vote_update import vote_update
+    from repro_torch.launch.train import (FedBenchCfg, run_paper_task,
+                                          sample_batches)
+
+    kernels = dict(zip(KERNELS, (sign_pack, vote_update, tally_acc,
+                                 ternary_quant)))
+    base = FedBenchCfg(rounds=2, t_e=15, batch=400, mu=MU, rho=RHO,
+                       n_train=20000, q_edges=4, devices_per_edge=5,
+                       transport="fused", state_layout="flat")
+    steps = base.rounds * base.t_e
+    clients = dataclasses.replace(
+        base, clients_per_device=K_CLIENTS, participation="bernoulli",
+        rate=0.5, client_seed=11, data_weights=True)
+    t0 = time.perf_counter()
+    batches = {1: sample_batches(base, "cuda"),
+               K_CLIENTS: sample_batches(clients, "cuda")}
+    print(f"[methods] batches sampled once for all runs: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    same_grads, grad_differ = client_grads_bitwise(torch, clients)
+    print(f"[methods] one step's per-client gradients, merged vs streamed: "
+          f"bitwise {same_grads} ({grad_differ} coordinates differ)",
+          flush=True)
+
+    def one(name, cfg, mode, method, kw):
+        for kern in kernels.values():
+            kern.launches = 0
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_paper_task(cfg, device="cuda", log=lambda line: None,
+                             batches=batches[cfg.clients_per_device])
+        torch.cuda.synchronize()
+        # the run's own peak, above the batches and buffers held before it
+        res["peak_mib"] = (torch.cuda.max_memory_allocated() - before) / 2**20
+        res["launches"] = {n: kern.launches for n, kern in kernels.items()}
+        want = method_launches(method, kw, cfg.transport, mode, steps,
+                               cfg.clients_per_device)
+        tag = (f"{name}, {mode} {cfg.transport}/{cfg.state_layout}"
+               + (f", K={cfg.clients_per_device}"
+                  if cfg.clients_per_device > 1 else ""))
+        print(f"[methods] {tag}: test loss {res['loss_init']:.4f} -> "
+              f"{res['loss']} acc {res['acc']} ms/step "
+              f"{res['ms_per_step']} (slice {slice_ms:.3f}) launches "
+              f"{res['launches']} peak MiB {res['peak_mib']:.2f}",
+              flush=True)
+        require(res["launches"] == want,
+                f"{tag}: launches {res['launches']}, want {want}")
+        require(all(map(math.isfinite, res["loss"])),
+                f"{tag}: non-finite test loss")
+        require(res["loss"][-1] < res["loss_init"],
+                f"{tag}: test loss {res['loss']} not below its start "
+                f"{res['loss_init']}")
+        for n, leaf in res["params"].items():
+            require(bool(torch.isfinite(leaf).all()), f"{tag}/{n}: "
+                    "non-finite")
+        return res
+
+    runs = {}
+    for name, method, kw in METHOD_RUNS:
+        cfg = dataclasses.replace(base, method=method, **kw)
+        fused = one(name, cfg, "merged", method, kw)
+        plain = one(name, dataclasses.replace(
+            cfg, transport="ag_packed", state_layout="tree"), "merged",
+            method, kw)
+        diff = count_differing(torch, fused["params"], plain["params"])
+        require(diff == 0, f"{name}: fused/flat and ag_packed/tree differ "
+                f"in {diff} coordinates")
+        entry = {"run": name, "ms_per_step_fused_flat":
+                 fused["ms_per_step"][-1],
+                 "ms_per_step_ag_packed_tree": plain["ms_per_step"][-1],
+                 "slice_ms_per_step": slice_ms,
+                 "launches": fused["launches"],
+                 "peak_mib_fused_flat": fused["peak_mib"],
+                 "loss_init": fused["loss_init"], "loss": fused["loss"],
+                 "fused_flat_vs_tree_differing": diff}
+        if name in STREAMED_RUNS:
+            kcfg = dataclasses.replace(clients, method=method, **kw)
+            stream = one(name, dataclasses.replace(kcfg,
+                                                   client_mode="stream"),
+                         "stream", method, kw)
+            merged = one(name, kcfg, "merged", method, kw)
+            sdiff = count_differing(torch, stream["params"],
+                                    merged["params"])
+            print(f"[methods] {name}, K={K_CLIENTS}: stream vs merged "
+                  f"{sdiff} coordinates differ, final test loss "
+                  f"{stream['loss'][-1]} vs {merged['loss'][-1]}",
+                  flush=True)
+            if same_grads:
+                require(sdiff == 0, f"{name}: stream and merged differ "
+                        "although their gradients are bitwise equal")
+            else:
+                require(abs(stream["loss"][-1] - merged["loss"][-1]) <= 1e-3,
+                        f"{name}: stream and merged final test losses "
+                        "differ by more than 1e-3")
+            entry.update(stream_ms_per_step=stream["ms_per_step"][-1],
+                         merged_ms_per_step=merged["ms_per_step"][-1],
+                         stream_launches=stream["launches"],
+                         stream_peak_mib=stream["peak_mib"],
+                         merged_peak_mib=merged["peak_mib"],
+                         stream_vs_merged_differing=sdiff)
+        emit({"methods_run": entry})
+        runs[name] = fused
+    print("[methods] every run: fused/flat == ag_packed/tree bitwise, "
+          "launches as required, test loss below its start", flush=True)
+    return runs
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1033,12 +1251,15 @@ def main() -> None:
     runs = phase_clients(torch)
     launches["tally_acc"] = runs["stream fused/flat"]["launches"]["tally_acc"]
     phase_many_voters(torch)
-    launches["ternary_quant"] = phase_quantize(torch)
+    phase_quantize(torch)
+    methods = phase_methods(torch, fused["ms_per_step"][-1])
+    launches["ternary_quant"] = (
+        methods["hier_local_qsgd"]["launches"]["ternary_quant"])
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
              "tally_acc": "clients, stream fused/flat (30 steps, K=2)",
-             "ternary_quant": "ops.ternary_quant_nd on the MLP's 4 "
-                              "gradient leaves"}
+             "ternary_quant": "methods, hier_local_qsgd fused/flat (30 "
+                              "steps, 4 leaves a step)"}
 
     kernels = []
     for name in SOURCES:

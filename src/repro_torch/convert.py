@@ -1,9 +1,14 @@
-"""Move parameters and flat buffers between numpy and the port.
+"""Move parameters, flat buffers and whole train states between numpy
+and the port.
 
 A JAX parameter tree turned into numpy (``jax.tree.map(np.asarray, t)``)
 is a dict of arrays; these helpers turn it into the port's tensors, and
 back.  bfloat16 arrays (numpy dtype ``bfloat16`` from ``ml_dtypes``)
 move through their 16-bit pattern, so every value survives bitwise.
+A JAX ``TrainState`` mapped the same way (its flat slots keep their
+``FlatState`` wrapper, with a numpy ``buf``) carries over slot for slot
+with :func:`train_state_from_numpy`, so both packages can start from the
+same mid-run state.
 """
 from __future__ import annotations
 
@@ -12,7 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import flatbuf, pytree
+from repro_torch.core import flatbuf, hier, pytree
 
 PyTree = Any
 
@@ -56,3 +61,72 @@ def flat_state_from_numpy(buf, layout: flatbuf.FlatLayout,
         raise ValueError(f"buffer length {t.shape[-1]} != layout n_pad "
                          f"{layout.n_pad}")
     return flatbuf.FlatState(t, layout, batch_dims)
+
+
+SLOTS = ("params", "agg_next", "delta", "delta_next", "ef", "mom",
+         "corr_cl", "corr_edge")
+
+
+def train_state_from_numpy(state, like: hier.TrainState) -> hier.TrainState:
+    """A train state with numpy leaves -- a JAX ``TrainState`` under
+    ``jax.tree.map(np.asarray, ...)``, or :func:`train_state_to_numpy`'s
+    output -- into the port's, every slot included.
+
+    ``like`` is a port state of the same config (``init_fn``'s), which
+    gives each slot's layout, dtype and device: a flat slot takes the
+    source's ``buf`` (``[P, n_pad]`` or ``[P, D*K, n_pad]``; the port's
+    offsets match the JAX package's slot for slot), a tree slot its
+    leaves.  Step comes from the source; the generator is ``like``'s (a
+    ``jax.random`` key has no torch counterpart: seed ``like`` as the run
+    needs).  A slot present in one state and None in the other raises,
+    as does a shape that does not match or a dtype that would round."""
+    out = {"step": int(np.asarray(state.step)), "rng": like.rng}
+    for name in SLOTS:
+        src, ref = getattr(state, name), getattr(like, name)
+        if (src is None) != (ref is None):
+            raise ValueError(
+                f"slot {name}: present in only one of the source and the "
+                "port's state (a different config?)")
+        if ref is None:
+            out[name] = None
+        elif isinstance(ref, flatbuf.FlatState):
+            out[name] = ref.replace(_like(name, getattr(src, "buf", src),
+                                          ref.buf))
+        else:
+            ref_leaves, td = pytree.tree_flatten(ref)
+            out[name] = pytree.tree_unflatten(td, [
+                _like(name, a, r) for a, r in zip(
+                    pytree.flatten_up_to(td, src), ref_leaves)])
+    return hier.TrainState(**out)
+
+
+def _like(name: str, a, ref: torch.Tensor) -> torch.Tensor:
+    """numpy ``a`` as a tensor of ``ref``'s shape, dtype and device;
+    a float32 source takes a bfloat16 slot only where that is exact."""
+    t = tensor_from_numpy(a, ref.device)
+    if t.shape != ref.shape:
+        raise ValueError(f"slot {name}: shape {tuple(t.shape)}, the port's "
+                         f"state holds {tuple(ref.shape)}")
+    if t.dtype != ref.dtype:
+        cast = t.to(ref.dtype)
+        if not (t.dtype.is_floating_point and ref.dtype.is_floating_point
+                and torch.equal(cast.to(t.dtype), t)):
+            raise ValueError(f"slot {name}: dtype {t.dtype} does not fit "
+                             f"the port's {ref.dtype} exactly")
+        t = cast
+    return t
+
+
+def train_state_to_numpy(state: hier.TrainState) -> hier.TrainState:
+    """The port's state with numpy leaves (flat slots as their numpy
+    buffers, bfloat16 widened to float32 exactly) and no generator:
+    :func:`train_state_from_numpy` turns it back."""
+    out = {"step": state.step, "rng": None}
+    for name in SLOTS:
+        slot = getattr(state, name)
+        if isinstance(slot, flatbuf.FlatState):
+            out[name] = tensor_to_numpy(slot.buf)
+        else:
+            out[name] = (None if slot is None
+                         else pytree.tree_map(tensor_to_numpy, slot))
+    return hier.TrainState(**out)

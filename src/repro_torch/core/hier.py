@@ -1,50 +1,69 @@
-"""HierSignSGD / DC-HierSignSGD train step on one card (the paper's core).
+"""The hierarchical train steps on one card (the paper's core).
 
-The replicated regime of the JAX package's ``core/hier.py``.  Each
-``train_step`` call is one local step tau.  At a round boundary
+The replicated regime of the JAX package's ``core/hier.py``: all six
+methods -- ``hier_signsgd``, ``dc_hier_signsgd``, the pre-sign client
+corrections ``scaffold_hier_signsgd`` and ``mtgc_hier_signsgd``, and the
+full-precision baselines ``hier_sgd`` and ``hier_local_qsgd`` -- with
+error feedback, sign momentum, ``decay``, ``anchor_staleness`` 0 and 1,
+virtual clients (merged and stream) and the cloud sync schedule
+(``core.schedule``: ``sync`` or ``overlap``).
+
+Each ``train_step`` call is one local step tau.  At a round boundary
 (``step % t_e == 0``) a prologue first runs
 
-  1. the cloud aggregation ``v_q <- sum_q (D_q/N) v_q`` (Alg. 1/2's
-     end-of-round step, folded into the next step's prologue), and
-  2. (DC only) the anchor pass: ``c_q = sum_k (|D_qk|/D_q) grad f_qk(w)``,
-     ``c = sum_q (D_q/N) c_q``, ``delta_q = c - c_q``.  With
-     ``anchor_staleness=1`` (the paper's pipelined variant) the fresh
-     delta is staged and the previous round's is used; ``0`` uses it at
-     once.
+  1. the cloud tier: the aggregate ``sum_q (D_q/N) v_q`` is issued and,
+     by the schedule, committed at once (``sync``) or one boundary later
+     (``overlap``: the edges run from the aggregate staged in
+     ``TrainState.agg_next`` at the previous boundary);
+  2. the anchors at the committed model: DC's ``delta_q = c - c_q``
+     (staged one round with ``anchor_staleness=1``), SCAFFOLD's control
+     variates or MTGC's edge and cloud terms (``compute_corrections``).
 
-Then the local step: per-device gradients -> ``+ rho*delta`` (DC) ->
-sign -> majority vote over the D devices of each edge ->
-``v_q <- v_q - mu * vote``.
+Then the local step.  Sign methods: per-device gradients -> momentum ->
+``+ e`` (EF) -> ``+ rho*delta`` (DC) or ``+ rho*q`` (SCAFFOLD/MTGC) ->
+sign (EF keeps the residual) -> majority vote over the D devices of each
+edge -> ``v_q <- v_q - mu * vote``.  Mean methods: per-device gradients
+(ternary-quantized for QSGD) -> share-weighted mean -> ``v_q <- v_q -
+mu_sgd * mean``.
 
 P (edges) and D (devices) are the leading dims of every tensor on one
 card: per-device gradients come from autograd over ``[P, D, *leaf]``
 copies of the edge models (``vmap`` written out as batch dims).
 
 Transports (``core.votes``): ``ag_packed``, ``ar_int8`` and ``fused``,
-bitwise identical.  State layouts: ``tree`` keeps the master as a dict of
-``[P, *leaf]`` tensors; ``flat`` keeps it AS a ``core.flatbuf`` buffer,
-and with ``fused`` the whole update is one ``sign_pack`` and one
-``vote_update`` launch that writes the master buffer **in place** (the
-state passed in is updated; clone it first to keep it).  Both layouts
-give bitwise identical trajectories.
+bitwise identical.  State layouts: ``tree`` keeps the master (and every
+other slot) as dicts of ``[P, *leaf]`` / ``[P, D*K, *leaf]`` tensors;
+``flat`` keeps them AS ``core.flatbuf`` buffers, and with ``fused`` the
+sign methods' update is one ``sign_pack`` and one ``vote_update`` launch
+that writes the master buffer **in place** (the state passed in is
+updated; clone it first to keep it).  Both layouts give bitwise
+identical trajectories.  The fused transport folds DC's one shared delta
+into its kernels; SCAFFOLD/MTGC's per-client corrections are added
+before it, and error feedback, which needs the explicit per-leaf signs,
+takes the per-leaf route up to the vote (then ``vote_update``'s
+vote-only form on ``fused``).
 
 Virtual clients (``AlgoConfig.clients``, ``core.clients``): with an
 active config each device hosts K clients.  A per-round participation
 mask (pinned to ``(seed, step // t_e)``) times ``dev_mask`` and the
 integer |D_qk| weights give the int32 vote weights of the weighted
-popcount, and the anchor mean reweights to the participating shares.
-``mode="merged"`` carves the device batch into the voter axis
-``[P, D*K, b/K, ...]`` and votes as above; ``mode="stream"`` loops over
-the K clients inside the step, one client's gradient live at a time,
-folding each one's signs into an integer tally (on the fused transport
-one ``tally_acc`` launch per client) and thresholding after the loop --
-bitwise the merged trajectory.
+popcount; the anchor and mean aggregations reweight to the participating
+shares, and only clients with a live vote refresh their EF residual and
+correction terms.  ``mode="merged"`` carves the device batch into the
+voter axis ``[P, D*K, b/K, ...]``; ``mode="stream"`` loops over the K
+clients inside the step, one client's gradient live at a time, folding
+each one's signs into an integer tally (on the fused transport one
+``tally_acc`` launch per client; per leaf under EF) or its weighted
+gradient into an f32 accumulator (mean methods) -- bitwise the merged
+trajectory.
 
-Ported: methods ``hier_signsgd`` and ``dc_hier_signsgd``, ``decay``,
-``anchor_staleness`` 0 and 1, virtual clients (merged and stream), the
-sync cloud schedule (the cloud mean is applied at the boundary that
-issues it).  Everything else raises ``NotImplementedError`` naming its
-ROADMAP item.
+The QSGD uniforms: one ``[P, D*K, *leaf]`` float32 block per leaf per
+step, in leaf order, from the state's ``torch.Generator`` -- or from the
+``uniforms`` callable given to :func:`make_hier_step`.  Each leaf is
+quantized as ``P*D*K`` rows with their own l2 norms, one ``ternary_quant``
+launch on CUDA (``kernels.ops.ternary_quant_rows``).
+
+Not ported: ``param_mode="fsdp"`` (ROADMAP queue 1 item 17).
 """
 from __future__ import annotations
 
@@ -54,16 +73,18 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core import clients as vclients
-from repro_torch.core import flatbuf, pytree, signs, votes
+from repro_torch.core import flatbuf, pytree, schedule, signs, votes
 from repro_torch.core.topology import Topology
+from repro_torch.kernels import ops as kops
 
 PyTree = Any
+F32 = torch.float32
 
 SIGN_METHODS = ("hier_signsgd", "dc_hier_signsgd", "scaffold_hier_signsgd",
                 "mtgc_hier_signsgd")
 CLIENT_CORRECTION_METHODS = ("scaffold_hier_signsgd", "mtgc_hier_signsgd")
 ALL_METHODS = SIGN_METHODS + ("hier_sgd", "hier_local_qsgd")
-CLOUD_OVERLAP_MODES = ("sync", "overlap")
+CLOUD_OVERLAP_MODES = schedule.CLOUD_OVERLAP_MODES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,12 +94,12 @@ class AlgoConfig:
     mu: float = 1e-3                  # sign-step size
     mu_sgd: float = 0.1               # full-precision baseline step size
     t_e: int = 15                     # local steps per global round
-    rho: float = 0.2                  # correction strength (DC)
+    rho: float = 0.2                  # correction strength (DC/SCAFFOLD/MTGC)
     transport: str = "ag_packed"      # ag_packed | ar_int8 | fused
     state_layout: str = "tree"        # tree | flat
     anchor_staleness: int = 1         # 1 = paper's pipelined delta, 0 = fresh
-    cloud_period: int = 2             # MTGC slow timescale
-    cloud_overlap: str = "sync"       # cloud sync schedule
+    cloud_period: int = 2             # MTGC: rounds between eta refreshes
+    cloud_overlap: str = "sync"       # cloud sync schedule: sync | overlap
     clients: vclients.ClientConfig = vclients.ClientConfig()
     error_feedback: bool = False
     momentum: float = 0.0
@@ -105,22 +126,56 @@ class AlgoConfig:
                 f"from {', '.join(CLOUD_OVERLAP_MODES)})")
 
     @property
+    def is_sign(self) -> bool:
+        return self.method in SIGN_METHODS
+
+    @property
     def is_dc(self) -> bool:
         return self.method == "dc_hier_signsgd"
 
+    @property
+    def is_scaffold(self) -> bool:
+        return self.method == "scaffold_hier_signsgd"
+
+    @property
+    def is_mtgc(self) -> bool:
+        return self.method == "mtgc_hier_signsgd"
+
+    @property
+    def has_client_correction(self) -> bool:
+        """Per-client correction state in the pre-sign slot (corr_cl +
+        corr_edge): SCAFFOLD's control variates or MTGC's terms."""
+        return self.method in CLIENT_CORRECTION_METHODS
+
+    @property
+    def is_overlap(self) -> bool:
+        return self.cloud_overlap == "overlap"
+
+    @property
+    def cloud_schedule(self) -> schedule.CloudSchedule:
+        """The cloud sync schedule (issue/commit latency) of this config."""
+        return schedule.CloudSchedule.from_mode(self.cloud_overlap)
+
 
 class TrainState(NamedTuple):
-    """Training state.  Under ``state_layout="flat"`` params / delta /
-    delta_next are ``flatbuf.FlatState`` buffers [P, n_pad]; the deltas
-    are None where the config does not read them.  The JAX state's slots
-    for unported options (staged aggregate, error feedback, momentum,
-    client corrections) come with the slices that fill them."""
+    """Training state, in the JAX ``TrainState``'s field order.  Under
+    ``state_layout="flat"`` every slot but step and rng is a
+    ``flatbuf.FlatState``: ``[P, n_pad]`` for the master-shaped slots and
+    ``[P, D*K, n_pad]`` (``batch_dims=2``) for the per-voter ones.  Each
+    optional slot is None where the config does not read it."""
     step: int                         # global step counter t * T_E + tau
     params: PyTree                    # [P, ...] per-edge models v_q
+    agg_next: PyTree | None           # [P, ...] staged in-flight cloud
+                                      # aggregate (cloud_overlap="overlap")
     delta: PyTree | None              # [P, ...] active correction c - c_q
     delta_next: PyTree | None         # staged delta (anchor_staleness=1)
-    rng: torch.Generator              # for the stochastic baselines (item
-                                      # 8); the ported methods draw nothing
+    ef: PyTree | None                 # [P, D*K, ...] error-feedback residual
+    mom: PyTree | None                # [P, D*K, ...] sign-momentum buffer
+    corr_cl: PyTree | None            # [P, D*K, ...] per-client correction:
+                                      # SCAFFOLD c_local / MTGC gamma_qk
+    corr_edge: PyTree | None          # [P, ...] per-edge correction term:
+                                      # SCAFFOLD c_global / MTGC eta_q
+    rng: torch.Generator              # the QSGD uniforms' generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,30 +191,19 @@ class ModelBundle:
     param_mode: str = "replicated"    # the FSDP regime is not ported
 
 
-def _refuse_unported(algo: AlgoConfig, bundle: ModelBundle) -> None:
+# (step, leaf_index, shape [P, D*K, *leaf]) -> float32 uniforms in [0, 1)
+Uniforms = Callable[[int, int, tuple], torch.Tensor]
+
+
+def _refuse_unported(bundle: ModelBundle) -> None:
     if bundle.param_mode != "replicated":
         raise NotImplementedError(
             f"param_mode={bundle.param_mode!r}: only the replicated regime "
             "is ported (FSDP: ROADMAP queue 1 item 17)")
-    if algo.method in ("hier_sgd", "hier_local_qsgd"):
-        raise NotImplementedError(
-            f"method {algo.method!r} is not ported yet: ROADMAP queue 1 "
-            "item 8")
-    if algo.method in CLIENT_CORRECTION_METHODS:
-        raise NotImplementedError(
-            f"method {algo.method!r} is not ported yet: ROADMAP queue 1 "
-            "item 9")
-    if algo.error_feedback or algo.momentum > 0.0:
-        raise NotImplementedError(
-            "error feedback and sign momentum are not ported yet: ROADMAP "
-            "queue 1 item 8")
-    if algo.cloud_overlap != "sync":
-        raise NotImplementedError(
-            "cloud_overlap='overlap' is not ported yet: ROADMAP queue 1 "
-            "item 12")
 
 
-def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
+def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
+                   uniforms: Uniforms | None = None):
     """Build (init_fn, train_step).
 
     train_step(state, batch, edge_weights, dev_weights, dev_mask)
@@ -172,13 +216,25 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
     clients optionally [P, D, K] per client.  Inputs are moved to
     ``topo.device``.  The returned state may share (and, with the fused
     flat update, has overwritten) the input state's buffers.
+
+    uniforms: where ``hier_local_qsgd`` takes its uniforms, called once
+    per leaf and step as ``uniforms(step, leaf_index, (P, D*K, *leaf))``;
+    None draws them from the state's generator (``torch.rand``).  The
+    draws are the same in both layouts and both client modes.
     """
-    _refuse_unported(algo, bundle)
+    _refuse_unported(bundle)
     p, d = topo.pods, topo.devices_per_pod
     t_e = algo.t_e
     flat = algo.state_layout == "flat"
-    fold_dc = algo.transport == "fused" and algo.is_dc
     dev = topo.device
+    ef_on = algo.error_feedback
+    mom_on = algo.momentum > 0.0
+    # the fused transport's kernel route for the sign methods; EF needs
+    # the explicit per-leaf signs, so it runs the per-leaf route up to
+    # the vote.  Only DC's one shared delta folds into the kernels.
+    fuse = algo.is_sign and algo.transport == "fused" and not ef_on
+    fold_dc = fuse and algo.is_dc
+    cloud_sched = algo.cloud_schedule
     cc = algo.clients
     virtual = cc.active
     k = cc.count
@@ -191,6 +247,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
     w_int = (torch.as_tensor(cc.weight_array(p, d), device=dev)
              if virtual else None)                          # [P, D, K] int32
     part_cache: dict[int, torch.Tensor] = {}
+    tmap = pytree.tree_map
 
     def participation(rnd_index: int) -> torch.Tensor:
         """The round's [P, D, K] mask, drawn on the host once per round."""
@@ -218,35 +275,166 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
             grads = torch.autograd.grad(losses.sum(), copies)
         return pytree.tree_unflatten(td, list(grads)), losses.detach()
 
+    def pod_mean(tree, edge_w):
+        """The cloud mean of a tree or of a bare buffer."""
+        return tmap(lambda v: votes.pod_weighted_average(v, edge_w), tree)
+
     def pod_avg(params, edge_w):
         if flat:
-            return params.replace(
-                votes.pod_weighted_average(params.buf, edge_w))
-        return pytree.tree_map(
-            lambda v: votes.pod_weighted_average(v, edge_w), params)
+            return params.replace(pod_mean(params.buf, edge_w))
+        return pod_mean(params, edge_w)
+
+    def wmul(x, sh):
+        """[P, V, *leaf] x [P, V] shares."""
+        return x * sh.reshape(sh.shape + (1,) * (x.dim() - 2))
+
+    def fold_sum(acc, term):
+        """The streamed zeros-initialised fold, one term at a time (the
+        order ``weighted_mean_dev(clients=K)`` adds the merged axis in)."""
+        if acc is None:
+            acc = tmap(torch.zeros_like, term)
+        return tmap(torch.add, acc, term)
+
+    def merge_clients(per_client):
+        """K trees of [P, D, *leaf] -> one of [P, D*K, *leaf] (voter
+        d*K + c is client c of device d)."""
+        return tmap(lambda *xs: torch.stack(xs, dim=2).reshape(
+            (p, d_virtual) + tuple(xs[0].shape[2:])), *per_client)
+
+    def take(tree3, c):
+        return tmap(lambda x: x[:, :, c], tree3)
+
+    def views3(slot):
+        """A per-voter slot as [P, D, K, *leaf] views (stream mode)."""
+        t = slot.tree(cast=False) if flat else slot
+        return tmap(lambda x: x.reshape((p, d, k) + tuple(x.shape[2:])), t)
+
+    def as_flat(like, tree):
+        """A per-voter [P, D*K, *leaf] f32 tree into ``like``'s slot."""
+        if not flat:
+            return tree
+        return like.replace(flatbuf.flatten_tree(like.layout, tree, 2, F32))
+
+    # -- the shared per-leaf pieces of the local step, used verbatim by
+    # every layout and mode, so their bitwise contract lives in one place
+
+    def leaf_shapes(params_tree):
+        return [tuple(v.shape[1:]) for v in pytree.tree_flatten(
+            params_tree)[0]]
+
+    def draw_uniforms(state, shapes):
+        """The QSGD uniforms of this step: one [P, D*K, *leaf] f32 block
+        per leaf, in leaf order."""
+        blocks = []
+        for i, leaf_shape in enumerate(shapes):
+            shape = (p, d_virtual) + leaf_shape
+            if uniforms is None:
+                u = torch.rand(shape, generator=state.rng, dtype=F32,
+                               device=dev)
+            else:
+                u = torch.as_tensor(uniforms(state.step, i, shape)).to(
+                    device=dev, dtype=F32)
+                if tuple(u.shape) != shape:
+                    raise ValueError(f"uniforms for leaf {i}: shape "
+                                     f"{tuple(u.shape)}, want {shape}")
+            blocks.append(u)
+        return blocks
+
+    def quantize_dev(g_dev, blocks):
+        """Per device and leaf unbiased ternary quantization: each leaf
+        [P, V, *leaf] is P*V rows of numel(leaf), each with its own l2
+        norm (one ``ternary_quant`` launch per leaf on CUDA) -> f32."""
+        leaves, td = pytree.tree_flatten(g_dev)
+        out = []
+        for g, u in zip(leaves, blocks):
+            rows = g.shape[0] * g.shape[1]
+            out.append(kops.ternary_quant_rows(
+                g.reshape(rows, -1), u.reshape(rows, -1)).reshape(g.shape))
+        return pytree.tree_unflatten(td, out)
+
+    def mean_terms(state, g_dev):
+        """What the mean methods average: f32 gradients, or their
+        quantization (hier_local_qsgd)."""
+        if algo.method == "hier_local_qsgd":
+            return quantize_dev(g_dev, draw_uniforms(state, [
+                tuple(g.shape[2:]) for g in pytree.tree_flatten(g_dev)[0]]))
+        return tmap(lambda g: g.to(F32), g_dev)
+
+    def mom_update(m, g):
+        """Sign momentum ``beta*m + (1-beta)*g`` in m's dtype (f32), each
+        product rounded before the add."""
+        return (flatbuf.scaled(m, algo.momentum)
+                + flatbuf.scaled(g.to(m.dtype), 1.0 - algo.momentum))
+
+    def ef_add(u_dev, e_dev):
+        return tmap(lambda u, e: u.to(F32) + e, u_dev, e_dev)
+
+    def ef_residual(u_dev, s_dev, part=None):
+        """``e' = u - mean|u| * sgn(u)``, the scale per device and leaf
+        (a fixed-order row sum, so it does not depend on the voter
+        count).  A client masked out of the round (``part`` 0, virtual
+        path only) sent nothing and carries ``e' = u``."""
+        def upd(u, s):
+            rows = u.shape[0] * u.shape[1]
+            scale = (signs.row_sums(u.abs().reshape(rows, -1))
+                     / float(max(u[0, 0].numel(), 1)))
+            sent = scale.reshape(u.shape[:2] + (1,) * (u.dim() - 2)) \
+                * s.to(u.dtype)
+            if part is not None:
+                sent = sent * part.reshape(
+                    part.shape + (1,) * (u.dim() - 2)).to(u.dtype)
+            return (u - sent).to(F32)
+        return tmap(upd, u_dev, s_dev)
+
+    def corrected(u_dev, delta_tree):
+        """u + rho*delta in each leaf's dtype (the non-folded DC path);
+        delta is the edge's [P, *leaf] correction, shared by its voters."""
+        return tmap(lambda u, dl: u + flatbuf.scaled(dl[:, None].to(u.dtype),
+                                                     algo.rho),
+                    u_dev, delta_tree)
+
+    def add_client_correction(u_dev, q_dev):
+        """u + rho*q with q the [P, V, *leaf] per-client correction, in
+        each leaf's dtype; never folded into a kernel (whose fold is one
+        shared delta)."""
+        return tmap(lambda u, q: u + flatbuf.scaled(q.to(u.dtype), algo.rho),
+                    u_dev, q_dev)
+
+    def client_correction(cl, ce):
+        """The per-client pre-sign correction in delta_dtype: SCAFFOLD
+        ``q = c_global - c_local``, MTGC ``q = gamma + eta``; cl [P, V,
+        *leaf] per voter, ce [P, *leaf] per edge."""
+        if algo.is_scaffold:
+            return tmap(lambda e, c: e[:, None] - c, ce, cl)
+        return tmap(lambda c, e: c + e[:, None], cl, ce)
+
+    def vote_tree(s_dev, vote_w):
+        return tmap(lambda s: votes.majority_vote_dev(
+            s, vote_w, algo.transport, weight_bound=vote_bound), s_dev)
+
+    def vote_direction(s_dev, vote_w):
+        """The vote of pre-signed ±1 trees: the kernels' vote-only route
+        on ``fused``, per leaf otherwise."""
+        if algo.transport == "fused":
+            return votes.fused_sign_vote(s_dev, None, 0.0, vote_w)
+        return vote_tree(s_dev, vote_w)
+
+    # -- the round prologue's anchors -------------------------------------
 
     def anchor_fold_stream(params_tree, batch, shares3, to_acc):
         """The streamed anchor: a zeros-initialised fold over the K
         clients of each device's share-weighted gradient, one client's
-        gradient live at a time -- the order ``weighted_mean_dev(...,
-        clients=K)`` adds the merged voter axis in."""
+        gradient live at a time."""
         acc = None
         for c in range(k):
             g_c, _ = per_device_grads(
-                params_tree, vclients.client_slice(batch, k, c),
-                devices=d)
-            g_c = to_acc(g_c)
-            sh = shares3[:, :, c]
-            term = pytree.tree_map(
-                lambda g: g * sh.reshape(sh.shape + (1,) * (g.dim() - 2)),
-                g_c)
-            if acc is None:
-                acc = pytree.tree_map(torch.zeros_like, term)
-            acc = pytree.tree_map(torch.add, acc, term)
-        return pytree.tree_map(votes.fold_devices, acc)
+                params_tree, vclients.client_slice(batch, k, c), devices=d)
+            acc = fold_sum(acc, tmap(lambda g: wmul(g, shares3[:, :, c]),
+                                     to_acc(g_c)))
+        return tmap(votes.fold_devices, acc)
 
     def compute_delta(params, batch, edge_w, dev_w):
-        """The anchor pass at the freshly aggregated edge models; dev_w is
+        """DC's anchor pass at the committed edge models; dev_w is
         [P, D] (no clients), [P, D*K] (merged) or [P, D, K] (stream)."""
         dd = algo.delta_dtype
         if flat:
@@ -254,147 +442,358 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
             if stream:
                 c_q = anchor_fold_stream(
                     params.tree(), batch, dev_w,
-                    lambda g: flatbuf.flatten_tree(layout, g, 2,
-                                                   torch.float32))
+                    lambda g: flatbuf.flatten_tree(layout, g, 2, F32))
             else:
                 g_dev, _ = per_device_grads(params.tree(), batch)
-                g_buf = flatbuf.flatten_tree(layout, g_dev, 2, torch.float32)
+                g_buf = flatbuf.flatten_tree(layout, g_dev, 2, F32)
                 c_q = votes.weighted_mean_dev(g_buf, dev_w, clients=k_merge)
             c = votes.pod_weighted_average(c_q, edge_w)
             return flatbuf.FlatState((c - c_q).to(dd),
                                      flatbuf.with_dtype(layout, dd))
         if stream:
-            c_q = anchor_fold_stream(
-                params, batch, dev_w,
-                lambda g: pytree.tree_map(lambda x: x.to(torch.float32), g))
+            c_q = anchor_fold_stream(params, batch, dev_w,
+                                     lambda g: tmap(lambda x: x.to(F32), g))
         else:
             g_dev, _ = per_device_grads(params, batch)
-            c_q = pytree.tree_map(
-                lambda g: votes.weighted_mean_dev(g.to(torch.float32), dev_w,
-                                                  clients=k_merge), g_dev)
-        c = pytree.tree_map(
-            lambda v: votes.pod_weighted_average(v, edge_w), c_q)
-        return pytree.tree_map(lambda a, b: (a - b).to(dd), c, c_q)
+            c_q = tmap(lambda g: votes.weighted_mean_dev(
+                g.to(F32), dev_w, clients=k_merge), g_dev)
+        c = pod_mean(c_q, edge_w)
+        return tmap(lambda a, b: (a - b).to(dd), c, c_q)
 
-    def corrected(u_dev, delta_tree):
-        """u + rho*delta in each leaf's dtype (the non-folded DC path)."""
-        return pytree.tree_map(
-            lambda u, dl: u + flatbuf.scaled(dl[:, None].to(u.dtype),
-                                             algo.rho),
-            u_dev, delta_tree)
+    def compute_corrections(params, corr_cl, corr_edge, batch, edge_w,
+                            dev_w, part, rnd_index):
+        """The round-boundary refresh of SCAFFOLD's / MTGC's correction
+        state at the committed edge models, from the anchor gradients
+        a_qk in f32, stored back in ``delta_dtype``.
 
-    def vote_tree(s_dev, vote_w):
-        return pytree.tree_map(
-            lambda s: votes.majority_vote_dev(s, vote_w, algo.transport,
-                                              weight_bound=vote_bound),
-            s_dev)
+        SCAFFOLD: the shared variate absorbs the share-weighted drift,
+          c_global <- c_global + sum_q ew_q sum_k sh_qk (a_qk - c_local_qk),
+        then a participating client sets c_local_qk <- a_qk.
+        MTGC: gamma_qk <- c_q - a_qk every round (c_q = sum_k sh_qk a_qk),
+        eta_q <- c - c_q every ``cloud_period`` rounds (c = sum_q ew_q
+        c_q); an edge whose whole quorum abstains keeps both terms.
 
-    def local_step_tree(params, delta, batch, vote_w, mu):
-        u_dev, losses = per_device_grads(params, batch)
+        ``part`` gates the per-client refresh: [P, D*K] (merged) or
+        [P, D, K] (stream) live votes; None (no virtual clients) updates
+        every client."""
+        do_cloud = rnd_index % algo.cloud_period == 0
+        if stream:
+            return corrections_stream(params, corr_cl, corr_edge, batch,
+                                      edge_w, dev_w, part, do_cloud)
+        dd = algo.delta_dtype
+        g_dev, _ = per_device_grads(params.tree() if flat else params,
+                                    batch)
+        if flat:
+            a32 = flatbuf.flatten_tree(params.layout, g_dev, 2, F32)
+            cl_old, ce_old = corr_cl.buf, corr_edge.buf
+        else:
+            a32 = tmap(lambda g: g.to(F32), g_dev)
+            cl_old, ce_old = corr_cl, corr_edge
+
+        def gate(fresh, old):
+            if part is None:
+                return fresh
+            return tmap(lambda f, o: torch.where(
+                part.reshape(part.shape + (1,) * (f.dim() - 2)), f, o),
+                fresh, old)
+
+        def wmean(t):
+            return tmap(lambda x: votes.weighted_mean_dev(
+                x, dev_w, clients=k_merge), t)
+
+        if algo.is_scaffold:
+            drift = pod_mean(wmean(tmap(lambda a, c: a - c.to(F32), a32,
+                                        cl_old)), edge_w)
+            ce_new = tmap(lambda e, dr: (e.to(F32) + dr).to(dd), ce_old,
+                          drift)
+            cl_new = gate(tmap(lambda a: a.to(dd), a32), cl_old)
+        else:
+            c_q = wmean(a32)
+            live = None if part is None else part.any(dim=1)
+            ce_new = mtgc_edge_term(c_q, ce_old, edge_w, do_cloud, live)
+            cl_new = gate(tmap(lambda cq, a: (cq[:, None] - a).to(dd), c_q,
+                               a32), cl_old)
+        if flat:
+            return corr_cl.replace(cl_new), corr_edge.replace(ce_new)
+        return cl_new, ce_new
+
+    def mtgc_edge_term(c_q, ce_old, edge_w, do_cloud, live):
+        """MTGC's eta_q = c - c_q, refreshed on cloud rounds for edges
+        with a live vote (``live`` [P] bool, None = every edge)."""
+        if not do_cloud:
+            return ce_old
+        dd = algo.delta_dtype
+        eta = tmap(lambda u, v: (u - v).to(dd), pod_mean(c_q, edge_w), c_q)
+        if live is None:
+            return eta
+        return tmap(lambda f, o: torch.where(
+            live.reshape((p,) + (1,) * (f.dim() - 1)), f, o), eta, ce_old)
+
+    def corrections_stream(params, corr_cl, corr_edge, batch, edge_w,
+                           shares3, part, do_cloud):
+        """The streamed refresh: the share-weighted anchor sums fold over
+        the clients in the merged re-association, one client's gradient
+        live at a time; MTGC needs c_q before gamma, so it takes the
+        (deterministic) anchor gradients again in a second pass instead
+        of keeping K of them."""
+        dd = algo.delta_dtype
+        layout = params.layout if flat else None
+        pt = params.tree() if flat else params
+
+        def grads_c(c):
+            g_c, _ = per_device_grads(
+                pt, vclients.client_slice(batch, k, c), devices=d)
+            if flat:
+                return flatbuf.flatten_tree(layout, g_c, 2, F32)
+            return tmap(lambda g: g.to(F32), g_c)
+
+        def gate_c(c, fresh, old):
+            if part is None:
+                return fresh
+            g = part[:, :, c]
+            return tmap(lambda f, o: torch.where(
+                g.reshape(g.shape + (1,) * (f.dim() - 2)), f, o), fresh, old)
+
+        cl3 = (corr_cl.buf.reshape(p, d, k, layout.n_pad) if flat
+               else tmap(lambda x: x.reshape((p, d, k) + tuple(x.shape[2:])),
+                         corr_cl))
+        ce_old = corr_edge.buf if flat else corr_edge
+        new_cl = []
+        if algo.is_scaffold:
+            acc = None
+            for c in range(k):
+                a_c, cl_c = grads_c(c), take(cl3, c)
+                acc = fold_sum(acc, tmap(
+                    lambda a, cv: wmul(a - cv.to(F32), shares3[:, :, c]),
+                    a_c, cl_c))
+                new_cl.append(gate_c(c, tmap(lambda a: a.to(dd), a_c),
+                                     cl_c))
+            drift = pod_mean(tmap(votes.fold_devices, acc), edge_w)
+            ce_new = tmap(lambda e, dr: (e.to(F32) + dr).to(dd), ce_old,
+                          drift)
+        else:
+            acc = None
+            for c in range(k):
+                acc = fold_sum(acc, tmap(
+                    lambda a: wmul(a, shares3[:, :, c]), grads_c(c)))
+            c_q = tmap(votes.fold_devices, acc)
+            live = None if part is None else part.any(dim=2).any(dim=1)
+            ce_new = mtgc_edge_term(c_q, ce_old, edge_w, do_cloud, live)
+            for c in range(k):
+                fresh = tmap(lambda cq, a: (cq[:, None] - a).to(dd), c_q,
+                             grads_c(c))
+                new_cl.append(gate_c(c, fresh, take(cl3, c)))
+        cl_t = merge_clients(new_cl)
+        if flat:
+            return corr_cl.replace(cl_t), corr_edge.replace(ce_new)
+        return cl_t, ce_new
+
+    # -- the local steps ----------------------------------------------------
+
+    def local_step_tree(state, params, delta, corr_cl, corr_edge, batch,
+                        shares, vote_w, mu):
+        """Merged voters, tree layout -> (params, ef, mom, losses)."""
+        g_dev, losses = per_device_grads(params, batch)
+        ef, mom = state.ef, state.mom
+        if not algo.is_sign:
+            direction = tmap(lambda g: votes.weighted_mean_dev(
+                g, shares, clients=k_merge), mean_terms(state, g_dev))
+            return (tmap(lambda v, s: signs.descend_mean(v, mu, s), params,
+                         direction), ef, mom, losses)
+        u_dev = g_dev
+        if mom_on:
+            mom = tmap(mom_update, state.mom, g_dev)
+            u_dev = mom
+        if ef_on:
+            u_dev = ef_add(u_dev, state.ef)
         if algo.is_dc and not fold_dc:
             u_dev = corrected(u_dev, delta)
-        if algo.transport == "fused":
+        if algo.has_client_correction:
+            u_dev = add_client_correction(
+                u_dev, client_correction(corr_cl, corr_edge))
+        if fuse:
             direction = votes.fused_sign_vote(
                 u_dev, delta if fold_dc else None,
                 algo.rho if fold_dc else 0.0, vote_w)
         else:
-            direction = vote_tree(pytree.tree_map(signs.sgn, u_dev), vote_w)
-        new = pytree.tree_map(lambda v, s: signs.descend(v, mu, s), params,
-                              direction)
-        return new, losses
+            s_dev = tmap(signs.sgn, u_dev)
+            if ef_on:
+                ef = ef_residual(u_dev, s_dev,
+                                 part=(vote_w > 0) if virtual else None)
+            direction = vote_direction(s_dev, vote_w)
+        return (tmap(lambda v, s: signs.descend(v, mu, s), params,
+                     direction), ef, mom, losses)
 
-    def local_step_flat(params, delta, batch, vote_w, mu):
+    def local_step_flat(state, params, delta, corr_cl, corr_edge, batch,
+                        shares, vote_w, mu):
+        """Merged voters, flat layout: whole-buffer means, momentum and
+        updates; the per-leaf pieces (quantizer, EF scale, corrections)
+        on the buffers' leaf views, so every coordinate sees the tree
+        path's arithmetic."""
         layout = params.layout
-        u_dev, losses = per_device_grads(params.tree(), batch)
+        g_dev, losses = per_device_grads(params.tree(), batch)
+        ef, mom = state.ef, state.mom
+        if not algo.is_sign:
+            t_buf = flatbuf.flatten_tree(layout, mean_terms(state, g_dev), 2,
+                                         F32)
+            dir_buf = votes.weighted_mean_dev(t_buf, shares, clients=k_merge)
+            return (params.replace(signs.descend_mean(params.buf, mu,
+                                                      dir_buf)),
+                    ef, mom, losses)
+        u_dev = g_dev
+        if mom_on:
+            g_buf = flatbuf.flatten_tree(layout, g_dev, 2, F32)
+            mom = state.mom.replace(mom_update(state.mom.buf, g_buf))
+            u_dev = mom.tree(cast=False)
+        if ef_on:
+            u_dev = ef_add(u_dev, state.ef.tree(cast=False))
         if algo.is_dc and not fold_dc:
             u_dev = corrected(u_dev, delta.tree(cast=False))
-        if algo.transport == "fused":
+        if algo.has_client_correction:
+            u_dev = add_client_correction(u_dev, client_correction(
+                corr_cl.tree(cast=False), corr_edge.tree(cast=False)))
+        if fuse:
             # ONE sign_pack + ONE vote_update launch; mu folds into the
             # kernel when it does not change with the step
             new_buf = votes.fused_sign_vote_update(
                 layout, u_dev, delta.buf if fold_dc else None,
                 algo.rho if fold_dc else 0.0, vote_w, params.buf, mu,
                 mu_static=None if algo.decay else algo.mu)
-            return params.replace(new_buf), losses
-        direction = vote_tree(pytree.tree_map(signs.sgn, u_dev), vote_w)
-        dir_buf = flatbuf.flatten_tree(layout, direction, 1, params.buf.dtype)
-        return params.replace(signs.descend(params.buf, mu, dir_buf)), losses
+            return params.replace(new_buf), ef, mom, losses
+        s_dev = tmap(signs.sgn, u_dev)
+        if ef_on:
+            ef = as_flat(state.ef, ef_residual(
+                u_dev, s_dev, part=(vote_w > 0) if virtual else None))
+        dir_buf = flatbuf.flatten_tree(layout, vote_direction(s_dev, vote_w),
+                                       1, params.buf.dtype)
+        return (params.replace(signs.descend(params.buf, mu, dir_buf)), ef,
+                mom, losses)
 
-    def local_step_stream(params, delta, batch, vote_w3, mu):
+    def local_step_stream(state, params, delta, corr_cl, corr_edge, batch,
+                          shares3, vote_w3, mu):
         """mode='stream': loop over the K clients with one client's
-        gradient live at a time; each client's signs fold, weighted, into
-        a persistent integer tally (a flat [P, D, n_pad] buffer and one
-        ``tally_acc`` launch per client on the fused transport, per-leaf
-        tallies otherwise), thresholded after the loop.  vote_w3 is the
-        [P, D, K] int32 vote weight."""
+        gradient live at a time.  Sign methods fold each client's signs,
+        weighted, into a persistent integer tally (a flat [P, D, n_pad]
+        buffer and one ``tally_acc`` launch per client on the fused
+        route, per-leaf tallies otherwise), thresholded after the loop;
+        mean methods fold its share-weighted (quantized) gradient into an
+        f32 accumulator.  Momentum, EF residuals and client corrections
+        are sliced per client.  shares3 [P, D, K] f32 and vote_w3 [P, D,
+        K] int32 arrive unmerged."""
         params_tree = params.tree() if flat else params
-        acc_dt = votes.tally_dtype(vote_bound)
-        delta_tree = None
-        if algo.is_dc and not fold_dc:
-            delta_tree = delta.tree(cast=False) if flat else delta
-        if algo.transport == "fused":
+        losses, new_ef, new_mom = [], [], []
+        acc = tally = blocks3 = None
+        if not algo.is_sign:
+            if algo.method == "hier_local_qsgd":     # drawn as merged draws
+                blocks3 = [u.reshape((p, d, k) + tuple(u.shape[2:]))
+                           for u in draw_uniforms(state,
+                                                  leaf_shapes(params_tree))]
+        elif fuse:
             if flat:
                 vlayout = params.layout
             else:     # only the per-device shapes matter to the layout
-                vlayout = flatbuf.make_layout(pytree.tree_map(
+                vlayout = flatbuf.make_layout(tmap(
                     lambda v: torch.empty((p, d) + tuple(v.shape[1:]),
                                           device="meta"), params_tree),
                     batch_dims=2)
-            tally = torch.zeros((p, d, vlayout.n_pad), dtype=acc_dt,
+            tally = torch.zeros((p, d, vlayout.n_pad),
+                                dtype=votes.tally_dtype(vote_bound),
                                 device=dev)
         else:
-            tally = pytree.tree_map(
-                lambda v: torch.zeros((p, d) + tuple(v.shape[1:]),
-                                      dtype=acc_dt, device=dev), params_tree)
-        losses = []
+            tally = tmap(lambda v: torch.zeros(
+                (p, d) + tuple(v.shape[1:]),
+                dtype=votes.tally_dtype(vote_bound), device=dev), params_tree)
+        delta_tree = None
+        if algo.is_dc and not fold_dc:
+            delta_tree = delta.tree(cast=False) if flat else delta
+        ce_tree = cl3 = ef3 = mom3 = None
+        if algo.has_client_correction:
+            ce_tree = corr_edge.tree(cast=False) if flat else corr_edge
+            cl3 = views3(corr_cl)
+        if algo.is_sign and ef_on:
+            ef3 = views3(state.ef)
+        if algo.is_sign and mom_on:
+            mom3 = views3(state.mom)
         for c in range(k):
-            u_c, loss_c = per_device_grads(
-                params_tree, vclients.client_slice(batch, k, c),
-                devices=d)
+            g_c, loss_c = per_device_grads(
+                params_tree, vclients.client_slice(batch, k, c), devices=d)
             losses.append(loss_c)
             w_c = vote_w3[:, :, c]
+            if not algo.is_sign:
+                if blocks3 is not None:
+                    g_c = quantize_dev(g_c, [u[:, :, c] for u in blocks3])
+                if flat:
+                    term = wmul(flatbuf.flatten_tree(params.layout, g_c, 2,
+                                                     F32), shares3[:, :, c])
+                else:
+                    term = tmap(lambda g: wmul(g.to(F32), shares3[:, :, c]),
+                                g_c)
+                acc = fold_sum(acc, term)
+                continue
+            u_c = g_c
+            if mom3 is not None:
+                u_c = tmap(mom_update, take(mom3, c), g_c)
+                new_mom.append(u_c)
+            if ef3 is not None:
+                u_c = ef_add(u_c, take(ef3, c))
             if delta_tree is not None:
                 u_c = corrected(u_c, delta_tree)
-            if algo.transport == "fused":
+            if ce_tree is not None:
+                u_c = add_client_correction(
+                    u_c, client_correction(take(cl3, c), ce_tree))
+            if fuse:
                 tally = votes.fused_sign_tally_accumulate(
                     vlayout, u_c,
                     delta if (fold_dc and not flat) else None,
                     delta.buf if (fold_dc and flat) else None,
                     algo.rho if fold_dc else 0.0, w_c, tally)
-            else:
-                tally = pytree.tree_map(
-                    lambda t, s: votes.tally_add_signs(t, s, w_c), tally,
-                    pytree.tree_map(signs.sgn, u_c))
-        losses = torch.stack(losses, dim=2).reshape(p, d * k)
-        n_eff = torch.sum(vote_w3, dim=(1, 2), dtype=torch.int32)
-        if algo.transport == "fused":
+                continue
+            s_c = tmap(signs.sgn, u_c)
+            if ef3 is not None:
+                new_ef.append(ef_residual(u_c, s_c, part=w_c > 0))
+            tally = tmap(lambda t, s: votes.tally_add_signs(t, s, w_c), tally,
+                         s_c)
+        losses = torch.stack(losses, dim=2).reshape(p, d_virtual)
+        ef = (as_flat(state.ef, merge_clients(new_ef)) if new_ef
+              else state.ef)
+        mom = (as_flat(state.mom, merge_clients(new_mom)) if new_mom
+               else state.mom)
+        if not algo.is_sign:
             if flat:
-                return params.replace(votes.fused_tally_finish(
-                    vlayout, tally, n_eff, params.buf, mu)), losses
+                return (params.replace(signs.descend_mean(
+                    params.buf, mu, votes.fold_devices(acc))), ef, mom,
+                    losses)
+            return (tmap(lambda v, a: signs.descend_mean(
+                v, mu, votes.fold_devices(a)), params, acc), ef, mom,
+                losses)
+        n_eff = torch.sum(vote_w3, dim=(1, 2), dtype=torch.int32)
+        if fuse:
+            if flat:
+                return (params.replace(votes.fused_tally_finish(
+                    vlayout, tally, n_eff, params.buf, mu)), ef, mom, losses)
             direction = votes.fused_tally_finish(vlayout, tally, n_eff,
                                                  None, None)
         else:
-            direction = pytree.tree_map(
-                lambda t: votes.tally_vote_dev(t, n_eff), tally)
+            direction = tmap(lambda t: votes.tally_vote_dev(t, n_eff), tally)
         if flat:
             dir_buf = flatbuf.flatten_tree(params.layout, direction, 1,
                                            params.buf.dtype)
             return (params.replace(signs.descend(params.buf, mu, dir_buf)),
-                    losses)
-        return pytree.tree_map(lambda v, s: signs.descend(v, mu, s), params,
-                               direction), losses
+                    ef, mom, losses)
+        return (tmap(lambda v, s: signs.descend(v, mu, s), params,
+                     direction), ef, mom, losses)
 
     def on_device(tree):
-        return pytree.tree_map(lambda x: torch.as_tensor(x, device=dev), tree)
+        return tmap(lambda x: torch.as_tensor(x, device=dev), tree)
 
     def train_step(state: TrainState, batch, edge_weights, dev_weights,
                    dev_mask):
         edge_weights, dev_weights, dev_mask = (
             torch.as_tensor(x, device=dev)
             for x in (edge_weights, dev_weights, dev_mask))
-        maskf = dev_mask.to(torch.float32)
+        maskf = dev_mask.to(F32)
         rnd_index = state.step // t_e
-        vote_w3 = None
+        vote_w3 = corr_part = None
         if not virtual:
             if maskf.dim() != 2:
                 raise ValueError(
@@ -414,18 +813,25 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
             vote_w3 = w_int * part.to(torch.int32)
             vote_w = vote_w3.reshape(p, d_virtual)
             shares = vclients.participating_shares(
-                dev_weights.to(torch.float32), w_int.to(torch.float32), part)
+                dev_weights.to(F32), w_int.to(F32), part)
             if stream:
                 shares = shares.reshape(p, d, k)
                 carve = lambda b: b                            # noqa: E731
             else:
                 carve = lambda b: vclients.carve_batch(b, k)   # noqa: E731
+            # only clients with a live vote refresh their correction
+            # terms (the EF carry-forward contract)
+            corr_part = (vote_w3 if stream else vote_w) > 0
         train_batch = carve(on_device(batch["train"]))
         anchor_batch = carve(on_device(batch.get("anchor", batch["train"])))
-        params, delta, delta_next = state.params, state.delta, state.delta_next
+        params, agg_next = state.params, state.agg_next
+        delta, delta_next = state.delta, state.delta_next
+        corr_cl, corr_edge = state.corr_cl, state.corr_edge
         if state.step % t_e == 0:
-            # the prologue: the cloud mean (sync), then the anchor
-            params = pod_avg(params, edge_weights)
+            # the prologue: issue the cloud mean, commit by the schedule,
+            # then refresh the anchors at the committed model
+            issued = pod_avg(params, edge_weights)
+            params, agg_next = cloud_sched.commit(issued, agg_next)
             if algo.is_dc:
                 fresh = compute_delta(params, anchor_batch, edge_weights,
                                       shares)
@@ -433,29 +839,39 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
                     delta, delta_next = delta_next, fresh
                 else:
                     delta = fresh
+            if algo.has_client_correction:
+                corr_cl, corr_edge = compute_corrections(
+                    params, corr_cl, corr_edge, anchor_batch, edge_weights,
+                    shares, corr_part, rnd_index)
         # flushed once here (signs.descend takes it so): on the host, and
         # with decay once more on the card
-        mu = signs.ftz(torch.tensor(algo.mu, dtype=algo.master_dtype)).to(dev)
+        mu = signs.ftz(torch.tensor(algo.mu if algo.is_sign else algo.mu_sgd,
+                                    dtype=algo.master_dtype)).to(dev)
         if algo.decay:
             mu = signs.ftz(mu / torch.sqrt(torch.tensor(
                 float(rnd_index), dtype=algo.master_dtype, device=dev) + 1.0))
         if stream:
-            params, losses = local_step_stream(params, delta, train_batch,
-                                               vote_w3, mu)
+            step_fn, wv = local_step_stream, vote_w3
         else:
             step_fn = local_step_flat if flat else local_step_tree
-            params, losses = step_fn(params, delta, train_batch, vote_w, mu)
-        new_state = state._replace(step=state.step + 1, params=params,
-                                   delta=delta, delta_next=delta_next)
-        losses = losses.to(torch.float32)
+            wv = vote_w
+        params, ef, mom, losses = step_fn(state, params, delta, corr_cl,
+                                          corr_edge, train_batch, shares, wv,
+                                          mu)
+        new_state = TrainState(
+            step=state.step + 1, params=params, agg_next=agg_next,
+            delta=delta, delta_next=delta_next, ef=ef, mom=mom,
+            corr_cl=corr_cl, corr_edge=corr_edge, rng=state.rng)
+        losses = losses.to(F32)
         metrics = {"loss": losses.mean(), "loss_per_pod": losses.mean(1),
                    "mu": mu}
         return new_state, metrics
 
     def init_fn(params_single: PyTree, seed: int = 0) -> TrainState:
         """params_single: one replica's parameters (no leading dims),
-        copied to P edge models in the master dtype on ``topo.device``."""
-        params_tree = pytree.tree_map(
+        copied to P edge models in the master dtype on ``topo.device``;
+        the slots are filled as the reference's ``init_fn`` fills them."""
+        params_tree = tmap(
             lambda x: torch.as_tensor(x, device=dev).unsqueeze(0)
             .expand((p,) + tuple(x.shape)).to(algo.master_dtype)
             .contiguous(), params_single)
@@ -464,24 +880,46 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle):
             params = flatbuf.FlatState(
                 flatbuf.flatten_tree(layout, params_tree, 1), layout)
 
-            def zeros_m(dt):
+            def zeros(dt, voters):
+                lead = (p,) if voters is None else (p, voters)
                 return flatbuf.FlatState(
-                    torch.zeros((p, layout.n_pad), dtype=dt, device=dev),
-                    flatbuf.with_dtype(layout, dt))
+                    torch.zeros(lead + (layout.n_pad,), dtype=dt,
+                                device=dev),
+                    flatbuf.with_dtype(layout, dt), batch_dims=len(lead))
+
+            def copy_params():
+                return params.replace(params.buf.clone())
         else:
             params = params_tree
 
-            def zeros_m(dt):
-                return pytree.tree_map(
-                    lambda v: torch.zeros_like(v, dtype=dt), params_tree)
+            def zeros(dt, voters):
+                if voters is None:
+                    return tmap(lambda v: torch.zeros_like(v, dtype=dt),
+                                params_tree)
+                return tmap(lambda v: torch.zeros(
+                    (p, voters) + tuple(v.shape[1:]), dtype=dt, device=dev),
+                    params_tree)
+
+            def copy_params():
+                return tmap(torch.clone, params_tree)
         dd = algo.delta_dtype
-        delta = zeros_m(dd) if algo.is_dc else None
-        delta_next = (zeros_m(dd) if algo.is_dc and algo.anchor_staleness == 1
-                      else None)
+        has_cc = algo.has_client_correction
         rng = torch.Generator(device=dev)
         rng.manual_seed(seed)
-        return TrainState(step=0, params=params, delta=delta,
-                          delta_next=delta_next, rng=rng)
+        # the staged in-flight aggregate starts as a copy of the
+        # replicated w0, so the step-0 prologue commits exactly w0
+        return TrainState(
+            step=0, params=params,
+            agg_next=copy_params() if cloud_sched.staged else None,
+            delta=zeros(dd, None) if algo.is_dc else None,
+            delta_next=(zeros(dd, None)
+                        if algo.is_dc and algo.anchor_staleness == 1
+                        else None),
+            ef=zeros(F32, d_virtual) if ef_on else None,
+            mom=zeros(F32, d_virtual) if mom_on else None,
+            corr_cl=zeros(dd, d_virtual) if has_cc else None,
+            corr_edge=zeros(dd, None) if has_cc else None,
+            rng=rng)
 
     return init_fn, train_step
 

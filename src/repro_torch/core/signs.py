@@ -9,6 +9,8 @@ bit for bit the functions of the JAX package's ``core/signs.py``:
   * ``unpack_signs``  -- inverse of ``pack_signs``.
   * ``majority_vote`` -- s_q = sgn(sum_k w_k sgn(g_k)), optional weights.
   * ``majority_vote_packed`` -- the same vote from packed words.
+  * ``ternary_quantize`` -- the Hier-Local-QSGD compressor, uniforms given.
+  * ``row_sums`` / ``row_norms`` -- per-row reductions in one fixed order.
   * ``uplink_bits``   -- Table II wire cost.
 
 Conventions
@@ -71,6 +73,76 @@ def descend(v: torch.Tensor, mu, vote: torch.Tensor) -> torch.Tensor:
     if not isinstance(mu, torch.Tensor):
         mu = ftz(torch.tensor(mu, dtype=torch.float32)).to(v.device)
     return ftz(torch.addcmul(ftz(v), mu, vote, value=-1))
+
+
+def descend_mean(v: torch.Tensor, mu: torch.Tensor,
+                 direction: torch.Tensor) -> torch.Tensor:
+    """The mean methods' update ``v - mu * direction`` (a float direction
+    in any dtype, cast to v's) as the eager reference computes it: the
+    multiply and the subtract as two separate roundings (never one fused
+    multiply-add, which a one-pass ``addcmul`` may compile to), subnormal
+    operands counted as zeros of their sign and subnormal results flushed
+    -- XLA's CPU backend does both (``v = 1e-40`` with ``direction = 0``
+    gives 0.0 there).  ``mu`` is a flushed 0-dim tensor, as for
+    :func:`descend`."""
+    step = ftz(mu * ftz(direction.to(v.dtype)))
+    return ftz(ftz(v) - step)
+
+
+def row_sums(x: torch.Tensor) -> torch.Tensor:
+    """[R, C] -> [R]: each row summed in one fixed order, whatever R is.
+
+    The row is padded with zeros to a power of two W and halved until one
+    column is left (``x[:, :W/2] + x[:, W/2:]``, log2 W elementwise
+    adds).  ``torch.sum`` may reduce a row in an order that depends on
+    how many rows the call holds (the CUDA reduction splits rows over
+    blocks when they are few), so the merged voter axis (R = P*D*K rows)
+    and the streamed sweep (R = P*D a client) could differ in a last bit;
+    elementwise adds cannot."""
+    width = 1 << max(x.shape[1] - 1, 0).bit_length()
+    if width > x.shape[1]:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[1]))
+    while width > 1:
+        width //= 2
+        x = x[:, :width] + x[:, width:2 * width]
+    return x[:, 0]
+
+
+def row_norms(x: torch.Tensor) -> torch.Tensor:
+    """[R, C] -> [R] float32 l2 norms, in :func:`row_sums`' fixed order.
+    Squares that are subnormal count as 0 (XLA's CPU flush: the norm of a
+    row of 1e-20s is 0 in the reference)."""
+    xf = x.to(torch.float32)
+    return torch.sqrt(row_sums(ftz(xf * xf)))
+
+
+def ternary_apply(x: torch.Tensor, u: torch.Tensor,
+                  norm: torch.Tensor) -> torch.Tensor:
+    """The quantizer's elementwise arithmetic given the norms: ``norm *
+    sign(x)`` where ``u < |x| / max(norm, 1e-30)``, else 0, and 0 where
+    ``norm <= 0``, in x's dtype; ``norm`` broadcasts against x.  A
+    subnormal |x|, norm or probability counts as 0 (XLA's CPU flush).
+    ``sign(0) = 0`` here (``torch.sign``, as ``jnp.sign``)."""
+    xf = x.to(torch.float32)
+    nrm = ftz(norm.to(torch.float32))
+    p = ftz(ftz(xf.abs()) / torch.clamp_min(nrm, 1e-30))
+    q = torch.where(u < p, nrm * torch.sign(xf), torch.zeros_like(xf))
+    return torch.where(nrm > 0, q, torch.zeros_like(q)).to(x.dtype)
+
+
+def ternary_quantize(x: torch.Tensor, u: torch.Tensor,
+                     rows: int = 1) -> torch.Tensor:
+    """The unbiased stochastic ternary quantizer of the reference's
+    ``signs.ternary_quantize`` (paper Sec. V-B), with its uniforms ``u``
+    given (the reference draws them from a ``jax.random`` key):
+    ``Q(x)_i = ||x||_2 sign(x_i)`` with probability ``|x_i| / ||x||_2``,
+    else 0; ``Q(0) = 0``.  ``rows`` splits x into that many rows of equal
+    length, each quantized with its own norm (one row per voter of a
+    gradient leaf).  The norms come from :func:`row_norms`; the
+    ``ternary_quant`` kernel computes the rest."""
+    x2 = x.reshape(rows, -1)
+    q = ternary_apply(x2, u.reshape(rows, -1), row_norms(x2)[:, None])
+    return q.reshape(x.shape)
 
 
 def sgn(x: torch.Tensor) -> torch.Tensor:

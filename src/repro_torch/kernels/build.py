@@ -41,7 +41,7 @@ SIGNATURES = {
     "repro_sign_pack_bf16": (_P, _P, _F, _P, _I, _I, _I, _P),
     "repro_vote_update": (_P, _P, _I, _P, _P, _F, _I, _I, _I, _P),
     "repro_tally_acc": (_P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P),
-    "repro_ternary_quant": (_P, _P, _P, _P, _I, _I, _P),
+    "repro_ternary_quant": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -13,8 +13,10 @@ so each function is at most two launches, whatever P is:
   * :func:`fused_tally_acc_flat` -- ONE ``tally_acc`` over all P*D rows,
     the streamed client sweep's per-client fold into the tally;
 
-and :func:`ternary_quant_nd`, the public entry point of the
-``ternary_quant`` kernel (any shape).
+and the two entry points of the ``ternary_quant`` kernel:
+:func:`ternary_quant_rows` (R rows, each with its own norm: one launch
+per gradient leaf of the QSGD step) and :func:`ternary_quant_nd` (any
+shape as one row).
 
 Padding contract: coordinates between leaves and at the buffer tail are
 zero floats, so they pack to +1 bits and are updated like any other
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import signs
 from repro_torch.kernels import build
 from repro_torch.kernels.sign_pack import sign_pack
 from repro_torch.kernels.tally_acc import tally_acc
@@ -109,6 +112,13 @@ def fused_tally_acc_flat(u_buf: torch.Tensor, d_buf: torch.Tensor | None,
     return tally_acc(u_buf.contiguous(), d2, rho, weights, tally)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary (copied if
+    not): the kernel reads it as 16-byte vectors."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % build.ALIGN else t
+
+
 def ternary_quant_nd(x: torch.Tensor,
                      generator: torch.Generator) -> torch.Tensor:
     """Any-shape unbiased ternary quantization (the QSGD baseline's
@@ -124,10 +134,22 @@ def ternary_quant_nd(x: torch.Tensor,
     A flat view that does not start on a 16-byte boundary (a slice of a
     larger buffer) is copied first, as ``.contiguous()`` copies a strided
     one: the kernel reads x as 16-byte vectors."""
-    flat = x.reshape(-1).contiguous()
-    if flat.data_ptr() % build.ALIGN:
-        flat = flat.clone()
+    flat = _aligned(x.reshape(-1))
     norm = torch.linalg.vector_norm(flat.to(torch.float32))
     u = torch.rand(flat.shape, generator=generator, dtype=torch.float32,
                    device=x.device)
     return ternary_quant(flat, u, norm).reshape(x.shape)
+
+
+def ternary_quant_rows(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Row-wise unbiased ternary quantization (the QSGD step's
+    compressor): x [R, C] float, u [R, C] float32 uniforms -> [R, C]
+    float32, row r quantized with its own l2 norm.  One ``ternary_quant``
+    launch on CUDA, the plain version on the CPU; bitwise
+    ``signs.ternary_quantize(x, u, rows=R)`` either way.
+
+    The norms come from ``signs.row_norms``, a reduction in one fixed
+    order, so a row's norm -- and its quantization -- does not depend on
+    how many rows the call holds (merged voters or one streamed client)."""
+    xf = _aligned(x.to(torch.float32))
+    return ternary_quant(xf, _aligned(u), signs.row_norms(xf))

@@ -85,14 +85,15 @@ def tally_acc_ref(u: torch.Tensor, delta: torch.Tensor | None, rho: float,
 
 def ternary_quant_ref(x: torch.Tensor, u: torch.Tensor,
                       norm: torch.Tensor) -> torch.Tensor:
-    """x: float32/bfloat16; u: float32 uniforms of x's shape; norm: the
-    0-dim float32 l2 norm of x.  Returns, in x's dtype,
-    ``norm * sign(x)`` where ``u < |x| / max(norm, 1e-30)`` and 0
-    elsewhere; all zeros when ``norm <= 0``.  ``sign(0) = 0`` (unlike
-    ``signs.sgn``).  Subnormal |x|, norm and probabilities count as 0,
-    as in the reference (so with u = 0 a subnormal x quantizes to 0)."""
-    xf = x.to(torch.float32)
-    nrm = signs.ftz(norm.to(torch.float32))
-    p = signs.ftz(signs.ftz(xf.abs()) / torch.clamp_min(nrm, 1e-30))
-    q = torch.where(u < p, nrm * torch.sign(xf), torch.zeros_like(xf))
-    return torch.where(nrm > 0, q, torch.zeros_like(q)).to(x.dtype)
+    """x: float32/bfloat16 holding R rows of C coordinates; u: float32
+    uniforms of x's shape; norm: [R] float32, the l2 norm of each row (a
+    0-dim norm is one row).  Returns, in x's dtype, ``norm[r] * sign(x)``
+    where ``u < |x| / max(norm[r], 1e-30)`` and 0 elsewhere; all zeros on
+    a row whose norm is <= 0.  ``sign(0) = 0`` (unlike ``signs.sgn``).
+    Subnormal |x|, norms and probabilities count as 0, as in the reference
+    (so with u = 0 a subnormal x quantizes to 0): the arithmetic of
+    ``signs.ternary_quantize`` with the norms given."""
+    rows = 1 if norm.dim() == 0 else norm.shape[0]
+    q = signs.ternary_apply(x.reshape(rows, -1), u.reshape(rows, -1),
+                            norm.reshape(rows, 1))
+    return q.reshape(x.shape)

@@ -1,11 +1,13 @@
 """Where the paper task's time goes on the card.
 
-For each of three runs -- the paper task (the fused transport on the
+For each of six runs -- the paper task (the fused transport on the
 flat state, B=400, Q=4 x D=5, T_E=15 steps), the same task on the plain
 ag_packed transport and tree state (no kernel; the update runs per
-leaf), and the fused task with K=2 virtual clients per device on the
+leaf), the fused task with K=2 virtual clients per device on the
 streamed sweep (Bernoulli(0.5) participation, |D_qk| weights, one
-``tally_acc`` launch per client) -- runs one warm-up round, then one
+``tally_acc`` launch per client), and on fused/flat the QSGD baseline
+(``hier_local_qsgd``: 4 ``ternary_quant`` launches a step), SCAFFOLD
+and DC with error feedback -- runs one warm-up round, then one
 round of ``run_paper_task`` under ``torch.profiler`` and prints one JSON
 line: the host-clock step and data times per step, the device time per
 step of kernels and of copies (the round's evaluation included), the
@@ -75,7 +77,13 @@ def main() -> None:
                                state_layout="tree")
     for name, c in (("paper task, fused/flat", cfg),
                     ("paper task, ag_packed/tree", tree),
-                    ("clients K=2, stream fused/flat", clients)):
+                    ("clients K=2, stream fused/flat", clients),
+                    ("hier_local_qsgd, fused/flat", dataclasses.replace(
+                        cfg, method="hier_local_qsgd")),
+                    ("scaffold, fused/flat", dataclasses.replace(
+                        cfg, method="scaffold_hier_signsgd")),
+                    ("dc + EF, fused/flat", dataclasses.replace(
+                        cfg, error_feedback=True))):
         print(json.dumps(profile_run(name, c)), flush=True)
 
 

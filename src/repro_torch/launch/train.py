@@ -14,10 +14,18 @@ d being data client ``d*K + c``; each device's batch stacks its K
 clients' B/K rows in carve order, and the step votes with the
 participation and |D_qk| weights of ``core.clients``.
 
+The methods and options of ``core.hier`` are fields: ``--method`` any of
+``hier_signsgd``, ``dc_hier_signsgd``, ``scaffold_hier_signsgd``,
+``mtgc_hier_signsgd`` (``--cloud_period``), ``hier_sgd`` and
+``hier_local_qsgd`` (step ``--mu_sgd``), ``--error_feedback``,
+``--momentum`` and ``--cloud_overlap overlap``.
+
 CLI (the paper's setup on the card):
 
   PYTHONPATH=src python -m repro_torch.launch.train --rounds 2 \\
       --batch 400 --n_train 20000
+  PYTHONPATH=src python -m repro_torch.launch.train --rounds 2 \\
+      --batch 400 --n_train 20000 --method hier_local_qsgd
   PYTHONPATH=src python -m repro_torch.launch.train --rounds 2 \\
       --batch 400 --n_train 20000 --clients_per_device 2 \\
       --participation bernoulli --rate 0.5 --client_seed 11 \\
@@ -73,6 +81,10 @@ class FedBenchCfg:
     client_seed: int = 0
     client_mode: str = "merged"
     data_weights: bool = False
+    error_feedback: bool = False
+    momentum: float = 0.0
+    cloud_overlap: str = "sync"
+    cloud_period: int = 2
 
 
 def client_config(cfg: FedBenchCfg, data) -> vclients.ClientConfig:
@@ -105,11 +117,8 @@ def _stack_batches(client_data, cfg: FedBenchCfg, rng, dev):
         for key in ("x", "y")}
 
 
-def run_paper_task(cfg: FedBenchCfg, device: str = "cuda",
-                   log=print) -> dict:
-    """Train and evaluate; returns per-round curves, timings, the final
-    state and its edge models.  Deterministic given ``cfg.seed``."""
-    dev = resolve_device(device)
+def _federated_data(cfg: FedBenchCfg):
+    """The run's client split, test set and weights (checked)."""
     k = cfg.clients_per_device
     vclients.validate_batch_carve(cfg.batch, k)
     dcfg = emnist_like.FedDataCfg(
@@ -123,11 +132,37 @@ def run_paper_task(cfg: FedBenchCfg, device: str = "cuda",
             f"the smallest {'client' if k > 1 else 'device'} holds "
             f"{smallest} rows < its batch {cfg.batch // k}: raise n_train "
             "or lower the batch")
+    return data, test, ew, dw
+
+
+def sample_batches(cfg: FedBenchCfg, device: str = "cuda") -> list:
+    """The ``rounds * t_e`` batches ``run_paper_task`` samples for this
+    config, in order, on the device: pass them back as its ``batches`` to
+    run several methods on the same data without sampling again."""
+    dev = resolve_device(device)
+    data = _federated_data(cfg)[0]
+    rng = np.random.default_rng(cfg.seed)
+    return [_stack_batches(data, cfg, rng, dev)
+            for _ in range(cfg.rounds * cfg.t_e)]
+
+
+def run_paper_task(cfg: FedBenchCfg, device: str = "cuda", log=print,
+                   batches: list | None = None) -> dict:
+    """Train and evaluate; returns per-round curves (and ``loss_init``,
+    the test loss of the initial model), timings, the final state and
+    its edge models.  Deterministic given ``cfg.seed``; ``batches`` (from
+    :func:`sample_batches` of the same data fields) replaces the
+    sampling, with the same result; the data time is then a lookup."""
+    dev = resolve_device(device)
+    k = cfg.clients_per_device
+    data, test, ew, dw = _federated_data(cfg)
     topo = Topology(cfg.q_edges, cfg.devices_per_edge, dev)
     cc = client_config(cfg, data)
     algo = hier.AlgoConfig(
         method=cfg.method, mu=cfg.mu, mu_sgd=cfg.mu_sgd, t_e=cfg.t_e,
         rho=cfg.rho, transport=cfg.transport, state_layout=cfg.state_layout,
+        cloud_period=cfg.cloud_period, cloud_overlap=cfg.cloud_overlap,
+        error_feedback=cfg.error_feedback, momentum=cfg.momentum,
         compute_dtype=torch.float32, master_dtype=torch.float32,
         delta_dtype=torch.float32, decay=cfg.decay, clients=cc)
     if cc.active:
@@ -145,12 +180,15 @@ def run_paper_task(cfg: FedBenchCfg, device: str = "cuda",
     sub = {k: v[:512] for k, v in test_t.items()}
     rng = np.random.default_rng(cfg.seed)
     out = {"loss": [], "acc": [], "train_loss": [], "ms_per_step": [],
-           "data_ms_per_step": []}
+           "data_ms_per_step": [],
+           "loss_init": float(mlp.loss_fn(
+               {n: v.to(dev) for n, v in params0.items()}, sub))}
     for t in range(cfg.rounds):
         step_s = data_s = 0.0
-        for _ in range(cfg.t_e):
+        for tau in range(cfg.t_e):
             t0 = time.perf_counter()
-            batch = {"train": _stack_batches(data, cfg, rng, dev)}
+            batch = {"train": (batches[t * cfg.t_e + tau] if batches
+                               else _stack_batches(data, cfg, rng, dev))}
             t1 = time.perf_counter()
             state, metrics = step(state, batch, ew_t, dw_t, mask)
             train_loss = float(metrics["loss"])      # waits for the step

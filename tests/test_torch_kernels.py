@@ -2,7 +2,9 @@
 bitwise the JAX package's Pallas kernels, run in interpret mode:
 ``sign_pack``, ``vote_update``, ``tally_acc`` (int8 / int16 / int32
 tallies that do not start at zero, vote weights with zeros and an empty
-pod) and ``ternary_quant`` (uniforms injected at the JAX 2-D shape).
+pod) and ``ternary_quant`` (uniforms injected at the JAX 2-D shape; the
+per-row form of the QSGD step one row at a time, rows of the MLP's leaf
+lengths with zero and subnormal rows).
 
 P=2 edges x D=3 devices over n = 2*4096 coordinates, u in f32 and bf16,
 the DC correction re-read per voter (the slab map on the TPU, the (p, i)
@@ -24,6 +26,7 @@ from repro.core import votes as jvotes
 from repro.core.topology import single_device_topology
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.core import signs as jsigns
 from repro_torch.core import signs
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import build, ops, ref
@@ -576,7 +579,17 @@ def test_new_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="u must be"):
         ternary_quant(x, torch.zeros(9), torch.tensor(1.0))
     with pytest.raises(ValueError, match="norm must be"):
-        ternary_quant(x, torch.zeros(8), torch.ones(1))
+        ternary_quant(x, torch.zeros(8), torch.ones(1, 1))
+    with pytest.raises(ValueError, match="equal rows"):
+        ternary_quant(x, torch.zeros(8), torch.ones(3))
+    with pytest.raises(ValueError, match="contiguous"):
+        ternary_quant(x, torch.zeros(8), torch.ones(4)[::2])
+    # a [1] norm is one row, a [2] norm two rows of 4
+    assert torch.equal(ternary_quant(x + 1, torch.zeros(8), torch.ones(1)),
+                       torch.ones(8))
+    assert torch.equal(ternary_quant(x + 1, torch.zeros(8),
+                                     torch.tensor([1.0, 0.0])),
+                       torch.tensor([1.0] * 4 + [0.0] * 4))
     with pytest.raises(ValueError, match="dtype"):
         ternary_quant(x.double(), torch.zeros(8), torch.tensor(1.0))
 
@@ -625,3 +638,89 @@ def test_new_wrappers_check_their_kernel_inputs():
     q = ops.ternary_quant_nd(off(x), torch.Generator().manual_seed(3))
     assert torch.equal(q, ops.ternary_quant_nd(
         x, torch.Generator().manual_seed(3)))
+
+
+# -- ternary_quant per row: the QSGD step's form -------------------------------
+
+ROW_LENGTHS = (10, 64, 640, 50176)     # the MLP's leaves
+
+
+def row_inputs(cols, dtype, seed):
+    """x [3, cols]: a normal row with zeros and subnormals (u = 0 there),
+    a zero row and a row of subnormals (whose squares flush: norm 0);
+    u [3, cols] uniforms."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((3, cols)).astype(np.float32)
+    u = rng.random((3, cols)).astype(np.float32)
+    x[0, :2] = 0.0
+    x[0, 2:4] = (1e-40, -1e-39)
+    u[0, :4] = 0.0
+    x[1] = 0.0
+    x[2] = np.where(np.arange(cols) % 2, 1e-40, -3e-39)
+    u[2] = 0.0
+    return x.astype(NP_DTYPES[dtype]), u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cols", ROW_LENGTHS)
+def test_ternary_quant_rows_match_pallas(cols, dtype):
+    """R = 3 rows, each with its own norm (``signs.row_norms``): each row
+    of the plain version is bitwise the Pallas kernel (interpret mode)
+    called with that row's norm, the row laid into its [64, 4096] block;
+    ``ops.ternary_quant_rows`` and ``signs.ternary_quantize(rows=3)`` are
+    the same call."""
+    from repro.kernels import ternary_quant as jtq
+    x, u = row_inputs(cols, dtype, 30 + cols)
+    x_t, u_t = tensor_from_numpy(x), torch.from_numpy(u)
+    norms = signs.row_norms(x_t)
+    assert norms.shape == (3,) and norms[1] == 0 and norms[2] == 0
+    got = ternary_quant(x_t, u_t, norms)
+    assert got.dtype == dtype and got.shape == (3, cols)
+    for r in range(3):
+        bx = np.zeros(64 * 4096, x.dtype)
+        bu = np.ones(64 * 4096, np.float32)
+        bx[:cols], bu[:cols] = x[r], u[r]
+        want = np.asarray(jtq.ternary_quant(
+            jnp.asarray(bx.reshape(64, 4096)), jnp.asarray(
+                bu.reshape(64, 4096)), jnp.asarray(norms[r].numpy()),
+            interpret=True)).reshape(-1)[:cols]
+        np.testing.assert_array_equal(
+            got[r].to(torch.float32).numpy().view(np.int32),
+            want.astype(np.float32).view(np.int32), err_msg=f"row {r}")
+    assert not got[1:].to(torch.float32).any()
+    assert not got[0, :4].to(torch.float32).any()
+    for other in (ops.ternary_quant_rows(x_t, u_t).to(dtype),
+                  signs.ternary_quantize(x_t, u_t, rows=3)):
+        assert torch.equal(other, got)
+
+
+@pytest.mark.parametrize("cols", ROW_LENGTHS)
+def test_ternary_quantize_matches_reference_arithmetic(cols):
+    """The port's ``signs.ternary_quantize`` on the uniforms the JAX
+    ``signs.ternary_quantize`` draws from its key: the same output up to
+    the norm's last bits (the port sums the squares in its fixed order,
+    XLA in its own)."""
+    import jax
+    x = np.random.default_rng(cols).standard_normal(cols).astype(np.float32)
+    key = jax.random.PRNGKey(cols)
+    want = np.asarray(jsigns.ternary_quantize(jnp.asarray(x), key))
+    u = np.asarray(jax.random.uniform(key, x.shape))
+    got = signs.ternary_quantize(torch.from_numpy(x), torch.from_numpy(u))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    assert np.count_nonzero(want) > 0
+    np.testing.assert_allclose(float(signs.row_norms(
+        torch.from_numpy(x)[None])[0]), float(np.linalg.norm(
+            x.astype(np.float64))), rtol=1e-6)
+
+
+def test_row_norms_do_not_depend_on_the_row_count():
+    """A row's norm (and sum) is the same whether the call holds 1, 20 or
+    40 rows: the merged voter axis and one streamed client agree."""
+    x = torch.randn(40, 50176, generator=torch.Generator().manual_seed(0))
+    full = signs.row_norms(x)
+    for rows in (1, 7, 20):
+        assert torch.equal(signs.row_norms(x[:rows].contiguous()),
+                           full[:rows])
+    assert torch.equal(signs.row_sums(x[3:4]), signs.row_sums(x)[3:4])
+    assert signs.row_sums(torch.ones(2, 0)).tolist() == [0.0, 0.0]
+    assert signs.row_sums(torch.ones(1, 5)).tolist() == [5.0]

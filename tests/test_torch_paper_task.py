@@ -159,6 +159,13 @@ def test_cli_parses_config_fields(monkeypatch):
     assert (cfg.clients_per_device, cfg.participation, cfg.rate,
             cfg.client_seed, cfg.client_mode, cfg.data_weights) == (
         2, "fixed", 0.5, 11, "stream", True)
+    train.main(["--method", "mtgc_hier_signsgd", "--cloud_period", "3",
+                "--cloud_overlap", "overlap", "--error_feedback",
+                "--momentum", "0.9", "--device", "cpu"])
+    cfg = seen["cfg"]
+    assert (cfg.method, cfg.cloud_period, cfg.cloud_overlap,
+            cfg.error_feedback, cfg.momentum) == (
+        "mtgc_hier_signsgd", 3, "overlap", True, 0.9)
 
 
 def test_virtual_clients_stream_equals_merged_on_cpu():
@@ -189,6 +196,45 @@ def test_virtual_clients_stream_equals_merged_on_cpu():
         for k, v in res["params"].items():
             assert torch.equal(v, other["params"][k]), (mode, k)
         assert other["loss"] == res["loss"]
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("hier_sgd", {}), ("hier_local_qsgd", {}),
+    ("scaffold_hier_signsgd", {"cloud_overlap": "overlap",
+                               "momentum": 0.9})],
+    ids=["hier_sgd", "qsgd", "scaffold_overlap_mom"])
+def test_launcher_runs_the_baselines_and_corrections(method, kw):
+    """The paper task with the full-precision baselines and a correction
+    method, 2 rounds of T_E=2 on the CPU: the test loss falls below the
+    initial model's, and the wire cost is the method's Table II entry."""
+    cfg = train.FedBenchCfg(method=method, rounds=2, t_e=2, **kw)
+    res = train.run_paper_task(cfg, device="cpu", log=lambda line: None)
+    assert np.isfinite(res["loss"]).all()
+    assert res["loss"][-1] < res["loss_init"]
+    assert res["uplink_bits_per_round"] == signs_uplink(method, 50890, 2)
+    state = res["state"]
+    assert (state.corr_cl is not None) == (method == "scaffold_hier_signsgd")
+    assert (state.agg_next is not None) == ("cloud_overlap" in kw)
+
+
+def signs_uplink(method, d, t_e):
+    from repro_torch.core import signs
+    return signs.uplink_bits(method, d, t_e)
+
+
+def test_sampled_batches_replay_the_run():
+    """``sample_batches`` draws what ``run_paper_task`` samples, so a run
+    fed them is bitwise the run that samples (with no data time)."""
+    cfg = train.FedBenchCfg(method="hier_local_qsgd", rounds=1, t_e=2)
+    batches = train.sample_batches(cfg, "cpu")
+    assert len(batches) == 2 and batches[0]["x"].shape == (4, 5, 64, 784)
+    fed = train.run_paper_task(cfg, "cpu", log=lambda line: None,
+                               batches=batches)
+    own = train.run_paper_task(cfg, "cpu", log=lambda line: None)
+    assert fed["loss"] == own["loss"]
+    assert fed["data_ms_per_step"][0] < own["data_ms_per_step"][0]
+    for k, v in fed["params"].items():
+        assert torch.equal(v, own["params"][k]), k
 
 
 def test_launcher_rejects_a_batch_the_clients_do_not_divide():
