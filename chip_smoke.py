@@ -72,10 +72,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with K=2 clients (Bernoulli(0.5), |D_qk| weights) stream must
      equal merged bitwise under the ``clients`` phase's rule.
 
+  7. ``lm``: the LM trainer on gemma3-1b at full width (d_model 1152,
+     vocab 262144, window 1024, local:global 5:1), cut to 6 layers (one
+     period), P=2 edges x D=3 devices, batch 1 x 1152 tokens a device,
+     bf16 compute, f32 master, ``dc_hier_signsgd``, T_E=3: one step's
+     per-voter gradients evaluated twice must be bitwise; then 6 steps
+     of ``launch.train.run_training`` on fused/flat (exactly one
+     ``sign_pack`` and one ``vote_update`` a step), the same steps on
+     ag_packed/tree from the same parameters and tokens (bitwise the
+     same edge models), and once more on fused/flat under
+     torch.profiler (bitwise the first; the kernels' device time beside
+     their byte bounds at [2, 3, n_pad], their share of the device
+     time); the mean loss of round 2 must be below step 0's; the peak
+     memory beside its reckoning; then 2 steps of ``hier_local_qsgd``
+     with K=2 streamed clients (one ``ternary_quant`` launch a leaf and
+     client) and their peak memory.
+
 The ``ternary`` cases of phase 2 include the QSGD step's per-row form:
 rows of the MLP's leaf lengths 10, 64, 640 and 50176, R = 20 and 40 rows
 (a zero row, a row of subnormals), each row with its own norm from
-``signs.row_norms`` -- whose values must not depend on the row count.
+``signs.row_norms`` -- whose values must not depend on the row count --
+and 8 rows of gemma3's embedding leaf (301,989,888 coordinates each)
+in bf16 through ``ops.ternary_quant_rows``: 2^31 coordinates and more,
+split over two launches of whole rows, bitwise the plain version.
 
 It prints the card's name and power limit first, one JSON line per
 kernel case, a ``{"kernels": [...]}`` line, and as its last line
@@ -711,10 +730,76 @@ def phase_ternary(torch, timer):
                 row = ternary_rows_case(torch, timer, gen, rows, cols, dtype)
                 if (rows, cols, dtype) == (20, 50176, torch.float32):
                     main_row = row
+    ternary_huge_case(torch, gen)
     return main_row
 
 
 TERNARY_ROWS = (10, 64, 640, 50176)     # the MLP's leaves, a row a voter
+HUGE_ROWS = (8, 301989888)     # gemma3's tied embedding, 8 voters' rows
+
+
+def ternary_huge_case(torch, gen) -> dict:
+    """``ops.ternary_quant_rows`` at R*C >= 2^31 coordinates: 8 rows of
+    gemma3's embedding leaf (262144 x 1152) in bf16, split over launches
+    of whole rows under 2^31 coordinates (7 + 1), held bitwise against
+    the plain version row by row on the same uniforms, timed.  Its
+    tensors are freed before it returns."""
+    from repro_torch.core import signs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ternary_quant import ternary_quant
+
+    rows, cols = HUGE_ROWS
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.randn((rows, cols), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    u = torch.rand((rows, cols), generator=gen, device="cuda")
+    x[0, :2] = 0.0
+    x[0, 2:4] = 1e-40
+    u[0, :4] = 0.0
+    x[1] = 0.0
+    per = ops.rows_per_launch(cols)
+    launches = -(-rows // per)
+    ternary_quant.launches = 0
+    got = ops.ternary_quant_rows(x, u)
+    torch.cuda.synchronize()
+    require(ternary_quant.launches == launches,
+            f"ternary_quant_rows at {rows} x {cols}: "
+            f"{ternary_quant.launches} launches, want {launches}")
+    peak_gib = (torch.cuda.max_memory_allocated() - before) / 2**30
+    mism, err = 0, 0.0
+    for r in range(rows):
+        xf = x[r:r + 1].float()
+        want = ref.ternary_quant_ref(xf, u[r:r + 1], signs.row_norms(xf))
+        mism += int((got[r:r + 1].view(torch.int32)
+                     != want.view(torch.int32)).sum())
+        err = max(err, float((got[r:r + 1] - want).abs().max()))
+        del xf, want
+    require(mism == 0, f"ternary_quant_rows at {rows} x {cols} bf16 "
+            f"disagrees with its plain version in {mism} coordinates")
+    require(not got[1].any() and not got[0, :4].any(),
+            "ternary_quant_rows at 2^31+: nonzeros where it must give 0")
+    del got
+    timer = Timer(torch, warmup=1, reps=3)
+    ms = timer(lambda: ops.ternary_quant_rows(x, u))
+    dev = timer.device_ms(lambda: ops.ternary_quant_rows(x, u),
+                          "ternary_quant_kernel")
+    n = rows * cols
+    # the launches' own bytes: x in float32 as the kernel reads it, u,
+    # the float32 output, a norm a row
+    b_ms, b_by = bound(ternary_quant_bytes(n, 4) + 4 * (rows - 1),
+                       ternary_quant_ops(n))
+    row = {"kernel": "ternary_quant", "shape": [rows, cols],
+           "case": "rows, >= 2^31 coordinates (split)", "dtype": "bfloat16",
+           "norm": "per row", "launches_per_call": launches,
+           "mismatched": mism, "max_abs_err": err, "call_ms": ms,
+           "kernel_device_ms": None if dev is None else dev * launches,
+           "bound_ms": b_ms, "bound_by": b_by, "peak_gib": peak_gib}
+    emit(row)
+    del x, u
+    torch.cuda.empty_cache()
+    return row
 
 
 def ternary_rows_case(torch, timer, gen, rows: int, cols: int,
@@ -843,9 +928,11 @@ def client_grads_bitwise(torch, cfg) -> tuple[bool, int]:
 
 
 def count_differing(torch, a: dict, b: dict) -> int:
-    return sum(int((a[n].contiguous().view(torch.int32)
-                    != b[n].contiguous().view(torch.int32)).sum())
-               for n in a)
+    """Coordinates that differ between two (nested) dicts of float32
+    tensors of one structure."""
+    return sum(int((x.contiguous().view(torch.int32)
+                    != y.contiguous().view(torch.int32)).sum())
+               for (_, x), (_, y) in zip(pytree_items(a), pytree_items(b)))
 
 
 def phase_clients(torch):
@@ -1213,7 +1300,258 @@ def phase_methods(torch, slice_ms: float) -> dict:
     return runs
 
 
+LM_ARCH, LM_LAYERS = "gemma3_1b", 6      # one 5:1 local:global period
+LM_P, LM_D, LM_SEQ, LM_STEPS, LM_TE = 2, 3, 1152, 6, 3
+LM_RECKONED_GB = 49.0        # the phase's peak, reckoned from its buffers
+
+
+def lm_setup(torch, **algo_kw):
+    """gemma3-1b at full width, cut to LM_LAYERS layers, on P x D copies:
+    (cfg, topo, algo) of the phase's runs."""
+    from repro_torch import configs
+    from repro_torch.core import hier
+    from repro_torch.core.topology import Topology
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH),
+                              n_layers=LM_LAYERS)
+    kw = dict(method="dc_hier_signsgd", mu=1e-3, rho=RHO, t_e=LM_TE,
+              transport="fused", state_layout="flat",
+              compute_dtype=torch.bfloat16, master_dtype=torch.float32,
+              delta_dtype=torch.bfloat16)
+    kw.update(algo_kw)
+    return cfg, Topology(LM_P, LM_D, "cuda"), hier.AlgoConfig(**kw)
+
+
+def lm_grads_bitwise(torch, built, params, tokens) -> int:
+    """One step's per-voter gradients of the LM's loss, twice, from
+    fresh bf16 [P, D] copies: the count of coordinates that differ (0
+    when autograd is deterministic on the card, which the bitwise
+    comparison of the two layouts needs)."""
+    from repro_torch.core import pytree
+
+    leaves, td = pytree.tree_flatten(params)
+
+    def grads():
+        copies = [leaf.unsqueeze(0).unsqueeze(0)
+                  .expand((LM_P, LM_D) + tuple(leaf.shape))
+                  .to(torch.bfloat16).contiguous().requires_grad_(True)
+                  for leaf in leaves]
+        losses = built.bundle.loss(pytree.tree_unflatten(td, copies),
+                                   {"tokens": tokens})
+        return torch.autograd.grad(losses.sum(), copies), losses.detach()
+
+    g1, l1 = grads()
+    g2, l2 = grads()
+    differ = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
+                 for a, b in zip(g1, g2))
+    require(torch.equal(l1, l2), "the LM's losses differ between two "
+            "evaluations on the same copies")
+    print(f"[lm] per-voter losses {l1.float().tolist()}", flush=True)
+    return differ
+
+
+def lm_profile(torch, run_fn) -> dict:
+    """Device time by kernel of ``run_fn()`` under torch.profiler: the
+    sign_pack and vote_update launches, their sum, and every kernel's
+    and copy's (the device's busy time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_step import device_us, on_device
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run_fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if on_device(e)]
+    busy = sum(map(device_us, evs)) / 1e3
+    res = {"busy_ms": busy, "out": out}
+    for k in ("sign_pack_kernel", "vote_update_kernel"):
+        ks = [e for e in evs if k in e.key]
+        res[k] = (sum(map(device_us, ks)) / 1e3, sum(e.count for e in ks))
+    evs.sort(key=device_us, reverse=True)
+    res["top"] = [{"name": e.key[:240], "calls": e.count,
+                   "device_ms": device_us(e) / 1e3} for e in evs[:10]]
+    return res
+
+
+def phase_lm(torch) -> dict:
+    """The LM trainer on the card: gemma3-1b at full width (6 layers), P=2
+    edges x D=3 devices, batch 1 x 1152 tokens a device, bf16 compute, f32
+    master, DC-HierSignSGD, T_E=3, 6 steps through ``run_training``: on
+    fused/flat (one sign_pack and one vote_update a step), again on
+    ag_packed/tree from the same parameters and tokens (bitwise the same
+    edge models), and once more on fused/flat under torch.profiler (the
+    kernels' device time; bitwise the first).  Then 2 steps of
+    hier_local_qsgd with K=2 streamed clients (batch 2 a device).
+    Returns the kernel launches counted in the fused/flat DC run and in
+    the QSGD run."""
+    from repro_torch.core import hier
+    from repro_torch.core.clients import ClientConfig
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.ternary_quant import ternary_quant
+    from repro_torch.kernels.vote_update import vote_update
+    from repro_torch.launch.train import RunCfg, run_training
+    from repro_torch.models import build
+
+    t_phase = time.perf_counter()
+    cfg, topo, algo = lm_setup(torch)
+    built = build.build_model(cfg, topo)
+    params = built.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n_params = build.param_count(params)
+    # LMConfig.param_count leaves out the RMS norms' gains
+    n_norms = sum(leaf.numel() for name, leaf in pytree_items(params)
+                  if name.rsplit(".", 1)[-1] in ("n1", "n2", "qn", "kn",
+                                                 "norm"))
+    emit({"lm": "parameters", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "count": n_params, "norm_gains": n_norms,
+          "config_param_count": cfg.param_count(),
+          "full_depth_config_param_count": dataclasses.replace(
+              cfg, n_layers=26).param_count()})
+    require(n_params == cfg.param_count() + n_norms,
+            f"{n_params} parameters, the config counts {cfg.param_count()} "
+            f"and {n_norms} norm gains")
+    run = RunCfg(steps=LM_STEPS, batch_per_device=1, seq_len=LM_SEQ,
+                 log_every=1, seed=0)
+
+    from repro_torch.data import synthetic
+    tokens = synthetic.make_stream(synthetic.LMStreamCfg(
+        vocab=cfg.vocab, seq_len=LM_SEQ, batch_per_device=1, pods=LM_P,
+        devices_per_pod=LM_D, seed=0))(0)["tokens"].cuda()
+    differ = lm_grads_bitwise(torch, built, params, tokens)
+    print(f"[lm] one step's per-voter gradients, evaluated twice: "
+          f"{differ} coordinates differ", flush=True)
+    require(differ == 0, "the LM's per-voter gradients are not "
+            "deterministic on the card: the layouts cannot be bitwise")
+
+    def one(tag, algo_, run_=run, profiled=False):
+        sign_pack.launches = vote_update.launches = 0
+        ternary_quant.launches = 0
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        def fn():
+            return run_training(
+                cfg, topo, algo_, run_, params=params,
+                log=lambda line: print(f"[lm] {tag}: {line}", flush=True))
+        prof = lm_profile(torch, fn) if profiled else {"out": fn()}
+        state, history = prof["out"]
+        torch.cuda.synchronize()
+        res = {"history": history, "prof": prof,
+               "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+               "launches": {"sign_pack": sign_pack.launches,
+                            "vote_update": vote_update.launches,
+                            "ternary_quant": ternary_quant.launches},
+               "params": hier.edge_params(state),
+               "n_pad": getattr(state.params, "layout", None)}
+        losses = [h["loss"] for h in history]
+        require(all(map(math.isfinite, losses)), f"{tag}: losses {losses}")
+        for n, leaf in pytree_items(res["params"]):
+            require(bool(torch.isfinite(leaf).all()), f"{tag}/{n}: "
+                    "non-finite")
+        del state
+        return res
+
+    fused = one("fused/flat", algo)
+    want = {"sign_pack": LM_STEPS, "vote_update": LM_STEPS,
+            "ternary_quant": 0}
+    require(fused["launches"] == want, f"fused/flat launches "
+            f"{fused['launches']}, want {want}")
+    losses = [h["loss"] for h in fused["history"]]
+    round2 = statistics.mean(losses[LM_TE:2 * LM_TE])
+    require(round2 < losses[0], f"the loss did not fall: step 0 "
+            f"{losses[0]}, round 2 mean {round2}")
+    tree = one("ag_packed/tree", dataclasses.replace(
+        algo, transport="ag_packed", state_layout="tree"))
+    require(tree["launches"] == dict.fromkeys(want, 0),
+            f"ag_packed/tree launched kernels: {tree['launches']}")
+    diff = count_differing(torch, fused["params"], tree["params"])
+    require(diff == 0, f"fused/flat and ag_packed/tree edge models differ "
+            f"in {diff} coordinates")
+    print("[lm] fused/flat == ag_packed/tree edge models, bitwise",
+          flush=True)
+    tree_ms = statistics.mean(h["ms"] for h in tree["history"][LM_TE:])
+    del tree
+    prof_run = one("fused/flat, profiled", algo, profiled=True)
+    diff = count_differing(torch, fused["params"], prof_run["params"])
+    require(diff == 0, f"two fused/flat runs differ in {diff} coordinates")
+    prof = prof_run["prof"]
+    n_pad = fused["n_pad"].n_pad
+    shape = (LM_P, LM_D, n_pad)
+    sp_ms, sp_n = prof["sign_pack_kernel"]
+    vu_ms, vu_n = prof["vote_update_kernel"]
+    sp_bound = bound(sign_pack_bytes(shape, 2, False),
+                     sign_pack_ops(shape, False))
+    vu_bound = bound(vote_update_bytes(shape, True, LM_P * LM_D),
+                     vote_update_ops(shape, True))
+    host_ms = statistics.mean(h["ms"] for h in fused["history"][LM_TE:])
+    emit({"lm": "step", "ms_per_step_round2_fused_flat": host_ms,
+          "ms_per_step_round2_ag_packed_tree": tree_ms,
+          "ms_per_step_round2_profiled": statistics.mean(
+              h["ms"] for h in prof_run["history"][LM_TE:]),
+          "data_ms_per_step": statistics.mean(
+              h["data_ms"] for h in fused["history"]),
+          "losses": losses, "round2_mean_loss": round2,
+          "n_pad": n_pad, "launches": fused["launches"]})
+    emit({"lm": "kernels", "shape": list(shape),
+          "sign_pack_device_ms": sp_ms / max(sp_n, 1),
+          "sign_pack_bound_ms": sp_bound[0],
+          "sign_pack_bytes": sign_pack_bytes(shape, 2, False),
+          "vote_update_device_ms": vu_ms / max(vu_n, 1),
+          "vote_update_bound_ms": vu_bound[0],
+          "vote_update_bytes": vote_update_bytes(shape, True, LM_P * LM_D),
+          "launches_profiled": [sp_n, vu_n],
+          "device_busy_ms_per_step": prof["busy_ms"] / LM_STEPS,
+          "kernels_share_of_device_time": (sp_ms + vu_ms) / prof["busy_ms"],
+          "top": prof["top"]})
+    emit({"lm": "memory", "peak_gb_fused_flat": fused["peak_gb"],
+          "reckoned_gb": LM_RECKONED_GB,
+          "total_gb": torch.cuda.get_device_properties(0).total_memory / 1e9})
+    dc_launches = fused["launches"]
+    del prof_run, fused
+    torch.cuda.empty_cache()
+
+    # hier_local_qsgd, K=2 clients streamed, one row a client
+    qalgo = dataclasses.replace(
+        algo, method="hier_local_qsgd",
+        clients=ClientConfig(count=2, mode="stream"))
+    qrun = dataclasses.replace(run, steps=2, batch_per_device=2)
+    qsgd = one("hier_local_qsgd, K=2 stream", qalgo, qrun)
+    leaves = len(pytree_items(qsgd["params"]))
+    want_q = {"sign_pack": 0, "vote_update": 0,
+              "ternary_quant": 2 * 2 * leaves}
+    require(qsgd["launches"] == want_q, f"hier_local_qsgd launches "
+            f"{qsgd['launches']}, want {want_q}")
+    n = n_params
+    emb = cfg.vocab * cfg.d_model
+    emit({"lm": "qsgd stream memory", "peak_gb": qsgd["peak_gb"],
+          "uniforms_all_clients_gb": LM_P * LM_D * 2 * n * 4 / 1e9,
+          "uniforms_one_client_gb": LM_P * LM_D * n * 4 / 1e9,
+          "uniforms_one_client_one_leaf_gb": LM_P * LM_D * emb * 4 / 1e9,
+          "losses": [h["loss"] for h in qsgd["history"]],
+          "ms_per_step": [h["ms"] for h in qsgd["history"]],
+          "launches": qsgd["launches"]})
+    qsgd_launches = qsgd["launches"]
+    del qsgd, params
+    torch.cuda.empty_cache()
+    emit({"lm": "phase", "wall_s": time.perf_counter() - t_phase})
+    return {"dc": dc_launches, "qsgd": qsgd_launches}
+
+
+def pytree_items(tree, prefix=""):
+    """(dotted name, leaf) pairs of a nested dict of tensors."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out = []
+    for k in sorted(tree):
+        out += pytree_items(tree[k], f"{prefix}.{k}" if prefix else k)
+    return out
+
+
 def main() -> None:
+    # the lm phase's buffers come in many sizes (GBs down to KBs): let
+    # the caching allocator grow its segments instead of splitting them
+    import os
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -1255,6 +1593,7 @@ def main() -> None:
     methods = phase_methods(torch, fused["ms_per_step"][-1])
     launches["ternary_quant"] = (
         methods["hier_local_qsgd"]["launches"]["ternary_quant"])
+    lm_launches = phase_lm(torch)
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
              "tally_acc": "clients, stream fused/flat (30 steps, K=2)",
@@ -1272,7 +1611,9 @@ def main() -> None:
             "ms": row["kernel_ms"], "device_ms": row["kernel_device_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            "lm_dc_fused_flat_launches": lm_launches["dc"].get(name, 0),
+            "lm_qsgd_stream_launches": lm_launches["qsgd"].get(name, 0)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,11 @@ and the port.
 
 A JAX parameter tree turned into numpy (``jax.tree.map(np.asarray, t)``)
 is a dict of arrays; these helpers turn it into the port's tensors, and
-back.  bfloat16 arrays (numpy dtype ``bfloat16`` from ``ml_dtypes``)
-move through their 16-bit pattern, so every value survives bitwise.
+back.  Nested dicts carry over leaf for leaf: an LM's tree
+(``embed.table``, ``stacks.<block>.<leaf>`` with the leading layer dim,
+``head.norm``) is the port's ``models.build`` tree.  bfloat16 arrays
+(numpy dtype ``bfloat16`` from ``ml_dtypes``) move through their 16-bit
+pattern, so every value survives bitwise.
 A JAX ``TrainState`` mapped the same way (its flat slots keep their
 ``FlatState`` wrapper, with a numpy ``buf``) carries over slot for slot
 with :func:`train_state_from_numpy`, so both packages can start from the

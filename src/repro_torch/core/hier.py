@@ -57,11 +57,18 @@ each one's signs into an integer tally (on the fused transport one
 gradient into an f32 accumulator (mean methods) -- bitwise the merged
 trajectory.
 
-The QSGD uniforms: one ``[P, D*K, *leaf]`` float32 block per leaf per
-step, in leaf order, from the state's ``torch.Generator`` -- or from the
-``uniforms`` callable given to :func:`make_hier_step`.  Each leaf is
-quantized as ``P*D*K`` rows with their own l2 norms, one ``ternary_quant``
-launch on CUDA (``kernels.ops.ternary_quant_rows``).
+The QSGD uniforms: every client c has its own stream per leaf and
+step, a generator on the step's device seeded with :func:`key_seed` of
+(the state generator's seed, step, leaf, c) that fills the ``[P, D,
+*leaf]`` block of its voters, or they come from the ``uniforms``
+callable given to :func:`make_hier_step`.  A leaf's draws are made just
+before its quantization: the K blocks stacked to ``[P, D*K, *leaf]``
+merged, client c's block inside the streamed loop (so stream mode holds
+one client's draws of one leaf at a time, and both modes draw the same
+numbers, K draws a leaf).
+Each leaf is quantized as ``P*D*K`` rows with their own l2 norms,
+``ternary_quant`` launches on CUDA (``kernels.ops.ternary_quant_rows``:
+one, or more where the rows hold 2^31 coordinates or more).
 
 Not ported: ``param_mode="fsdp"`` (ROADMAP queue 1 item 17).
 """
@@ -74,6 +81,7 @@ import torch
 
 from repro_torch.core import clients as vclients
 from repro_torch.core import flatbuf, pytree, schedule, signs, votes
+from repro_torch.core.keys import key_seed
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import ops as kops
 
@@ -175,7 +183,8 @@ class TrainState(NamedTuple):
                                       # SCAFFOLD c_local / MTGC gamma_qk
     corr_edge: PyTree | None          # [P, ...] per-edge correction term:
                                       # SCAFFOLD c_global / MTGC eta_q
-    rng: torch.Generator              # the QSGD uniforms' generator
+    rng: torch.Generator              # its initial_seed() keys the QSGD
+                                      # uniforms (key_seed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,9 +200,10 @@ class ModelBundle:
     param_mode: str = "replicated"    # the FSDP regime is not ported
 
 
-# (step, leaf_index, shape [P, D*K, *leaf]) -> float32 uniforms in [0, 1)
-Uniforms = Callable[[int, int, tuple], torch.Tensor]
-
+# (step, leaf_index, shape [P, V, *leaf], voters) -> float32 uniforms in
+# [0, 1): ``voters`` is the range of V voters on the merged D*K axis whose
+# draws are asked for (all of them, or one streamed client's D)
+Uniforms = Callable[[int, int, tuple, range], torch.Tensor]
 
 def _refuse_unported(bundle: ModelBundle) -> None:
     if bundle.param_mode != "replicated":
@@ -217,10 +227,15 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     ``topo.device``.  The returned state may share (and, with the fused
     flat update, has overwritten) the input state's buffers.
 
-    uniforms: where ``hier_local_qsgd`` takes its uniforms, called once
-    per leaf and step as ``uniforms(step, leaf_index, (P, D*K, *leaf))``;
-    None draws them from the state's generator (``torch.rand``).  The
-    draws are the same in both layouts and both client modes.
+    uniforms: where ``hier_local_qsgd`` takes its uniforms, called per
+    leaf and step as ``uniforms(step, leaf_index, (P, V, *leaf),
+    voters)``, ``voters`` the range of the V voters asked for on the
+    merged D*K axis: all D*K merged, ``range(c, D*K, K)`` for streamed
+    client c; it must give the same numbers to a voter whatever range
+    asks.  None draws each client's ``[P, D, *leaf]`` block from its own
+    seeded stream (:func:`key_seed` of the state generator's seed, step,
+    leaf and client).  The draws are the same in both layouts and both
+    client modes.
     """
     _refuse_unported(bundle)
     p, d = topo.pods, topo.devices_per_pod
@@ -285,15 +300,17 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         return pod_mean(params, edge_w)
 
     def wmul(x, sh):
-        """[P, V, *leaf] x [P, V] shares."""
-        return x * sh.reshape(sh.shape + (1,) * (x.dim() - 2))
+        """[P, V, *leaf] x [P, V] shares, a subnormal product flushed (as
+        the means flush theirs: ``votes.weighted_mean_dev``)."""
+        return signs.ftz_(x * sh.reshape(sh.shape + (1,) * (x.dim() - 2)))
 
     def fold_sum(acc, term):
         """The streamed zeros-initialised fold, one term at a time (the
-        order ``weighted_mean_dev(clients=K)`` adds the merged axis in)."""
+        order and flush ``weighted_mean_dev(clients=K)`` adds the merged
+        axis with), into ``acc`` in place."""
         if acc is None:
             acc = tmap(torch.zeros_like, term)
-        return tmap(torch.add, acc, term)
+        return tmap(lambda a, t: signs.ftz_(a.add_(t)), acc, term)
 
     def merge_clients(per_client):
         """K trees of [P, D, *leaf] -> one of [P, D*K, *leaf] (voter
@@ -318,46 +335,54 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     # -- the shared per-leaf pieces of the local step, used verbatim by
     # every layout and mode, so their bitwise contract lives in one place
 
-    def leaf_shapes(params_tree):
-        return [tuple(v.shape[1:]) for v in pytree.tree_flatten(
-            params_tree)[0]]
+    draw_gen = torch.Generator(device=dev)      # reseeded for every client
 
-    def draw_uniforms(state, shapes):
-        """The QSGD uniforms of this step: one [P, D*K, *leaf] f32 block
-        per leaf, in leaf order."""
-        blocks = []
-        for i, leaf_shape in enumerate(shapes):
-            shape = (p, d_virtual) + leaf_shape
-            if uniforms is None:
-                u = torch.rand(shape, generator=state.rng, dtype=F32,
-                               device=dev)
-            else:
-                u = torch.as_tensor(uniforms(state.step, i, shape)).to(
-                    device=dev, dtype=F32)
-                if tuple(u.shape) != shape:
-                    raise ValueError(f"uniforms for leaf {i}: shape "
-                                     f"{tuple(u.shape)}, want {shape}")
-            blocks.append(u)
-        return blocks
+    def leaf_uniforms(state, i, leaf_shape, voters: range):
+        """Leaf i's uniforms for ``voters`` of the merged axis on every
+        edge: [P, len(voters), *leaf] float32."""
+        shape = (p, len(voters)) + tuple(leaf_shape)
+        if uniforms is not None:
+            u = torch.as_tensor(uniforms(state.step, i, shape, voters)).to(
+                device=dev, dtype=F32)
+            if tuple(u.shape) != shape:
+                raise ValueError(f"uniforms for leaf {i}: shape "
+                                 f"{tuple(u.shape)}, want {shape}")
+            return u
+        seed = state.rng.initial_seed()
 
-    def quantize_dev(g_dev, blocks):
+        def client_block(c):
+            draw_gen.manual_seed(key_seed(seed, state.step, i, c))
+            return torch.empty((p, d) + tuple(leaf_shape), dtype=F32,
+                               device=dev).uniform_(0.0, 1.0,
+                                                    generator=draw_gen)
+
+        if len(voters) == d:          # one client: range(c, D*K, K)
+            return client_block(voters.start)
+        u = torch.empty((p, d, k) + tuple(leaf_shape), dtype=F32, device=dev)
+        for c in range(k):            # voter d*K + c is client c's
+            u[:, :, c] = client_block(c)
+        return u.reshape(shape)
+
+    def quantize_dev(state, g_dev, voters: range):
         """Per device and leaf unbiased ternary quantization: each leaf
         [P, V, *leaf] is P*V rows of numel(leaf), each with its own l2
-        norm (one ``ternary_quant`` launch per leaf on CUDA) -> f32."""
+        norm (``ternary_quant`` on CUDA) -> f32.  A leaf's uniforms are
+        drawn just before its launch and dropped after it."""
         leaves, td = pytree.tree_flatten(g_dev)
         out = []
-        for g, u in zip(leaves, blocks):
+        for i, g in enumerate(leaves):
             rows = g.shape[0] * g.shape[1]
+            u = leaf_uniforms(state, i, g.shape[2:], voters)
             out.append(kops.ternary_quant_rows(
                 g.reshape(rows, -1), u.reshape(rows, -1)).reshape(g.shape))
+            del u
         return pytree.tree_unflatten(td, out)
 
     def mean_terms(state, g_dev):
         """What the mean methods average: f32 gradients, or their
         quantization (hier_local_qsgd)."""
         if algo.method == "hier_local_qsgd":
-            return quantize_dev(g_dev, draw_uniforms(state, [
-                tuple(g.shape[2:]) for g in pytree.tree_flatten(g_dev)[0]]))
+            return quantize_dev(state, g_dev, range(d_virtual))
         return tmap(lambda g: g.to(F32), g_dev)
 
     def mom_update(m, g):
@@ -682,13 +707,8 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         K] int32 arrive unmerged."""
         params_tree = params.tree() if flat else params
         losses, new_ef, new_mom = [], [], []
-        acc = tally = blocks3 = None
-        if not algo.is_sign:
-            if algo.method == "hier_local_qsgd":     # drawn as merged draws
-                blocks3 = [u.reshape((p, d, k) + tuple(u.shape[2:]))
-                           for u in draw_uniforms(state,
-                                                  leaf_shapes(params_tree))]
-        elif fuse:
+        acc = tally = None
+        if fuse:
             if flat:
                 vlayout = params.layout
             else:     # only the per-device shapes matter to the layout
@@ -699,7 +719,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             tally = torch.zeros((p, d, vlayout.n_pad),
                                 dtype=votes.tally_dtype(vote_bound),
                                 device=dev)
-        else:
+        elif algo.is_sign:
             tally = tmap(lambda v: torch.zeros(
                 (p, d) + tuple(v.shape[1:]),
                 dtype=votes.tally_dtype(vote_bound), device=dev), params_tree)
@@ -720,15 +740,17 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             losses.append(loss_c)
             w_c = vote_w3[:, :, c]
             if not algo.is_sign:
-                if blocks3 is not None:
-                    g_c = quantize_dev(g_c, [u[:, :, c] for u in blocks3])
+                if algo.method == "hier_local_qsgd":   # merged's draws
+                    g_c = quantize_dev(state, g_c, range(c, d_virtual, k))
                 if flat:
-                    term = wmul(flatbuf.flatten_tree(params.layout, g_c, 2,
-                                                     F32), shares3[:, :, c])
+                    g_c = flatbuf.flatten_tree(params.layout, g_c, 2, F32)
                 else:
-                    term = tmap(lambda g: wmul(g.to(F32), shares3[:, :, c]),
-                                g_c)
-                acc = fold_sum(acc, term)
+                    g_c = tmap(lambda g: g.to(F32), g_c)
+                # the client's terms die here: the next client's
+                # gradients are taken with only the accumulator alive
+                acc = fold_sum(acc, tmap(lambda g: wmul(g, shares3[:, :, c]),
+                                         g_c))
+                del g_c
                 continue
             u_c = g_c
             if mom3 is not None:

@@ -56,6 +56,14 @@ def ftz(x: torch.Tensor) -> torch.Tensor:
         torch.nn.functional.hardshrink(x, largest_subnormal), x)
 
 
+def ftz_(x: torch.Tensor) -> torch.Tensor:
+    """:func:`ftz` in place, for a tensor the caller owns: ``x * (|x| >=
+    tiny)`` gives a subnormal the zero of its sign and leaves every other
+    value (NaN and infinities included) as it is, without ``ftz``'s two
+    full-size temporaries."""
+    return x.mul_(x.abs() >= torch.finfo(x.dtype).tiny)
+
+
 def descend(v: torch.Tensor, mu, vote: torch.Tensor) -> torch.Tensor:
     """The sign-method update ``v - mu * vote`` (``vote`` in {-1, 0, +1})
     as the reference computes it: subnormal operands count as zeros of
@@ -98,13 +106,24 @@ def row_sums(x: torch.Tensor) -> torch.Tensor:
     how many rows the call holds (the CUDA reduction splits rows over
     blocks when they are few), so the merged voter axis (R = P*D*K rows)
     and the streamed sweep (R = P*D a client) could differ in a last bit;
-    elementwise adds cannot."""
-    width = 1 << max(x.shape[1] - 1, 0).bit_length()
-    if width > x.shape[1]:
-        x = torch.nn.functional.pad(x, (0, width - x.shape[1]))
+    elementwise adds cannot.  The padding is never formed: the first
+    halving adds the columns the upper half has and adds 0.0 to the rest,
+    the padded arithmetic bit for bit (``-0.0 + 0.0`` is ``+0.0``)
+    without the padded copy; every later halving is one add."""
+    cols = x.shape[1]
+    if cols == 0:
+        return torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    width = 1 << (cols - 1).bit_length()
+    if width > cols:
+        width //= 2                        # width < cols < 2 * width
+        out = torch.empty((x.shape[0], width), dtype=x.dtype,
+                          device=x.device)
+        torch.add(x[:, :cols - width], x[:, width:], out=out[:, :cols - width])
+        torch.add(x[:, cols - width:width], 0.0, out=out[:, cols - width:])
+        x = out
     while width > 1:
         width //= 2
-        x = x[:, :width] + x[:, width:2 * width]
+        x = x[:, :width] + x[:, width:]
     return x[:, 0]
 
 
@@ -113,7 +132,7 @@ def row_norms(x: torch.Tensor) -> torch.Tensor:
     Squares that are subnormal count as 0 (XLA's CPU flush: the norm of a
     row of 1e-20s is 0 in the reference)."""
     xf = x.to(torch.float32)
-    return torch.sqrt(row_sums(ftz(xf * xf)))
+    return torch.sqrt(row_sums(ftz_(xf * xf)))
 
 
 def ternary_apply(x: torch.Tensor, u: torch.Tensor,
@@ -157,11 +176,13 @@ def packed_size(n: int) -> int:
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(..., 32*w) bool -> (..., w) int32; bit j of word w = bits[32w+j]."""
-    b = bits.to(torch.int64).reshape(bits.shape[:-1] + (-1, PACK_WIDTH))
-    shifts = torch.arange(PACK_WIDTH, dtype=torch.int64, device=bits.device)
-    s = torch.sum(b << shifts, dim=-1)                # in [0, 2^32)
-    return torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
+    """(..., 32*w) bool -> (..., w) int32; bit j of word w = bits[32w+j].
+
+    The 32 distinct powers of two sum in int32 without a carry (bit 31
+    is ``1 << 31`` = -2^31), so the sum is the word's bit pattern."""
+    b = bits.to(torch.int32).reshape(bits.shape[:-1] + (-1, PACK_WIDTH))
+    shifts = torch.arange(PACK_WIDTH, dtype=torch.int32, device=bits.device)
+    return torch.sum(b << shifts, dim=-1, dtype=torch.int32)
 
 
 def unpack_bits(words: torch.Tensor) -> torch.Tensor:

@@ -92,23 +92,15 @@ def vote_ar_int8(s_dev: torch.Tensor, mask: torch.Tensor | None,
 def vote_ag_packed(s_dev: torch.Tensor,
                    mask: torch.Tensor | None) -> torch.Tensor:
     """Bit-packed popcount vote: s_dev [P, D, *leaf] int8 with the leaf's
-    minor dim % 32 == 0 -> [P, *leaf] int8."""
+    minor dim % 32 == 0 -> [P, *leaf] int8.  The packed rows are counted
+    one voter at a time (:func:`_popcount_vote_words`), so no [P, D,
+    *leaf] int32 bit tensor forms."""
     if s_dev.shape[-1] % PACK:
         raise ValueError("vote_ag_packed needs a minor dim % 32 == 0")
-    bits = signs.unpack_bits(signs.pack_signs(s_dev))          # [P, D, *leaf]
-    if mask is not None:
-        m = _mask_bcast(mask, bits.dim() - 2).to(torch.int32)
-        pos = torch.sum(bits * m, dim=1, dtype=torch.int32)
-        n_eff = torch.sum(mask.to(torch.int32), dim=1)
-        n_eff = n_eff.reshape((-1,) + (1,) * (pos.dim() - 1))
-    else:
-        pos = torch.sum(bits, dim=1, dtype=torch.int32)
-        n_eff = s_dev.shape[1]
-    one = torch.ones((), dtype=torch.int8, device=s_dev.device)
-    vote = torch.where(2 * pos >= n_eff, one, -one)
-    if mask is not None:
-        vote = _abstain(vote, n_eff)
-    return vote
+    p, d = s_dev.shape[:2]
+    words = signs.pack_signs(s_dev).reshape(p, d, -1)        # [P, D, W]
+    return _popcount_vote_words(words, mask, d).reshape(
+        (p,) + tuple(s_dev.shape[2:]))
 
 
 def _popcount_vote_words(words: torch.Tensor, mask: torch.Tensor | None,
@@ -241,7 +233,14 @@ def weighted_mean_dev(g_dev: torch.Tensor, dev_weights: torch.Tensor,
     voter axis [P, D*K]) re-associates it as the streamed sweep adds:
     per device a zeros-initialised fold over its K clients, then the
     fold over D (:func:`fold_devices`), so the merged and streamed
-    modes give the same bits."""
+    modes give the same bits.
+
+    Every product and partial sum that is subnormal flushes to the zero
+    of its sign, as in the eager reference (XLA's CPU backend flushes
+    them; with weights in [0, 1] a subnormal operand gives a subnormal
+    or zero product, so flushing the results is its whole rule).  So the
+    mean is the eager reference's to the last bit where the sums run in
+    the same order (``tests/test_torch_means.py``)."""
     if clients is not None:
         p, dk = g_dev.shape[:2]
         g3 = g_dev.reshape((p, dk // clients, clients) + g_dev.shape[2:])
@@ -251,23 +250,24 @@ def weighted_mean_dev(g_dev: torch.Tensor, dev_weights: torch.Tensor,
         for c in range(clients):
             w_c = w3[:, :, c].reshape((p, dk // clients)
                                       + (1,) * (g_dev.dim() - 2))
-            acc = acc + g3[:, :, c] * w_c.to(g_dev.dtype)
+            acc = signs.ftz(acc + signs.ftz(g3[:, :, c]
+                                            * w_c.to(g_dev.dtype)))
         return fold_devices(acc)
     w = dev_weights.reshape(dev_weights.shape + (1,) * (g_dev.dim() - 2))
     w = w.to(g_dev.dtype)
-    acc = g_dev[:, 0] * w[:, 0]
+    acc = signs.ftz(g_dev[:, 0] * w[:, 0])
     for k in range(1, g_dev.shape[1]):
-        acc = acc + g_dev[:, k] * w[:, k]
+        acc = signs.ftz(acc + signs.ftz(g_dev[:, k] * w[:, k]))
     return acc
 
 
 def fold_devices(acc: torch.Tensor) -> torch.Tensor:
     """[P, D, *leaf] -> [P, *leaf], summed over D one device at a time
     (a fixed order: ``torch.sum`` may reduce a leaf and its flat slice
-    in different orders)."""
+    in different orders), subnormal partial sums flushed."""
     out = acc[:, 0]
     for k in range(1, acc.shape[1]):
-        out = out + acc[:, k]
+        out = signs.ftz(out + acc[:, k])
     return out
 
 
@@ -361,9 +361,11 @@ def pod_weighted_average(v: torch.Tensor,
                          edge_weights: torch.Tensor) -> torch.Tensor:
     """Cloud aggregation ``w = sum_q (D_q/N) v_q``, copied back to every
     pod: a new [P, *leaf] tensor (never a broadcast view, since the
-    fused update writes each pod's row in place)."""
+    fused update writes each pod's row in place).  Folded in pod order
+    with subnormal products and partial sums flushed, as
+    :func:`weighted_mean_dev` folds devices."""
     w = edge_weights.reshape((-1,) + (1,) * (v.dim() - 1)).to(v.dtype)
-    glob = v[0] * w[0]
+    glob = signs.ftz(v[0] * w[0])
     for q in range(1, v.shape[0]):
-        glob = glob + v[q] * w[q]
+        glob = signs.ftz(glob + signs.ftz(v[q] * w[q]))
     return glob.unsqueeze(0).expand_as(v).contiguous()

@@ -15,8 +15,8 @@ so each function is at most two launches, whatever P is:
 
 and the two entry points of the ``ternary_quant`` kernel:
 :func:`ternary_quant_rows` (R rows, each with its own norm: one launch
-per gradient leaf of the QSGD step) and :func:`ternary_quant_nd` (any
-shape as one row).
+per gradient leaf of the QSGD step, or one per run of rows under 2^31
+coordinates) and :func:`ternary_quant_nd` (any shape as one row).
 
 Padding contract: coordinates between leaves and at the buffer tail are
 zero floats, so they pack to +1 bits and are updated like any other
@@ -29,8 +29,11 @@ from __future__ import annotations
 
 import torch
 
+import math
+
 from repro_torch.core import signs
 from repro_torch.kernels import build
+from repro_torch.kernels import ternary_quant as ternary_quant_module
 from repro_torch.kernels.sign_pack import sign_pack
 from repro_torch.kernels.tally_acc import tally_acc
 from repro_torch.kernels.ternary_quant import ternary_quant
@@ -141,6 +144,23 @@ def ternary_quant_nd(x: torch.Tensor,
     return ternary_quant(flat, u, norm).reshape(x.shape)
 
 
+def rows_per_launch(cols: int) -> int:
+    """How many rows of ``cols`` coordinates one ``ternary_quant`` launch
+    of :func:`ternary_quant_rows` takes: as many as stay within the
+    kernel's ``MAX_NUMEL``, rounded down so that every run of rows starts
+    on a 16-byte boundary of the float32 buffers (a multiple of
+    ``4 / gcd(cols, 4)`` rows)."""
+    step = 4 // math.gcd(cols, 4)
+    rows = ternary_quant_module.MAX_NUMEL // max(cols, 1)
+    rows -= rows % step
+    if rows < 1:
+        raise ValueError(
+            f"ternary_quant_rows: a row of {cols} coordinates does not fit "
+            f"one launch on 16-byte boundaries (at most "
+            f"{ternary_quant_module.MAX_NUMEL} coordinates a launch)")
+    return rows
+
+
 def ternary_quant_rows(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Row-wise unbiased ternary quantization (the QSGD step's
     compressor): x [R, C] float, u [R, C] float32 uniforms -> [R, C]
@@ -150,6 +170,16 @@ def ternary_quant_rows(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
     The norms come from ``signs.row_norms``, a reduction in one fixed
     order, so a row's norm -- and its quantization -- does not depend on
-    how many rows the call holds (merged voters or one streamed client)."""
-    xf = _aligned(x.to(torch.float32))
-    return ternary_quant(xf, _aligned(u), signs.row_norms(xf))
+    how many rows the call holds (merged voters or one streamed client).
+    So rows that hold ``MAX_NUMEL`` coordinates or more are split into
+    runs of :func:`rows_per_launch` whole rows, one launch (and one cast
+    to float32 and one norm pass) a run, each writing its rows of the
+    output: bitwise the one call (``tests/test_torch_kernels.py``)."""
+    rows, cols = x.shape
+    out = torch.empty((rows, cols), dtype=torch.float32, device=x.device)
+    per = rows_per_launch(cols)
+    for r0 in range(0, rows, per):
+        xf = _aligned(x[r0:r0 + per].to(torch.float32))
+        ternary_quant(xf, _aligned(u[r0:r0 + per]), signs.row_norms(xf),
+                      out=out[r0:r0 + per])
+    return out

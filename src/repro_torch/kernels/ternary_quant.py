@@ -9,7 +9,9 @@ waits for them).  x holds R rows of C coordinates and row r is scaled by
 (``core.hier``, through ``ops.ternary_quant_rows``) makes one launch per
 gradient leaf; ``ops.ternary_quant_nd`` quantizes any tensor as one row.
 The kernel reads x and u as 16-byte vectors: on CUDA both must be
-16-byte aligned (``check_kernel_inputs``); any R and C are taken.
+16-byte aligned (``check_kernel_inputs``); any R and C are taken, up to
+``MAX_NUMEL`` coordinates a launch (``ops.ternary_quant_rows`` splits
+more rows over several launches).
 
 CPU tensors take the plain version (``ref.ternary_quant_ref``); CUDA
 tensors launch the kernel or raise -- there is no fallback.
@@ -22,7 +24,9 @@ import torch
 from repro_torch.kernels import build, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_NUMEL = (1 << 31) - 1        # the kernel indexes coordinates in 32 bits
+# coordinates one launch takes: the kernel indexes them in 32 bits;
+# ops.ternary_quant_rows splits larger calls by rows, each row whole
+MAX_NUMEL = (1 << 31) - 1
 
 
 def _check(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor) -> int:
@@ -54,25 +58,36 @@ def check_kernel_inputs(x: torch.Tensor, u: torch.Tensor) -> None:
     coordinates.  Raises ``ValueError``; there is no fallback."""
     build.require_aligned("ternary_quant", x=x, u=u)
     if x.numel() > MAX_NUMEL:
-        raise ValueError(f"ternary_quant: {x.numel()} coordinates, the "
-                         f"kernel takes at most {MAX_NUMEL}")
+        raise ValueError(f"ternary_quant: {x.numel()} coordinates, one "
+                         f"launch takes at most {MAX_NUMEL}: split the rows "
+                         f"over launches (ops.ternary_quant_rows does)")
 
 
 def ternary_quant(x: torch.Tensor, u: torch.Tensor,
-                  norm: torch.Tensor) -> torch.Tensor:
+                  norm: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """x: float32/bfloat16 (any shape) of R rows of C contiguous
     coordinates; u: float32 uniforms of x's shape; norm: [R] float32, the
-    l2 norm of each row (a 0-dim norm is R = 1).  Returns a new tensor of
+    l2 norm of each row (a 0-dim norm is R = 1).  Returns a tensor of
     x's dtype: ``norm[r] * sign(x)`` where ``u < |x| / max(norm[r],
-    1e-30)``, else 0, and all zeros on a row whose norm is <= 0.  On CUDA
-    also ``check_kernel_inputs``."""
+    1e-30)``, else 0, and all zeros on a row whose norm is <= 0 -- new,
+    or ``out`` (contiguous, x's shape and dtype; 16-byte aligned on CUDA)
+    written and returned.  On CUDA also ``check_kernel_inputs``."""
     rows = _check(x, u, norm)
+    if out is not None and (out.shape != x.shape or out.dtype != x.dtype
+                            or out.device != x.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"ternary_quant: out must be a contiguous "
+                         f"{tuple(x.shape)} {x.dtype} tensor on {x.device}")
     if x.device.type == "cpu":
-        return ref.ternary_quant_ref(x, u, norm)
+        q = ref.ternary_quant_ref(x, u, norm)
+        return q if out is None else out.copy_(q)
     if x.device.type != "cuda":
         raise ValueError(f"ternary_quant: unsupported device {x.device}")
     check_kernel_inputs(x, u)
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
+    build.require_aligned("ternary_quant", out=out)
     lib = build.load()
     with torch.cuda.device(x.device):
         status = lib.repro_ternary_quant(

@@ -1,4 +1,21 @@
-"""The paper's EMNIST-like task (Figs. 2-4) through the port's train step.
+"""The trainers: the paper's EMNIST-like task and the LM zoo.
+
+Two trainers on the port's train step (``core.hier.make_hier_step``):
+``run_paper_task`` trains the paper's MLP task (below), and
+``run_training`` an LM of the zoo (``--arch NAME``, the dense family):
+the JAX package's ``launch/train.py`` trainer -- config -> model ->
+DC-HierSignSGD step -> synthetic token stream -> elastic membership ->
+failure detection -- on one card, the P edges x D devices as leading
+dims (``--pods``/``--devices_per_pod``, 1 x 1 by default: the on-card
+counterpart of the JAX CLI's one-device mesh).  Its checkpointing
+(``--ckpt``, ROADMAP item 13), fault injection (``--chaos``, item 14)
+and the multi-pod mesh (``--multi_pod``, item 17) are not ported and
+raise ``NotImplementedError``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch gemma3_1b --smoke --steps 6 --t_e 3
+
+The paper task:
 
 ``run_paper_task`` builds the federated task of ``data.emnist_like``
 (Q edges x D devices, Dirichlet(alpha=0.1) inter-edge skew), trains the
@@ -42,11 +59,13 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.core import clients as vclients
-from repro_torch.core import hier, signs, votes
+from repro_torch.core import hier, schedule, signs, votes
 from repro_torch.core.topology import Topology, resolve_device
-from repro_torch.data import emnist_like
-from repro_torch.models import mlp
+from repro_torch.data import cluster, emnist_like, synthetic
+from repro_torch.models import build, mlp
+from repro_torch.runtime import elastic, failures
 
 N_TEST = 1500
 
@@ -215,7 +234,172 @@ def run_paper_task(cfg: FedBenchCfg, device: str = "cuda", log=print,
     return out
 
 
+@dataclasses.dataclass
+class RunCfg:
+    """The JAX package's ``launch/train.RunCfg``: steps, the per-device
+    batch and sequence length, logging, the stream's heterogeneity and
+    the seed (``ckpt_dir`` is not ported: item 13)."""
+    steps: int = 50
+    batch_per_device: int = 4
+    seq_len: int = 128
+    ckpt_dir: str | None = None
+    log_every: int = 5
+    hetero: float = 1.0
+    alpha_client: float | None = None
+    edge_assign: str = "fixed"
+    seed: int = 0
+
+
+def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
+                 fault_injector=None, on_metrics=None, params=None,
+                 log=print):
+    """Train the LM ``cfg`` for ``run.steps`` steps; returns (final_state,
+    history).  Deterministic given the seeds.
+
+    ``params``: one replica's initial parameters (e.g. the JAX package's,
+    converted); None draws them from ``run.seed`` on ``topo.device``.
+    ``history`` holds per step its loss, the live share of the
+    membership, the step's host-clock ms (ending when the loss is on
+    the host) and the ms the batch took to make."""
+    if run.ckpt_dir:
+        raise NotImplementedError(
+            "checkpointing (ckpt_dir): ROADMAP queue 1 item 13")
+    if fault_injector is not None:
+        raise NotImplementedError(
+            "fault injection (the chaos engine): ROADMAP queue 1 item 14")
+    built = build.build_model(cfg, topo)
+    init_fn, step_fn = hier.make_hier_step(topo, algo, built.bundle)
+    if params is None:
+        params = built.init_params(
+            torch.Generator(device=topo.device).manual_seed(run.seed))
+    state = init_fn(params, run.seed + 1)
+    del params
+    stream = synthetic.make_stream(synthetic.LMStreamCfg(
+        vocab=cfg.vocab, seq_len=run.seq_len,
+        batch_per_device=run.batch_per_device, pods=topo.pods,
+        devices_per_pod=topo.devices_per_pod, seed=run.seed,
+        hetero=run.hetero, clients_per_device=algo.clients.count,
+        alpha_client=run.alpha_client, edge_assign=run.edge_assign))
+    # with an active ClientConfig the membership mask is client-granular
+    # [P, D, K], the step's own vocabulary
+    member = elastic.Membership(topo.pods, topo.devices_per_pod,
+                                clients=algo.clients)
+    detector = failures.FailureDetector()
+    history = []
+    for step in range(run.steps):
+        arrays = member.weights()
+        t0 = time.perf_counter()
+        batch = {"train": stream(step)}
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch, arrays.edge_weights,
+                                 arrays.dev_weights, arrays.mask)
+        loss = float(metrics["loss"])             # waits for the step
+        dt = time.perf_counter() - t1
+        detector.record_step(dt)
+        if not detector.check_loss(loss):
+            raise RuntimeError(
+                f"non-finite loss at step {step}; restoring needs a "
+                "checkpoint store (ROADMAP queue 1 item 13)")
+        history.append({"step": step, "loss": loss,
+                        "live": float(np.mean(member.live)),
+                        "ms": 1e3 * dt, "data_ms": 1e3 * (t1 - t0)})
+        if on_metrics:
+            on_metrics(step, metrics)
+        if run.log_every and step % run.log_every == 0:
+            log(f"[train] step {step:5d} loss {loss:.4f} "
+                f"mu {float(metrics['mu']):.2e} "
+                f"live {member.live.mean():.2f}")
+    return state, history
+
+
+def lm_main(argv=None):
+    """The JAX package's LM CLI (``repro.launch.train``), flags and
+    defaults, plus ``--pods``/``--devices_per_pod`` and ``--device``."""
+    ap = argparse.ArgumentParser(description="LM training (the zoo's dense "
+                                 "family) through the port's step")
+    ap.add_argument("--arch", default="gemma3_1b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--t_e", type=int, default=5)
+    ap.add_argument("--method", default="dc_hier_signsgd",
+                    choices=hier.ALL_METHODS)
+    ap.add_argument("--transport", default="ag_packed",
+                    choices=votes.SIGN_TRANSPORTS)
+    ap.add_argument("--state_layout", default="tree",
+                    choices=["tree", "flat"])
+    ap.add_argument("--mu", type=float, default=1e-3)
+    ap.add_argument("--rho", type=float, default=0.2)
+    ap.add_argument("--cloud_period", type=int, default=2)
+    ap.add_argument("--cloud_overlap", default="sync",
+                    choices=list(schedule.CLOUD_OVERLAP_MODES))
+    ap.add_argument("--clients_per_device", type=int, default=1)
+    ap.add_argument("--client_mode", default="merged",
+                    choices=list(vclients.CLIENT_MODES))
+    ap.add_argument("--alpha_client", type=float, default=None)
+    ap.add_argument("--edge_assign", default="fixed",
+                    choices=list(cluster.EDGE_ASSIGN_MODES))
+    ap.add_argument("--participation", default="full",
+                    choices=list(vclients.PARTICIPATION_MODES))
+    ap.add_argument("--participation_rate", type=float, default=1.0)
+    ap.add_argument("--participation_seed", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt", default=None,
+                    help="not ported: ROADMAP queue 1 item 13")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="not ported: ROADMAP queue 1 item 14")
+    ap.add_argument("--multi_pod", action="store_true",
+                    help="not ported: ROADMAP queue 1 item 17")
+    ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--devices_per_pod", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    try:
+        vclients.validate_batch_carve(args.batch, args.clients_per_device,
+                                      flag="clients_per_device")
+        synthetic.validate_scenario(synthetic.LMStreamCfg(
+            vocab=2, seq_len=args.seq, batch_per_device=args.batch,
+            pods=1, devices_per_pod=1,
+            clients_per_device=args.clients_per_device,
+            alpha_client=args.alpha_client, edge_assign=args.edge_assign))
+    except ValueError as e:
+        ap.error(str(e))
+    if args.chaos is not None:
+        raise NotImplementedError(
+            "--chaos (the chaos engine): ROADMAP queue 1 item 14")
+    if args.multi_pod:
+        raise NotImplementedError(
+            "--multi_pod (the multi-device mesh): ROADMAP queue 1 item 17")
+    cfg = (configs.get_smoke(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    topo = Topology(args.pods, args.devices_per_pod, args.device)
+    algo = hier.AlgoConfig(
+        method=args.method, mu=args.mu, rho=args.rho,
+        cloud_period=args.cloud_period, cloud_overlap=args.cloud_overlap,
+        t_e=args.t_e, transport=args.transport,
+        state_layout=args.state_layout,
+        clients=vclients.ClientConfig(
+            count=args.clients_per_device, participation=args.participation,
+            rate=args.participation_rate, seed=args.participation_seed,
+            mode=args.client_mode),
+        compute_dtype=torch.float32 if args.smoke else torch.bfloat16)
+    run = RunCfg(steps=args.steps, batch_per_device=args.batch,
+                 seq_len=args.seq, ckpt_dir=args.ckpt,
+                 alpha_client=args.alpha_client,
+                 edge_assign=args.edge_assign)
+    _, history = run_training(cfg, topo, algo, run)
+    print(f"[train] done: loss {history[0]['loss']:.4f} -> "
+          f"{history[-1]['loss']:.4f}")
+
+
 def main(argv=None):
+    """``--arch NAME`` runs the LM trainer (:func:`lm_main`); without it,
+    the paper task."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--arch")
+    if pre.parse_known_args(argv)[0].arch is not None:
+        return lm_main(argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     for f in dataclasses.fields(FedBenchCfg):
         if f.type == "bool":

@@ -1,0 +1,149 @@
+"""Build ArchDefs and the train entry point from an LMConfig.
+
+The JAX package's ``models/build.py`` for the dense family in the
+replicated regime:
+
+    built = build_model(cfg, topo)
+    built.init_params(generator)  -> one replica's parameters
+    built.bundle                  -> core.hier.ModelBundle
+
+The bundle's loss takes ``[P, D, *leaf]`` parameter copies and
+``{"tokens": [P, D, b, L]}`` and returns the ``[P, D]`` losses (any
+leading dims work, none for one replica): the JAX ``make_loss_single``,
+which the JAX step vmaps, with the vmap written out as batch dims.
+
+The parameter tree is the JAX package's leaf for leaf -- ``embed.table``,
+``stacks.<block>.<leaf>`` with the leading layer dim, ``head.norm`` (and
+``head.out`` when the embedding is not tied) -- so a JAX tree converts
+with ``convert.params_from_numpy``.
+
+Not ported yet: the moe, ssm, hybrid, encdec/audio and vlm families
+(ROADMAP item 15, each raises ``NotImplementedError``), serving
+(``make_serve_fns``, caches: item 21) and the FSDP regime's
+``make_loss_master`` (item 17).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import hier, pytree
+from repro_torch.core.topology import Topology
+from repro_torch.models import blocks as B
+from repro_torch.models import engine, layers
+from repro_torch.models.blocks import Ctx
+from repro_torch.models.config import LMConfig
+from repro_torch.models.engine import ArchDef, ReplicatedPlan, Segment
+
+PyTree = Any
+
+
+def make_archdef(cfg: LMConfig) -> ArchDef:
+    """The block schedule: dense stacks, gemma3-style local:global
+    periods (local blocks with the sliding window and ``rope_theta``,
+    global ones with ``rope_theta_global``, a remainder of local blocks
+    after the last period)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}): only the dense family is "
+            "ported (the others: ROADMAP queue 1 item 15)")
+    if cfg.local_global:
+        loc, glob = cfg.local_global
+        period = loc + glob
+        groups = cfg.n_layers // period
+        rem = cfg.n_layers - groups * period
+        blocks = {
+            "local": B.dense_block(cfg, window=cfg.window,
+                                   theta=cfg.rope_theta, name="local"),
+            "global": B.dense_block(cfg, theta=cfg.rope_theta_global,
+                                    name="global"),
+        }
+        segments = [Segment((("local", loc), ("global", glob)), groups)]
+        if rem:
+            segments.append(Segment((("local", rem),), 1))
+        return ArchDef(cfg, blocks, segments)
+    blocks = {"dense": B.dense_block(cfg)}
+    return ArchDef(cfg, blocks, [Segment((("dense", 1),), cfg.n_layers)])
+
+
+def init_params(arch: ArchDef, generator: torch.Generator | None = None,
+                device: str | torch.device | None = None) -> PyTree:
+    """One replica's float32 parameters on the generator's device (or, with
+    ``device="meta"`` and no generator, their shapes alone)."""
+    cfg = arch.cfg
+    dev = device if device is not None else generator.device
+    params: dict = {"embed": layers.init_embed(generator, cfg.vocab,
+                                               cfg.d_model, dev)}
+    params["stacks"] = {
+        name: engine._stack_init(arch.blocks[name], generator, n, dev)
+        for name, n in engine.stack_counts(arch.segments).items()}
+    head = {"norm": layers.init_rms(cfg.d_model, dev)}
+    if not cfg.tie_embed:
+        head["out"] = layers.he_init(generator, (cfg.d_model, cfg.vocab), dev)
+    params["head"] = head
+    return params
+
+
+def _targets_and_mask(tokens: torch.Tensor):
+    """Next-token LM targets with the final position masked out."""
+    targets = torch.roll(tokens, -1, dims=-1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32,
+                      device=tokens.device)
+    mask[..., -1] = 0.0
+    return targets, mask
+
+
+def _logits(cfg: LMConfig, head, embed_p, x):
+    x = layers.rms_norm(head["norm"], x, cfg.norm_eps)
+    if cfg.tie_embed:
+        return layers.unembed(embed_p["table"], x)
+    return layers.linear(x, head["out"])
+
+
+def make_loss(arch: ArchDef, remat: bool = True) -> Callable:
+    """loss(params, batch) -> the mean next-token loss of every replica:
+    params with leading replica dims ``[*lead, *leaf]`` and ``{"tokens":
+    [*lead, b, L]}`` give ``[*lead]``."""
+    cfg = arch.cfg
+    plan = ReplicatedPlan(cfg, remat)
+
+    def loss(params, batch):
+        tokens = batch["tokens"]
+        lead = tokens.dim() - 2
+        x = layers.embed(params["embed"], tokens, cfg.embed_scale)
+        ctx = Ctx(cfg, positions=torch.arange(tokens.shape[-1],
+                                              device=tokens.device))
+        x = engine.run_segments(plan, arch, arch.segments, params["stacks"],
+                                x, ctx, lead=lead)
+        targets, mask = _targets_and_mask(tokens)
+        logits = _logits(cfg, params["head"], params["embed"], x)
+        return layers.softmax_xent(logits, targets, mask)
+
+    return loss
+
+
+@dataclasses.dataclass
+class BuiltModel:
+    cfg: LMConfig
+    arch: ArchDef
+    topo: Topology
+    bundle: hier.ModelBundle
+    init_params: Callable          # (torch.Generator) -> one replica's params
+    abstract_params: Callable      # () -> the same tree on the meta device
+
+
+def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
+    arch = make_archdef(cfg)
+    return BuiltModel(
+        cfg=cfg, arch=arch, topo=topo,
+        bundle=hier.ModelBundle(loss=make_loss(arch),
+                                param_mode=cfg.param_mode),
+        init_params=lambda generator: init_params(arch, generator),
+        abstract_params=lambda: init_params(arch, None, "meta"))
+
+
+def param_count(params: PyTree) -> int:
+    return sum(math.prod(a.shape) for a in pytree.tree_flatten(params)[0])

@@ -724,3 +724,47 @@ def test_row_norms_do_not_depend_on_the_row_count():
     assert torch.equal(signs.row_sums(x[3:4]), signs.row_sums(x)[3:4])
     assert signs.row_sums(torch.ones(2, 0)).tolist() == [0.0, 0.0]
     assert signs.row_sums(torch.ones(1, 5)).tolist() == [5.0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,cols,limit", [(8, 40, 100), (7, 10, 45),
+                                             (9, 3, 13)])
+def test_ternary_quant_rows_splits_at_the_launch_limit(monkeypatch, dtype,
+                                                       rows, cols, limit):
+    """With ``MAX_NUMEL`` cut to ``limit`` coordinates a launch, rows of
+    ``cols`` coordinates go to ``ternary_quant`` in runs of whole rows
+    that start on 16-byte boundaries of the float32 buffers, each row
+    with its own norm: bitwise the one call at the real limit, in
+    ceil(rows / per) calls (the split that lets the QSGD step quantize a
+    leaf of 2^31 coordinates or more on the card)."""
+    gen = torch.Generator().manual_seed(rows * cols)
+    x = torch.randn((rows, cols), generator=gen).to(dtype)
+    x[1] = 0.0
+    u = torch.rand((rows, cols), generator=gen)
+    want = ops.ternary_quant_rows(x, u)
+    monkeypatch.setattr(ternary_quant_mod, "MAX_NUMEL", limit)
+    per = ops.rows_per_launch(cols)
+    assert 1 <= per < rows and per * cols <= limit
+    assert (per * cols * 4) % 16 == 0
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[0])
+        return ternary_quant(*args, **kw)
+    monkeypatch.setattr(ops, "ternary_quant", counted)
+    got = ops.ternary_quant_rows(x, u)
+    assert calls == [per] * (rows // per) + ([rows % per] if rows % per
+                                             else [])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert got.any()
+
+
+def test_ternary_quant_rows_refuses_a_row_past_the_limit(monkeypatch):
+    """A row that no aligned run of whole rows fits in one launch raises
+    ValueError; the kernel's wrapper names the split."""
+    monkeypatch.setattr(ternary_quant_mod, "MAX_NUMEL", 10)
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.rows_per_launch(3)          # 3 rows fit, 4 are the aligned run
+    with pytest.raises(ValueError, match="ternary_quant_rows"):
+        ternary_quant_mod.check_kernel_inputs(torch.zeros(12),
+                                              torch.zeros(12))

@@ -127,9 +127,9 @@ def test_step_matches_jax_make_hier_step(toy_problem, method, kw):
                   sorted(toy_problem["w0"].items())]
         draws = jax_uniforms(shapes, 1, 1, 9, jax.random.PRNGKey(1))
 
-        def uniforms(step, leaf, shape):
-            assert shape == (1, 1) + shapes[leaf]
-            return torch.from_numpy(draws[step][leaf])
+        def uniforms(step, leaf, shape, voters):
+            assert shape == (1, len(voters)) + shapes[leaf]
+            return torch.from_numpy(draws[step][leaf][:, list(voters)])
     bundle = hier.ModelBundle(loss=toy_loss)
     runs = [run_port(toy_problem, bundle, t, lay, method=method,
                      uniforms=uniforms, **kw)
@@ -144,15 +144,16 @@ def test_step_matches_jax_make_hier_step(toy_problem, method, kw):
 
 
 def test_qsgd_uniforms_from_the_generator_repeat_and_differ(toy_problem):
-    """Without an injected callable the uniforms come from the state's
-    generator: one seed repeats the run bitwise, the trajectory moves, and
-    it is not the run with the JAX draws."""
+    """Without an injected callable the uniforms come from per-client
+    streams keyed by the state generator's seed: one seed repeats the run
+    bitwise, the trajectory moves, and it is not the run with the JAX
+    draws."""
     bundle = hier.ModelBundle(loss=toy_loss)
     a, b = (run_port(toy_problem, bundle, "ag_packed", lay,
                      method="hier_local_qsgd") for lay in ("tree", "flat"))
     zero = run_port(toy_problem, bundle, "ag_packed", "tree",
                     method="hier_local_qsgd",
-                    uniforms=lambda s, i, shape: torch.ones(shape))
+                    uniforms=lambda s, i, shape, voters: torch.ones(shape))
     for k in a:
         assert torch.equal(a[k], b[k]), k
     # u = 1 keeps nothing: the quantized gradient is 0 and nothing moves
@@ -162,7 +163,7 @@ def test_qsgd_uniforms_from_the_generator_repeat_and_differ(toy_problem):
     with pytest.raises(ValueError, match="uniforms for leaf 0"):
         run_port(toy_problem, bundle, "ag_packed", "tree",
                  method="hier_local_qsgd",
-                 uniforms=lambda s, i, shape: torch.ones(3))
+                 uniforms=lambda s, i, shape, voters: torch.ones(3))
 
 
 ORACLE_CASES = [("hier_sgd", {}), ("scaffold_hier_signsgd", {}),

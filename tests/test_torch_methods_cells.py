@@ -32,7 +32,7 @@ import injected_grads  # noqa: E402
 import parity_harness as H  # noqa: E402
 
 from repro_torch.convert import params_from_numpy  # noqa: E402
-from repro_torch.core import flatbuf, hier, signs  # noqa: E402
+from repro_torch.core import flatbuf, hier, keys, signs  # noqa: E402
 from repro_torch.core.topology import Topology  # noqa: E402
 from repro_torch.kernels.sign_pack import sign_pack  # noqa: E402
 from repro_torch.kernels.tally_acc import tally_acc  # noqa: E402
@@ -144,6 +144,63 @@ def test_stream_matches_merged(option, regime):
                                     ("stream", "ar_int8", "tree")):
         assert_bitwise(run(option, transport, layout, regime=regime,
                            mode=mode), base, f"{mode}/{transport}/{layout}")
+
+
+def test_qsgd_stream_holds_one_clients_uniforms():
+    """K=4 clients a device, hier_local_qsgd: the streamed step asks for
+    one client's uniforms at a time (a voter range of D on the merged
+    axis) and drops each block after its leaf's quantization, so the
+    bytes of uniforms alive at once -- counted through a wrapping
+    ``uniforms`` callable that keeps a weak reference to every block it
+    returns -- never exceed one client's worth (P*D voters x the model's
+    coordinates x 4 B); the merged step asks for all D*K voters at once.
+    Both modes give the same edge models, bitwise."""
+    import weakref
+
+    k = 4
+    prob = mlp_problem(P, D, 3, 1, b=8, seed=4)
+    shapes = [tuple(np.shape(v)) for _, v in sorted(prob["w0"].items())]
+    client_bytes = P * D * sum(int(np.prod(sh)) for sh in shapes) * 4
+    finals = {}
+    for mode in ("stream", "merged"):
+        alive, most, ranges = [], [0], []
+
+        def uniforms(step, leaf, shape, voters):
+            blocks = []
+            for q in range(P):
+                for v in voters:
+                    g = torch.Generator().manual_seed(keys.key_seed(
+                        3, step, leaf, q * D * k + v))
+                    blocks.append(torch.rand(shape[2:], generator=g))
+            u = torch.stack(blocks).reshape(shape)
+            alive.append((weakref.ref(u), u.numel() * 4))
+            most[0] = max(most[0], sum(n for r, n in alive
+                                       if r() is not None))
+            ranges.append(len(voters))
+            return u
+
+        algo = hier.AlgoConfig(
+            method="hier_local_qsgd", mu_sgd=0.05, t_e=3,
+            transport="fused", state_layout="flat",
+            compute_dtype=torch.float32, delta_dtype=torch.float32,
+            clients=hier.vclients.ClientConfig(count=k, mode=mode))
+        init_fn, step = hier.make_hier_step(Topology(P, D, "cpu"), algo,
+                                            mlp.make_bundle(), uniforms)
+        state = init_fn(params_from_numpy(prob["w0"]), 5)
+        for s_ in range(2):
+            batch = {"train": {"x": torch.from_numpy(prob["xs"][s_]),
+                               "y": torch.from_numpy(prob["ys"][s_])}}
+            state, _ = step(state, batch, torch.full((P,), 0.5),
+                            torch.full((P, D), 1.0 / D), torch.ones(P, D))
+        finals[mode] = {n: v.clone()
+                        for n, v in hier.edge_params(state).items()}
+        if mode == "stream":
+            assert ranges == [D] * (2 * k * len(shapes))
+            assert 0 < most[0] <= client_bytes, (most[0], client_bytes)
+        else:
+            assert ranges == [D * k] * (2 * len(shapes))
+    for n in finals["stream"]:
+        assert torch.equal(finals["stream"][n], finals["merged"][n]), n
 
 
 # -- the gates of a client mask, with known gradients -------------------------
