@@ -87,6 +87,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      memory beside its reckoning; then 2 steps of ``hier_local_qsgd``
      with K=2 streamed clients (one ``ternary_quant`` launch a leaf and
      client) and their peak memory.
+  8. ``fault_tolerant``: first the oracle check -- the paper task at full
+     width (Q=4 x D=5, B=400, 2 rounds of T_E=15) under a compiled chaos
+     schedule of the parity harness's kinds (a client killed mid-round,
+     a pod down across the boundary, a straggler demoted at it, a
+     heartbeat loss, recoveries), the fused/flat step on its kernels
+     held against the port's loop-over-clusters oracle
+     (``core.ref_fed``) on the card for hier_signsgd, DC, SCAFFOLD,
+     MTGC (bitwise when one step's per-voter gradients of the two forms
+     are, else within 1e-5, the count printed) and hier_sgd (1e-5) on
+     dyadic data shares, and for DC on the task's own uneven |D_qd|.
+     Then the ``lm`` phase's gemma3-1b with checkpoints (10 GB each,
+     ``build/fault_tolerant_ckpt``, the disk checked for three first and
+     emptied at the end): run A, K=1, a device killed at 1, a straggler
+     at 2, a heartbeat loss at 4 (each back two steps later) and a nan
+     at 7, 9 steps with a checkpoint every 6 (the nan restores 6 and
+     replays), then a second ``run_training`` to 12 that must resume at
+     9: bitwise the same schedule without the nan, 12 steps straight;
+     run B, K=2 streamed clients (batch 2), a client killed at 1 and back
+     at 3, a nan at 4, a checkpoint every 3: bitwise the uninterrupted
+     ag_packed/tree run.  ``sign_pack`` and ``vote_update`` once an
+     executed step (replays included), ``tally_acc`` K times; each
+     save's bytes and seconds, each submit's and restore's seconds, the
+     peaks; then ``tally_acc`` at [2, 3, 417,468,416] bf16 beside its
+     bound.
 
 The ``ternary`` cases of phase 2 include the QSGD step's per-row form:
 rows of the MLP's leaf lengths 10, 64, 640 and 50176, R = 20 and 40 rows
@@ -1505,7 +1529,7 @@ def phase_lm(torch) -> dict:
     emit({"lm": "memory", "peak_gb_fused_flat": fused["peak_gb"],
           "reckoned_gb": LM_RECKONED_GB,
           "total_gb": torch.cuda.get_device_properties(0).total_memory / 1e9})
-    dc_launches = fused["launches"]
+    dc_launches, dc_peak = fused["launches"], fused["peak_gb"]
     del prof_run, fused
     torch.cuda.empty_cache()
 
@@ -1530,10 +1554,418 @@ def phase_lm(torch) -> dict:
           "ms_per_step": [h["ms"] for h in qsgd["history"]],
           "launches": qsgd["launches"]})
     qsgd_launches = qsgd["launches"]
+    peaks = {"dc": dc_peak, "qsgd": qsgd["peak_gb"]}
     del qsgd, params
     torch.cuda.empty_cache()
     emit({"lm": "phase", "wall_s": time.perf_counter() - t_phase})
-    return {"dc": dc_launches, "qsgd": qsgd_launches}
+    return {"dc": dc_launches, "qsgd": qsgd_launches, "peak_gb": peaks}
+
+
+FT_KEEP = 2                          # checkpoints the phase's runs keep
+FT_A_STEPS, FT_A_RESUME_TO, FT_A_EVERY = 9, 12, 6
+FT_B_STEPS, FT_B_EVERY, FT_B_K = 6, 3, 2
+ORACLE_METHODS = ("hier_signsgd", "dc_hier_signsgd", "scaffold_hier_signsgd",
+                  "mtgc_hier_signsgd", "hier_sgd")
+
+
+def ft_schedule(run: str, nan: bool):
+    """The fault_tolerant phase's chaos schedules (events at step s apply
+    before step s).  Run A (K=1): a device killed at 1 and back at 3, a
+    straggler demoted at 2 and back at 4, a heartbeat loss swept at 4
+    and back at 6, a nan at 7.  Run B (K=2): a client killed at 1 and
+    back at 3, a nan at 4."""
+    from repro_torch.runtime.chaos import ChaosEvent, FaultInjector
+
+    if run == "A":
+        evs = [ChaosEvent(1, "device", 0, 1),
+               ChaosEvent(2, "straggler", 1, 2),
+               ChaosEvent(3, "recover", 0, 1), ChaosEvent(4, "recover", 1, 2),
+               ChaosEvent(4, "heartbeat", 1, 0),
+               ChaosEvent(6, "recover", 1, 0)]
+        nan_at = 7
+    else:
+        evs = [ChaosEvent(1, "client", 0, 1, 1),
+               ChaosEvent(3, "recover", 0, 1, 1)]
+        nan_at = 4
+    return FaultInjector(evs + ([ChaosEvent(nan_at, "nan")] if nan else []))
+
+
+def oracle_schedule(t_e: int):
+    """The parity harness's churn kinds on the paper task's Q=4 x D=5: a
+    client killed mid-round, a pod down across the round boundary, a
+    straggler demoted at the boundary, a heartbeat loss swept by the
+    timeout, and the recoveries."""
+    from repro_torch.runtime.chaos import ChaosEvent, FaultInjector
+
+    return FaultInjector([
+        ChaosEvent(1, "client", 0, 4, 0), ChaosEvent(t_e - 3, "pod", 2),
+        ChaosEvent(t_e, "straggler", 0, 0, 0),
+        ChaosEvent(t_e + 1, "recover", 0, 4, 0),
+        ChaosEvent(t_e + 3, "recover", 2),
+        ChaosEvent(t_e + 5, "heartbeat", 1, 1),
+        ChaosEvent(t_e + 7, "recover", 1, 1),
+        ChaosEvent(t_e + 7, "recover", 0, 0, 0)])
+
+
+def phase_oracle(torch, card: str) -> dict:
+    """The paper task at full width (Q=4 x D=5, B=400, 2 rounds of
+    T_E=15) under a compiled chaos schedule: the step on fused/flat, its
+    kernels engaged, against the port's loop-over-clusters oracle
+    (``core.ref_fed``) on the card, fed the same membership arrays.  One
+    client kind (K=1, unit weights) keeps the arrays client-granular, as
+    the oracle reads them.  The oracle starts from the model the step's
+    first prologue commits (the cloud mean of the Q copies of w0), and
+    takes each client's gradient on a [Q, D] block of copies
+    (``ref_fed.loss_grad_fn(copies=...)``: cuBLAS picks its kernels by
+    the shape, and a [1, 1] copy's gradient differs from the step's in
+    the last bits).
+
+    Two kinds of data shares: every method on slices of 1, 1, 2, 2, 2
+    an edge (every participating share dyadic, exact in float32 and in
+    the oracle's float64), then DC on the task's own |D_qd| (uneven
+    shares, which the oracle renormalizes over the live clients in
+    float64).  Sign methods bitwise when one step's per-voter gradients
+    of the two forms are bitwise, else within 1e-5; hier_sgd within
+    1e-5; each case prints its differing count.  Returns the sign
+    methods' kernel launches by case."""
+    import numpy as np
+
+    from repro_torch.core import hier, pytree, ref_fed, votes
+    from repro_torch.core.clients import ClientConfig
+    from repro_torch.core.topology import Topology
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.vote_update import vote_update
+    from repro_torch.launch.train import (FedBenchCfg, _federated_data,
+                                          sample_batches)
+    from repro_torch.models import mlp
+    from repro_torch.runtime import chaos, elastic
+
+    q, d, t_e, rounds = 4, 5, 15, 2
+    steps = rounds * t_e
+    base = FedBenchCfg(rounds=rounds, t_e=t_e, batch=400, mu=MU, rho=RHO,
+                       n_train=20000, q_edges=q, devices_per_edge=d)
+    batches = sample_batches(base, "cuda")
+    data_sizes = np.array([[len(dev["y"]) for dev in edge]
+                           for edge in _federated_data(base)[0]])
+    cc = ClientConfig(count=1, weights=tuple(tuple((1,) for _ in range(d))
+                                             for _ in range(q)))
+    params0 = mlp.init_mlp(torch.Generator(device="cuda").manual_seed(0))
+    # each client's gradient on a [Q, D] block of its copies: the shapes
+    # the step's matmuls have, so cuBLAS picks the step's kernels
+    grad_fn = ref_fed.loss_grad_fn(mlp.loss_fn, copies=(q, d))
+
+    def client(s, qq, dd):
+        return {k: v[qq, dd] for k, v in batches[s].items()}
+
+    leaves, td = pytree.tree_flatten(params0)
+    copies = [x.expand((q, d) + tuple(x.shape)).contiguous()
+              .requires_grad_(True) for x in leaves]
+    g_step = torch.autograd.grad(mlp.loss_fn(pytree.tree_unflatten(
+        td, copies), batches[0]).sum(), copies)
+    differ = {}
+    for form, fn in (("[Q, D] block", grad_fn),
+                     ("[1, 1] copy", ref_fed.loss_grad_fn(mlp.loss_fn))):
+        differ[form] = 0
+        for qq in range(q):
+            for dd in range(d):
+                g = pytree.tree_flatten(fn(params0, client(0, qq, dd)))[0]
+                differ[form] += sum(int((a[qq, dd].view(torch.int32)
+                                         != b.view(torch.int32)).sum())
+                                    for a, b in zip(g_step, g))
+    grad_differ = differ["[Q, D] block"]
+    same_grads = grad_differ == 0
+    print(f"[oracle] one step's per-voter gradients against the oracle's "
+          f"grad_fn, coordinates that differ: {differ} (the oracle uses the "
+          f"[Q, D] block; bitwise {same_grads})", flush=True)
+
+    shares = {"dyadic": np.tile([1, 1, 2, 2, 2], (q, 1)), "data": data_sizes}
+    print(f"[oracle] |D_qd| of the task (the 'data' shares): "
+          f"{data_sizes.tolist()}", flush=True)
+    arrays = {}
+    for kind, sizes in shares.items():
+        member = elastic.Membership(q, d, clients=cc, data_sizes=sizes)
+        arrays[kind] = chaos.compile_schedule(oracle_schedule(t_e), member,
+                                              steps + 1)
+        live = [float(np.mean(a.mask)) for a in arrays[kind]]
+        print(f"[oracle] {kind} shares: membership live share by step "
+              f"{live}", flush=True)
+
+    launches = {}
+    cases = ([(m, "dyadic") for m in ORACLE_METHODS]
+             + [("dc_hier_signsgd", "data")])
+    for method, kind in cases:
+        arr = arrays[kind]
+        algo = hier.AlgoConfig(
+            method=method, mu=MU, mu_sgd=base.mu_sgd, t_e=t_e, rho=RHO,
+            transport="fused", state_layout="flat",
+            compute_dtype=torch.float32, master_dtype=torch.float32,
+            delta_dtype=torch.float32, clients=cc)
+        init_fn, step = hier.make_hier_step(Topology(q, d, "cuda"), algo,
+                                            mlp.make_bundle())
+        state = init_fn(params0, 0)
+        sign_pack.launches = vote_update.launches = 0
+        t0 = time.perf_counter()
+        for s in range(steps):
+            ew, dw, mask = arr[s]
+            state, _ = step(state, {"train": batches[s],
+                                    "anchor": batches[s - s % t_e]},
+                            ew, dw, mask)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launched = {"sign_pack": sign_pack.launches,
+                    "vote_update": vote_update.launches}
+        ew_close = torch.tensor(arr[steps].edge_weights, device="cuda")
+        got = {n: votes.pod_weighted_average(v, ew_close)[0]
+               for n, v in hier.edge_params(state).items()}
+
+        cfg = ref_fed.HierConfig(mu=MU, mu_sgd=base.mu_sgd, t_e=t_e, rho=RHO,
+                                 method=method)
+        w0 = ref_fed._tree_weighted_sum(
+            [float(x) for x in arr[0].edge_weights], [params0] * q)
+        ostate = ref_fed.init_state(w0, q)
+        t0 = time.perf_counter()
+        for t in range(rounds):
+            s0 = t * t_e
+            masks = [[list(np.asarray(arr[s0 + tau].mask)[qq, :, 0] > 0.5)
+                      for qq in range(q)] for tau in range(t_e)]
+            dwq = np.asarray(arr[s0].dev_weights)
+            ostate = ref_fed.global_round(
+                ostate, cfg, grad_fn,
+                [[[client(s0 + tau, qq, dd) for tau in range(t_e)]
+                  for dd in range(d)] for qq in range(q)],
+                [[client(s0, qq, dd) for dd in range(d)] for qq in range(q)],
+                [float(x) for x in arr[s0].edge_weights],
+                [[float(x) for x in row] for row in dwq],
+                device_mask=masks[0], device_mask_steps=masks,
+                vote_weights=[[1] * d for _ in range(q)],
+                reweight_participation=True,
+                edge_weights_agg=[float(x) for x in
+                                  arr[s0 + t_e].edge_weights])
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+        differ = count_differing(torch, got, ostate.w)
+        max_abs = max(float((got[n] - ostate.w[n]).abs().max()) for n in got)
+        sign = method != "hier_sgd"
+        emit({"fault_tolerant": "oracle", "card": card, "method": method,
+              "shares": kind, "grads_bitwise": same_grads,
+              "grad_differing": grad_differ, "differing": differ,
+              "max_abs_diff": max_abs, "launches": launched,
+              "step_s": step_s, "oracle_s": oracle_s})
+        tag = f"oracle/{method}/{kind} shares"
+        want = steps if sign else 0
+        require(launched == {"sign_pack": want, "vote_update": want},
+                f"{tag}: launches {launched}, want {want} each")
+        require(all(bool(torch.isfinite(v).all()) for v in got.values()),
+                f"{tag}: non-finite edge models")
+        if sign and same_grads:
+            require(differ == 0, f"{tag}: the step and the oracle differ in "
+                    f"{differ} coordinates although their gradients are "
+                    "bitwise")
+        else:
+            require(max_abs <= 1e-5, f"{tag}: the step and the oracle "
+                    f"differ by {max_abs} ({differ} coordinates)")
+        if sign:
+            launches[f"{method}, {kind} shares"] = launched
+        del state, ostate, got
+    return launches
+
+
+def ft_run(torch, tag, cfg, topo, algo, run, params, injector) -> dict:
+    """One ``run_training`` of the fault_tolerant phase with its kernel
+    launches, checkpoint events, executed steps (the history's, plus
+    each step a restore threw away), peak memory and final edge models
+    (views of the state's buffer)."""
+    from repro_torch.core import hier
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.tally_acc import tally_acc
+    from repro_torch.kernels.vote_update import vote_update
+    from repro_torch.launch.train import run_training
+
+    kernels = {"sign_pack": sign_pack, "vote_update": vote_update,
+               "tally_acc": tally_acc}
+    for kern in kernels.values():
+        kern.launches = 0
+    events = []
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, history = run_training(
+        cfg, topo, algo, run, fault_injector=injector, params=params,
+        log=lambda line: print(f"[fault_tolerant] {tag}: {line}", flush=True),
+        on_checkpoint=events.append)
+    torch.cuda.synchronize()
+    res = {"history": history, "events": events,
+           "wall_s": time.perf_counter() - t0,
+           "executed": len(history) + sum(e["event"] == "restore"
+                                          for e in events),
+           "launches": {n: k.launches for n, k in kernels.items()},
+           "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+           "params": hier.edge_params(state)}
+    del state
+    losses = [h["loss"] for h in history]
+    require(all(map(math.isfinite, losses)), f"{tag}: losses {losses}")
+    for n, leaf in pytree_items(res["params"]):
+        require(bool(torch.isfinite(leaf).all()), f"{tag}/{n}: non-finite")
+    for e in events:
+        emit({"fault_tolerant": "checkpoint", "run": tag, **e})
+    emit({"fault_tolerant": "run", "run": tag, "steps": [h["step"]
+                                                          for h in history],
+          "live": [h["live"] for h in history], "losses": losses,
+          "executed": res["executed"], "launches": res["launches"],
+          "peak_gb": res["peak_gb"], "wall_s": res["wall_s"]})
+    return res
+
+
+def ft_saves(res) -> list:
+    return [e["step"] for e in res["events"] if e["event"] == "save"]
+
+
+def ft_restores(res) -> list:
+    return [(e["at"], e["step"]) for e in res["events"]
+            if e["event"] == "restore"]
+
+
+def phase_fault_tolerant(torch, lm: dict, card: str) -> dict:
+    """Fault-tolerant training on the card (see the module docstring):
+    the oracle check, then run A and run B of gemma3-1b at full width
+    with checkpoints, restores and resumes, each bitwise its
+    uninterrupted reference; then tally_acc at the streamed LM shape.
+    Returns the kernel launches of the phase's runs."""
+    import shutil
+
+    from repro_torch.core import flatbuf
+    from repro_torch.core.clients import ClientConfig
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tally_acc import tally_acc
+    from repro_torch.launch.train import RunCfg
+    from repro_torch.models import build
+
+    t_phase = time.perf_counter()
+    oracle_launches = phase_oracle(torch, card)
+    cfg, topo, algo = lm_setup(torch)
+    params = build.build_model(cfg, topo).init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    n_pad = flatbuf.make_layout(params).n_pad
+    # params in f32, delta and delta_next saved as f32 (bf16 widened)
+    ckpt_bytes = 3 * LM_P * n_pad * 4
+    root = ROOT / "build" / "fault_tolerant_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    emit({"fault_tolerant": "disk", "card": card, "dir": str(root),
+          "free_gb": free / 1e9, "checkpoint_gb_reckoned": ckpt_bytes / 1e9,
+          "keep": FT_KEEP})
+    require(free >= (FT_KEEP + 1) * ckpt_bytes,
+            f"{free / 1e9:.2f} GB free cannot hold {FT_KEEP + 1} checkpoints "
+            f"of {ckpt_bytes / 1e9:.2f} GB")
+
+    # run A: K=1, device events, a nan at 7, then a second run resuming
+    run_a = RunCfg(steps=FT_A_STEPS, batch_per_device=1, seq_len=LM_SEQ,
+                   ckpt_dir=str(root / "a"), ckpt_every=FT_A_EVERY,
+                   ckpt_keep=FT_KEEP, log_every=1, seed=0)
+    ref_a = ft_run(torch, "A reference", cfg, topo, algo, dataclasses.replace(
+        run_a, steps=FT_A_RESUME_TO, ckpt_dir=None), params,
+        ft_schedule("A", nan=False))
+    a1 = ft_run(torch, "A", cfg, topo, algo, run_a, params,
+                ft_schedule("A", nan=True))
+    a2 = ft_run(torch, "A resumed", cfg, topo, algo, dataclasses.replace(
+        run_a, steps=FT_A_RESUME_TO), params, ft_schedule("A", nan=False))
+    require(ref_a["executed"] == FT_A_RESUME_TO, "A reference: executed "
+            f"{ref_a['executed']} steps")
+    require(ft_restores(a1) == [(7, 6)] and ft_saves(a1) == [6, 9],
+            f"A: restores {ft_restores(a1)}, saves {ft_saves(a1)}")
+    require(a1["executed"] == 11, f"A: executed {a1['executed']} steps")
+    resumed = [e for e in a2["events"] if e["event"] == "resume"]
+    require(len(resumed) == 1 and resumed[0]["step"] == FT_A_STEPS
+            and a2["history"][0]["step"] == FT_A_STEPS,
+            f"A resumed: resume events {resumed}, first step "
+            f"{a2['history'][0]['step']}")
+    require(ft_saves(a2) == [FT_A_RESUME_TO], f"A resumed: saves "
+            f"{ft_saves(a2)}")
+    for res in (ref_a, a1, a2):
+        n = res["executed"]
+        require(res["launches"] == {"sign_pack": n, "vote_update": n,
+                                    "tally_acc": 0},
+                f"run A: launches {res['launches']}, want {n} sign_pack and "
+                "vote_update (one an executed step)")
+    diff = count_differing(torch, a2["params"], ref_a["params"])
+    require(diff == 0, f"run A: the restored and resumed run differs from "
+            f"the uninterrupted one in {diff} coordinates")
+    print("[fault_tolerant] run A (nan at 7, restored from 6, resumed at 9) "
+          "== uninterrupted 12 steps, bitwise", flush=True)
+    launches = {k: a1["launches"][k] + a2["launches"][k]
+                for k in a1["launches"]}
+    peak_a = max(r["peak_gb"] for r in (ref_a, a1, a2))
+    del ref_a, a1, a2
+    torch.cuda.empty_cache()
+
+    # run B: K=2 clients streamed, a client killed, a nan at 4
+    algo_b = dataclasses.replace(algo, clients=ClientConfig(
+        count=FT_B_K, mode="stream"))
+    run_b = RunCfg(steps=FT_B_STEPS, batch_per_device=FT_B_K, seq_len=LM_SEQ,
+                   ckpt_dir=str(root / "b"), ckpt_every=FT_B_EVERY,
+                   ckpt_keep=FT_KEEP, log_every=1, seed=0)
+    ref_b = ft_run(torch, "B reference, ag_packed/tree", cfg, topo,
+                   dataclasses.replace(algo_b, transport="ag_packed",
+                                       state_layout="tree"),
+                   dataclasses.replace(run_b, ckpt_dir=None), params,
+                   ft_schedule("B", nan=False))
+    b = ft_run(torch, "B", cfg, topo, algo_b, run_b, params,
+               ft_schedule("B", nan=True))
+    require(ref_b["launches"] == dict.fromkeys(ref_b["launches"], 0),
+            f"B reference launched kernels: {ref_b['launches']}")
+    require(ft_restores(b) == [(4, 3)] and ft_saves(b) == [3, 6]
+            and b["executed"] == 8,
+            f"B: restores {ft_restores(b)}, saves {ft_saves(b)}, executed "
+            f"{b['executed']}")
+    require(b["launches"] == {"sign_pack": 0, "vote_update": 0,
+                              "tally_acc": FT_B_K * b["executed"]},
+            f"B: launches {b['launches']}, want {FT_B_K} tally_acc an "
+            "executed step")
+    diff = count_differing(torch, b["params"], ref_b["params"])
+    require(diff == 0, f"run B: the restored run differs from the "
+            f"uninterrupted ag_packed/tree run in {diff} coordinates")
+    print("[fault_tolerant] run B (K=2 stream, nan at 4, restored from 3) "
+          "== uninterrupted ag_packed/tree, bitwise", flush=True)
+    launches = {k: launches[k] + b["launches"][k] for k in launches}
+    peak_b = max(ref_b["peak_gb"], b["peak_gb"])
+    uniforms_gb = LM_P * LM_D * cfg.vocab * cfg.d_model * 4 / 1e9
+    emit({"fault_tolerant": "memory", "card": card,
+          "peak_gb_run_a": peak_a, "lm_phase_peak_gb": lm["dc"],
+          "peak_gb_run_b": peak_b, "lm_qsgd_stream_peak_gb": lm["qsgd"],
+          "lm_qsgd_stream_peak_less_uniforms_gb": lm["qsgd"] - uniforms_gb,
+          "checkpoint_gb_reckoned": ckpt_bytes / 1e9})
+    del ref_b, b
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+
+    # tally_acc at the streamed step's shape: one client's bf16 signs
+    shape = (LM_P, LM_D, n_pad)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    u = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    w = torch.ones((LM_P, LM_D), dtype=torch.int32, device="cuda")
+    t0 = torch.zeros(shape, dtype=torch.int8, device="cuda")
+    got = tally_acc(u, None, RHO, w, t0.clone())
+    want = ref.tally_acc_ref(u, None, RHO, w, t0)
+    mism = int((got != want).sum())
+    del got, want
+    tt = t0.clone()
+    row = timed_row(
+        Timer(torch, warmup=1, reps=5),
+        {"kernel": "tally_acc", "case": "lm stream shape", "card": card,
+         "shape": list(shape), "dtype": "bfloat16", "tally": "int8",
+         "delta": False, "mismatched": mism},
+        lambda: tally_acc(u, None, RHO, w, tt),
+        lambda: ref.tally_acc_ref(u, None, RHO, w, t0), "tally_acc_kernel",
+        tally_acc_bytes(shape, 2, 1, False), tally_acc_ops(shape, False))
+    require(mism == 0, f"tally_acc disagrees with its plain version at the "
+            f"LM's shape: {row}")
+    del u, t0, tt
+    torch.cuda.empty_cache()
+    emit({"fault_tolerant": "phase", "card": card,
+          "wall_s": time.perf_counter() - t_phase})
+    return {"launches": launches, "oracle": oracle_launches, "tally_lm": row}
 
 
 def pytree_items(tree, prefix=""):
@@ -1564,7 +1996,8 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
@@ -1594,6 +2027,7 @@ def main() -> None:
     launches["ternary_quant"] = (
         methods["hier_local_qsgd"]["launches"]["ternary_quant"])
     lm_launches = phase_lm(torch)
+    ft = phase_fault_tolerant(torch, lm_launches["peak_gb"], card)
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
              "tally_acc": "clients, stream fused/flat (30 steps, K=2)",
@@ -1613,7 +2047,10 @@ def main() -> None:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None,
             "lm_dc_fused_flat_launches": lm_launches["dc"].get(name, 0),
-            "lm_qsgd_stream_launches": lm_launches["qsgd"].get(name, 0)})
+            "lm_qsgd_stream_launches": lm_launches["qsgd"].get(name, 0),
+            "fault_tolerant_launches": ft["launches"].get(name, 0),
+            "oracle_check_launches": sum(
+                r.get(name, 0) for r in ft["oracle"].values())})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

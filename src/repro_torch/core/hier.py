@@ -946,6 +946,34 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     return init_fn, train_step
 
 
+def make_global_round(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
+                      uniforms: Uniforms | None = None):
+    """Build (init_fn, global_round): one round as the JAX package's
+    ``make_global_round`` runs it -- the prologue plus T_E local steps --
+    here a plain loop of ``train_step`` calls, so it is bitwise the T_E
+    steps run one by one.
+
+    global_round(state, batches, edge_weights, dev_weights, dev_mask)
+        -> (state, {"loss": the mean of the T_E steps' losses})
+
+    batches: tree of [T_E, P, D, b, ...]; step tau trains on row tau and
+    the round's anchor is row 0 (the step's default, as in the JAX
+    ``lax.scan``).  The membership arrays hold for the whole round."""
+    init_fn, train_step = make_hier_step(topo, algo, bundle, uniforms)
+
+    def global_round(state: TrainState, batches, edge_weights, dev_weights,
+                     dev_mask):
+        losses = []
+        for tau in range(algo.t_e):
+            batch_t = pytree.tree_map(lambda x: x[tau], batches)
+            state, metrics = train_step(state, {"train": batch_t},
+                                        edge_weights, dev_weights, dev_mask)
+            losses.append(metrics["loss"])
+        return state, {"loss": torch.stack(losses).mean()}
+
+    return init_fn, global_round
+
+
 def edge_params(state: TrainState) -> PyTree:
     """The [P, *leaf] edge models of a state as a tree, in either layout
     (flat views alias the buffer)."""

@@ -5,15 +5,25 @@ Two trainers on the port's train step (``core.hier.make_hier_step``):
 ``run_training`` an LM of the zoo (``--arch NAME``, the dense family):
 the JAX package's ``launch/train.py`` trainer -- config -> model ->
 DC-HierSignSGD step -> synthetic token stream -> elastic membership ->
-failure detection -- on one card, the P edges x D devices as leading
-dims (``--pods``/``--devices_per_pod``, 1 x 1 by default: the on-card
-counterpart of the JAX CLI's one-device mesh).  Its checkpointing
-(``--ckpt``, ROADMAP item 13), fault injection (``--chaos``, item 14)
-and the multi-pod mesh (``--multi_pod``, item 17) are not ported and
-raise ``NotImplementedError``.
+async checkpointing -> failure recovery -- on one card, the P edges x D
+devices as leading dims (``--pods``/``--devices_per_pod``, 1 x 1 by
+default: the on-card counterpart of the JAX CLI's one-device mesh).
+``--ckpt DIR`` resumes from and saves to a checkpoint store
+(``checkpoint.store``, the JAX package's format); ``--chaos SEED`` runs
+under a seeded fault schedule (``runtime.chaos``), an injected nan
+answered by restore-and-replay.  The multi-pod mesh (``--multi_pod``,
+ROADMAP item 17) is not ported and raises ``NotImplementedError``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch gemma3_1b --smoke --steps 6 --t_e 3
+  rm -rf build/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch gemma3_1b --smoke --steps 12 --t_e 3 --ckpt build/ckpt \\
+      --chaos 3
+  # the same directory again: resumes at step 12 and runs to 18
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch gemma3_1b --smoke --steps 18 --t_e 3 --ckpt build/ckpt \\
+      --chaos 3
 
 The paper task:
 
@@ -60,12 +70,14 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint import store
+from repro_torch.checkpoint.async_ckpt import AsyncSaver
 from repro_torch.core import clients as vclients
 from repro_torch.core import hier, schedule, signs, votes
 from repro_torch.core.topology import Topology, resolve_device
 from repro_torch.data import cluster, emnist_like, synthetic
 from repro_torch.models import build, mlp
-from repro_torch.runtime import elastic, failures
+from repro_torch.runtime import chaos, elastic, failures
 
 N_TEST = 1500
 
@@ -237,12 +249,15 @@ def run_paper_task(cfg: FedBenchCfg, device: str = "cuda", log=print,
 @dataclasses.dataclass
 class RunCfg:
     """The JAX package's ``launch/train.RunCfg``: steps, the per-device
-    batch and sequence length, logging, the stream's heterogeneity and
-    the seed (``ckpt_dir`` is not ported: item 13)."""
+    batch and sequence length, the checkpoint directory and interval,
+    logging, the stream's heterogeneity and the seed; plus ``ckpt_keep``,
+    the checkpoints the store keeps (the JAX trainer's saver keeps 3)."""
     steps: int = 50
     batch_per_device: int = 4
     seq_len: int = 128
     ckpt_dir: str | None = None
+    ckpt_every: int = 20
+    ckpt_keep: int = 3
     log_every: int = 5
     hetero: float = 1.0
     alpha_client: float | None = None
@@ -251,22 +266,31 @@ class RunCfg:
 
 
 def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
-                 fault_injector=None, on_metrics=None, params=None,
-                 log=print):
+                 fault_injector: chaos.FaultInjector | None = None,
+                 on_metrics=None, params=None, log=print,
+                 on_checkpoint=None):
     """Train the LM ``cfg`` for ``run.steps`` steps; returns (final_state,
     history).  Deterministic given the seeds.
 
     ``params``: one replica's initial parameters (e.g. the JAX package's,
     converted); None draws them from ``run.seed`` on ``topo.device``.
-    ``history`` holds per step its loss, the live share of the
+    ``history`` holds per executed step its loss, the live share of the
     membership, the step's host-clock ms (ending when the loss is on
-    the host) and the ms the batch took to make."""
-    if run.ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing (ckpt_dir): ROADMAP queue 1 item 13")
-    if fault_injector is not None:
-        raise NotImplementedError(
-            "fault injection (the chaos engine): ROADMAP queue 1 item 14")
+    the host) and the ms the batch took to make; a replayed step is
+    listed again.
+
+    Fault tolerance, as the JAX trainer has it: with ``run.ckpt_dir`` the
+    run resumes from the newest intact checkpoint, submits one to an
+    :class:`AsyncSaver` every ``run.ckpt_every`` steps and at the end
+    (not twice for one step).  ``fault_injector``'s events at step s
+    apply to the membership before step s.  A non-finite loss -- real,
+    or the injector's ``nan`` -- drains the saver, restores the newest
+    checkpoint and replays from it, the membership replayed from the
+    schedule (so is a resumed run's); without a checkpoint, or past the
+    detector's restore budget, it raises.  ``on_checkpoint(event)``
+    hears of each resume and restore (``restore_s``, the seconds to
+    verify and load) and, at the end, of each save (the saver's
+    ``records``)."""
     built = build.build_model(cfg, topo)
     init_fn, step_fn = hier.make_hier_step(topo, algo, built.bundle)
     if params is None:
@@ -285,8 +309,34 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
     member = elastic.Membership(topo.pods, topo.devices_per_pod,
                                 clients=algo.clients)
     detector = failures.FailureDetector()
+    saver = (AsyncSaver(run.ckpt_dir, keep=run.ckpt_keep) if run.ckpt_dir
+             else None)
+    notify = on_checkpoint or (lambda event: None)
+
+    def restore():
+        t0 = time.perf_counter()
+        restored = store.restore_latest(run.ckpt_dir, state)
+        return restored, time.perf_counter() - t0
+
+    start = saved = 0
+    if run.ckpt_dir:
+        restored, secs = restore()
+        if restored is not None:
+            start, state = restored
+            saved = start
+            log(f"[train] resumed from step {start}")
+            notify({"event": "resume", "step": start, "restore_s": secs})
+            if fault_injector is not None:
+                member = chaos.replay_membership(fault_injector, member,
+                                                 start)
     history = []
-    for step in range(run.steps):
+    step = start
+    while step < run.steps:
+        if fault_injector is not None:
+            # events at step s apply BEFORE step s runs -- the semantics
+            # chaos.compile_schedule gives the parity tests
+            chaos.apply_events(member, fault_injector.at(step),
+                               now=float(step))
         arrays = member.weights()
         t0 = time.perf_counter()
         batch = {"train": stream(step)}
@@ -296,10 +346,31 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
         loss = float(metrics["loss"])             # waits for the step
         dt = time.perf_counter() - t1
         detector.record_step(dt)
+        if fault_injector is not None and fault_injector.nan_due(step):
+            loss = float("nan")                   # injected blow-up
         if not detector.check_loss(loss):
-            raise RuntimeError(
-                f"non-finite loss at step {step}; restoring needs a "
-                "checkpoint store (ROADMAP queue 1 item 13)")
+            if saver:
+                saver.wait()
+            restored, secs = (restore() if run.ckpt_dir else (None, 0.0))
+            if restored is None:
+                raise RuntimeError(
+                    f"non-finite loss at step {step}, no checkpoint")
+            if not detector.may_restore():
+                raise RuntimeError(
+                    f"non-finite loss at step {step}, restore budget "
+                    f"({detector.policy.max_restores}) spent")
+            detector.record_restore()   # may_restore() is a pure query
+            bad, (step, state) = step, restored
+            if fault_injector is not None:
+                # membership replays from the schedule so the replayed
+                # steps see the same arrays as the first pass
+                member = chaos.replay_membership(fault_injector, member,
+                                                 step)
+            log(f"[train] non-finite loss at step {bad}; restored step "
+                f"{step}")
+            notify({"event": "restore", "step": step, "at": bad,
+                    "restore_s": secs})
+            continue
         history.append({"step": step, "loss": loss,
                         "live": float(np.mean(member.live)),
                         "ms": 1e3 * dt, "data_ms": 1e3 * (t1 - t0)})
@@ -309,6 +380,16 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
             log(f"[train] step {step:5d} loss {loss:.4f} "
                 f"mu {float(metrics['mu']):.2e} "
                 f"live {member.live.mean():.2f}")
+        step += 1
+        if saver and step % run.ckpt_every == 0:
+            saver.submit(step, state)
+            saved = step
+    if saver:
+        if saved != step:
+            saver.submit(step, state)
+        saver.close()
+        for rec in saver.records:
+            notify(dict(rec, event="save"))
     return state, history
 
 
@@ -345,10 +426,16 @@ def lm_main(argv=None):
     ap.add_argument("--participation_seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--ckpt", default=None,
-                    help="not ported: ROADMAP queue 1 item 13")
+    ap.add_argument("--ckpt", default=None, metavar="DIR",
+                    help="checkpoint directory: resume from its newest "
+                         "intact checkpoint, save every 20 steps and at "
+                         "the end")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
-                    help="not ported: ROADMAP queue 1 item 14")
+                    help="run under a seeded fault schedule "
+                         "(runtime.chaos.FaultInjector.seeded: client/"
+                         "pod kills, heartbeat loss, straggler "
+                         "demotion, recoveries -- same seed, same "
+                         "schedule); nan-loss recovery needs --ckpt")
     ap.add_argument("--multi_pod", action="store_true",
                     help="not ported: ROADMAP queue 1 item 17")
     ap.add_argument("--pods", type=int, default=1)
@@ -365,9 +452,6 @@ def lm_main(argv=None):
             alpha_client=args.alpha_client, edge_assign=args.edge_assign))
     except ValueError as e:
         ap.error(str(e))
-    if args.chaos is not None:
-        raise NotImplementedError(
-            "--chaos (the chaos engine): ROADMAP queue 1 item 14")
     if args.multi_pod:
         raise NotImplementedError(
             "--multi_pod (the multi-device mesh): ROADMAP queue 1 item 17")
@@ -388,7 +472,19 @@ def lm_main(argv=None):
                  seq_len=args.seq, ckpt_dir=args.ckpt,
                  alpha_client=args.alpha_client,
                  edge_assign=args.edge_assign)
-    _, history = run_training(cfg, topo, algo, run)
+    injector = None
+    if args.chaos is not None:
+        injector = chaos.FaultInjector.seeded(
+            args.chaos, args.steps, topo.pods, topo.devices_per_pod,
+            algo.clients.count)
+        print(f"[train] chaos seed {args.chaos}: "
+              f"{len(injector.events)} scheduled events")
+    _, history = run_training(cfg, topo, algo, run,
+                              fault_injector=injector)
+    if not history:
+        print(f"[train] done: the checkpoint in {args.ckpt} is at or past "
+              f"--steps {args.steps}, no step to run")
+        return
     print(f"[train] done: loss {history[0]['loss']:.4f} -> "
           f"{history[-1]['loss']:.4f}")
 

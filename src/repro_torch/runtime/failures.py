@@ -1,17 +1,20 @@
 """Failure detection + recovery policy for the trainer.
 
-The JAX package's ``runtime/failures.py`` without the ``FaultInjector``
-re-export (the chaos engine is ROADMAP item 14).
+The JAX package's ``runtime/failures.py``, with its ``FaultInjector``
+re-export from the port's ``runtime.chaos``.
 
 Detection signals:
   * non-finite loss (desync / data corruption / numeric blow-up),
   * step-time outliers (straggler escalation: after ``patience``
     consecutive slow steps a client is demoted to abstention via the
-    membership mask; the paper's majority vote makes this loss-free).
+    membership mask; the paper's majority vote makes this loss-free),
+  * injected faults (``runtime.chaos`` -- deterministic seeded
+    schedules for tests / chaos engineering).
 
-Recovery restores the newest intact checkpoint and replays; the port's
-trainer has no checkpoint store yet (ROADMAP item 13), so it stops on a
-non-finite loss.
+Recovery: restore the newest intact checkpoint (``checkpoint.store``)
+and replay.  The token stream is cursor-addressable (batch = f(seed,
+step)) and the membership arrays replay from the chaos schedule, so the
+replay is deterministic (``launch/train.py::run_training``).
 
 ``may_restore()`` is a PURE query of the restore budget; the trainer
 calls ``record_restore()`` only when a restore actually happens.
@@ -77,3 +80,8 @@ class FailureDetector:
         """Consume one unit of restore budget (an actual restore ran)."""
         self.restores += 1
 
+
+
+# the chaos engine's injector, importable from here as in the JAX
+# package (the legacy ``{step: (kind, pod, dev)}`` schedule form works)
+from repro_torch.runtime.chaos import FaultInjector  # noqa: E402,F401
