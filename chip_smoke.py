@@ -87,7 +87,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      memory beside its reckoning; then 2 steps of ``hier_local_qsgd``
      with K=2 streamed clients (one ``ternary_quant`` launch a leaf and
      client) and their peak memory.
-  8. ``fault_tolerant``: first the oracle check -- the paper task at full
+  8. ``families``: the ssm and encdec families whole, each as ``lm``
+     runs gemma3-1b (P=2 x D=3, bf16 compute, f32 master, DC, T_E=3,
+     random weights from seed 0): xlstm-350m (24 blocks, 528,280,672
+     parameters, batch 1 x 1152 tokens a device) and whisper-base (6 + 6
+     layers, 97,206,784 parameters, batch 4 x 448 tokens and 1500 x 80
+     frames a device).  One step's per-voter gradients twice (bitwise),
+     6 steps of ``run_training`` on fused/flat (exactly 6 ``sign_pack``
+     and 6 ``vote_update`` launches; the last step under torch.profiler:
+     the kernels' device time beside their byte bounds, the device's
+     busy time, the top device ops), the same on ag_packed/tree (bitwise
+     the same edge models, no launch), the mean loss of round 2 below
+     step 0's, the peaks beside ``reckon_peak``'s reckoning (xlstm cut to
+     16 blocks if it passed 72 GB; it does not).
+  9. ``fault_tolerant``: first the oracle check -- the paper task at full
      width (Q=4 x D=5, B=400, 2 rounds of T_E=15) under a compiled chaos
      schedule of the parity harness's kinds (a client killed mid-round,
      a pod down across the boundary, a straggler demoted at it, a
@@ -1329,15 +1342,16 @@ LM_P, LM_D, LM_SEQ, LM_STEPS, LM_TE = 2, 3, 1152, 6, 3
 LM_RECKONED_GB = 49.0        # the phase's peak, reckoned from its buffers
 
 
-def lm_setup(torch, **algo_kw):
-    """gemma3-1b at full width, cut to LM_LAYERS layers, on P x D copies:
-    (cfg, topo, algo) of the phase's runs."""
+def lm_setup(torch, cfg=None, **algo_kw):
+    """``cfg`` (by default gemma3-1b at full width, cut to LM_LAYERS
+    layers) on P x D copies: (cfg, topo, algo) of the phase's runs."""
     from repro_torch import configs
     from repro_torch.core import hier
     from repro_torch.core.topology import Topology
 
-    cfg = dataclasses.replace(configs.get_config(LM_ARCH),
-                              n_layers=LM_LAYERS)
+    if cfg is None:
+        cfg = dataclasses.replace(configs.get_config(LM_ARCH),
+                                  n_layers=LM_LAYERS)
     kw = dict(method="dc_hier_signsgd", mu=1e-3, rho=RHO, t_e=LM_TE,
               transport="fused", state_layout="flat",
               compute_dtype=torch.bfloat16, master_dtype=torch.float32,
@@ -1346,11 +1360,12 @@ def lm_setup(torch, **algo_kw):
     return cfg, Topology(LM_P, LM_D, "cuda"), hier.AlgoConfig(**kw)
 
 
-def lm_grads_bitwise(torch, built, params, tokens) -> int:
-    """One step's per-voter gradients of the LM's loss, twice, from
-    fresh bf16 [P, D] copies: the count of coordinates that differ (0
-    when autograd is deterministic on the card, which the bitwise
-    comparison of the two layouts needs)."""
+def lm_grads_bitwise(torch, built, params, batch, tag="lm") -> int:
+    """One step's per-voter gradients of the LM's loss on ``batch`` (its
+    [P, D, ...] tensors on the card), twice, from fresh bf16 [P, D]
+    copies: the count of coordinates that differ (0 when autograd is
+    deterministic on the card, which the bitwise comparison of the two
+    layouts needs)."""
     from repro_torch.core import pytree
 
     leaves, td = pytree.tree_flatten(params)
@@ -1361,7 +1376,7 @@ def lm_grads_bitwise(torch, built, params, tokens) -> int:
                   .to(torch.bfloat16).contiguous().requires_grad_(True)
                   for leaf in leaves]
         losses = built.bundle.loss(pytree.tree_unflatten(td, copies),
-                                   {"tokens": tokens})
+                                   batch)
         return torch.autograd.grad(losses.sum(), copies), losses.detach()
 
     g1, l1 = grads()
@@ -1370,30 +1385,81 @@ def lm_grads_bitwise(torch, built, params, tokens) -> int:
                  for a, b in zip(g1, g2))
     require(torch.equal(l1, l2), "the LM's losses differ between two "
             "evaluations on the same copies")
-    print(f"[lm] per-voter losses {l1.float().tolist()}", flush=True)
+    print(f"[{tag}] per-voter losses {l1.float().tolist()}", flush=True)
     return differ
 
 
-def lm_profile(torch, run_fn) -> dict:
-    """Device time by kernel of ``run_fn()`` under torch.profiler: the
-    sign_pack and vote_update launches, their sum, and every kernel's
-    and copy's (the device's busy time)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def device_summary(prof) -> dict:
+    """Device time by kernel of a torch.profiler trace: the sign_pack and
+    vote_update launches (ms, count), every kernel's and copy's (the
+    device's busy time), and the ten that took the most."""
     from repro_torch.launch.profile_step import device_us, on_device
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = run_fn()
-        torch.cuda.synchronize()
+
     evs = [e for e in prof.key_averages() if on_device(e)]
-    busy = sum(map(device_us, evs)) / 1e3
-    res = {"busy_ms": busy, "out": out}
+    res = {"busy_ms": sum(map(device_us, evs)) / 1e3}
     for k in ("sign_pack_kernel", "vote_update_kernel"):
         ks = [e for e in evs if k in e.key]
         res[k] = (sum(map(device_us, ks)) / 1e3, sum(e.count for e in ks))
     evs.sort(key=device_us, reverse=True)
     res["top"] = [{"name": e.key[:240], "calls": e.count,
                    "device_ms": device_us(e) / 1e3} for e in evs[:10]]
+    return res
+
+
+def lm_train(torch, tag, cfg, topo, algo, run, params,
+             profile=None) -> dict:
+    """One ``run_training`` of an LM from ``params``, the kernels' launch
+    counters set to 0 just before it and read just after: its history,
+    launches, peak memory above what was held before it, edge models
+    and flat layout.  ``profile``: None; "all" (the whole run under
+    torch.profiler); or a step index s >= 1 (step s alone: the profiler
+    starts once step s-1's loss is on the host and stops once step s's
+    is), whose ``device_summary`` is ``prof``."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from repro_torch.core import hier
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.ternary_quant import ternary_quant
+    from repro_torch.kernels.vote_update import vote_update
+    from repro_torch.launch.train import run_training
+
+    prof = (tprofile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA])
+            if profile is not None else None)
+
+    def on_metrics(step, metrics):
+        if step == profile - 1:
+            prof.start()
+        elif step == profile:
+            torch.cuda.synchronize()
+            prof.stop()
+
+    sign_pack.launches = vote_update.launches = ternary_quant.launches = 0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if profile == "all":
+        prof.start()
+    state, history = run_training(
+        cfg, topo, algo, run, params=params,
+        log=lambda line: print(f"{tag}: {line}", flush=True),
+        on_metrics=on_metrics if isinstance(profile, int) else None)
+    torch.cuda.synchronize()
+    if profile == "all":
+        prof.stop()
+    res = {"history": history,
+           "prof": device_summary(prof) if prof is not None else None,
+           "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+           "launches": {"sign_pack": sign_pack.launches,
+                        "vote_update": vote_update.launches,
+                        "ternary_quant": ternary_quant.launches},
+           "params": hier.edge_params(state),
+           "n_pad": getattr(state.params, "layout", None)}
+    losses = [h["loss"] for h in history]
+    require(all(map(math.isfinite, losses)), f"{tag}: losses {losses}")
+    for n, leaf in pytree_items(res["params"]):
+        require(bool(torch.isfinite(leaf).all()), f"{tag}/{n}: non-finite")
     return res
 
 
@@ -1408,12 +1474,8 @@ def phase_lm(torch) -> dict:
     hier_local_qsgd with K=2 streamed clients (batch 2 a device).
     Returns the kernel launches counted in the fused/flat DC run and in
     the QSGD run."""
-    from repro_torch.core import hier
     from repro_torch.core.clients import ClientConfig
-    from repro_torch.kernels.sign_pack import sign_pack
-    from repro_torch.kernels.ternary_quant import ternary_quant
-    from repro_torch.kernels.vote_update import vote_update
-    from repro_torch.launch.train import RunCfg, run_training
+    from repro_torch.launch.train import RunCfg
     from repro_torch.models import build
 
     t_phase = time.perf_counter()
@@ -1440,39 +1502,15 @@ def phase_lm(torch) -> dict:
     tokens = synthetic.make_stream(synthetic.LMStreamCfg(
         vocab=cfg.vocab, seq_len=LM_SEQ, batch_per_device=1, pods=LM_P,
         devices_per_pod=LM_D, seed=0))(0)["tokens"].cuda()
-    differ = lm_grads_bitwise(torch, built, params, tokens)
+    differ = lm_grads_bitwise(torch, built, params, {"tokens": tokens})
     print(f"[lm] one step's per-voter gradients, evaluated twice: "
           f"{differ} coordinates differ", flush=True)
     require(differ == 0, "the LM's per-voter gradients are not "
             "deterministic on the card: the layouts cannot be bitwise")
 
     def one(tag, algo_, run_=run, profiled=False):
-        sign_pack.launches = vote_update.launches = 0
-        ternary_quant.launches = 0
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        def fn():
-            return run_training(
-                cfg, topo, algo_, run_, params=params,
-                log=lambda line: print(f"[lm] {tag}: {line}", flush=True))
-        prof = lm_profile(torch, fn) if profiled else {"out": fn()}
-        state, history = prof["out"]
-        torch.cuda.synchronize()
-        res = {"history": history, "prof": prof,
-               "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
-               "launches": {"sign_pack": sign_pack.launches,
-                            "vote_update": vote_update.launches,
-                            "ternary_quant": ternary_quant.launches},
-               "params": hier.edge_params(state),
-               "n_pad": getattr(state.params, "layout", None)}
-        losses = [h["loss"] for h in history]
-        require(all(map(math.isfinite, losses)), f"{tag}: losses {losses}")
-        for n, leaf in pytree_items(res["params"]):
-            require(bool(torch.isfinite(leaf).all()), f"{tag}/{n}: "
-                    "non-finite")
-        del state
-        return res
+        return lm_train(torch, f"[lm] {tag}", cfg, topo, algo_, run_,
+                        params, profile="all" if profiled else None)
 
     fused = one("fused/flat", algo)
     want = {"sign_pack": LM_STEPS, "vote_update": LM_STEPS,
@@ -1559,6 +1597,161 @@ def phase_lm(torch) -> dict:
     torch.cuda.empty_cache()
     emit({"lm": "phase", "wall_s": time.perf_counter() - t_phase})
     return {"dc": dc_launches, "qsgd": qsgd_launches, "peak_gb": peaks}
+
+
+FAMILIES = (("xlstm_350m", 1, 1152),     # (arch, batch, tokens) a device
+            ("whisper_base", 4, 448))    # whisper's text context
+FAM_CUT_GB, FAM_CUT_LAYERS = 72.0, 16    # xlstm: two 7:1 periods
+
+
+def reckon_peak(cfg, n: int, batch: int, seq: int) -> dict:
+    """A training run's peak device memory (GB), reckoned from the tree's
+    n parameters and the run's shapes before any run, at P x D copies in
+    bf16 compute with an f32 master (the rule gives 49.3 GB for the lm
+    phase, whose reckoning was 49):
+
+      state   16n: the f32 master [P], bf16 delta and delta_next [P];
+      anchor  36n: bf16 [P, D] gradients and their f32 flatten (DC's
+              round prologue; the local step's u, its flatten and
+              u + rho*delta, bf16 [P, D] each, are as much);
+      grads   24n: the backward's bf16 [P, D] copies and gradients,
+              while the larger of these activations is alive:
+      logits  18 bytes a logit: bf16 logits, the f32 copy logsumexp
+              keeps, the f32 gradients of logsumexp and of the gather
+              and their sum, the bf16 gradient;
+      block   the largest block's recompute and backward: the mLSTM's
+              float32 [b, H, t, t] matrices, ten alive (40 bytes an
+              entry), or whisper's encoder scores [b, h, f, f], five
+              float32 and two bf16 (24 bytes an entry).
+
+    peak = state + max(anchor, grads + max(logits, block))."""
+    rows = LM_P * LM_D * batch
+    if cfg.family == "ssm":
+        block = 40 * rows * cfg.n_heads * seq ** 2
+    else:
+        block = 24 * rows * cfg.n_heads * cfg.encoder_frames ** 2
+    terms = {"state": 16 * n, "anchor": 36 * n, "grads": 24 * n,
+             "logits": 18 * rows * seq * cfg.vocab, "block": block}
+    peak = terms["state"] + max(terms["anchor"], terms["grads"] + max(
+        terms["logits"], terms["block"]))
+    return {"peak_gb": peak / 1e9,
+            **{f"{k}_gb": v / 1e9 for k, v in terms.items()}}
+
+
+def phase_families(torch) -> dict:
+    """The ssm and encdec families on the card, whole: xlstm-350m (24
+    blocks, batch 1 x 1152 tokens a device) and whisper-base (6 + 6
+    layers, batch 4 x 448 tokens and 1500 x 80 frames a device), each at
+    P=2 x D=3 in the lm phase's algorithm (DC, bf16 compute, f32 master,
+    T_E=3, 6 steps, random weights from seed 0): one step's per-voter
+    gradients twice (bitwise), 6 steps of ``run_training`` on fused/flat
+    (6 sign_pack and 6 vote_update launches; the last step profiled),
+    the same on ag_packed/tree (bitwise the same edge models), the loss
+    of round 2 below step 0's, the peak beside its reckoning.  Returns
+    each model's fused/flat launches."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.launch.train import RunCfg
+    from repro_torch.models import build
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for arch, batch, seq in FAMILIES:
+        cfg, topo, algo = lm_setup(torch, configs.get_config(arch))
+        n = build.param_count(build.build_model(cfg, topo).abstract_params())
+        reckoned = reckon_peak(cfg, n, batch, seq)
+        cut = None
+        if cfg.family == "ssm" and reckoned["peak_gb"] > FAM_CUT_GB:
+            cut = f"depth {cfg.n_layers} -> {FAM_CUT_LAYERS}"
+            cfg = dataclasses.replace(cfg, n_layers=FAM_CUT_LAYERS)
+        built = build.build_model(cfg, topo)
+        params = built.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        n = build.param_count(params)
+        reckoned = reckon_peak(cfg, n, batch, seq)
+        emit({"families": "parameters", "arch": cfg.name,
+              "family": cfg.family, "n_layers": cfg.n_layers,
+              "encoder_layers": cfg.encoder_layers, "count": n,
+              "config_param_count": cfg.param_count(), "cut": cut,
+              "batch": batch, "seq": seq, "reckoned": reckoned})
+        tag = f"[families] {arch}"
+        run = RunCfg(steps=LM_STEPS, batch_per_device=batch, seq_len=seq,
+                     log_every=1, seed=0)
+        first = synthetic.make_stream(synthetic.LMStreamCfg(
+            vocab=cfg.vocab, seq_len=seq, batch_per_device=batch, pods=LM_P,
+            devices_per_pod=LM_D, seed=0,
+            frames=cfg.encoder_frames if cfg.encoder_layers else 0,
+            frontend_dim=cfg.frontend_dim))(0)
+        differ = lm_grads_bitwise(
+            torch, built, params, {k: v.cuda() for k, v in first.items()},
+            tag=tag)
+        del first
+        print(f"{tag}: one step's per-voter gradients, evaluated twice: "
+              f"{differ} coordinates differ", flush=True)
+        require(differ == 0, f"{arch}: the per-voter gradients are not "
+                "deterministic on the card")
+        fused = lm_train(torch, f"{tag} fused/flat", cfg, topo, algo, run,
+                         params, profile=LM_STEPS - 1)
+        want = {"sign_pack": LM_STEPS, "vote_update": LM_STEPS,
+                "ternary_quant": 0}
+        require(fused["launches"] == want, f"{arch} fused/flat launches "
+                f"{fused['launches']}, want {want}")
+        losses = [h["loss"] for h in fused["history"]]
+        round2 = statistics.mean(losses[LM_TE:2 * LM_TE])
+        require(round2 < losses[0], f"{arch}: the loss did not fall: step "
+                f"0 {losses[0]}, round 2 mean {round2}")
+        tree = lm_train(torch, f"{tag} ag_packed/tree", cfg, topo,
+                        dataclasses.replace(algo, transport="ag_packed",
+                                            state_layout="tree"),
+                        run, params)
+        require(tree["launches"] == dict.fromkeys(want, 0),
+                f"{arch} ag_packed/tree launched kernels: "
+                f"{tree['launches']}")
+        diff = count_differing(torch, fused["params"], tree["params"])
+        require(diff == 0, f"{arch}: fused/flat and ag_packed/tree edge "
+                f"models differ in {diff} coordinates")
+        print(f"{tag}: fused/flat == ag_packed/tree edge models, bitwise",
+              flush=True)
+        prof = fused["prof"]
+        shape = (LM_P, LM_D, fused["n_pad"].n_pad)
+        sp_ms, sp_n = prof["sign_pack_kernel"]
+        vu_ms, vu_n = prof["vote_update_kernel"]
+        sp_bytes = sign_pack_bytes(shape, 2, False)
+        vu_bytes = vote_update_bytes(shape, True, LM_P * LM_D)
+        host = [h["ms"] for h in fused["history"]]
+        emit({"families": "step", "arch": cfg.name,
+              "ms_per_step_round2_fused_flat": statistics.mean(
+                  host[LM_TE:-1]),
+              "ms_profiled_step": host[-1],
+              "ms_per_step_round2_ag_packed_tree": statistics.mean(
+                  h["ms"] for h in tree["history"][LM_TE:]),
+              "data_ms_per_step": statistics.mean(
+                  h["data_ms"] for h in fused["history"]),
+              "losses": losses, "round2_mean_loss": round2,
+              "launches": fused["launches"]})
+        emit({"families": "kernels", "arch": cfg.name, "shape": list(shape),
+              "sign_pack_device_ms": sp_ms / max(sp_n, 1),
+              "sign_pack_bound_ms": bound(sp_bytes, sign_pack_ops(
+                  shape, False))[0],
+              "sign_pack_bytes": sp_bytes,
+              "vote_update_device_ms": vu_ms / max(vu_n, 1),
+              "vote_update_bound_ms": bound(vu_bytes, vote_update_ops(
+                  shape, True))[0],
+              "vote_update_bytes": vu_bytes,
+              "launches_profiled": [sp_n, vu_n],
+              "device_busy_ms_profiled_step": prof["busy_ms"],
+              "kernels_share_of_device_time":
+                  (sp_ms + vu_ms) / max(prof["busy_ms"], 1e-9),
+              "top": prof["top"]})
+        emit({"families": "memory", "arch": cfg.name,
+              "peak_gb_fused_flat": fused["peak_gb"],
+              "peak_gb_ag_packed_tree": tree["peak_gb"],
+              "reckoned_gb": reckoned["peak_gb"]})
+        launches[arch] = fused["launches"]
+        del fused, tree, params, built
+        torch.cuda.empty_cache()
+    emit({"families": "phase", "wall_s": time.perf_counter() - t_phase})
+    return launches
 
 
 FT_KEEP = 2                          # checkpoints the phase's runs keep
@@ -2027,6 +2220,7 @@ def main() -> None:
     launches["ternary_quant"] = (
         methods["hier_local_qsgd"]["launches"]["ternary_quant"])
     lm_launches = phase_lm(torch)
+    fam_launches = phase_families(torch)
     ft = phase_fault_tolerant(torch, lm_launches["peak_gb"], card)
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
@@ -2048,6 +2242,8 @@ def main() -> None:
             "library_ms": None,
             "lm_dc_fused_flat_launches": lm_launches["dc"].get(name, 0),
             "lm_qsgd_stream_launches": lm_launches["qsgd"].get(name, 0),
+            "families_launches": {arch: fam[name] if name in fam else 0
+                                  for arch, fam in fam_launches.items()},
             "fault_tolerant_launches": ft["launches"].get(name, 0),
             "oracle_check_launches": sum(
                 r.get(name, 0) for r in ft["oracle"].values())})

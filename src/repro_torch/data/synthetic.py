@@ -23,9 +23,13 @@ package hand both the same tokens.
 ``batch_at(step)`` is a pure function of (seed, step): restoring a step
 counter resumes the stream (no iterator state to persist).
 
-Not ported yet: the audio frames and vision patches of the encdec and
-vlm families (ROADMAP item 15) and ``serve_request_batch`` (serving,
-item 21).
+The encdec/audio family's stub audio frames (``frames`` > 0) are ``0.1``
+times standard normals of shape [P, D, b, frames, frontend_dim], drawn
+the same way from a CPU generator seeded from (seed, step,
+``FRAMES_TAG``); the parity tests hand both packages the same frames.
+
+Not ported yet: the vlm family's vision patches (ROADMAP item 15) and
+``serve_request_batch`` (serving, item 21).
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ import torch
 
 from repro_torch.core.keys import key_seed
 from repro_torch.data import cluster
+
+FRAMES_TAG = 0xF4A3E5     # the frames' generator key, apart from the edges'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +67,8 @@ class LMStreamCfg:
                                  # legacy per-edge stream, bitwise
     edge_assign: str = "fixed"   # fixed | random | clustered (see
                                  # data.cluster)
+    frames: int = 0              # encdec/audio: stub audio frames a row
+    frontend_dim: int = 0        # and their feature width
 
 
 def _edge_logits(cfg: LMStreamCfg) -> np.ndarray:
@@ -134,7 +142,9 @@ def validate_scenario(cfg: LMStreamCfg) -> None:
 
 def make_stream(cfg: LMStreamCfg):
     """Returns batch_at(step) -> {"tokens": [P, D, b, L] int64} on the
-    CPU.  Validates the carve contract and the scenario axes up front."""
+    CPU, with ``"frames"`` [P, D, b, frames, frontend_dim] float32 when
+    ``cfg.frames``.  Validates the carve contract and the scenario axes
+    up front."""
     if cfg.batch_per_device % cfg.clients_per_device:
         raise ValueError(
             f"batch_per_device={cfg.batch_per_device} does not divide "
@@ -160,6 +170,13 @@ def make_stream(cfg: LMStreamCfg):
                     probs[q], d * cfg.batch_per_device * cfg.seq_len,
                     replacement=True, generator=gen)
             edges.append(toks.reshape(d, cfg.batch_per_device, cfg.seq_len))
-        return {"tokens": torch.stack(edges)}
+        batch = {"tokens": torch.stack(edges)}
+        if cfg.frames:
+            gen = torch.Generator().manual_seed(
+                key_seed(cfg.seed, step, FRAMES_TAG))
+            batch["frames"] = 0.1 * torch.randn(
+                (p, d, cfg.batch_per_device, cfg.frames, cfg.frontend_dim),
+                generator=gen)
+        return batch
 
     return batch_at

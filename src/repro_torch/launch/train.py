@@ -2,7 +2,8 @@
 
 Two trainers on the port's train step (``core.hier.make_hier_step``):
 ``run_paper_task`` trains the paper's MLP task (below), and
-``run_training`` an LM of the zoo (``--arch NAME``, the dense family):
+``run_training`` an LM of the zoo (``--arch NAME``: the dense, ssm and
+encdec/audio families):
 the JAX package's ``launch/train.py`` trainer -- config -> model ->
 DC-HierSignSGD step -> synthetic token stream -> elastic membership ->
 async checkpointing -> failure recovery -- on one card, the P edges x D
@@ -303,7 +304,10 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
         batch_per_device=run.batch_per_device, pods=topo.pods,
         devices_per_pod=topo.devices_per_pod, seed=run.seed,
         hetero=run.hetero, clients_per_device=algo.clients.count,
-        alpha_client=run.alpha_client, edge_assign=run.edge_assign))
+        alpha_client=run.alpha_client, edge_assign=run.edge_assign,
+        frames=(cfg.encoder_frames if cfg.family in ("encdec", "audio")
+                else 0),
+        frontend_dim=cfg.frontend_dim))
     # with an active ClientConfig the membership mask is client-granular
     # [P, D, K], the step's own vocabulary
     member = elastic.Membership(topo.pods, topo.devices_per_pod,
@@ -396,8 +400,9 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
 def lm_main(argv=None):
     """The JAX package's LM CLI (``repro.launch.train``), flags and
     defaults, plus ``--pods``/``--devices_per_pod`` and ``--device``."""
-    ap = argparse.ArgumentParser(description="LM training (the zoo's dense "
-                                 "family) through the port's step")
+    ap = argparse.ArgumentParser(description="LM training (the zoo's dense, "
+                                 "ssm and encdec/audio families) through "
+                                 "the port's step")
     ap.add_argument("--arch", default="gemma3_1b")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config (CPU-runnable)")

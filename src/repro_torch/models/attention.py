@@ -1,10 +1,13 @@
-"""Grouped-query attention (sliding window, qk-norm) in train mode.
+"""Grouped-query attention (sliding window, qk-norm) and cross-attention
+in train mode.
 
-The JAX package's ``models/attention.py`` for the dense family's
-training forward: ``init_gqa``, ``_repeat_kv``, ``_attend``,
-``attend_causal`` (the full-mask path and the q-block scan with its
-window key slice) and ``gqa_attn`` without a cache.  Activations are
-``[*lead, b, t, h, hd]`` (``layers``' leading replica dims).
+The JAX package's ``models/attention.py`` for training: ``init_gqa``,
+``_repeat_kv``, ``_attend`` (with a mask or none: whisper's
+bidirectional encoder), ``attend_causal`` (the full-mask path and the
+q-block scan with its window key slice), ``gqa_attn`` without a cache,
+and whisper's ``init_cross``, ``cross_kv`` and ``cross_attn``.
+Activations are ``[*lead, b, t, h, hd]`` (``layers``' leading replica
+dims).
 
 The arithmetic is the JAX package's, which computes attention in plain
 jnp: the scores are a product in the compute dtype, THEN cast to
@@ -14,7 +17,7 @@ their product with v.  (``scaled_dot_product_attention`` would fuse
 these with other roundings.)
 
 Not ported yet: the prefill and decode modes with their KV caches
-(ROADMAP item 21), cross-attention and MLA (item 15).
+(ROADMAP item 21) and MLA (item 15, with the moe family).
 """
 from __future__ import annotations
 
@@ -114,6 +117,12 @@ def _proj_heads(x, w):
     return y.reshape(y.shape[:-1] + tuple(w.shape[-2:]))
 
 
+def _merge_heads(out, wo):
+    """out [*, b, t, h, k] @ wo [*, h, k, d] -> [*, b, t, d]."""
+    return layers.linear(out.reshape(out.shape[:-2] + (-1,)),
+                         wo.reshape(wo.shape[:-3] + (-1, wo.shape[-1])))
+
+
 def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
              mask_extra=None):
     """Train-mode GQA: x [*, b, t, d] -> [*, b, t, d] (causal, no cache)."""
@@ -128,6 +137,43 @@ def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
     k = layers.rope(k, positions, theta)
     out = attend_causal(q, _repeat_kv(k, h // hkv), _repeat_kv(v, h // hkv),
                         window, mask_extra)
-    wo = p["wo"]
-    return layers.linear(out.reshape(out.shape[:-2] + (-1,)),
-                         wo.reshape(wo.shape[:-3] + (-1, wo.shape[-1])))
+    return _merge_heads(out, p["wo"])
+
+
+def bidir_attn(p, x, cfg):
+    """Bidirectional self-attention (whisper's encoder): no mask, no
+    rope, no qk-norm; x [*, b, t, d] -> [*, b, t, d]."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    q = _proj_heads(x, p["wq"])
+    k = _proj_heads(x, p["wk"])
+    v = _proj_heads(x, p["wv"])
+    out = _attend(q, _repeat_kv(k, rep), _repeat_kv(v, rep), None)
+    return _merge_heads(out, p["wo"])
+
+
+def init_cross(gen, cfg, device) -> dict:
+    d, hd, h, hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": layers.he_init(gen, (d, h * hd), device).reshape(d, h, hd),
+        "wk": layers.he_init(gen, (d, hkv * hd), device).reshape(d, hkv, hd),
+        "wv": layers.he_init(gen, (d, hkv * hd), device).reshape(d, hkv, hd),
+        "wo": layers.he_init(gen, (h * hd, d), device,
+                             h * hd).reshape(h, hd, d),
+    }
+
+
+def cross_kv(p, enc_out, cfg) -> dict:
+    """The encoder's keys and values, enc_out [*, b, f, d] -> [*, b, f,
+    hkv, hd] each."""
+    return {"k": _proj_heads(enc_out, p["wk"]),
+            "v": _proj_heads(enc_out, p["wv"])}
+
+
+def cross_attn(p, x, enc_kv, cfg):
+    """The decoder's queries x [*, b, t, d] over every encoder frame (no
+    mask, no rope) -> [*, b, t, d]."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    q = _proj_heads(x, p["wq"])
+    out = _attend(q, _repeat_kv(enc_kv["k"].to(q.dtype), rep),
+                  _repeat_kv(enc_kv["v"].to(q.dtype), rep), None)
+    return _merge_heads(out, p["wo"])

@@ -1,15 +1,17 @@
 """Composable layer blocks: pre-norm residual wrappers around the mixers.
 
-The JAX package's ``models/blocks.py`` for the dense family: ``Ctx``,
-``BlockDef`` and ``dense_block`` in train mode (causal self-attention
-with an optional sliding window, no cross-attention).  Block protocol:
+The JAX package's ``models/blocks.py`` in train mode: ``Ctx``,
+``BlockDef``, ``dense_block`` (causal self-attention with an optional
+sliding window, or whisper's bidirectional encoder attention; with
+cross-attention over ``Ctx.enc_out`` for whisper's decoder), and the
+xLSTM family's ``mlstm_block`` and ``slstm_block``.  Block protocol:
 
     init(gen, device)  -> params for ONE layer
     apply(p, x, ctx)   -> x, on activations [*lead, b, t, d]
 
-Not ported yet: the moe, mla, mamba, mLSTM and sLSTM blocks, the
-bidirectional encoder block and cross-attention (ROADMAP item 15), and
-the decode caches (item 21).
+Not ported yet: the moe, mla and mamba blocks (ROADMAP item 15: moe
+after item 17, mamba with the hybrid family) and the decode caches
+(item 21).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 from repro_torch.models.config import LMConfig
 
 
@@ -27,6 +29,8 @@ from repro_torch.models.config import LMConfig
 class Ctx:
     cfg: LMConfig
     positions: torch.Tensor | None = None    # [t] global positions
+    enc_out: torch.Tensor | None = None      # whisper's encoder output
+                                             # [*lead, b, f, d]
 
 
 @dataclasses.dataclass
@@ -34,28 +38,72 @@ class BlockDef:
     name: str
     init: Callable                 # (gen, device) -> params of one layer
     apply: Callable                # (p, x, ctx) -> x
+    remat: bool = True             # recompute its activations in the
+                                   # backward (see slstm_block)
 
 
 def dense_block(cfg: LMConfig, *, window: int = 0,
-                theta: float | None = None, d_ff: int | None = None,
+                theta: float | None = None, causal: bool = True,
+                cross: bool = False, d_ff: int | None = None,
                 name: str = "dense") -> BlockDef:
-    """Attention + MLP, each behind an RMS norm and a residual add."""
+    """Attention (causal, or bidirectional with ``causal=False``), then
+    with ``cross`` attention over ``ctx.enc_out``, then the MLP; each
+    behind an RMS norm and a residual add."""
     th = theta if theta is not None else cfg.rope_theta
     ff = d_ff if d_ff is not None else cfg.d_ff
 
     def init(gen, device):
-        return {"n1": layers.init_rms(cfg.d_model, device),
-                "n2": layers.init_rms(cfg.d_model, device),
-                "attn": attn.init_gqa(gen, cfg, device),
-                "mlp": layers.init_mlp(gen, cfg.d_model, ff, cfg.act,
-                                       device)}
+        p = {"n1": layers.init_rms(cfg.d_model, device),
+             "n2": layers.init_rms(cfg.d_model, device),
+             "attn": attn.init_gqa(gen, cfg, device),
+             "mlp": layers.init_mlp(gen, cfg.d_model, ff, cfg.act, device)}
+        if cross:
+            p["nx"] = layers.init_rms(cfg.d_model, device)
+            p["xattn"] = attn.init_cross(gen, cfg, device)
+        return p
 
     def apply(p, x, ctx: Ctx):
         h = layers.rms_norm(p["n1"], x, cfg.norm_eps)
-        x = x + attn.gqa_attn(p["attn"], h, ctx.positions, cfg, theta=th,
-                              window=window)
+        if causal:
+            x = x + attn.gqa_attn(p["attn"], h, ctx.positions, cfg,
+                                  theta=th, window=window)
+        else:
+            x = x + attn.bidir_attn(p["attn"], h, cfg)
+        if cross:
+            hx = layers.rms_norm(p["nx"], x, cfg.norm_eps)
+            ekv = attn.cross_kv(p["xattn"], ctx.enc_out, cfg)
+            x = x + attn.cross_attn(p["xattn"], hx, ekv, cfg)
         return x + layers.mlp(p["mlp"], layers.rms_norm(p["n2"], x,
                                                         cfg.norm_eps),
                               cfg.act)
 
     return BlockDef(name, init, apply)
+
+
+def _mixer_block(cfg: LMConfig, name: str, init_mixer, mixer,
+                 remat: bool = True) -> BlockDef:
+    """A recurrent mixer behind an RMS norm and a residual add (its
+    parameters under ``name``, beside the norm ``n1``)."""
+
+    def init(gen, device):
+        return {"n1": layers.init_rms(cfg.d_model, device),
+                name: init_mixer(gen, cfg, device)}
+
+    def apply(p, x, ctx: Ctx):
+        h = layers.rms_norm(p["n1"], x, cfg.norm_eps)
+        return x + mixer(p[name], h, cfg)
+
+    return BlockDef(name, init, apply, remat)
+
+
+def mlstm_block(cfg: LMConfig) -> BlockDef:
+    return _mixer_block(cfg, "mlstm", ssm.init_mlstm, ssm.mlstm_block)
+
+
+def slstm_block(cfg: LMConfig) -> BlockDef:
+    """Not recomputed: its loop of small launches a position is what its
+    step waits on (on the card the host issues them), and a recompute
+    would run it twice; the activations it keeps are [b, H, hd] a
+    position.  The values are the same either way."""
+    return _mixer_block(cfg, "slstm", ssm.init_slstm, ssm.slstm_block,
+                        remat=False)

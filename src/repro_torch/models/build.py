@@ -1,26 +1,29 @@
 """Build ArchDefs and the train entry point from an LMConfig.
 
-The JAX package's ``models/build.py`` for the dense family in the
-replicated regime:
+The JAX package's ``models/build.py`` for the dense, ssm (xlstm) and
+encdec/audio (whisper) families in the replicated regime:
 
     built = build_model(cfg, topo)
     built.init_params(generator)  -> one replica's parameters
     built.bundle                  -> core.hier.ModelBundle
 
 The bundle's loss takes ``[P, D, *leaf]`` parameter copies and
-``{"tokens": [P, D, b, L]}`` and returns the ``[P, D]`` losses (any
-leading dims work, none for one replica): the JAX ``make_loss_single``,
-which the JAX step vmaps, with the vmap written out as batch dims.
+``{"tokens": [P, D, b, L]}`` (whisper: and ``"frames": [P, D, b, f,
+frontend_dim]``) and returns the ``[P, D]`` losses (any leading dims
+work, none for one replica): the JAX ``make_loss_single``, which the JAX
+step vmaps, with the vmap written out as batch dims.
 
 The parameter tree is the JAX package's leaf for leaf -- ``embed.table``,
 ``stacks.<block>.<leaf>`` with the leading layer dim, ``head.norm`` (and
-``head.out`` when the embedding is not tied) -- so a JAX tree converts
+``head.out`` when the embedding is not tied), whisper's
+``enc_stacks.enc.<leaf>`` and ``adapter.w`` -- so a JAX tree converts
 with ``convert.params_from_numpy``.
 
-Not ported yet: the moe, ssm, hybrid, encdec/audio and vlm families
-(ROADMAP item 15, each raises ``NotImplementedError``), serving
-(``make_serve_fns``, caches: item 21) and the FSDP regime's
-``make_loss_master`` (item 17).
+Not ported yet (ROADMAP item 15, each raises ``NotImplementedError``):
+the hybrid family (zamba2: its reference gradients are not finite,
+ROADMAP queue 3), vlm (internvl2's patches) and moe (arctic,
+deepseek-v3: after item 17).  Nor serving (``make_serve_fns``, caches:
+item 21) or the FSDP regime's ``make_loss_master`` (item 17).
 """
 from __future__ import annotations
 
@@ -41,15 +44,38 @@ from repro_torch.models.engine import ArchDef, ReplicatedPlan, Segment
 PyTree = Any
 
 
+PORTED_FAMILIES = ("dense", "ssm", "encdec", "audio")
+
+
 def make_archdef(cfg: LMConfig) -> ArchDef:
     """The block schedule: dense stacks, gemma3-style local:global
     periods (local blocks with the sliding window and ``rope_theta``,
     global ones with ``rope_theta_global``, a remainder of local blocks
-    after the last period)."""
-    if cfg.family != "dense":
+    after the last period); xlstm's periods of ``m_per_s`` mLSTM blocks
+    and one sLSTM block (a remainder of mLSTM blocks after the last);
+    whisper's bidirectional encoder and causal decoder with
+    cross-attention."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}): only the dense family is "
-            "ported (the others: ROADMAP queue 1 item 15)")
+            f"family {cfg.family!r} ({cfg.name}): the ported families are "
+            f"{', '.join(PORTED_FAMILIES)} (the others: ROADMAP queue 1 "
+            "item 15)")
+    if cfg.family == "ssm":
+        m = cfg.xlstm.m_per_s
+        groups = cfg.n_layers // (m + 1)
+        rem = cfg.n_layers - groups * (m + 1)
+        blocks = {"mlstm": B.mlstm_block(cfg), "slstm": B.slstm_block(cfg)}
+        segments = [Segment((("mlstm", m), ("slstm", 1)), groups)]
+        if rem:
+            segments.append(Segment((("mlstm", rem),), 1))
+        return ArchDef(cfg, blocks, segments)
+    if cfg.family in ("encdec", "audio"):
+        return ArchDef(
+            cfg, {"dec": B.dense_block(cfg, cross=True, name="dec")},
+            [Segment((("dec", 1),), cfg.n_layers)],
+            enc_blocks={"enc": B.dense_block(cfg, causal=False,
+                                             name="enc")},
+            enc_segments=[Segment((("enc", 1),), cfg.encoder_layers)])
     if cfg.local_global:
         loc, glob = cfg.local_global
         period = loc + glob
@@ -80,6 +106,13 @@ def init_params(arch: ArchDef, generator: torch.Generator | None = None,
     params["stacks"] = {
         name: engine._stack_init(arch.blocks[name], generator, n, dev)
         for name, n in engine.stack_counts(arch.segments).items()}
+    if arch.enc_segments:
+        params["enc_stacks"] = {
+            name: engine._stack_init(arch.enc_blocks[name], generator, n,
+                                     dev)
+            for name, n in engine.stack_counts(arch.enc_segments).items()}
+        params["adapter"] = {"w": layers.he_init(
+            generator, (cfg.frontend_dim, cfg.d_model), dev)}
     head = {"norm": layers.init_rms(cfg.d_model, dev)}
     if not cfg.tie_embed:
         head["out"] = layers.he_init(generator, (cfg.d_model, cfg.vocab), dev)
@@ -106,7 +139,9 @@ def _logits(cfg: LMConfig, head, embed_p, x):
 def make_loss(arch: ArchDef, remat: bool = True) -> Callable:
     """loss(params, batch) -> the mean next-token loss of every replica:
     params with leading replica dims ``[*lead, *leaf]`` and ``{"tokens":
-    [*lead, b, L]}`` give ``[*lead]``."""
+    [*lead, b, L]}`` give ``[*lead]``.  An encoder-decoder first encodes
+    ``batch["frames"]`` [*lead, b, f, frontend_dim] (cast to the
+    embedding's dtype, through the adapter and the encoder segments)."""
     cfg = arch.cfg
     plan = ReplicatedPlan(cfg, remat)
 
@@ -114,8 +149,18 @@ def make_loss(arch: ArchDef, remat: bool = True) -> Callable:
         tokens = batch["tokens"]
         lead = tokens.dim() - 2
         x = layers.embed(params["embed"], tokens, cfg.embed_scale)
+        enc_out = None
+        if arch.enc_segments:
+            frames = batch["frames"].to(x.dtype)
+            ex = layers.linear(frames, params["adapter"]["w"].to(x.dtype))
+            ectx = Ctx(cfg, positions=torch.arange(frames.shape[-2],
+                                                   device=frames.device))
+            enc_out = engine.run_segments(plan, arch, arch.enc_segments,
+                                          params["enc_stacks"], ex, ectx,
+                                          lead=lead)
         ctx = Ctx(cfg, positions=torch.arange(tokens.shape[-1],
-                                              device=tokens.device))
+                                              device=tokens.device),
+                  enc_out=enc_out)
         x = engine.run_segments(plan, arch, arch.segments, params["stacks"],
                                 x, ctx, lead=lead)
         targets, mask = _targets_and_mask(tokens)

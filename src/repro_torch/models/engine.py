@@ -6,10 +6,13 @@ its ``layout`` (gemma3: 5 local + 1 global a repeat).  Parameters are
 stacked per block name with a leading layer dim (after the replica
 dims), and the segments take the layers of each stack in order -- the
 JAX package's ``lax.scan`` written as Python loops in the same order.
+An encoder-decoder (whisper) has its own ``enc_blocks`` and
+``enc_segments``, run by the same code over ``enc_stacks``.
 
 Not ported yet: tied blocks (zamba2's shared attention, with the hybrid
-family, ROADMAP item 15), the decode caches (item 21), and ``FsdpPlan``
-(item 17).
+family, ROADMAP item 15), the MTP block (deepseek-v3, with the moe
+family, item 15), the decode caches (item 21), and ``FsdpPlan`` (item
+17).
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ class ArchDef:
     cfg: LMConfig
     blocks: dict[str, BlockDef]
     segments: list[Segment]
+    enc_blocks: dict[str, BlockDef] | None = None
+    enc_segments: list[Segment] | None = None
 
 
 def stack_counts(segments: list[Segment]) -> dict[str, int]:
@@ -62,14 +67,15 @@ def _stack_init(bd: BlockDef, gen, n: int, device) -> PyTree:
 
 class ReplicatedPlan:
     """Block application on plain parameters; with ``remat`` each block
-    runs under ``torch.utils.checkpoint`` (its activations recomputed in
-    the backward pass, as ``jax.checkpoint`` does)."""
+    whose ``BlockDef.remat`` is set runs under ``torch.utils.checkpoint``
+    (its activations recomputed in the backward pass, as
+    ``jax.checkpoint`` does for every block)."""
 
     def __init__(self, cfg: LMConfig, remat: bool):
         self.remat = remat and cfg.remat
 
     def block(self, bd: BlockDef, lp, x, ctx: Ctx):
-        if self.remat and torch.is_grad_enabled():
+        if self.remat and bd.remat and torch.is_grad_enabled():
             return checkpoint(lambda p_, x_: bd.apply(p_, x_, ctx), lp, x,
                               use_reentrant=False)
         return bd.apply(lp, x, ctx)
@@ -79,7 +85,9 @@ def run_segments(plan: ReplicatedPlan, arch: ArchDef, segments, stacks,
                  x: torch.Tensor, ctx: Ctx, lead: int = 0) -> torch.Tensor:
     """Apply all segments to x [*lead, b, t, d].  ``stacks`` holds each
     block's parameters [*lead, n_layers, *leaf] (``lead`` replica dims);
-    the layers of a stack are used in order across the segments."""
+    the layers of a stack are used in order across the segments.  The
+    segments' block names are the decoder's or the encoder's."""
+    blocks = {**arch.blocks, **(arch.enc_blocks or {})}
     per_layer = {}
     for name, tree in stacks.items():
         leaves, td = pytree.tree_flatten(tree)
@@ -95,5 +103,5 @@ def run_segments(plan: ReplicatedPlan, arch: ArchDef, segments, stacks,
                 for _ in range(cnt):
                     lp = per_layer[bname][cursors[bname]]
                     cursors[bname] += 1
-                    x = plan.block(arch.blocks[bname], lp, x, ctx)
+                    x = plan.block(blocks[bname], lp, x, ctx)
     return x

@@ -1,11 +1,16 @@
-"""The port's LM (the zoo's dense family) against the JAX package, on the
-CPU: the loss and its gradients.  ``jax.grad`` of JAX's
-``make_loss_single`` against the port's autograd at [1, 1] copies,
-float32, on the gemma3 and stablelm smoke configs and on gemma3's with 6
-layers (one 5:1 local:global period) at seq 16 > window 8 -- the loss
-within 1e-5, every gradient coordinate within 1e-5 (XLA and PyTorch sum
-the matmuls and reductions in other orders).  The train step on this
-model: ``tests/test_torch_lm_step.py``.
+"""The port's LM against the JAX package, on the CPU: the loss and its
+gradients.  ``jax.grad`` of JAX's ``make_loss_single`` against the
+port's autograd at [1, 1] copies, float32, on the gemma3 and stablelm
+smoke configs, on gemma3's with 6 layers (one 5:1 local:global period)
+at seq 16 > window 8, and on the xlstm and whisper smoke configs
+(whisper with the same frames in both) -- the loss within 1e-5, every
+gradient coordinate within 1e-5 (XLA and PyTorch sum the matmuls and
+reductions in other orders).  xlstm's gradients reach tens (the
+mLSTM divides by a normalizer that can be small), so there the bound
+is 1e-5 of each leaf's largest |gradient| where that passes 1: JAX's
+own jitted and op-by-op gradients differ by more than 1e-5 on those
+leaves too.  The train step on these models:
+``tests/test_torch_lm_step.py``, ``tests/test_torch_lm_families.py``.
 """
 import dataclasses
 
@@ -37,8 +42,10 @@ def one_thread():
 
 
 CASES = [("gemma3_1b", {}), ("stablelm_3b", {}),
-         ("gemma3_1b", {"n_layers": 6})]
-IDS = ["gemma3-smoke", "stablelm-smoke", "gemma3-6-layers"]
+         ("gemma3_1b", {"n_layers": 6}), ("xlstm_350m", {}),
+         ("whisper_base", {})]
+IDS = ["gemma3-smoke", "stablelm-smoke", "gemma3-6-layers", "xlstm-smoke",
+       "whisper-smoke"]
 
 
 def smoke(name, **kw):
@@ -56,21 +63,27 @@ def jax_params(jcfg, seed=0):
 def test_loss_and_grads_match_jax(name, kw):
     jcfg, cfg = smoke(name, **kw)
     jbuilt, p = jax_params(jcfg)
-    tokens = np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 16)).astype(np.int32)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)}
+    if cfg.encoder_layers:
+        batch["frames"] = (0.1 * rng.standard_normal(
+            (2, cfg.encoder_frames, cfg.frontend_dim))).astype(np.float32)
     loss_fn = jbuild.make_loss_single(jbuilt.arch)
     want, jgrads = jax.jit(jax.value_and_grad(
-        lambda pp: loss_fn(pp, {"tokens": jnp.asarray(tokens)}, None)))(p)
+        lambda pp: loss_fn(pp, jax.tree.map(jnp.asarray, batch), None)))(p)
     built = build.build_model(cfg, Topology(1, 1, "cpu"))
     leaves, td = pytree.tree_flatten(params_from_numpy(p))
     copies = [a[None, None].clone().requires_grad_(True) for a in leaves]
-    loss = built.bundle.loss(pytree.tree_unflatten(td, copies),
-                             {"tokens": torch.from_numpy(tokens)[None, None]
-                              .long()})
+    tbatch = {k: torch.from_numpy(v)[None, None] for k, v in batch.items()}
+    tbatch["tokens"] = tbatch["tokens"].long()
+    loss = built.bundle.loss(pytree.tree_unflatten(td, copies), tbatch)
     assert loss.shape == (1, 1)
     np.testing.assert_allclose(float(loss.detach()[0, 0]), float(want),
                                atol=1e-5)
     grads = torch.autograd.grad(loss.sum(), copies)
     for g, jg in zip(grads, jax.tree.leaves(jgrads)):
-        np.testing.assert_allclose(g[0, 0].numpy(), np.asarray(jg), rtol=0,
-                                   atol=1e-5)
+        jg = np.asarray(jg)
+        scale = max(1.0, float(np.abs(jg).max())) if name == "xlstm_350m" \
+            else 1.0
+        np.testing.assert_allclose(g[0, 0].numpy(), jg, rtol=0,
+                                   atol=1e-5 * scale)

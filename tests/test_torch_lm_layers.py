@@ -10,9 +10,11 @@ and one mean differ, 1e-5 where matmuls and a softmax do.  The same
 functions also run with leading replica dims ([2, 3] copies of the
 parameters), where each replica must equal the unbatched call.
 
-Also the structure: for every dense config, the port's parameter tree
-has the JAX tree's keys and shapes, and the same ``param_count``; the
-other families raise ``NotImplementedError`` naming ROADMAP item 15.
+Also the structure: for every config of a ported family (dense, ssm,
+encdec), the port's parameter tree has the JAX tree's keys and shapes,
+and the same ``param_count``; the other families raise
+``NotImplementedError`` naming ROADMAP item 15.  The ssm and encdec
+modules themselves: ``tests/test_torch_lm_families.py``.
 """
 import dataclasses
 
@@ -183,15 +185,17 @@ def test_dense_block():
         close(got[1, 2], want, 1e-5)
 
 
-DENSE = [n for n in configs.ARCH_NAMES
-         if configs.get_config(n).family == "dense"]
+PORTED = [n for n in configs.ARCH_NAMES
+          if configs.get_config(n).family in build.PORTED_FAMILIES]
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_param_tree_matches_jax(name):
-    """For every dense config (full and smoke): the port's parameter tree
-    (on the meta device) has the JAX tree's leaves in the same order with
-    the same shapes, and param_count is the JAX config's."""
+    """For every config of a ported family (full and smoke): the port's
+    parameter tree (on the meta device) has the JAX tree's leaves in the
+    same order with the same shapes, and param_count is the JAX
+    config's (the config's formula, which for xlstm counts the
+    embeddings alone)."""
     for getter, jgetter in ((configs.get_config, jconfigs.get_config),
                             (configs.get_smoke, jconfigs.get_smoke)):
         cfg, jcfg = getter(name), jgetter(name)
@@ -217,7 +221,7 @@ def _named(tree, prefix=""):
 
 
 @pytest.mark.parametrize("name", [n for n in configs.ARCH_NAMES
-                                  if n not in DENSE])
+                                  if n not in PORTED])
 def test_other_families_name_their_item(name):
     with pytest.raises(NotImplementedError, match="item 15"):
         build.build_model(configs.get_smoke(name), Topology(1, 1, "cpu"))

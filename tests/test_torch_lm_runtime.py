@@ -233,8 +233,9 @@ def run_cli(capsys, *argv):
     return capsys.readouterr().out
 
 
-def test_arch_cli_prints_the_same_digits_on_every_route(capsys):
-    base = ("--device", "cpu", "--arch", "gemma3_1b", "--smoke", "--steps",
+@pytest.mark.parametrize("arch", ["gemma3_1b", "xlstm_350m", "whisper_base"])
+def test_arch_cli_prints_the_same_digits_on_every_route(arch, capsys):
+    base = ("--device", "cpu", "--arch", arch, "--smoke", "--steps",
             "4", "--t_e", "2", "--batch", "2", "--seq", "16")
     outs = [run_cli(capsys, *base, *extra) for extra in (
         (), ("--transport", "fused", "--state_layout", "flat"),
@@ -282,7 +283,7 @@ def test_unported_options_name_their_item(what, capsys, tmp_path):
         return
     cases = {
         "family": (lambda: train.run_training(
-            configs.get_smoke("xlstm_350m"), topo, algo(), run), "item 15"),
+            configs.get_smoke("zamba2_2p7b"), topo, algo(), run), "item 15"),
         "cli_multi_pod": (lambda: train.main(
             ["--device", "cpu", "--arch", "gemma3_1b", "--smoke",
              "--multi_pod"]), "item 17"),

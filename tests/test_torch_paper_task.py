@@ -281,20 +281,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
     # the configs registry imports its modules by name, which the AST
-    # walk cannot see: load every arch, and build every dense one
+    # walk cannot see: load every arch, and build every one of a ported
+    # family (dense, ssm, encdec)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from repro_torch import configs\n"
             "from repro_torch.core.topology import Topology\n"
             "from repro_torch.models import build\n"
-            "dense = 0\n"
+            "built = 0\n"
             "for a in configs.ARCH_NAMES:\n"
             "    for cfg in (configs.get_config(a), configs.get_smoke(a)):\n"
-            "        if cfg.family == 'dense':\n"
+            "        if cfg.family in build.PORTED_FAMILIES:\n"
             "            build.build_model(cfg, Topology(1, 1, 'cpu'))"
             ".abstract_params()\n"
-            "            dense += 1\n"
-            "assert len(configs.ARCH_NAMES) == 10 and dense == 8, dense\n"
+            "            built += 1\n"
+            "assert len(configs.ARCH_NAMES) == 10 and built == 12, built\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
