@@ -124,6 +124,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      save's bytes and seconds, each submit's and restore's seconds, the
      peaks; then ``tally_acc`` at [2, 3, 417,468,416] bf16 beside its
      bound.
+ 10. ``serve``: prefill and greedy decode, the four kernels' counters
+     set to 0 before it (serving launches none of them): gemma3-1b whole
+     (26 layers, 802,384,128 parameters), xlstm-350m and whisper-base
+     whole, random weights from seed 0, put into a [2, n_pad] float32
+     ``FlatState`` (a training run's master, both edges equal) and
+     served as bfloat16 from edge 0 through
+     ``specs.serve_params_from_flat``; 8 requests from
+     ``serve_request_batch``: gemma 2048-token prompts, max_len 2176,
+     128 decode steps (its 22 local layers on the rolled window cache,
+     the 4 global ones on the offset cache); xlstm 1024-token prompts,
+     64 steps; whisper 1500 x 80 frames and 4-token prompts, 64 steps,
+     max_len 448.  Each twice: every logit finite, the generated tokens
+     the same; the float32 views share the buffer's storage; gemma's
+     decode step 1 after a 1100-token prefill against a 1101-token
+     prefill, on the float32 views and on the bfloat16 weights (every
+     greedy token the same, the largest difference within 2e-2 of the
+     largest logit in float32, 2^-5 in bfloat16).  JSON lines
+     ``{"serve": "run" | "decode step" | "memory" | "decode
+     consistency" | "phase"}``: prefill ms, decode ms a step and
+     tokens/s, launches and the device's busy share of one profiled
+     decode step, cache bytes, the peak rise beside ``serve_reckon``'s
+     reckoning.
 
 The ``ternary`` cases of phase 2 include the QSGD step's per-row form:
 rows of the MLP's leaf lengths 10, 64, 640 and 50176, R = 20 and 40 rows
@@ -2161,6 +2183,251 @@ def phase_fault_tolerant(torch, lm: dict, card: str) -> dict:
     return {"launches": launches, "oracle": oracle_launches, "tally_lm": row}
 
 
+SERVES = (("gemma3_1b", 2048, 128, 2176),     # (arch, prompt, decode
+          ("xlstm_350m", 1024, 64, 1088),    # steps, max_len)
+          ("whisper_base", 4, 64, 448))      # whisper's text context
+SERVE_B, SERVE_P = 8, 2          # requests; edges of the flat master
+SERVE_CHECK_PROMPT = 1100        # gemma's decode-consistency check
+# its limits on the largest logit difference, of the largest |logit|:
+# float32 views, the JAX package's own (tests/test_arch_smoke.py);
+# bfloat16, set from sound runs on the card (PERF.md section 6)
+SERVE_CHECK_TOL = {"float32 views": 2e-2, "bfloat16": 2.0 ** -5}
+GEMMA_1B_PARAMS = 802_384_128
+
+
+def serve_reckon(cfg, n: int, n_pad: int, cache_bytes: int,
+                 prompt: int) -> dict:
+    """The serving run's peak above what was held before the flat master
+    was made, reckoned from the code (GB): the float32 [P, n_pad] master,
+    the bfloat16 weights cast from its edge 0, the caches three times (a
+    step's input stacks, its new per-layer slices and their restack),
+    and the prefill's largest temporary, two float32 copies of the
+    attention scores alive at a time in ``attention._attend`` (gemma's
+    [b, h, Q_CHUNK, keys] a query chunk, whisper's encoder [b, h, f, f])
+    or four of the mLSTM's [b, H, t, t] decay matrices."""
+    from repro_torch.models.attention import Q_CHUNK
+
+    b = SERVE_B
+    if cfg.family == "ssm":
+        temp = 4 * 4 * b * cfg.n_heads * prompt ** 2
+    elif cfg.encoder_layers:
+        temp = 2 * 4 * b * cfg.n_heads * cfg.encoder_frames ** 2
+    else:
+        q = Q_CHUNK if prompt > Q_CHUNK and prompt % Q_CHUNK == 0 else prompt
+        temp = 2 * 4 * b * cfg.n_heads * q * prompt
+    terms = {"master": SERVE_P * n_pad * 4, "bf16_weights": 2 * n,
+             "caches": 3 * cache_bytes, "prefill_temporary": temp}
+    return {"peak_gb": sum(terms.values()) / 1e9,
+            **{f"{k}_gb": v / 1e9 for k, v in terms.items()}}
+
+
+def serve_run(torch, built, params, batch, max_len: int, steps: int,
+              snapshot_at: int | None = None) -> dict:
+    """Prefill ``batch`` then ``steps`` greedy decode steps, timed on the
+    host clock between synchronisations: the generated tokens [b,
+    steps], whether every logit was finite, the prefill and decode ms,
+    the cache's bytes and, at ``snapshot_at``, the step's (cache,
+    token) for a profiled rerun."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = built.prefill(params, batch, max_len)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cache_bytes = sum(a.numel() * a.element_size()
+                      for _, a in pytree_items(cache["stacks"]))
+    finite = torch.isfinite(logits).all()
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    out, snap = [], None
+    for i in range(steps):
+        if i == snapshot_at:
+            snap = (cache, tok)
+        logits, cache = built.decode_step(params, cache, tok)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out.append(tok)
+    tokens = torch.cat(out, dim=1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"tokens": tokens, "finite": bool(finite),
+            "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_step": (t2 - t1) * 1e3 / steps,
+            "cache_bytes": cache_bytes, "snapshot": snap}
+
+
+def serve_profile(torch, built, params, cache, tok) -> dict:
+    """One decode step under torch.profiler: its launches (device
+    kernels and copies; the host-to-device copies apart), the device's
+    busy ms, the step's host-clock ms and the five device ops that took
+    the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_step import device_us, on_device
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        built.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages() if on_device(e)]
+    busy = sum(map(device_us, evs)) / 1e3
+    evs.sort(key=device_us, reverse=True)
+    return {"launches": sum(e.count for e in evs),
+            "htod_copies": sum(e.count for e in evs if "HtoD" in e.key),
+            "busy_ms": busy, "wall_ms": wall, "busy_share": busy / wall,
+            "top": [{"name": e.key[:160], "calls": e.count,
+                     "device_ms": device_us(e) / 1e3} for e in evs[:5]]}
+
+
+def serve_consistency(torch, built, params, cfg, dtype: str) -> dict:
+    """gemma3-1b on ``params`` (its float32 views, or the bfloat16
+    weights the timed runs serve): decode step 1 after a
+    SERVE_CHECK_PROMPT-token prefill against the last position of a
+    prefill one token longer (the window layers roll their caches, every
+    slot valid, the global ones write at offsets).  The greedy token of
+    every request must agree and the largest logit difference stay
+    within SERVE_CHECK_TOL[dtype] of the largest |logit|; the smallest
+    gap between the longer prefill's two best logits is reported
+    beside them."""
+    from repro_torch.data import synthetic
+
+    t = SERVE_CHECK_PROMPT
+    toks = synthetic.serve_request_batch(
+        synthetic.LMStreamCfg(vocab=cfg.vocab, seq_len=t + 1,
+                              batch_per_device=SERVE_B, pods=1,
+                              devices_per_pod=1),
+        SERVE_B, t + 1, seed=18)["tokens"].cuda()
+    _, cache = built.prefill(params, {"tokens": toks[:, :t]}, t + 8)
+    dec, _ = built.decode_step(params, cache, toks[:, t:])
+    full, _ = built.prefill(params, {"tokens": toks}, t + 8)
+    dec, full = dec[:, -1].float(), full[:, -1].float()
+    del cache
+    top2 = torch.topk(full, 2, dim=-1).values
+    out = {"dtype": dtype, "prompt": t,
+           "greedy_tokens_agree": torch.equal(dec.argmax(-1),
+                                              full.argmax(-1)),
+           "max_abs_logit_diff": float((dec - full).abs().max()),
+           "max_abs_logit": float(full.abs().max()),
+           "min_top2_gap": float((top2[:, 0] - top2[:, 1]).min())}
+    out["limit"] = SERVE_CHECK_TOL[dtype] * out["max_abs_logit"]
+    require(out["greedy_tokens_agree"], f"gemma3-1b {dtype}: decode step "
+            f"1 and the longer prefill disagree on a greedy token: {out}")
+    require(out["max_abs_logit_diff"] <= out["limit"],
+            f"gemma3-1b {dtype}: decode step 1 and the longer prefill "
+            f"differ beyond the limit: {out}")
+    return out
+
+
+def phase_serve(torch, card: str) -> dict:
+    """Serving on the card (see the module docstring): gemma3-1b,
+    xlstm-350m and whisper-base whole, random weights from seed 0, put
+    into a [2, n_pad] float32 FlatState (both edges equal, as after the
+    cloud mean) and served as bfloat16 from edge 0
+    (``specs.serve_params_from_flat``): 8 requests of
+    ``serve_request_batch``, prefill, greedy decode, twice (the tokens
+    must be the same, every logit finite), one decode step profiled;
+    the float32 views share the buffer's storage; gemma's decode
+    consistency on the float32 views and on the bfloat16 weights.  The
+    four kernels' counters are set to 0 just before and read just after:
+    serving launches none of them."""
+    from repro_torch import configs
+    from repro_torch.core import flatbuf, pytree
+    from repro_torch.core.topology import Topology
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.tally_acc import tally_acc
+    from repro_torch.kernels.ternary_quant import ternary_quant
+    from repro_torch.kernels.vote_update import vote_update
+    from repro_torch.launch import specs
+    from repro_torch.models import build
+
+    t_phase = time.perf_counter()
+    counters = (sign_pack, vote_update, tally_acc, ternary_quant)
+    for fn in counters:
+        fn.launches = 0
+    for arch, prompt, steps, max_len in SERVES:
+        tag = f"[serve] {arch}"
+        cfg = configs.get_config(arch)
+        topo = Topology(1, 1, "cuda")
+        built = build.build_model(cfg, topo)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        tree = built.init_params(torch.Generator(device="cuda").manual_seed(0))
+        n = build.param_count(tree)
+        if arch == "gemma3_1b":
+            require(n == GEMMA_1B_PARAMS, f"gemma3-1b has {n} parameters")
+        fs = flatbuf.from_tree(pytree.tree_map(
+            lambda v: v.unsqueeze(0).expand((SERVE_P,) + tuple(v.shape)),
+            tree), batch_dims=1)
+        views = specs.serve_params_from_flat(built, fs)
+        ptr = fs.buf.untyped_storage().data_ptr()
+        leaves = pytree.tree_flatten(views)[0]
+        require(all(v.untyped_storage().data_ptr() == ptr for v in leaves),
+                f"{arch}: a float32 view does not share the buffer")
+        require(all(torch.equal(v, w) for v, w in zip(
+            leaves, pytree.tree_flatten(tree)[0])),
+            f"{arch}: a view differs from its leaf")
+        del tree, leaves
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = specs.serve_params_from_flat(built, fs,
+                                              dtype=torch.bfloat16)
+        batch = synthetic.serve_request_batch(
+            synthetic.LMStreamCfg(vocab=cfg.vocab, seq_len=prompt,
+                                  batch_per_device=SERVE_B, pods=1,
+                                  devices_per_pod=1,
+                                  frames=cfg.encoder_frames
+                                  if cfg.encoder_layers else 0,
+                                  frontend_dim=cfg.frontend_dim),
+            SERVE_B, prompt)
+        batch = {k: v.cuda() for k, v in batch.items()}
+        first = serve_run(torch, built, params, batch, max_len, steps)
+        second = serve_run(torch, built, params, batch, max_len, steps,
+                           snapshot_at=steps // 2)
+        require(first["finite"] and second["finite"],
+                f"{arch}: a logit is not finite")
+        require(torch.equal(first["tokens"], second["tokens"]),
+                f"{arch}: the generated tokens differ between two runs")
+        prof = serve_profile(torch, built, params, *second.pop("snapshot"))
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        checks = []
+        if arch == "gemma3_1b":
+            checks = [serve_consistency(torch, built, p, cfg, dtype)
+                      for p, dtype in ((views, "float32 views"),
+                                       (params, "bfloat16"))]
+        print(f"{tag}: tokens of request 0: "
+              f"{second['tokens'][0, :16].tolist()}", flush=True)
+        emit({"serve": "run", "arch": cfg.name, "card": card,
+              "parameters": n, "n_pad": fs.layout.n_pad,
+              "requests": SERVE_B, "prompt": prompt, "decode_steps": steps,
+              "max_len": max_len, "dtype": "bfloat16",
+              "prefill_ms": [first["prefill_ms"], second["prefill_ms"]],
+              "decode_ms_per_step": [first["decode_ms_per_step"],
+                                     second["decode_ms_per_step"]],
+              "decode_tokens_per_s": SERVE_B * 1e3
+              / second["decode_ms_per_step"],
+              "cache_bytes": second["cache_bytes"],
+              "tokens_identical_in_two_runs": True, "logits_finite": True,
+              "float32_views_zero_copy": True})
+        emit({"serve": "decode step", "arch": cfg.name, "card": card,
+              **prof})
+        emit({"serve": "memory", "arch": cfg.name, "card": card,
+              "peak_rise_gb": peak,
+              "reckoned": serve_reckon(cfg, n, fs.layout.n_pad,
+                                       second["cache_bytes"], prompt)})
+        for check in checks:
+            emit({"serve": "decode consistency", "arch": cfg.name,
+                  "card": card, **check})
+        del fs, views, params, batch, first, second
+        torch.cuda.empty_cache()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    require(not any(launches.values()),
+            f"serving launched a training kernel: {launches}")
+    emit({"serve": "phase", "card": card, "launches": launches,
+          "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def pytree_items(tree, prefix=""):
     """(dotted name, leaf) pairs of a nested dict of tensors."""
     if not isinstance(tree, dict):
@@ -2222,6 +2489,7 @@ def main() -> None:
     lm_launches = phase_lm(torch)
     fam_launches = phase_families(torch)
     ft = phase_fault_tolerant(torch, lm_launches["peak_gb"], card)
+    serve_launches = phase_serve(torch, card)
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
              "tally_acc": "clients, stream fused/flat (30 steps, K=2)",
@@ -2245,6 +2513,7 @@ def main() -> None:
             "families_launches": {arch: fam[name] if name in fam else 0
                                   for arch, fam in fam_launches.items()},
             "fault_tolerant_launches": ft["launches"].get(name, 0),
+            "serve_launches": serve_launches[name],
             "oracle_check_launches": sum(
                 r.get(name, 0) for r in ft["oracle"].values())})
     emit({"kernels": kernels})

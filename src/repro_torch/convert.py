@@ -11,7 +11,9 @@ pattern, so every value survives bitwise.
 A JAX ``TrainState`` mapped the same way (its flat slots keep their
 ``FlatState`` wrapper, with a numpy ``buf``) carries over slot for slot
 with :func:`train_state_from_numpy`, so both packages can start from the
-same mid-run state.
+same mid-run state.  A serving cache (``{"stacks": ..., "pos": ...}``,
+the JAX package's ``built.prefill``'s second output) carries over with
+:func:`cache_from_numpy` and back with :func:`cache_to_numpy`.
 """
 from __future__ import annotations
 
@@ -50,6 +52,21 @@ def params_from_numpy(tree: PyTree,
 
 def params_to_numpy(tree: PyTree) -> PyTree:
     return pytree.tree_map(tensor_to_numpy, tree)
+
+
+def cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
+    """A serving cache with numpy leaves (JAX's under ``jax.tree.map(
+    np.asarray, ...)``) -> the port's: the stacks leaf for leaf (bfloat16
+    bitwise), ``pos`` (JAX's int32 scalar) a host int."""
+    return {"stacks": params_from_numpy(cache["stacks"], device),
+            "pos": int(np.asarray(cache["pos"]))}
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """The port's serving cache with numpy leaves (bfloat16 widened to
+    float32 exactly) and ``pos`` an int32 scalar, as JAX's has it."""
+    return {"stacks": params_to_numpy(cache["stacks"]),
+            "pos": np.int32(cache["pos"])}
 
 
 def flat_state_from_numpy(buf, layout: flatbuf.FlatLayout,

@@ -107,6 +107,14 @@ class FlatState:
                 f"n_pad={self.layout.n_pad}, batch_dims={self.batch_dims})")
 
 
+def from_tree(tree: PyTree, batch_dims: int = 0) -> FlatState:
+    """Lay out and flatten ``tree`` into a :class:`FlatState` in one
+    call."""
+    layout = make_layout(tree, batch_dims=batch_dims)
+    return FlatState(flatten_tree(layout, tree, batch_dims=batch_dims),
+                     layout, batch_dims)
+
+
 def with_dtype(layout: FlatLayout, dtype: torch.dtype) -> FlatLayout:
     """The same coordinate layout, re-labeled for a buffer of ``dtype``
     (delta / EF buffers share the master's geometry)."""

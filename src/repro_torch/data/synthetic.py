@@ -28,8 +28,12 @@ times standard normals of shape [P, D, b, frames, frontend_dim], drawn
 the same way from a CPU generator seeded from (seed, step,
 ``FRAMES_TAG``); the parity tests hand both packages the same frames.
 
-Not ported yet: the vlm family's vision patches (ROADMAP item 15) and
-``serve_request_batch`` (serving, item 21).
+``serve_request_batch`` draws a batch of serving prompts (uniform
+tokens) from a CPU generator seeded from its ``seed``, where the JAX
+package draws ``jax.random.randint``; whisper's requests add stub frames
+drawn as the stream's are.
+
+Not ported yet: the vlm family's vision patches (ROADMAP item 15).
 """
 from __future__ import annotations
 
@@ -180,3 +184,19 @@ def make_stream(cfg: LMStreamCfg):
         return batch
 
     return batch_at
+
+
+def serve_request_batch(cfg: LMStreamCfg, n_requests: int, prompt_len: int,
+                        seed: int = 17) -> dict:
+    """Batched serving requests on the CPU: ``{"tokens": [n_requests,
+    prompt_len] int64}`` uniform over the vocabulary, and with
+    ``cfg.frames`` the requests' stub audio ``"frames"`` [n_requests,
+    frames, frontend_dim] (``0.1`` times standard normals)."""
+    gen = torch.Generator().manual_seed(key_seed(seed))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (n_requests, prompt_len),
+                                     generator=gen)}
+    if cfg.frames:
+        gen = torch.Generator().manual_seed(key_seed(seed, FRAMES_TAG))
+        batch["frames"] = 0.1 * torch.randn(
+            (n_requests, cfg.frames, cfg.frontend_dim), generator=gen)
+    return batch

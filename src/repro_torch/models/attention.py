@@ -1,23 +1,27 @@
-"""Grouped-query attention (sliding window, qk-norm) and cross-attention
-in train mode.
+"""Grouped-query attention (sliding window, qk-norm) and cross-attention,
+in train mode and with a KV cache for serving.
 
-The JAX package's ``models/attention.py`` for training: ``init_gqa``,
-``_repeat_kv``, ``_attend`` (with a mask or none: whisper's
-bidirectional encoder), ``attend_causal`` (the full-mask path and the
-q-block scan with its window key slice), ``gqa_attn`` without a cache,
-and whisper's ``init_cross``, ``cross_kv`` and ``cross_attn``.
-Activations are ``[*lead, b, t, h, hd]`` (``layers``' leading replica
-dims).
+The JAX package's ``models/attention.py``: ``init_gqa``, ``_repeat_kv``,
+``_attend`` (with a mask or none: whisper's bidirectional encoder),
+``attend_causal`` (the full-mask path and the q-block scan with its
+window key slice), ``gqa_attn`` in its three modes (train; prefill,
+which fills the cache; decode over the cache: the rolled window cache or
+the offset cache), ``gqa_cache_init``, and whisper's ``init_cross``,
+``cross_kv`` and ``cross_attn``.  Activations are ``[*lead, b, t, h,
+hd]`` (``layers``' leading replica dims; none when serving).
 
 The arithmetic is the JAX package's, which computes attention in plain
 jnp: the scores are a product in the compute dtype, THEN cast to
 float32, divided by sqrt(hd), masked with the finite ``NEG_INF`` and
 softmaxed in float32, and the weights cast back to v's dtype before
 their product with v.  (``scaled_dot_product_attention`` would fuse
-these with other roundings.)
+these with other roundings.)  Mixed operands promote as ``jnp.einsum``
+promotes them: float32 queries meet a bfloat16 cache in float32, the
+softmax weights are cast to the cache's bfloat16 for their product with
+v, and that product meets ``wo`` in float32.
 
-Not ported yet: the prefill and decode modes with their KV caches
-(ROADMAP item 21) and MLA (item 15, with the moe family).
+Not ported yet: MLA (ROADMAP item 15, with the moe family) and the
+cache's sharding specs (item 17).
 """
 from __future__ import annotations
 
@@ -56,7 +60,10 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def _attend(q, k, v, mask):
     """q: [*, b, tq, h, hd]; k, v: [*, b, tk, h, hd]; mask: [tq, tk] bool
-    (shared by every replica and row) or None."""
+    (shared by every replica and row) or None.  q and k meet in their
+    promoted dtype."""
+    dt = torch.promote_types(q.dtype, k.dtype)
+    q, k = q.to(dt), k.to(dt)
     scores = torch.matmul(q.transpose(-3, -2), k.permute(
         *range(k.dim() - 4), -4, -2, -1, -3)).to(torch.float32)
     scores = scores / layers.scalar(scores, math.sqrt(q.shape[-1]))
@@ -118,15 +125,34 @@ def _proj_heads(x, w):
 
 
 def _merge_heads(out, wo):
-    """out [*, b, t, h, k] @ wo [*, h, k, d] -> [*, b, t, d]."""
+    """out [*, b, t, h, k] @ wo [*, h, k, d] -> [*, b, t, d], in their
+    promoted dtype."""
+    out = out.to(torch.promote_types(out.dtype, wo.dtype))
     return layers.linear(out.reshape(out.shape[:-2] + (-1,)),
                          wo.reshape(wo.shape[:-3] + (-1, wo.shape[-1])))
 
 
 def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
-             mask_extra=None):
-    """Train-mode GQA: x [*, b, t, d] -> [*, b, t, d] (causal, no cache)."""
-    h, hkv = cfg.n_heads, cfg.n_kv_heads
+             mask_extra=None, cache=None, pos: int = 0,
+             prefill: bool = False):
+    """Causal GQA: x [*, b, t, d] -> [*, b, t, d] without a cache (train
+    mode); with one, (out, new_cache).
+
+    ``cache`` is ``{"k", "v": [b, L, hkv, hd]}`` (``gqa_cache_init``); k
+    and v enter it in its dtype.  A cache of length ``window`` is the
+    rolled window cache, whose last slot holds the newest position; any
+    other is written at offsets.  ``prefill`` attends causally over the
+    fresh tokens, as training does, and fills the cache: the rolled one
+    keeps the last ``window`` of (cache, k), the other takes k at offset
+    0.  Decode (not ``prefill``) takes t tokens from position ``pos`` (a
+    host int): the rolled cache rolls left by t, appends them, and masks
+    the slots before position 0 (``slot >= window - 1 - pos``); the
+    offset cache writes them at ``pos`` and masks ``kj <= pos`` (and ``kj
+    > pos - window`` with a window), the same mask for each of the t
+    queries, as the JAX package's is.  An offset write past the cache's
+    end raises ``ValueError`` (the JAX package's ``dynamic_update_slice``
+    would clamp it into the last slots)."""
+    rep = cfg.n_heads // cfg.n_kv_heads
     q = _proj_heads(x, p["wq"])
     k = _proj_heads(x, p["wk"])
     v = _proj_heads(x, p["wv"])
@@ -135,9 +161,48 @@ def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
         k = layers.rms_norm(p["kn"], k, cfg.norm_eps)
     q = layers.rope(q, positions, theta)
     k = layers.rope(k, positions, theta)
-    out = attend_causal(q, _repeat_kv(k, h // hkv), _repeat_kv(v, h // hkv),
-                        window, mask_extra)
-    return _merge_heads(out, p["wo"])
+    if cache is None or prefill:
+        out = attend_causal(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
+                            window, mask_extra)
+        if cache is None:
+            return _merge_heads(out, p["wo"])
+    ck, cv = cache["k"], cache["v"]
+    kc, vc = k.to(ck.dtype), v.to(cv.dtype)
+    t, length = x.shape[-2], ck.shape[-3]
+    rolled = length == window
+    if prefill and rolled:
+        ck = torch.cat([ck, kc], dim=-3)[..., -window:, :, :]
+        cv = torch.cat([cv, vc], dim=-3)[..., -window:, :, :]
+    elif rolled:
+        ck = torch.cat([ck[..., t:, :, :], kc], dim=-3)
+        cv = torch.cat([cv[..., t:, :, :], vc], dim=-3)
+        valid = torch.arange(window, device=x.device) >= window - 1 - pos
+        out = _attend(q, _repeat_kv(ck, rep), _repeat_kv(cv, rep),
+                      valid.expand(t, window))
+    else:
+        at = 0 if prefill else pos
+        if at + t > length:
+            raise ValueError(
+                f"writing {t} positions at {at} overruns the cache's "
+                f"{length} (max_len)")
+        ck = torch.cat([ck[..., :at, :, :], kc, ck[..., at + t:, :, :]],
+                       dim=-3)
+        cv = torch.cat([cv[..., :at, :, :], vc, cv[..., at + t:, :, :]],
+                       dim=-3)
+        if not prefill:
+            kj = torch.arange(length, device=x.device)
+            valid = kj <= pos
+            if window:
+                valid &= kj > pos - window
+            out = _attend(q, _repeat_kv(ck, rep), _repeat_kv(cv, rep),
+                          valid.expand(t, length))
+    return _merge_heads(out, p["wo"]), {"k": ck, "v": cv}
+
+
+def gqa_cache_init(cfg, b: int, max_len: int) -> dict:
+    """The shapes of one layer's k and v cache."""
+    shape = (b, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": shape, "v": shape}
 
 
 def bidir_attn(p, x, cfg):

@@ -1,4 +1,5 @@
-"""Build ArchDefs and the train entry point from an LMConfig.
+"""Build ArchDefs, the train entry point and the serving entry points
+from an LMConfig.
 
 The JAX package's ``models/build.py`` for the dense, ssm (xlstm) and
 encdec/audio (whisper) families in the replicated regime:
@@ -6,6 +7,8 @@ encdec/audio (whisper) families in the replicated regime:
     built = build_model(cfg, topo)
     built.init_params(generator)  -> one replica's parameters
     built.bundle                  -> core.hier.ModelBundle
+    built.make_cache(b, max_len)  -> decode cache
+    built.prefill / built.decode_step
 
 The bundle's loss takes ``[P, D, *leaf]`` parameter copies and
 ``{"tokens": [P, D, b, L]}`` (whisper: and ``"frames": [P, D, b, f,
@@ -19,15 +22,27 @@ The parameter tree is the JAX package's leaf for leaf -- ``embed.table``,
 ``enc_stacks.enc.<leaf>`` and ``adapter.w`` -- so a JAX tree converts
 with ``convert.params_from_numpy``.
 
+Serving (``make_serve_fns``) runs one replica's parameters, ``lead``
+0, on their device: ``prefill(params, {"tokens": [b, t]}, max_len)``
+(whisper: and ``"frames"`` [b, frames, frontend_dim]) returns the last
+position's logits [b, 1, V] -- never the [b, t, V] of all of them --
+and the cache ``{"stacks": {block: [n_layers, *slice]}, "pos": t}``;
+``decode_step(params, cache, tokens [b, 1])`` returns the logits [b, 1,
+V] and the next cache.  ``pos`` is a host int (no device sync a step).
+The caches are bfloat16 whatever the compute dtype, as the JAX
+package's prefill builds them.  Both run without autograd.
+
 Not ported yet (ROADMAP item 15, each raises ``NotImplementedError``):
 the hybrid family (zamba2: its reference gradients are not finite,
 ROADMAP queue 3), vlm (internvl2's patches) and moe (arctic,
-deepseek-v3: after item 17).  Nor serving (``make_serve_fns``, caches:
-item 21) or the FSDP regime's ``make_loss_master`` (item 17).
+deepseek-v3: after item 17).  Nor the FSDP regime (item 17): its
+``make_loss_master``, its serving (``serve_layout``, ``ServeGatherPlan``)
+and ``cache_specs``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
@@ -170,6 +185,103 @@ def make_loss(arch: ArchDef, remat: bool = True) -> Callable:
     return loss
 
 
+def make_cache(arch: ArchDef, b: int, max_len: int,
+               device: str | torch.device | None = None) -> dict:
+    """bfloat16 zeros of each block's ``cache_init`` slice shapes,
+    stacked over its layers, and ``pos`` 0.  Every leaf is zero, the
+    sLSTM's ``n`` too, where training starts it at ones: the JAX
+    package's ``make_cache`` does the same (ROADMAP queue 3)."""
+    stacks = {}
+    for name, n in engine.stack_counts(arch.segments).items():
+        bd = arch.blocks[name]
+        if bd.cache_init is None:
+            continue
+        stacks[name] = pytree.tree_map(
+            lambda shape: torch.zeros((n,) + shape, dtype=torch.bfloat16,
+                                      device=device),
+            bd.cache_init(b, max_len))
+    return {"stacks": stacks, "pos": 0}
+
+
+def cache_specs(arch: ArchDef):
+    raise NotImplementedError(
+        "cache_specs (the caches' sharding): ROADMAP item 17")
+
+
+class ServeGatherPlan(ReplicatedPlan):
+    """The serving plan for FSDP-stored parameters (a per-layer
+    all-gather): ROADMAP item 17."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ServeGatherPlan (serving FSDP-stored parameters): ROADMAP "
+            "item 17")
+
+
+def serve_layout(cfg: LMConfig) -> str:
+    """``"resident"``: the replicated regime serves its parameters as
+    they are.  FSDP raises (ROADMAP item 17)."""
+    if cfg.param_mode == "fsdp":
+        raise NotImplementedError(
+            f"serving {cfg.name} (param_mode='fsdp'): ROADMAP item 17")
+    return "resident"
+
+
+def make_serve_fns(arch: ArchDef):
+    """(prefill, decode_step) as the module docstring gives them."""
+    cfg = arch.cfg
+    plan = ReplicatedPlan(cfg, remat=False)
+
+    def prefill(params, batch, max_len: int):
+        """The whole prompt: (the last position's logits [b, 1, V], the
+        cache).  whisper's encoder runs in train mode first."""
+        serve_layout(cfg)
+        if cfg.n_patches or "patches" in batch:
+            raise NotImplementedError(
+                "vision patches (the vlm family): ROADMAP item 15")
+        tokens = batch["tokens"]
+        b, t = tokens.shape
+        with torch.no_grad():
+            x = layers.embed(params["embed"], tokens, cfg.embed_scale)
+            enc_out = None
+            if arch.enc_segments:
+                frames = batch["frames"].to(x.dtype)
+                ex = layers.linear(frames,
+                                   params["adapter"]["w"].to(x.dtype))
+                ectx = Ctx(cfg, "train", positions=torch.arange(
+                    frames.shape[-2], device=frames.device))
+                enc_out = engine.run_segments(
+                    plan, arch, arch.enc_segments, params["enc_stacks"],
+                    ex, ectx)
+            cache = make_cache(arch, b, max_len, tokens.device)
+            ctx = Ctx(cfg, "prefill",
+                      positions=torch.arange(t, device=tokens.device),
+                      pos=0, enc_out=enc_out)
+            x, stacks = engine.run_segments(
+                plan, arch, arch.segments, params["stacks"], x, ctx,
+                caches=cache["stacks"])
+            logits = _logits(cfg, params["head"], params["embed"],
+                             x[..., -1:, :])
+        return logits, {"stacks": stacks, "pos": t}
+
+    def decode_step(params, cache, tokens):
+        """One step: tokens [b, 1] at ``cache["pos"]`` -> (logits [b, 1,
+        V], the next cache)."""
+        serve_layout(cfg)
+        pos, t = cache["pos"], tokens.shape[-1]
+        with torch.no_grad():
+            x = layers.embed(params["embed"], tokens, cfg.embed_scale)
+            ctx = Ctx(cfg, "decode", positions=pos + torch.arange(
+                t, device=tokens.device), pos=pos)
+            x, stacks = engine.run_segments(
+                plan, arch, arch.segments, params["stacks"], x, ctx,
+                caches=cache["stacks"])
+            logits = _logits(cfg, params["head"], params["embed"], x)
+        return logits, {"stacks": stacks, "pos": pos + t}
+
+    return prefill, decode_step
+
+
 @dataclasses.dataclass
 class BuiltModel:
     cfg: LMConfig
@@ -178,16 +290,22 @@ class BuiltModel:
     bundle: hier.ModelBundle
     init_params: Callable          # (torch.Generator) -> one replica's params
     abstract_params: Callable      # () -> the same tree on the meta device
+    prefill: Callable              # (params, batch, max_len) -> logits, cache
+    decode_step: Callable          # (params, cache, tokens) -> logits, cache
+    make_cache: Callable           # (b, max_len, device) -> cache
 
 
 def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
     arch = make_archdef(cfg)
+    prefill, decode_step = make_serve_fns(arch)
     return BuiltModel(
         cfg=cfg, arch=arch, topo=topo,
         bundle=hier.ModelBundle(loss=make_loss(arch),
                                 param_mode=cfg.param_mode),
         init_params=lambda generator: init_params(arch, generator),
-        abstract_params=lambda: init_params(arch, None, "meta"))
+        abstract_params=lambda: init_params(arch, None, "meta"),
+        prefill=prefill, decode_step=decode_step,
+        make_cache=functools.partial(make_cache, arch))
 
 
 def param_count(params: PyTree) -> int:

@@ -1,4 +1,5 @@
-"""Model engine: the layer schedule of a train forward.
+"""Model engine: the layer schedule of a forward, in train mode or over
+the decode caches.
 
 The JAX package's ``models/engine.py`` for the replicated regime.  Layer
 schedules are lists of Segments; a Segment runs ``repeats`` times over
@@ -7,12 +8,15 @@ stacked per block name with a leading layer dim (after the replica
 dims), and the segments take the layers of each stack in order -- the
 JAX package's ``lax.scan`` written as Python loops in the same order.
 An encoder-decoder (whisper) has its own ``enc_blocks`` and
-``enc_segments``, run by the same code over ``enc_stacks``.
+``enc_segments``, run by the same code over ``enc_stacks``.  Serving
+hands ``run_segments`` the caches, stacked per block name as the
+parameters are; each layer takes the slice its cursor gives, and the
+new slices are restacked in layer order.
 
 Not ported yet: tied blocks (zamba2's shared attention, with the hybrid
 family, ROADMAP item 15), the MTP block (deepseek-v3, with the moe
-family, item 15), the decode caches (item 21), and ``FsdpPlan`` (item
-17).
+family, item 15), and ``FsdpPlan`` and the serving plan that gathers
+FSDP shards (item 17).
 """
 from __future__ import annotations
 
@@ -74,26 +78,37 @@ class ReplicatedPlan:
     def __init__(self, cfg: LMConfig, remat: bool):
         self.remat = remat and cfg.remat
 
-    def block(self, bd: BlockDef, lp, x, ctx: Ctx):
+    def block(self, bd: BlockDef, lp, x, ctx: Ctx, cache=None):
+        if cache is not None:
+            return bd.apply(lp, x, ctx, cache)
         if self.remat and bd.remat and torch.is_grad_enabled():
             return checkpoint(lambda p_, x_: bd.apply(p_, x_, ctx), lp, x,
                               use_reentrant=False)
         return bd.apply(lp, x, ctx)
 
 
+def _per_layer(tree, lead: int) -> list:
+    """A stacked tree [*lead, n, *leaf] -> its n layers' trees."""
+    leaves, td = pytree.tree_flatten(tree)
+    return [pytree.tree_unflatten(td, list(ls))
+            for ls in zip(*(a.unbind(lead) for a in leaves))]
+
+
 def run_segments(plan: ReplicatedPlan, arch: ArchDef, segments, stacks,
-                 x: torch.Tensor, ctx: Ctx, lead: int = 0) -> torch.Tensor:
+                 x: torch.Tensor, ctx: Ctx, lead: int = 0, caches=None):
     """Apply all segments to x [*lead, b, t, d].  ``stacks`` holds each
     block's parameters [*lead, n_layers, *leaf] (``lead`` replica dims);
     the layers of a stack are used in order across the segments.  The
-    segments' block names are the decoder's or the encoder's."""
+    segments' block names are the decoder's or the encoder's.  With
+    ``caches`` (each block's [n_layers, *slice], serving, ``lead`` 0)
+    each layer takes its slice and the result is (x, the new caches
+    stacked the same way)."""
     blocks = {**arch.blocks, **(arch.enc_blocks or {})}
-    per_layer = {}
-    for name, tree in stacks.items():
-        leaves, td = pytree.tree_flatten(tree)
-        per_layer[name] = [pytree.tree_unflatten(td, list(ls))
-                           for ls in zip(*(a.unbind(lead) for a in leaves))]
+    per_layer = {name: _per_layer(tree, lead) for name, tree in stacks.items()}
     cursors = dict.fromkeys(per_layer, 0)
+    old = ({name: _per_layer(tree, 0) for name, tree in caches.items()}
+           if caches is not None else None)
+    new = {name: [] for name in old} if old is not None else None
     for seg in segments:
         if seg.tied:
             raise NotImplementedError(
@@ -102,6 +117,14 @@ def run_segments(plan: ReplicatedPlan, arch: ArchDef, segments, stacks,
             for bname, cnt in seg.layout:
                 for _ in range(cnt):
                     lp = per_layer[bname][cursors[bname]]
+                    if old is None:
+                        x = plan.block(blocks[bname], lp, x, ctx)
+                    else:
+                        x, nc = plan.block(blocks[bname], lp, x, ctx,
+                                           old[bname][cursors[bname]])
+                        new[bname].append(nc)
                     cursors[bname] += 1
-                    x = plan.block(blocks[bname], lp, x, ctx)
-    return x
+    if new is None:
+        return x
+    return x, {name: pytree.tree_map(lambda *ls: torch.stack(ls), *layers_)
+               for name, layers_ in new.items()}

@@ -1,11 +1,15 @@
-"""Recurrent blocks of the xLSTM family: mLSTM and sLSTM, in train mode.
+"""Recurrent blocks of the xLSTM family: mLSTM and sLSTM, in train mode
+and with their recurrent states for serving.
 
-The JAX package's ``models/ssm.py`` for xlstm: ``_causal_conv`` (no
-decode state), ``init_mlstm``, ``mlstm_block`` with the parallel
-(decay-matrix) form ``_mlstm_parallel``, ``init_slstm`` and
-``slstm_block``, whose ``lax.scan`` over time is a Python loop in the
-same order.  Activations are ``[*lead, b, t, d]`` and parameter leaves
-``[*lead, *leaf]`` (``layers``' leading replica dims).
+The JAX package's ``models/ssm.py`` for xlstm: ``_causal_conv`` (with
+or without its decode state), ``init_mlstm``, ``mlstm_block`` with the
+parallel (decay-matrix) form ``_mlstm_parallel`` (train and prefill,
+which also forms the final state in closed form) and the recurrent
+decode step, ``mlstm_state_init``, ``init_slstm``, ``slstm_block``,
+whose ``lax.scan`` over time is a Python loop in the same order, from
+zeros or from a given state, and ``slstm_state_init``.  Activations
+are ``[*lead, b, t, d]`` and parameter leaves ``[*lead, *leaf]``
+(``layers``' leading replica dims).
 
 Dtypes land where JAX's promotion puts them: ``torch.matmul`` refuses
 the mixed bf16 x f32 operands that ``jnp.einsum`` promotes, so the
@@ -14,8 +18,15 @@ compute-dtype operand is cast to float32 at exactly those products
 Gradients split at ties as JAX's do: ``torch.amax`` and
 ``torch.maximum`` halve them, as ``jnp.max`` and ``jnp.maximum`` do.
 
+The serving quirks are the JAX package's: prefill (t > 1) uses the
+incoming mLSTM state only as a flag (the parallel form starts from
+zeros; the conv state is prepended), a one-token prompt takes the
+recurrent step from that state, and the recurrent step's denominator is
+``max(|n . q|, 1)``, where the parallel form's is ``max(|sum_j
+scores|, exp(-m))``.
+
 Not ported: mamba2 and its SSD scan (the hybrid family, ROADMAP item
-15) and the recurrent decode states (serving, item 21).
+15).
 """
 from __future__ import annotations
 
@@ -28,16 +39,20 @@ from repro_torch.models import layers
 from repro_torch.models.layers import F32, bcast, he_init, linear, scalar
 
 
-def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
     """Depthwise causal convolution then SiLU: x [*lead, b, t, c], w
     [*lead, k, c] -> [*lead, b, t, c]; tap i reads x at t - (k - 1) + i,
     zeros before the start.  The taps add in order in x's dtype (JAX's
-    ``sum`` of the products)."""
+    ``sum`` of the products).  With a decode ``state`` [*lead, b, k - 1,
+    c], the inputs before x, prepended in x's dtype in place of the
+    zeros: (out, new_state), the last k - 1 rows of the two."""
     k, t = w.shape[-2], x.shape[-2]
-    pad = x.new_zeros(x.shape[:-2] + (k - 1, x.shape[-1]))
-    xp = torch.cat([pad, x], dim=-2)
-    out = sum(xp[..., i:i + t, :] * bcast(w[..., i, :], x) for i in range(k))
-    return F.silu(out)
+    prev = (x.new_zeros(x.shape[:-2] + (k - 1, x.shape[-1]))
+            if state is None else state.to(x.dtype))
+    xp = torch.cat([prev, x], dim=-2)
+    out = F.silu(sum(xp[..., i:i + t, :] * bcast(w[..., i, :], x)
+                     for i in range(k)))
+    return out if state is None else (out, xp[..., -(k - 1):, :])
 
 
 def init_mlstm(gen, cfg, device) -> dict:
@@ -64,17 +79,24 @@ def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (heads, x.shape[-1] // heads))
 
 
-def mlstm_block(p, x, cfg) -> torch.Tensor:
-    """The mLSTM mixer in train mode: x [*lead, b, t, d] -> [*lead, b, t,
-    d] (up-projection, causal conv, q/k/v and the scalar gates, the
-    parallel form, the norm, the SiLU gate and the down-projection)."""
+def mlstm_block(p, x, cfg, state=None):
+    """The mLSTM mixer: x [*lead, b, t, d] -> [*lead, b, t, d]
+    (up-projection, causal conv, q/k/v and the scalar gates, the
+    parallel form, the norm, the SiLU gate and the down-projection).
+    With a ``state`` (``mlstm_state_init``'s keys) it returns (y,
+    new_state): for t > 1 the parallel form and ``mlstm_final_state``,
+    else ``mlstm_step`` from the state; C, n and m come back float32,
+    the conv state in x's dtype."""
     d = x.shape[-1]
     d_in = int(cfg.xlstm.proj_factor * d)
     heads = cfg.n_heads
     hd = d_in // heads
     up = linear(x, p["up"])
     u, z = up[..., :d_in], up[..., d_in:]
-    uc = causal_conv(u, p["conv"])
+    if state is None:
+        uc = causal_conv(u, p["conv"])
+    else:
+        uc, conv = causal_conv(u, p["conv"], state["conv"])
     q = _heads(linear(uc, p["wq"]), heads)
     k = _heads(linear(uc, p["wk"]), heads)
     k = k / scalar(k, math.sqrt(hd))
@@ -82,11 +104,58 @@ def mlstm_block(p, x, cfg) -> torch.Tensor:
     i_pre = linear(uc, p["wi"]).to(F32)                       # [*, b, t, H]
     f_pre = linear(uc, p["wf"]).to(F32)
     f_pre = f_pre + bcast(p["fb"], f_pre)
-    y = mlstm_parallel(q, k, v, i_pre, f_pre)
+    if state is None or x.shape[-2] > 1:
+        y = mlstm_parallel(q, k, v, i_pre, f_pre)
+        if state is not None:
+            new_state = mlstm_final_state(k, v, i_pre, f_pre)
+    else:
+        y, new_state = mlstm_step(q, k, v, i_pre, f_pre, state)
     y = y.reshape(y.shape[:-2] + (d_in,))
     y = layers.rms_norm(p["norm"], y, cfg.norm_eps)
     y = y * F.silu(z)
-    return linear(y, p["down"])
+    y = linear(y, p["down"])
+    if state is None:
+        return y
+    return y, {**new_state, "conv": conv}
+
+
+def mlstm_final_state(k, v, i_pre, f_pre) -> dict:
+    """The state after a prompt, in closed form, float32: with w_t =
+    exp(cf_T - cf_t + i_t - m), m = max_t (cf_T - cf_t + i_t), C = sum_t
+    w_t k_t v_t^T [*, b, H, hd, hd] and n = sum_t w_t k_t [*, b, H,
+    hd]."""
+    cf = torch.cumsum(F.logsigmoid(f_pre), dim=-2)            # [*, b, t, H]
+    w_log = cf[..., -1:, :] - cf + i_pre
+    m = torch.amax(w_log, dim=-2)                             # [*, b, H]
+    w = torch.exp(w_log - m.unsqueeze(-2))
+    wk = (w[..., None] * k.to(F32)).transpose(-3, -2)   # [*, b, H, t, hd]
+    c = wk.transpose(-1, -2) @ v.to(F32).transpose(-3, -2)
+    return {"C": c, "n": wk.sum(dim=-2), "m": m}
+
+
+def mlstm_step(q, k, v, i_pre, f_pre, state):
+    """The recurrent mLSTM over t positions (one, at decode) from
+    ``state``'s C, n and m (cast to float32): m' = max(logsig(f) + m, i),
+    C' = exp(logsig(f) + m - m') C + exp(i - m') k v^T, n' likewise with
+    k, y = (C'^T q) / max(|n' . q|, 1) in q's dtype.  Returns (y [*, b,
+    t, H, hd], {"C", "n", "m"})."""
+    c, n, m = (state[key].to(F32) for key in ("C", "n", "m"))
+    one = scalar(n, 1.0)
+    ys = []
+    for s_ in range(q.shape[-3]):
+        logf = F.logsigmoid(f_pre[..., s_, :])                # [*, b, H]
+        m_new = torch.maximum(logf + m, i_pre[..., s_, :])
+        fg = torch.exp(logf + m - m_new)[..., None]
+        ig = torch.exp(i_pre[..., s_, :] - m_new)[..., None]
+        ks, vs, qs = (a[..., s_, :, :].to(F32) for a in (k, v, q))
+        c = fg[..., None] * c + ig[..., None] * (ks[..., :, None]
+                                                 * vs[..., None, :])
+        n = fg * n + ig * ks
+        m = m_new
+        num = (qs.unsqueeze(-2) @ c).squeeze(-2)              # [*, b, H, hd]
+        den = torch.maximum(torch.abs((n * qs).sum(dim=-1)), one)
+        ys.append((num / den[..., None]).to(q.dtype))
+    return torch.stack(ys, dim=-3), {"C": c, "n": n, "m": m}
 
 
 def mlstm_parallel(q, k, v, i_pre, f_pre) -> torch.Tensor:
@@ -112,6 +181,15 @@ def mlstm_parallel(q, k, v, i_pre, f_pre) -> torch.Tensor:
     return (y / norm[..., None]).transpose(-3, -2).to(q.dtype)
 
 
+def mlstm_state_init(cfg, b: int) -> dict:
+    """The shapes of one layer's mLSTM state."""
+    d_in = int(cfg.xlstm.proj_factor * cfg.d_model)
+    heads = cfg.n_heads
+    hd = d_in // heads
+    return {"C": (b, heads, hd, hd), "n": (b, heads, hd), "m": (b, heads),
+            "conv": (b, cfg.xlstm.conv_kernel - 1, d_in)}
+
+
 def init_slstm(gen, cfg, device) -> dict:
     d = cfg.d_model
     heads = cfg.n_heads
@@ -127,11 +205,12 @@ def init_slstm(gen, cfg, device) -> dict:
     }
 
 
-def slstm_block(p, x, cfg) -> torch.Tensor:
+def slstm_block(p, x, cfg, state=None):
     """The sLSTM recurrence and its gated FFN: x [*lead, b, t, d] ->
     [*lead, b, t, d].  One step a position, in order (the JAX package's
     ``lax.scan``); the carry (c, n, h, m) in float32 from c = h = m = 0,
-    n = 1."""
+    n = 1, or from a ``state`` (``slstm_state_init``'s keys, cast to
+    float32), and then (y, the final carry)."""
     d = x.shape[-1]
     heads = cfg.n_heads
     hd = d // heads
@@ -144,11 +223,15 @@ def slstm_block(p, x, cfg) -> torch.Tensor:
     fb = p["fb"].to(F32)
     fb = fb.reshape(fb.shape[:-1] + (1,) * (xg.dim() - 2 - fb.dim())
                     + (heads, 1))
-    carry_shape = xg.shape[:-3] + (heads,)                    # [*lead, b, H]
-    c = torch.zeros(carry_shape + (hd,), dtype=F32, device=x.device)
-    h = torch.zeros_like(c)
-    n = torch.ones_like(c)
-    m = torch.zeros(carry_shape + (1,), dtype=F32, device=x.device)
+    if state is None:
+        carry_shape = xg.shape[:-3] + (heads,)                # [*lead, b, H]
+        c = torch.zeros(carry_shape + (hd,), dtype=F32, device=x.device)
+        h = torch.zeros_like(c)
+        n = torch.ones_like(c)
+        m = torch.zeros(carry_shape + (1,), dtype=F32, device=x.device)
+    else:
+        c, n, h = (state[key].to(F32) for key in ("c", "n", "h"))
+        m = state["m"].to(F32).unsqueeze(-1)
     one = scalar(n, 1.0)
     hs = []
     for xt in xg.unbind(-3):
@@ -169,4 +252,14 @@ def slstm_block(p, x, cfg) -> torch.Tensor:
     y = layers.rms_norm(p["norm"], y, cfg.norm_eps)
     ff = int(4 * d / 3)
     uv = linear(y, p["up"])
-    return linear(F.silu(uv[..., :ff]) * uv[..., ff:], p["down"])
+    y = linear(F.silu(uv[..., :ff]) * uv[..., ff:], p["down"])
+    if state is None:
+        return y
+    return y, {"c": c, "n": n, "h": h, "m": m.squeeze(-1)}
+
+
+def slstm_state_init(cfg, b: int) -> dict:
+    """The shapes of one layer's sLSTM state."""
+    heads = cfg.n_heads
+    shape = (b, heads, cfg.d_model // heads)
+    return {"c": shape, "n": shape, "h": shape, "m": (b, heads)}

@@ -280,6 +280,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for f in sorted(PORT.rglob("*.py"))]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
+    assert {"repro_torch.launch.specs",
+            "repro_torch.examples.serve_decode"} <= set(mods)
     # the configs registry imports its modules by name, which the AST
     # walk cannot see: load every arch, and build every one of a ported
     # family (dense, ssm, encdec)
