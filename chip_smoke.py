@@ -146,6 +146,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      tokens/s, launches and the device's busy share of one profiled
      decode step, cache bytes, the peak rise beside ``serve_reckon``'s
      reckoning.
+ 11. ``fsdp``: the FSDP regime (``core.device_axis``: each layer lifted
+     to its [P, D] copies inside its forward, the lift's backward
+     voting per leaf on ``sign_pack`` + ``vote_update``).  The lift's
+     fused vote on every leaf shape of a gemma3-12b layer (the norms
+     padded to 4096) and on its tied table ([2, 2, 262144, 3840]), f32
+     and bf16 cotangents, a bf16 correction at rho 0.2, a straggler:
+     bitwise its plain ``majority_vote_dev(sgn(u + rho*delta))``.
+     gemma3-1b as in ``lm`` (6 layers, P=2 x D=3, 1 x 1152) with
+     ``param_mode="fsdp"``, 3 steps on fused/tree, against the
+     replicated ag_packed/tree run: bitwise, the differing count
+     printed.  Then the main path: gemma3-12b at full width cut to 6
+     layers (1,979,895,360 parameters), random weights from seed 0,
+     P=2 x D=2, 1 x 512 tokens a device, DC, mu 1e-3, rho 0.2, T_E=3,
+     bf16 compute, f32 master, bf16 delta, fused, tree, 6 steps of
+     ``run_training``: round 2's mean loss below step 0's, one
+     ``sign_pack`` and one ``vote_update`` a leaf and layer a step (62),
+     a local step of round 2 profiled (the kernels' device ms beside
+     their byte bounds summed over the 62 launches, the device's busy
+     share), the peak beside ``reckon_fsdp_peak`` and the replicated
+     regime's ``reckon_peak`` at the same shapes.  JSON lines
+     ``{"fsdp": "kernel route" | "gemma3-1b vs replicated" |
+     "parameters" | "step" | "profiled local step" | "memory" |
+     "phase"}``; the kernels line gains ``fsdp_launches``.
 
 The ``ternary`` cases of phase 2 include the QSGD step's per-row form:
 rows of the MLP's leaf lengths 10, 64, 640 and 50176, R = 20 and 40 rows
@@ -1626,11 +1649,13 @@ FAMILIES = (("xlstm_350m", 1, 1152),     # (arch, batch, tokens) a device
 FAM_CUT_GB, FAM_CUT_LAYERS = 72.0, 16    # xlstm: two 7:1 periods
 
 
-def reckon_peak(cfg, n: int, batch: int, seq: int) -> dict:
+def reckon_peak(cfg, n: int, batch: int, seq: int, p: int = LM_P,
+                d: int = LM_D) -> dict:
     """A training run's peak device memory (GB), reckoned from the tree's
     n parameters and the run's shapes before any run, at P x D copies in
     bf16 compute with an f32 master (the rule gives 49.3 GB for the lm
-    phase, whose reckoning was 49):
+    phase, whose reckoning was 49); the bytes below are at the lm phase's
+    P=2 x D=3 and scale with P (state) and P*D (anchor, grads):
 
       state   16n: the f32 master [P], bf16 delta and delta_next [P];
       anchor  36n: bf16 [P, D] gradients and their f32 flatten (DC's
@@ -1647,12 +1672,13 @@ def reckon_peak(cfg, n: int, batch: int, seq: int) -> dict:
               float32 and two bf16 (24 bytes an entry).
 
     peak = state + max(anchor, grads + max(logits, block))."""
-    rows = LM_P * LM_D * batch
+    rows = p * d * batch
     if cfg.family == "ssm":
         block = 40 * rows * cfg.n_heads * seq ** 2
     else:
         block = 24 * rows * cfg.n_heads * cfg.encoder_frames ** 2
-    terms = {"state": 16 * n, "anchor": 36 * n, "grads": 24 * n,
+    terms = {"state": 8 * p * n, "anchor": 6 * p * d * n,
+             "grads": 4 * p * d * n,
              "logits": 18 * rows * seq * cfg.vocab, "block": block}
     peak = terms["state"] + max(terms["anchor"], terms["grads"] + max(
         terms["logits"], terms["block"]))
@@ -2428,6 +2454,272 @@ def phase_serve(torch, card: str) -> dict:
     return launches
 
 
+FSDP_ARCH, FSDP_LAYERS = "gemma3_12b", 6    # one 5:1 local:global period
+FSDP_P, FSDP_D, FSDP_SEQ, FSDP_STEPS = 2, 2, 512, 6
+FSDP_CHECK_STEPS = 3           # gemma3-1b FSDP vs replicated: prologue + 2
+FSDP_PROFILED_STEP = 4         # a local step of round 2
+FSDP_STRAGGLER = ((True, False), (True, True))
+
+
+def reckon_fsdp_peak(cfg, n: int, n_table: int, batch: int,
+                     seq: int) -> dict:
+    """The FSDP regime's peak device memory (GB), reckoned from the tree's
+    n parameters (the tied table's n_table among them) and the run's
+    shapes before any run, at p x d = FSDP_P x FSDP_D copies, bf16
+    compute, f32 master, the lift's copies materialised:
+
+      state     8pn: the f32 master, bf16 delta and delta_next [P]
+                (updated in place: the cloud mean and the descent write
+                the master, the fresh anchor the delta it replaces; no
+                second copy);
+      dirs      4p(n - n_table): the layers' f32 directions, alive from
+                their layer's backward to the update;
+      cot       2pd n_table: the tied table's bf16 [P, D] cotangent;
+      lifted    2pd n_table: the table's bf16 [P, D] copies, alive until
+                the head's backward;
+      logits    18 bytes a logit (``reckon_peak``'s rule), around the
+                head only;
+      u         2pd n_table: g + rho*delta in bf16 before ``sign_pack``;
+      vote      p n_table int8, then the f32 direction 4p n_table;
+      mean      4p n_table: the anchor pass's f32 fold (``wmean``; its
+                cast and products go by coordinate chunks).
+
+    Phases: the head's backward (lifted + logits + cot); the embedding's
+    backward, where the two cotangents and their sum are alive (3 cot);
+    the table's vote (cot + max(u, vote + direction)); the anchor's fold
+    (cot + mean); the update (all the f32 directions).
+    peak = state + max(lifted + logits + cot, dirs + max(3 cot, cot + u,
+    cot + vote + 4p n_table, cot + mean), 4pn)."""
+    p, d = FSDP_P, FSDP_D
+    t = {"state": 8 * p * n, "dirs": 4 * p * (n - n_table),
+         "cot": 2 * p * d * n_table, "lifted": 2 * p * d * n_table,
+         "logits": 18 * p * d * batch * seq * cfg.vocab,
+         "u": 2 * p * d * n_table, "vote": p * n_table,
+         "direction": 4 * p * n_table, "mean": 4 * p * n_table,
+         "all_dirs": 4 * p * n}
+    head = t["lifted"] + t["logits"] + t["cot"]
+    tail = t["dirs"] + max(3 * t["cot"], t["cot"] + t["u"],
+                           t["cot"] + t["vote"] + t["direction"],
+                           t["cot"] + t["mean"])
+    peak = t["state"] + max(head, tail, t["all_dirs"])
+    return {"peak_gb": peak / 1e9,
+            **{f"{k}_gb": v / 1e9 for k, v in t.items()}}
+
+
+def padded(numel: int) -> int:
+    """A leaf's numel padded as the lift's vote pads its rows."""
+    from repro_torch.core.votes import LEAF_PAD
+    return -(-numel // LEAF_PAD) * LEAF_PAD
+
+
+def fsdp_kernel_route(torch) -> dict:
+    """The lift's ``fused`` vote on the kernels (``votes.fused_sign_vote_
+    leaf``) against its plain version, ``majority_vote_dev(sgn(u +
+    rho*delta))`` on ``ag_packed``, on random f32 and bf16 cotangents of
+    every leaf shape of a gemma3-12b layer (the 240-wide qk norms padded
+    to 256) and of its tied table ([P, D, 262144, 3840], 4.03e9
+    coordinates: the longest rows the main path gives the kernels, bf16
+    there; f32 folds the correction in the kernel), a bf16 correction at
+    rho 0.2 and a straggler mask: bitwise.  These launches are
+    comparisons, not the main path's."""
+    from repro_torch import configs
+    from repro_torch.core import signs, votes
+    from repro_torch.core.topology import Topology
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(configs.get_config(FSDP_ARCH), n_layers=6)
+    abstract = build.build_model(cfg,
+                                 Topology(1, 1, "cuda")).abstract_params()
+    shapes = sorted((name.split(".", 2)[-1], tuple(leaf.shape[1:]))
+                    for name, leaf in pytree_items(abstract)
+                    if name.startswith("stacks.local."))
+    shapes.append(("embed.table", tuple(abstract["embed"]["table"].shape)))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mask = torch.tensor(FSDP_STRAGGLER, device="cuda")
+    rows, worst = [], 0.0
+    t0, before = time.perf_counter(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for name, shape in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.randn((FSDP_P, FSDP_D) + shape, generator=gen,
+                            device="cuda").to(dt)
+            g.view(-1)[::17] = 0.0
+            delta = torch.randn((FSDP_P,) + shape, generator=gen,
+                                device="cuda").mul_(2).to(torch.bfloat16)
+            got = votes.fused_sign_vote_leaf(g, delta, RHO, mask)
+            want = votes.majority_vote_dev(
+                signs.sgn(votes.corrected_leaf(g, delta, RHO)), mask,
+                "ag_packed")
+            del g, delta
+            err = float((got.to(torch.int16) - want).abs().max())
+            differ = int((got != want).sum())
+            require(differ == 0, f"fsdp lift vote {name} {dt}: {differ} "
+                    f"coordinates differ from the plain version")
+            worst = max(worst, err)
+            rows.append({"leaf": name, "shape": list(shape),
+                         "dtype": str(dt).split(".")[-1],
+                         "padded_to": padded(math.prod(shape)),
+                         "max_abs_err": err})
+            del got, want
+            torch.cuda.empty_cache()
+    emit({"fsdp": "kernel route", "leaves": rows, "max_abs_err": worst,
+          "bitwise": True, "wall_s": time.perf_counter() - t0,
+          "peak_rise_gb": (torch.cuda.max_memory_allocated() - before)
+          / 1e9})
+    return {"max_abs_err": worst}
+
+
+def phase_fsdp(torch, card: str) -> dict:
+    """The FSDP regime on the card (``core.device_axis``: each layer
+    lifted to its [P, D] copies inside its forward, the lift's backward
+    voting per leaf on ``sign_pack`` + ``vote_update``):
+
+      1. the lift's fused vote against its plain version, bitwise
+         (:func:`fsdp_kernel_route`);
+      2. gemma3-1b at the lm phase's shape (6 layers, P=2 x D=3, 1 x
+         1152 tokens) with ``param_mode="fsdp"``, 3 steps on fused/tree,
+         against the replicated regime's ag_packed/tree run: bitwise
+         (the same eager ops), the differing count printed;
+      3. gemma3-12b at full width cut to 6 layers (1,979,895,360
+         parameters), P=2 x D=2, 1 x 512 tokens a device, DC, mu 1e-3,
+         rho 0.2, T_E=3, bf16 compute, f32 master, bf16 delta, fused,
+         tree, 6 steps of ``run_training``, a local step of round 2
+         profiled: round 2's mean loss below step 0's, one sign_pack and
+         one vote_update a leaf and layer a step, the peak beside
+         :func:`reckon_fsdp_peak` and the replicated regime's
+         ``reckon_peak`` at the same shapes.
+
+    Returns the kernels' launches on the main path (step 3)."""
+    from repro_torch import configs
+    from repro_torch.launch.train import RunCfg
+    from repro_torch.models import build
+
+    t_phase = time.perf_counter()
+    route = fsdp_kernel_route(torch)
+
+    # 2. gemma3-1b: FSDP against replicated
+    cfg1, topo1, algo1 = lm_setup(torch, state_layout="tree")
+    cfg1f = dataclasses.replace(cfg1, param_mode="fsdp")
+    run1 = RunCfg(steps=FSDP_CHECK_STEPS, batch_per_device=1, seq_len=LM_SEQ,
+                  log_every=1, seed=0)
+    built1 = build.build_model(cfg1, topo1)
+    params1 = built1.init_params(torch.Generator(device="cuda").manual_seed(0))
+    leaves1 = len(pytree_items(params1)) + sum(
+        leaf.shape[0] - 1 for name, leaf in pytree_items(params1)
+        if name.startswith("stacks."))
+    fs1 = lm_train(torch, "[fsdp] gemma3-1b fsdp fused/tree", cfg1f, topo1,
+                   algo1, run1, params1)
+    want1 = {"sign_pack": FSDP_CHECK_STEPS * leaves1,
+             "vote_update": FSDP_CHECK_STEPS * leaves1, "ternary_quant": 0}
+    require(fs1["launches"] == want1, f"gemma3-1b fsdp launches "
+            f"{fs1['launches']}, want {want1}")
+    rp1 = lm_train(torch, "[fsdp] gemma3-1b replicated ag_packed/tree",
+                   cfg1, topo1, dataclasses.replace(algo1,
+                                                    transport="ag_packed"),
+                   run1, params1)
+    differ = count_differing(torch, fs1["params"], rp1["params"])
+    total = sum(leaf.numel() for _, leaf in pytree_items(fs1["params"]))
+    max_diff = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+        pytree_items(fs1["params"]), pytree_items(rp1["params"])))
+    emit({"fsdp": "gemma3-1b vs replicated", "arch": cfg1.name,
+          "steps": FSDP_CHECK_STEPS, "coordinates": total,
+          "differing": differ, "max_abs_diff": max_diff,
+          "bitwise": differ == 0,
+          "launches": fs1["launches"], "leaf_layers_a_step": leaves1,
+          "losses_fsdp": [h["loss"] for h in fs1["history"]],
+          "losses_replicated": [h["loss"] for h in rp1["history"]],
+          "peak_gb_fsdp": fs1["peak_gb"],
+          "peak_gb_replicated_tree": rp1["peak_gb"]})
+    require(differ == 0, f"gemma3-1b fsdp vs replicated: {differ} of "
+            f"{total} coordinates differ, by at most {max_diff}")
+    del fs1, rp1, params1, built1
+    torch.cuda.empty_cache()
+
+    # 3. gemma3-12b at full width through run_training (the main path)
+    cfg = dataclasses.replace(configs.get_config(FSDP_ARCH),
+                              n_layers=FSDP_LAYERS)
+    from repro_torch.core import hier
+    from repro_torch.core.topology import Topology
+    topo = Topology(FSDP_P, FSDP_D, "cuda")
+    algo = hier.AlgoConfig(method="dc_hier_signsgd", mu=1e-3, rho=RHO,
+                           t_e=LM_TE, transport="fused", state_layout="tree",
+                           compute_dtype=torch.bfloat16,
+                           master_dtype=torch.float32,
+                           delta_dtype=torch.bfloat16)
+    abstract = build.build_model(cfg, topo).abstract_params()
+    n = build.param_count(abstract)
+    n_table = abstract["embed"]["table"].numel()
+    # each leaf of each layer: one sign_pack and one vote_update launch on
+    # its [P, D, numel] rows, numel padded to votes.LEAF_PAD
+    rows = []
+    for name, leaf in pytree_items(abstract):
+        stacked = name.startswith("stacks.")
+        numel = math.prod(leaf.shape[1:] if stacked else leaf.shape)
+        rows += [(FSDP_P, FSDP_D, padded(numel))] * (
+            leaf.shape[0] if stacked else 1)
+    leaves = len(rows)
+    sp_bound = sum(bound(sign_pack_bytes(r, 2, False),
+                         sign_pack_ops(r, False))[0] for r in rows)
+    vu_bound = sum(bound(vote_update_bytes(r, False, FSDP_P * FSDP_D),
+                         vote_update_ops(r, False))[0] for r in rows)
+    reckoned = reckon_fsdp_peak(cfg, n, n_table, 1, FSDP_SEQ)
+    replicated = reckon_peak(cfg, n, 1, FSDP_SEQ, p=FSDP_P, d=FSDP_D)
+    emit({"fsdp": "parameters", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "count": n, "table": n_table, "leaf_layers_a_step": leaves,
+          "pods": FSDP_P, "devices_per_pod": FSDP_D, "seq": FSDP_SEQ,
+          "reckoned": reckoned, "replicated_reckoned": replicated})
+    run = RunCfg(steps=FSDP_STEPS, batch_per_device=1, seq_len=FSDP_SEQ,
+                 log_every=1, seed=0)
+    res = lm_train(torch, "[fsdp] gemma3-12b fused/tree", cfg, topo, algo,
+                   run, None, profile=FSDP_PROFILED_STEP)
+    want = {"sign_pack": FSDP_STEPS * leaves,
+            "vote_update": FSDP_STEPS * leaves, "ternary_quant": 0}
+    require(res["launches"] == want, f"gemma3-12b fsdp launches "
+            f"{res['launches']}, want {want}")
+    losses = [h["loss"] for h in res["history"]]
+    round2 = statistics.mean(losses[LM_TE:2 * LM_TE])
+    require(round2 < losses[0], f"gemma3-12b: the loss did not fall: step "
+            f"0 {losses[0]}, round 2 mean {round2}")
+    prof = res["prof"]
+    sp_ms, sp_n = prof["sign_pack_kernel"]
+    vu_ms, vu_n = prof["vote_update_kernel"]
+    require((sp_n, vu_n) == (leaves, leaves), f"the profiled local step "
+            f"launched {sp_n} sign_pack and {vu_n} vote_update, want "
+            f"{leaves} each")
+    host = [h["ms"] for h in res["history"]]
+    emit({"fsdp": "step", "arch": cfg.name, "card": card,
+          "ms_per_step": host,
+          "ms_per_local_step_round2": statistics.mean(
+              host[LM_TE + 1:FSDP_PROFILED_STEP] + host[
+                  FSDP_PROFILED_STEP + 1:]),
+          "ms_prologue_step_round2": host[LM_TE],
+          "ms_profiled_step": host[FSDP_PROFILED_STEP],
+          "data_ms_per_step": statistics.mean(
+              h["data_ms"] for h in res["history"]),
+          "losses": losses, "round2_mean_loss": round2,
+          "launches": res["launches"]})
+    emit({"fsdp": "profiled local step", "arch": cfg.name, "card": card,
+          "sign_pack_launches": sp_n, "sign_pack_device_ms": sp_ms,
+          "sign_pack_bound_ms": sp_bound,
+          "vote_update_launches": vu_n, "vote_update_device_ms": vu_ms,
+          "vote_update_bound_ms": vu_bound, "bound_by": "bytes",
+          "device_busy_ms": prof["busy_ms"],
+          "device_busy_share": prof["busy_ms"] / host[FSDP_PROFILED_STEP],
+          "kernels_share_of_device_time":
+              (sp_ms + vu_ms) / max(prof["busy_ms"], 1e-9),
+          "top": prof["top"]})
+    emit({"fsdp": "memory", "arch": cfg.name, "card": card,
+          "peak_gb": res["peak_gb"], "reckoned_gb": reckoned["peak_gb"],
+          "replicated_reckoned_gb": replicated["peak_gb"],
+          "total_gb": torch.cuda.get_device_properties(0).total_memory / 1e9})
+    launches = dict(res["launches"])
+    del res
+    torch.cuda.empty_cache()
+    emit({"fsdp": "phase", "card": card, "route_max_abs_err":
+          route["max_abs_err"], "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def pytree_items(tree, prefix=""):
     """(dotted name, leaf) pairs of a nested dict of tensors."""
     if not isinstance(tree, dict):
@@ -2490,6 +2782,7 @@ def main() -> None:
     fam_launches = phase_families(torch)
     ft = phase_fault_tolerant(torch, lm_launches["peak_gb"], card)
     serve_launches = phase_serve(torch, card)
+    fsdp_launches = phase_fsdp(torch, card)
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
              "tally_acc": "clients, stream fused/flat (30 steps, K=2)",
@@ -2514,6 +2807,7 @@ def main() -> None:
                                   for arch, fam in fam_launches.items()},
             "fault_tolerant_launches": ft["launches"].get(name, 0),
             "serve_launches": serve_launches[name],
+            "fsdp_launches": fsdp_launches.get(name, 0),
             "oracle_check_launches": sum(
                 r.get(name, 0) for r in ft["oracle"].values())})
     emit({"kernels": kernels})

@@ -70,17 +70,36 @@ Each leaf is quantized as ``P*D*K`` rows with their own l2 norms,
 ``ternary_quant`` launches on CUDA (``kernels.ops.ternary_quant_rows``:
 one, or more where the rows hold 2^31 coordinates or more).
 
-Not ported: ``param_mode="fsdp"`` (ROADMAP queue 1 item 17).
+The FSDP regime (``ModelBundle.param_mode="fsdp"``, the JAX package's
+``fsdp_lift`` path): the bundle's ``loss_master`` takes the ``[P,
+*leaf]`` masters and lifts each layer to its ``[P, D, *leaf]`` copies
+inside its forward (``core.device_axis``); the lift's backward is the
+compression -- ``sgn(g + rho*delta)`` and the vote over D (``wmean`` for
+the mean methods and DC's anchor pass) -- so autograd returns each
+master's per-edge direction and no whole-model ``[P, D, n]`` gradient
+forms.  The update is the tree layout's ``v - mu * direction``, written
+**into the state's master in place**, as is the round's cloud mean, and
+DC's fresh anchor goes into the buffer of the delta it replaces (the
+regime exists for models whose state the card holds once, not twice).
+The state is the tree layout's with ``delta`` for every method (threaded
+through the lift; read with DC's ``rho``) and no ``ef``/``mom``.  As in
+the reference, the FSDP regime takes neither the flat layout, virtual
+clients, SCAFFOLD/MTGC nor the overlapped cloud (``ValueError``); its
+two quirks are the reference's own (ROADMAP section 3):
+``hier_local_qsgd`` takes the ``wmean`` of the raw gradients, and
+``error_feedback`` / ``momentum`` are dropped.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
 
 from repro_torch.core import clients as vclients
-from repro_torch.core import flatbuf, pytree, schedule, signs, votes
+from repro_torch.core import (device_axis, flatbuf, pytree, schedule, signs,
+                              votes)
 from repro_torch.core.keys import key_seed
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import ops as kops
@@ -195,9 +214,15 @@ class ModelBundle:
         device) replica: params_dev is a tree of [P, D, *leaf] copies and
         batch a tree of [P, D, b, ...] arrays; the gradient of the sum
         with respect to params_dev is the paper's per-device gradients.
+    loss_master(params, delta, batch, lift) -> (sum, [P, D] losses) --
+        the FSDP regime only: params and delta are the [P, *leaf] masters
+        and corrections, and the model applies ``lift(tree, delta_tree)``
+        (``core.device_axis.fsdp_lift_tree``) to each layer's slices
+        inside its forward.
     """
-    loss: Callable[[PyTree, Any], torch.Tensor]
-    param_mode: str = "replicated"    # the FSDP regime is not ported
+    loss: Callable[[PyTree, Any], torch.Tensor] | None
+    loss_master: Callable | None = None
+    param_mode: str = "replicated"    # replicated | fsdp
 
 
 # (step, leaf_index, shape [P, V, *leaf], voters) -> float32 uniforms in
@@ -205,11 +230,30 @@ class ModelBundle:
 # draws are asked for (all of them, or one streamed client's D)
 Uniforms = Callable[[int, int, tuple, range], torch.Tensor]
 
-def _refuse_unported(bundle: ModelBundle) -> None:
-    if bundle.param_mode != "replicated":
-        raise NotImplementedError(
-            f"param_mode={bundle.param_mode!r}: only the replicated regime "
-            "is ported (FSDP: ROADMAP queue 1 item 17)")
+
+def _check_fsdp(algo: AlgoConfig) -> None:
+    """The reference's refusals of the FSDP regime (``ValueError``, each
+    naming the replicated regime)."""
+    if algo.state_layout == "flat":
+        raise ValueError(
+            "state_layout='flat' requires the replicated regime (the FSDP "
+            "lift votes per layer, so the whole-model buffer never forms)")
+    if algo.clients.active:
+        raise ValueError(
+            "virtual clients (clients count/participation/weights) require "
+            "the replicated regime: the FSDP lift votes per layer with "
+            "physical-device masks")
+    if algo.has_client_correction:
+        raise ValueError(
+            f"{algo.method} requires the replicated regime: its per-client "
+            "correction state (corr_cl) rides the explicit voter axis, "
+            "which the FSDP lift never materializes")
+    if algo.is_overlap:
+        raise ValueError(
+            "cloud_overlap='overlap' requires the replicated regime: the "
+            "staged in-flight aggregate (agg_next) is a whole-model master "
+            "snapshot, which the FSDP lift's per-layer vote never "
+            "materializes")
 
 
 def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
@@ -225,7 +269,8 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     dev_mask: [P, D] float in {0, 1}, the vote quorum, or with active
     clients optionally [P, D, K] per client.  Inputs are moved to
     ``topo.device``.  The returned state may share (and, with the fused
-    flat update, has overwritten) the input state's buffers.
+    flat update or under FSDP, has overwritten) the input state's
+    buffers.
 
     uniforms: where ``hier_local_qsgd`` takes its uniforms, called per
     leaf and step as ``uniforms(step, leaf_index, (P, V, *leaf),
@@ -237,10 +282,15 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     leaf and client).  The draws are the same in both layouts and both
     client modes.
     """
-    _refuse_unported(bundle)
+    fsdp = bundle.param_mode == "fsdp"
+    if fsdp:
+        _check_fsdp(algo)
     p, d = topo.pods, topo.devices_per_pod
     t_e = algo.t_e
     flat = algo.state_layout == "flat"
+    # DC's correction, or under FSDP every method's: the lift threads
+    # delta through the loss (read only with DC's rho)
+    needs_delta = fsdp or algo.is_dc
     dev = topo.device
     ef_on = algo.error_feedback
     mom_on = algo.momentum > 0.0
@@ -297,6 +347,10 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     def pod_avg(params, edge_w):
         if flat:
             return params.replace(pod_mean(params.buf, edge_w))
+        if fsdp:          # into the masters, in place (see the docstring)
+            return tmap(lambda v: chunked(
+                lambda x: votes.pod_weighted_average(x, edge_w), v, v),
+                params)
         return pod_mean(params, edge_w)
 
     def wmul(x, sh):
@@ -444,6 +498,52 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             return votes.fused_sign_vote(s_dev, None, 0.0, vote_w)
         return vote_tree(s_dev, vote_w)
 
+    # -- the FSDP regime: autograd returns the per-edge directions --------
+
+    def pod_direction_fsdp(params, delta, batch, maskf, devwf, transport,
+                           rho):
+        """The directions of the [P, *leaf] masters, each the vote (or
+        ``wmean``) its lift's backward computed, as a list in the tree's
+        flatten order, and the [P, D] losses.  A master no lift reaches
+        gets zeros, as JAX's gradient does."""
+        cfg = device_axis.LiftCfg(devices=d, transport=transport, rho=rho,
+                                  compute_dtype=algo.compute_dtype)
+        lift = functools.partial(device_axis.fsdp_lift_tree, cfg,
+                                 maskf=maskf, devwf=devwf)
+        leaves, td = pytree.tree_flatten(params)
+        masters = [v.detach().requires_grad_(True) for v in leaves]
+        with torch.enable_grad():
+            total, losses = bundle.loss_master(
+                pytree.tree_unflatten(td, masters), delta, batch, lift)
+            dirs = torch.autograd.grad(total, masters, allow_unused=True)
+        dirs = [torch.zeros_like(m) if g is None else g
+                for m, g in zip(masters, dirs)]
+        return dirs, losses.detach()
+
+    def chunked(fn, out, *xs):
+        """``out <- fn(*xs)`` for [P, *leaf] tensors and an ``fn`` that
+        works coordinate by coordinate, chunk by chunk of the leaf's
+        coordinates (``votes.per_chunk``): ``fn``'s bits, with
+        temporaries of one chunk.  ``out`` may be one of ``xs``."""
+        flat2 = lambda x: x.reshape(x.shape[0], -1)      # noqa: E731
+        votes.per_chunk(fn, flat2(out), *map(flat2, xs))
+        return out
+
+    def local_step_fsdp(state, params, delta, batch, shares, maskf, mu):
+        """FSDP: sign methods vote on ``algo.transport`` (DC with its
+        rho), mean methods take ``wmean`` (QSGD too: the reference's
+        quirk); then ``v - mu * direction`` into the master in place,
+        leaf by leaf, each direction dropped once it is applied."""
+        transport = algo.transport if algo.is_sign else "wmean"
+        rho = algo.rho if algo.is_dc else 0.0
+        dirs, losses = pod_direction_fsdp(params, delta, batch, maskf,
+                                          shares.to(F32), transport, rho)
+        upd = signs.descend if algo.is_sign else signs.descend_mean
+        for i, v in enumerate(pytree.tree_flatten(params)[0]):
+            s, dirs[i] = dirs[i], None
+            chunked(lambda vv, ss: upd(vv, mu, ss), v, v, s)
+        return params, state.ef, state.mom, losses
+
     # -- the round prologue's anchors -------------------------------------
 
     def anchor_fold_stream(params_tree, batch, shares3, to_acc):
@@ -458,10 +558,22 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
                                      to_acc(g_c)))
         return tmap(votes.fold_devices, acc)
 
-    def compute_delta(params, batch, edge_w, dev_w):
+    def compute_delta(params, batch, edge_w, dev_w, delta=None, maskf=None):
         """DC's anchor pass at the committed edge models; dev_w is
-        [P, D] (no clients), [P, D*K] (merged) or [P, D, K] (stream)."""
+        [P, D] (no clients), [P, D*K] (merged) or [P, D, K] (stream).
+        FSDP: the lift's ``wmean`` with rho 0 (``delta``'s values are not
+        read), then ``c - c_q`` leaf by leaf, written into ``delta``'s
+        buffers -- the delta the round's swap drops -- so no third delta
+        is held beside the caller's state."""
         dd = algo.delta_dtype
+        if fsdp:
+            c_q, _ = pod_direction_fsdp(params, delta, batch, maskf,
+                                        dev_w.to(F32), "wmean", 0.0)
+            for i, out in enumerate(pytree.tree_flatten(delta)[0]):
+                cq, c_q[i] = c_q[i], None
+                chunked(lambda x: (votes.pod_weighted_average(x, edge_w)
+                                   - x).to(dd), out, cq)
+            return delta
         if flat:
             layout = params.layout
             if stream:
@@ -856,7 +968,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             params, agg_next = cloud_sched.commit(issued, agg_next)
             if algo.is_dc:
                 fresh = compute_delta(params, anchor_batch, edge_weights,
-                                      shares)
+                                      shares, delta, maskf)
                 if algo.anchor_staleness == 1:
                     delta, delta_next = delta_next, fresh
                 else:
@@ -872,14 +984,18 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         if algo.decay:
             mu = signs.ftz(mu / torch.sqrt(torch.tensor(
                 float(rnd_index), dtype=algo.master_dtype, device=dev) + 1.0))
-        if stream:
-            step_fn, wv = local_step_stream, vote_w3
+        if fsdp:
+            params, ef, mom, losses = local_step_fsdp(
+                state, params, delta, train_batch, shares, maskf, mu)
         else:
-            step_fn = local_step_flat if flat else local_step_tree
-            wv = vote_w
-        params, ef, mom, losses = step_fn(state, params, delta, corr_cl,
-                                          corr_edge, train_batch, shares, wv,
-                                          mu)
+            if stream:
+                step_fn, wv = local_step_stream, vote_w3
+            else:
+                step_fn = local_step_flat if flat else local_step_tree
+                wv = vote_w
+            params, ef, mom, losses = step_fn(state, params, delta, corr_cl,
+                                              corr_edge, train_batch, shares,
+                                              wv, mu)
         new_state = TrainState(
             step=state.step + 1, params=params, agg_next=agg_next,
             delta=delta, delta_next=delta_next, ef=ef, mom=mom,
@@ -933,12 +1049,14 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         return TrainState(
             step=0, params=params,
             agg_next=copy_params() if cloud_sched.staged else None,
-            delta=zeros(dd, None) if algo.is_dc else None,
+            delta=zeros(dd, None) if needs_delta else None,
             delta_next=(zeros(dd, None)
                         if algo.is_dc and algo.anchor_staleness == 1
                         else None),
-            ef=zeros(F32, d_virtual) if ef_on else None,
-            mom=zeros(F32, d_virtual) if mom_on else None,
+            # FSDP keeps no per-voter slots: the reference drops EF and
+            # momentum there (ROADMAP section 3)
+            ef=zeros(F32, d_virtual) if ef_on and not fsdp else None,
+            mom=zeros(F32, d_virtual) if mom_on and not fsdp else None,
             corr_cl=zeros(dd, d_virtual) if has_cc else None,
             corr_edge=zeros(dd, None) if has_cc else None,
             rng=rng)

@@ -17,6 +17,10 @@ identical (ties -> +1):
     on the CPU).  With the flat state layout the vote never forms: the
     kernel updates the master buffer in place.
 
+The FSDP lift votes one leaf at a time (``fused_sign_vote_leaf``: the
+same two kernels on the leaf's [P, D, numel] rows) and takes its large
+leaves by coordinate chunks (``per_chunk``, ``corrected_leaf``).
+
 Masks are [P, D] {0,1} voter masks or nonnegative integer vote weights
 (weighted popcount; an edge whose quorum has weight 0 votes 0); with
 merged virtual clients the voter axis is D*K wide.  The streamed client
@@ -26,6 +30,8 @@ transport one ``tally_acc`` launch per client), bitwise the merged vote.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from repro_torch.core import flatbuf, pytree, signs
@@ -34,6 +40,8 @@ from repro_torch.kernels import ops as kops
 PACK = signs.PACK_WIDTH
 
 SIGN_TRANSPORTS = ("ag_packed", "ar_int8", "fused")
+LEAF_PAD = kops.TILE    # a leaf's [P, D, numel] rows pad to the buffers' tile
+CHUNK = 1 << 24     # coordinates a chunk of per_chunk
 
 
 def _mask_bcast(mask: torch.Tensor | None, ndim_leaf: int):
@@ -211,6 +219,65 @@ def fused_sign_vote_update(layout: flatbuf.FlatLayout, u_dev,
                                            float(mu_static))
     vote = kops.fused_sign_vote_flat(u_buf, d_buf, rho, mask)
     return signs.descend(v_buf, mu, vote)
+
+
+def per_chunk(fn: Callable, out: torch.Tensor,
+              *xs: torch.Tensor) -> torch.Tensor:
+    """``out[..., c] = fn(*(x[..., c] for x in xs))`` over chunks c of the
+    last dim (the leaf's coordinates, flattened by the caller), for an
+    ``fn`` that computes each coordinate from that coordinate alone: the
+    result is the unchunked ``fn``'s to the bit, with temporaries the
+    size of one chunk.  Returns ``out``."""
+    n = out.shape[-1]
+    for c0 in range(0, n, CHUNK):
+        sl = slice(c0, min(c0 + CHUNK, n))
+        out[..., sl] = fn(*(x[..., sl] for x in xs))
+    return out
+
+
+def corrected_leaf(g: torch.Tensor, delta: torch.Tensor,
+                   rho: float) -> torch.Tensor:
+    """``g + rho*delta`` in g's dtype: g [P, D, *leaf], delta [P, *leaf]
+    cast to g's dtype first, so in bf16 the product and the sum both
+    round in bf16 (the replicated tree path's ``corrected``)."""
+    p, d = g.shape[:2]
+    g3 = g.reshape(p, d, -1)
+    out = torch.empty(g3.shape, dtype=g.dtype, device=g.device)
+    per_chunk(lambda gg, dl: gg + flatbuf.scaled(dl[:, None].to(gg.dtype),
+                                                 rho),
+              out, g3, delta.reshape(p, -1))
+    return out.reshape(g.shape)
+
+
+def fused_sign_vote_leaf(u_dev: torch.Tensor, delta: torch.Tensor | None,
+                         rho: float,
+                         mask: torch.Tensor | None) -> torch.Tensor:
+    """The fused transport on ONE leaf (the FSDP lift's vote): u_dev [P,
+    D, *leaf] -> the [P, *leaf] int8 vote of ``sgn(u + rho*delta)``,
+    through one ``sign_pack`` and one ``vote_update`` vote-only launch on
+    the leaf's [P, D, numel] view (``kops.fused_sign_vote_flat``).
+
+    The fold rule of :func:`fused_sign_vote`, per leaf: an f32 leaf's
+    correction (delta [P, *leaf], cast to f32) is added in the kernel,
+    in f32; any other dtype adds it first, in the leaf's own dtype.  A
+    numel that is not a multiple of ``LEAF_PAD`` is padded with zeros
+    (+1 bits, dropped after the vote; gemma3's norms, not its matrices).
+    Bitwise ``majority_vote_dev`` of the signs on every transport."""
+    p, d = u_dev.shape[:2]
+    leaf_shape = tuple(u_dev.shape[2:])
+    fold = delta is not None and bool(rho) and u_dev.dtype == torch.float32
+    if delta is not None and rho and not fold:
+        u_dev = corrected_leaf(u_dev, delta, rho)
+    u3 = u_dev.reshape(p, d, -1)
+    n = u3.shape[-1]
+    d2 = delta.reshape(p, n) if fold else None
+    pad = -n % LEAF_PAD
+    if pad:
+        u3 = torch.nn.functional.pad(u3, (0, pad))
+        if d2 is not None:
+            d2 = torch.nn.functional.pad(d2.to(u3.dtype), (0, pad))
+    vote = kops.fused_sign_vote_flat(u3, d2, rho if fold else 0.0, mask)
+    return vote[:, :n].reshape((p,) + leaf_shape)
 
 
 def majority_vote_dev(s_dev: torch.Tensor, mask: torch.Tensor | None,

@@ -3,7 +3,8 @@
 Two trainers on the port's train step (``core.hier.make_hier_step``):
 ``run_paper_task`` trains the paper's MLP task (below), and
 ``run_training`` an LM of the zoo (``--arch NAME``: the dense, ssm and
-encdec/audio families):
+encdec/audio families, in the replicated regime or, for an FSDP config
+such as gemma3-12b, in the FSDP regime of ``core.hier``):
 the JAX package's ``launch/train.py`` trainer -- config -> model ->
 DC-HierSignSGD step -> synthetic token stream -> elastic membership ->
 async checkpointing -> failure recovery -- on one card, the P edges x D
@@ -462,6 +463,12 @@ def lm_main(argv=None):
             "--multi_pod (the multi-device mesh): ROADMAP queue 1 item 17")
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    # the schedule x regime combination, up front as the JAX CLI checks it
+    if args.cloud_overlap == "overlap" and cfg.param_mode == "fsdp":
+        ap.error(f"--cloud_overlap=overlap requires the replicated "
+                 f"regime, but --arch {args.arch} uses param_mode='fsdp' "
+                 f"(the staged in-flight aggregate is a whole-model "
+                 f"master snapshot the FSDP lift never materializes)")
     topo = Topology(args.pods, args.devices_per_pod, args.device)
     algo = hier.AlgoConfig(
         method=args.method, mu=args.mu, rho=args.rho,

@@ -14,9 +14,8 @@ or whisper's bidirectional encoder attention; with cross-attention over
     cache_init(b, max_len)                -> the shapes of one layer's
                                              decode cache
 
-Not ported yet: the moe, mla and mamba blocks (ROADMAP item 15: moe
-after item 17, mamba with the hybrid family) and the caches' sharding
-specs (item 17).
+Not ported yet: the moe, mla and mamba blocks (ROADMAP item 15; mamba
+with the hybrid family) and the caches' sharding specs (item 17).
 """
 from __future__ import annotations
 

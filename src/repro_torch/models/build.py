@@ -32,12 +32,16 @@ V] and the next cache.  ``pos`` is a host int (no device sync a step).
 The caches are bfloat16 whatever the compute dtype, as the JAX
 package's prefill builds them.  Both run without autograd.
 
+An FSDP config (gemma3-12b) trains through ``bundle.loss_master``
+(:func:`make_loss_master`): the masters in, each layer lifted to its
+[P, D] copies inside the engine, the per-edge directions out of
+autograd.
+
 Not ported yet (ROADMAP item 15, each raises ``NotImplementedError``):
 the hybrid family (zamba2: its reference gradients are not finite,
 ROADMAP queue 3), vlm (internvl2's patches) and moe (arctic,
-deepseek-v3: after item 17).  Nor the FSDP regime (item 17): its
-``make_loss_master``, its serving (``serve_layout``, ``ServeGatherPlan``)
-and ``cache_specs``.
+deepseek-v3).  Nor serving an FSDP config (item 17: ``serve_layout``,
+``ServeGatherPlan``) and ``cache_specs``.
 """
 from __future__ import annotations
 
@@ -185,6 +189,49 @@ def make_loss(arch: ArchDef, remat: bool = True) -> Callable:
     return loss
 
 
+def make_loss_master(arch: ArchDef) -> Callable:
+    """The FSDP regime's loss (the JAX package's ``make_loss_master``):
+
+    loss_master(params, delta, batch, lift) -> (sum of the losses, the
+        [P, D] losses)
+
+    params: the [P, *leaf] masters (stacks [P, n_layers, *leaf]), delta
+    the same tree of corrections, ``{"tokens": [P, D, b, L]}``; ``lift(
+    tree, delta_tree)`` lifts a tree to its [P, D] copies (its backward
+    votes).  The embedding is lifted once and used twice when it is tied
+    (the embedding and the unembedding), so its two cotangents sum
+    before the sign; each layer is lifted inside its block
+    (``engine.FsdpPlan``), the head last."""
+    cfg = arch.cfg
+    if arch.enc_segments:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder trains in the replicated "
+            "regime (as in the JAX package)")
+    if cfg.n_patches:
+        raise NotImplementedError(
+            "vision patches (the vlm family) under FSDP: ROADMAP item 15")
+    if cfg.mtp:
+        raise NotImplementedError(
+            "the MTP head (the moe family) under FSDP: ROADMAP item 15")
+
+    def loss_master(params, delta, batch, lift):
+        plan = engine.FsdpPlan(cfg, lift)
+        tokens = batch["tokens"]                       # [P, D, b, L]
+        emb = lift(params["embed"], delta["embed"])
+        x = layers.embed(emb, tokens, cfg.embed_scale)
+        ctx = Ctx(cfg, positions=torch.arange(tokens.shape[-1],
+                                              device=tokens.device))
+        x = engine.run_segments(plan, arch, arch.segments, params["stacks"],
+                                x, ctx, lead=1, dstacks=delta["stacks"])
+        head = lift(params["head"], delta["head"])
+        targets, mask = _targets_and_mask(tokens)
+        losses = layers.softmax_xent(_logits(cfg, head, emb, x), targets,
+                                     mask)
+        return losses.sum(), losses
+
+    return loss_master
+
+
 def make_cache(arch: ArchDef, b: int, max_len: int,
                device: str | torch.device | None = None) -> dict:
     """bfloat16 zeros of each block's ``cache_init`` slice shapes,
@@ -296,12 +343,17 @@ class BuiltModel:
 
 
 def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
+    """The model's entry points; an FSDP config (``param_mode="fsdp"``)
+    gets ``loss=None`` and a ``loss_master`` (:func:`make_loss_master`)."""
     arch = make_archdef(cfg)
     prefill, decode_step = make_serve_fns(arch)
+    fsdp = cfg.param_mode == "fsdp"
     return BuiltModel(
         cfg=cfg, arch=arch, topo=topo,
-        bundle=hier.ModelBundle(loss=make_loss(arch),
-                                param_mode=cfg.param_mode),
+        bundle=hier.ModelBundle(
+            loss=None if fsdp else make_loss(arch),
+            loss_master=make_loss_master(arch) if fsdp else None,
+            param_mode=cfg.param_mode),
         init_params=lambda generator: init_params(arch, generator),
         abstract_params=lambda: init_params(arch, None, "meta"),
         prefill=prefill, decode_step=decode_step,

@@ -13,10 +13,14 @@ hands ``run_segments`` the caches, stacked per block name as the
 parameters are; each layer takes the slice its cursor gives, and the
 new slices are restacked in layer order.
 
+The FSDP regime (``FsdpPlan``): the segments run over the [P, n_layers,
+*leaf] masters, each layer lifted to its [P, D] copies inside its block
+(``core.device_axis``), the lift's backward voting.
+
 Not ported yet: tied blocks (zamba2's shared attention, with the hybrid
-family, ROADMAP item 15), the MTP block (deepseek-v3, with the moe
-family, item 15), and ``FsdpPlan`` and the serving plan that gathers
-FSDP shards (item 17).
+family, ROADMAP item 15; refused in both regimes), the MTP block
+(deepseek-v3, with the moe family, item 15), and the serving plan that
+gathers FSDP shards (item 17).
 """
 from __future__ import annotations
 
@@ -87,6 +91,28 @@ class ReplicatedPlan:
         return bd.apply(lp, x, ctx)
 
 
+class FsdpPlan:
+    """The FSDP regime's block application: each layer's master slice
+    [P, *leaf] is lifted to its [P, D, *leaf] copies by ``lift(lp,
+    ld)`` (``core.device_axis.fsdp_lift_tree``: the backward votes)
+    inside the block, and with ``cfg.remat`` the lift and the block run
+    under ``torch.utils.checkpoint``, so the copies and activations are
+    recomputed in the backward pass while the vote runs once.  Train
+    mode only."""
+
+    def __init__(self, cfg: LMConfig, lift):
+        self.lift = lift
+        self.remat = cfg.remat
+
+    def block(self, bd: BlockDef, lp, x, ctx: Ctx, ld):
+        def run(lp_, ld_, x_):
+            return bd.apply(self.lift(lp_, ld_), x_, ctx)
+
+        if self.remat and bd.remat and torch.is_grad_enabled():
+            return checkpoint(run, lp, ld, x, use_reentrant=False)
+        return run(lp, ld, x)
+
+
 def _per_layer(tree, lead: int) -> list:
     """A stacked tree [*lead, n, *leaf] -> its n layers' trees."""
     leaves, td = pytree.tree_flatten(tree)
@@ -94,17 +120,27 @@ def _per_layer(tree, lead: int) -> list:
             for ls in zip(*(a.unbind(lead) for a in leaves))]
 
 
-def run_segments(plan: ReplicatedPlan, arch: ArchDef, segments, stacks,
-                 x: torch.Tensor, ctx: Ctx, lead: int = 0, caches=None):
+def run_segments(plan, arch: ArchDef, segments, stacks,
+                 x: torch.Tensor, ctx: Ctx, lead: int = 0, caches=None,
+                 dstacks=None):
     """Apply all segments to x [*lead, b, t, d].  ``stacks`` holds each
     block's parameters [*lead, n_layers, *leaf] (``lead`` replica dims);
     the layers of a stack are used in order across the segments.  The
     segments' block names are the decoder's or the encoder's.  With
     ``caches`` (each block's [n_layers, *slice], serving, ``lead`` 0)
     each layer takes its slice and the result is (x, the new caches
-    stacked the same way)."""
+    stacked the same way).
+
+    FSDP (``plan`` an :class:`FsdpPlan`): ``stacks`` are the masters [P,
+    n_layers, *leaf] and ``dstacks`` their corrections, ``lead`` 1 (the
+    JAX ``slice_stack``); each is unbound once, so autograd stacks the
+    layers' directions once (a per-layer ``select`` would build a
+    full-size zero tensor for every layer), and each layer hands its
+    slices to ``plan.block``."""
     blocks = {**arch.blocks, **(arch.enc_blocks or {})}
     per_layer = {name: _per_layer(tree, lead) for name, tree in stacks.items()}
+    dper = ({name: _per_layer(tree, lead) for name, tree in dstacks.items()}
+            if dstacks is not None else None)
     cursors = dict.fromkeys(per_layer, 0)
     old = ({name: _per_layer(tree, 0) for name, tree in caches.items()}
            if caches is not None else None)
@@ -117,7 +153,10 @@ def run_segments(plan: ReplicatedPlan, arch: ArchDef, segments, stacks,
             for bname, cnt in seg.layout:
                 for _ in range(cnt):
                     lp = per_layer[bname][cursors[bname]]
-                    if old is None:
+                    if dper is not None:
+                        x = plan.block(blocks[bname], lp, x, ctx,
+                                       ld=dper[bname][cursors[bname]])
+                    elif old is None:
                         x = plan.block(blocks[bname], lp, x, ctx)
                     else:
                         x, nc = plan.block(blocks[bname], lp, x, ctx,

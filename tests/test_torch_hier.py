@@ -345,14 +345,6 @@ def test_flat_fused_update_is_in_place():
     assert new.params.buf is buf and not torch.equal(buf, before)
 
 
-def test_unported_options_raise_with_their_roadmap_item():
-    """Only the FSDP regime is left unported; every method and option of
-    the replicated regime builds (tests/test_torch_methods.py runs them)."""
-    with pytest.raises(NotImplementedError, match="item 17"):
-        hier.make_hier_step(Topology(1, 1, "cpu"), hier.AlgoConfig(),
-                            hier.ModelBundle(loss=None, param_mode="fsdp"))
-
-
 def test_algo_config_validates_like_reference():
     with pytest.raises(ValueError) as exc:
         hier.AlgoConfig(method="hier_signsg")
