@@ -5,6 +5,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --mu-sweep`` builds the kernels and runs only
+the ``moe`` phase's step-size sweep, ``moe_mu_sweep``.)
+
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
   1. build the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc),
@@ -169,6 +172,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``{"fsdp": "kernel route" | "gemma3-1b vs replicated" |
      "parameters" | "step" | "profiled local step" | "memory" |
      "phase"}``; the kernels line gains ``fsdp_launches``.
+ 12. ``moe``: the vlm and moe families under FSDP (``moe_cells``: every
+     width as published; deepseek-v3 cut to 2 layers -- 1 leading dense
+     MLA layer, 1 MoE layer -- 16 routed experts of 256 and the
+     vocabulary's eighth, MTP on, 2,437,338,112 parameters; arctic to 2
+     layers and 8 experts, 2,576,501,760; internvl2 to 2 layers and
+     16032 words, 1,973,985,280, 256 patches a row), P=2 x D=2, 1 x 512
+     tokens a device, DC, mu 1e-5 (``MOE_MU``, the largest step of
+     ``--mu-sweep`` at which all three losses fall), rho 0.2, T_E=3,
+     bf16 compute, f32 master, bf16 delta, fused, tree.  The lift's
+     fused vote at every distinct leaf shape of the four configs (expert
+     stacks, router, MLA, MTP, the untied tables), [2, 2] f32 and bf16
+     cotangents: bitwise its plain ``ag_packed`` vote.  One MoE layer of
+     deepseek-v3 and of arctic at full shapes on [2, 2] replicas, f32:
+     both dispatches within 1e-5 of the largest |y| of ``moe_oracle``
+     (plain loops over replicas, groups and experts), and their bf16
+     forward and backward twice bitwise; the check config (deepseek-v3,
+     1 MoE layer, 8 experts, MTP; 1,501,475,840 parameters) 3 steps FSDP
+     fused/tree bitwise the replicated ag_packed/tree run at P=2 x D=1
+     (the replicated regime does not fit at D=2); then 6 steps of
+     ``run_training`` for each of the three (round 2's mean loss below
+     step 0's, one ``sign_pack`` and one ``vote_update`` a leaf and
+     layer a step, a local step of round 2 profiled, the peak beside
+     ``reckon_fsdp_peak``), internvl2 and deepseek-v3 then served
+     resident in bf16 from edge 0 of the trained masters (8 requests of
+     512 tokens, internvl2's with 256 patches, 32 greedy steps, twice:
+     the same tokens, finite logits; internvl2's decode step against
+     the one-longer prefill on the float32 views, 2e-2 of the largest
+     logit and the same greedy tokens; deepseek-v3's MLA layer alone,
+     absorbed decode against the train form within 2^-6).  JSON lines
+     ``{"moe": "parameters" | "kernel route" | "layer vs oracle" |
+     "fsdp vs replicated" | "step" | "profiled local step" | "memory" |
+     "phase"}`` and
+     ``{"serve": "run"}``; the kernels line gains ``moe_launches``.
 
 The ``ternary`` cases of phase 2 include the QSGD step's per-row form:
 rows of the MLP's leaf lengths 10, 64, 640 and 50176, R = 20 and 40 rows
@@ -2461,49 +2497,84 @@ FSDP_PROFILED_STEP = 4         # a local step of round 2
 FSDP_STRAGGLER = ((True, False), (True, True))
 
 
-def reckon_fsdp_peak(cfg, n: int, n_table: int, batch: int,
-                     seq: int) -> dict:
-    """The FSDP regime's peak device memory (GB), reckoned from the tree's
-    n parameters (the tied table's n_table among them) and the run's
-    shapes before any run, at p x d = FSDP_P x FSDP_D copies, bf16
-    compute, f32 master, the lift's copies materialised:
+def reckon_fsdp_peak(arch, abstract, batch: int, seq: int) -> dict:
+    """The FSDP regime's peak device memory (GB), reckoned before any run
+    from the tree's leaves (``abstract``, one replica's shapes) and the
+    run's shapes, at p x d = FSDP_P x FSDP_D copies (the ``fsdp`` and
+    ``moe`` phases' main paths), bf16 compute, f32 master, the lift's
+    copies materialised.  n is the tree's size, t the embedding table's,
+    h the head's lifted leaf (the table when it is tied, else
+    ``head.out``), m the MTP subtree's:
 
       state     8pn: the f32 master, bf16 delta and delta_next [P]
                 (updated in place: the cloud mean and the descent write
                 the master, the fresh anchor the delta it replaces; no
                 second copy);
-      dirs      4p(n - n_table): the layers' f32 directions, alive from
-                their layer's backward to the update;
-      cot       2pd n_table: the tied table's bf16 [P, D] cotangent;
-      lifted    2pd n_table: the table's bf16 [P, D] copies, alive until
-                the head's backward;
+      dirs      4p(n - t): every direction but the table's, alive from
+                its leaf's backward to the update;
+      cot       2pd t: the table's bf16 [P, D] cotangent;
+      lifted    2pd (h + m): the head's (and MTP's) bf16 [P, D] copies,
+                alive until their backward;
       logits    18 bytes a logit (``reckon_peak``'s rule), around the
-                head only;
-      u         2pd n_table: g + rho*delta in bf16 before ``sign_pack``;
-      vote      p n_table int8, then the f32 direction 4p n_table;
-      mean      4p n_table: the anchor pass's f32 fold (``wmean``; its
-                cast and products go by coordinate chunks).
+                head only, twice with MTP (its logits too);
+      u         2pd t: g + rho*delta in bf16 before ``sign_pack``;
+      vote      p t int8, then the f32 direction 4p t;
+      mean      4p t: the anchor pass's f32 fold (``wmean``; its cast
+                and products go by coordinate chunks);
+      layer     the largest of the layers' backwards, in backward
+                order: the directions of the leaves voted before it, its
+                leaves' bf16 [P, D] copies (recomputed under remat), its
+                largest leaf L's cotangent 2pd L and then the larger of
+                u (2pd L) and vote + direction (5p L), and the table's
+                first cotangent 2pd t waiting where the table is read
+                twice (tied, or MTP's rolled tokens).
 
-    Phases: the head's backward (lifted + logits + cot); the embedding's
-    backward, where the two cotangents and their sum are alive (3 cot);
+    Phases: the head's backward (lifted + logits + the head's cotangent
+    2pd h); each layer's; the embedding's backward, where a table read
+    twice has its two cotangents and their sum alive (3 cot, else one);
     the table's vote (cot + max(u, vote + direction)); the anchor's fold
     (cot + mean); the update (all the f32 directions).
-    peak = state + max(lifted + logits + cot, dirs + max(3 cot, cot + u,
-    cot + vote + 4p n_table, cot + mean), 4pn)."""
-    p, d = FSDP_P, FSDP_D
-    t = {"state": 8 * p * n, "dirs": 4 * p * (n - n_table),
-         "cot": 2 * p * d * n_table, "lifted": 2 * p * d * n_table,
-         "logits": 18 * p * d * batch * seq * cfg.vocab,
-         "u": 2 * p * d * n_table, "vote": p * n_table,
-         "direction": 4 * p * n_table, "mean": 4 * p * n_table,
-         "all_dirs": 4 * p * n}
-    head = t["lifted"] + t["logits"] + t["cot"]
-    tail = t["dirs"] + max(3 * t["cot"], t["cot"] + t["u"],
-                           t["cot"] + t["vote"] + t["direction"],
-                           t["cot"] + t["mean"])
-    peak = t["state"] + max(head, tail, t["all_dirs"])
+    peak = state + max(head, layer, dirs + max(k cot, cot + u, cot + vote
+    + 4pt, cot + mean), 4pn), k = 3 or 1.  For a tied table and no MTP
+    this is PR 20's rule."""
+    cfg, p, d = arch.cfg, FSDP_P, FSDP_D
+    n = sum(math.prod(a.shape) for _, a in pytree_items(abstract))
+    t = math.prod(abstract["embed"]["table"].shape)
+    h = t if cfg.tie_embed else math.prod(abstract["head"]["out"].shape)
+    m = sum(math.prod(a.shape) for _, a in pytree_items(
+        abstract.get("mtp", {})))
+    reused = cfg.tie_embed or arch.mtp_block is not None
+    logit_sets = 2 if arch.mtp_block is not None else 1
+    tt = {"state": 8 * p * n, "dirs": 4 * p * (n - t),
+          "cot": 2 * p * d * t, "lifted": 2 * p * d * (h + m),
+          "logits": 18 * p * d * batch * seq * cfg.vocab * logit_sets,
+          "u": 2 * p * d * t, "vote": p * t, "direction": 4 * p * t,
+          "mean": 4 * p * t, "all_dirs": 4 * p * n}
+    # the layers in backward order, each as its leaves' numels
+    order = [name for seg in arch.segments for _ in range(seg.repeats)
+             for name, cnt in seg.layout for _ in range(cnt)]
+    per_layer = {name: [math.prod(a.shape[1:]) for _, a in
+                        pytree_items(abstract["stacks"][name])]
+                 for name in abstract["stacks"]}
+    done = sum(math.prod(a.shape) for _, a in pytree_items(abstract["head"]))
+    done += m if arch.mtp_block is not None else 0
+    layer = 0
+    for name in reversed(order):
+        leaves = per_layer[name]
+        big = max(leaves)
+        layer = max(layer, 4 * p * done + 2 * p * d * sum(leaves)
+                    + 2 * p * d * big + max(2 * p * d * big, 5 * p * big)
+                    + (tt["cot"] if reused else 0))
+        done += sum(leaves)
+    tt["layer"] = layer
+    head = tt["lifted"] + tt["logits"] + 2 * p * d * h
+    tail = tt["dirs"] + max((3 if reused else 1) * tt["cot"],
+                            tt["cot"] + tt["u"],
+                            tt["cot"] + tt["vote"] + tt["direction"],
+                            tt["cot"] + tt["mean"])
+    peak = tt["state"] + max(head, layer, tail, tt["all_dirs"])
     return {"peak_gb": peak / 1e9,
-            **{f"{k}_gb": v / 1e9 for k, v in t.items()}}
+            **{f"{k}_gb": v / 1e9 for k, v in tt.items()}}
 
 
 def padded(numel: int) -> int:
@@ -2512,18 +2583,11 @@ def padded(numel: int) -> int:
     return -(-numel // LEAF_PAD) * LEAF_PAD
 
 
-def fsdp_kernel_route(torch) -> dict:
-    """The lift's ``fused`` vote on the kernels (``votes.fused_sign_vote_
-    leaf``) against its plain version, ``majority_vote_dev(sgn(u +
-    rho*delta))`` on ``ag_packed``, on random f32 and bf16 cotangents of
-    every leaf shape of a gemma3-12b layer (the 240-wide qk norms padded
-    to 256) and of its tied table ([P, D, 262144, 3840], 4.03e9
-    coordinates: the longest rows the main path gives the kernels, bf16
-    there; f32 folds the correction in the kernel), a bf16 correction at
-    rho 0.2 and a straggler mask: bitwise.  These launches are
-    comparisons, not the main path's."""
+def gemma_route_shapes(torch) -> list:
+    """(name, shape) of every leaf of a gemma3-12b layer and of its tied
+    table: the longest rows the FSDP phase's main path gives the lift's
+    vote."""
     from repro_torch import configs
-    from repro_torch.core import signs, votes
     from repro_torch.core.topology import Topology
     from repro_torch.models import build
 
@@ -2534,6 +2598,36 @@ def fsdp_kernel_route(torch) -> dict:
                     for name, leaf in pytree_items(abstract)
                     if name.startswith("stacks.local."))
     shapes.append(("embed.table", tuple(abstract["embed"]["table"].shape)))
+    return shapes
+
+
+def moe_route_shapes(abstracts: dict) -> list:
+    """(name, shape) of every distinct leaf shape, one layer's for the
+    stacked leaves, of the trees in ``abstracts`` (name -> abstract
+    parameters): the moe phase's expert stacks, router, MLA, MTP and
+    untied tables."""
+    seen, shapes = set(), []
+    for arch, abstract in abstracts.items():
+        for name, leaf in pytree_items(abstract):
+            shape = tuple(leaf.shape[1:] if name.startswith("stacks.")
+                          else leaf.shape)
+            if shape not in seen:
+                seen.add(shape)
+                shapes.append((f"{arch}:{name}", shape))
+    return shapes
+
+
+def fsdp_kernel_route(torch, shapes: list, tag: str) -> dict:
+    """The lift's ``fused`` vote on the kernels (``votes.fused_sign_vote_
+    leaf``) against its plain version, ``majority_vote_dev(sgn(u +
+    rho*delta))`` on ``ag_packed``, on random f32 and bf16 [FSDP_P,
+    FSDP_D] cotangents of every (name, shape) of ``shapes`` (bf16 on the
+    main path; f32 folds the correction in the kernel), a bf16
+    correction at rho 0.2 and a straggler mask: bitwise.  These launches
+    are comparisons, not the main path's; the JSON line is ``{tag:
+    "kernel route"}``."""
+    from repro_torch.core import signs, votes
+
     gen = torch.Generator(device="cuda").manual_seed(7)
     mask = torch.tensor(FSDP_STRAGGLER, device="cuda")
     rows, worst = [], 0.0
@@ -2562,11 +2656,33 @@ def fsdp_kernel_route(torch) -> dict:
                          "max_abs_err": err})
             del got, want
             torch.cuda.empty_cache()
-    emit({"fsdp": "kernel route", "leaves": rows, "max_abs_err": worst,
+    emit({tag: "kernel route", "leaves": rows, "max_abs_err": worst,
           "bitwise": True, "wall_s": time.perf_counter() - t0,
           "peak_rise_gb": (torch.cuda.max_memory_allocated() - before)
           / 1e9})
     return {"max_abs_err": worst}
+
+
+def lift_rows(abstract) -> list:
+    """The [P, D, numel] rows of the lifts a step's pass makes, numel
+    padded to votes.LEAF_PAD: every stacked leaf once a layer, every
+    other leaf once (one sign_pack and one vote_update each)."""
+    rows = []
+    for name, leaf in pytree_items(abstract):
+        stacked = name.startswith("stacks.")
+        numel = math.prod(leaf.shape[1:] if stacked else leaf.shape)
+        rows += [(FSDP_P, FSDP_D, padded(numel))] * (
+            leaf.shape[0] if stacked else 1)
+    return rows
+
+
+def lift_bounds(rows: list) -> tuple[float, float]:
+    """``sign_pack``'s and ``vote_update``'s bounds (ms, by bytes) summed
+    over a pass's lift rows: bf16 cotangents, the vote-only form."""
+    return (sum(bound(sign_pack_bytes(r, 2, False),
+                      sign_pack_ops(r, False))[0] for r in rows),
+            sum(bound(vote_update_bytes(r, False, FSDP_P * FSDP_D),
+                      vote_update_ops(r, False))[0] for r in rows))
 
 
 def phase_fsdp(torch, card: str) -> dict:
@@ -2595,7 +2711,7 @@ def phase_fsdp(torch, card: str) -> dict:
     from repro_torch.models import build
 
     t_phase = time.perf_counter()
-    route = fsdp_kernel_route(torch)
+    route = fsdp_kernel_route(torch, gemma_route_shapes(torch), "fsdp")
 
     # 2. gemma3-1b: FSDP against replicated
     cfg1, topo1, algo1 = lm_setup(torch, state_layout="tree")
@@ -2649,20 +2765,11 @@ def phase_fsdp(torch, card: str) -> dict:
     abstract = build.build_model(cfg, topo).abstract_params()
     n = build.param_count(abstract)
     n_table = abstract["embed"]["table"].numel()
-    # each leaf of each layer: one sign_pack and one vote_update launch on
-    # its [P, D, numel] rows, numel padded to votes.LEAF_PAD
-    rows = []
-    for name, leaf in pytree_items(abstract):
-        stacked = name.startswith("stacks.")
-        numel = math.prod(leaf.shape[1:] if stacked else leaf.shape)
-        rows += [(FSDP_P, FSDP_D, padded(numel))] * (
-            leaf.shape[0] if stacked else 1)
+    rows = lift_rows(abstract)
     leaves = len(rows)
-    sp_bound = sum(bound(sign_pack_bytes(r, 2, False),
-                         sign_pack_ops(r, False))[0] for r in rows)
-    vu_bound = sum(bound(vote_update_bytes(r, False, FSDP_P * FSDP_D),
-                         vote_update_ops(r, False))[0] for r in rows)
-    reckoned = reckon_fsdp_peak(cfg, n, n_table, 1, FSDP_SEQ)
+    sp_bound, vu_bound = lift_bounds(rows)
+    reckoned = reckon_fsdp_peak(build.make_archdef(cfg), abstract, 1,
+                                FSDP_SEQ)
     replicated = reckon_peak(cfg, n, 1, FSDP_SEQ, p=FSDP_P, d=FSDP_D)
     emit({"fsdp": "parameters", "arch": cfg.name, "n_layers": cfg.n_layers,
           "count": n, "table": n_table, "leaf_layers_a_step": leaves,
@@ -2720,6 +2827,497 @@ def phase_fsdp(torch, card: str) -> dict:
     return launches
 
 
+MOE_P, MOE_D, MOE_SEQ, MOE_STEPS = 2, 2, 512, 6
+MOE_CHECK_D = 1                  # the replicated regime at D=2 holds
+                                 # more than the card for 1.5e9 params
+MOE_MU = 1e-5                    # the largest of MU_SWEEP at which
+                                 # all three configs' losses fall
+MOE_PROFILED_STEP = 4            # a local step of round 2
+MU_SWEEP = (1e-3, 1e-4, 3e-5, 1e-5)    # --mu-sweep
+ORACLE_TOL = 1e-5                # of the largest |y|, float32
+MLA_DECODE_TOL = 2.0 ** -6       # of the largest |y|: bf16 latent cache
+MOE_SERVE_B, MOE_SERVE_PROMPT, MOE_SERVE_STEPS = 8, 512, 32
+
+
+def moe_cells() -> dict:
+    """The phase's configs, every width as published, FSDP: deepseek-v3
+    cut to 2 layers (1 leading dense of 3, 1 MoE of 58), 16 routed
+    experts of 256 and the vocabulary's eighth (16160 of 129280), MTP
+    on; arctic to 2 layers of 35 and 8 experts of 128; internvl2 to 2 layers
+    of 80 and 16032 of 128256 words; and the FSDP-vs-replicated check's
+    deepseek-v3: 1 MoE layer, no leading dense one, 8 experts."""
+    from repro_torch import configs
+
+    def cut(name, moe=None, **kw):
+        cfg = configs.get_config(name)
+        if moe:
+            kw["moe"] = dataclasses.replace(cfg.moe, **moe)
+        return dataclasses.replace(cfg, param_mode="fsdp", **kw)
+
+    return {
+        "deepseek-v3": cut("deepseek_v3_671b", n_layers=2, vocab=16160,
+                           moe={"n_experts": 16, "first_dense": 1}),
+        "arctic": cut("arctic_480b", n_layers=2, moe={"n_experts": 8}),
+        "internvl2": cut("internvl2_76b", n_layers=2, vocab=16032),
+        "check": cut("deepseek_v3_671b", n_layers=1, vocab=16160,
+                     moe={"n_experts": 8, "first_dense": 0}),
+    }
+
+
+def moe_layer_check(torch, cfg, tag: str) -> dict:
+    """One MoE layer of ``cfg`` at its full shapes on [P, D] = [2, 2]
+    replicas, each with its own float32 parameters and 1 x 512 tokens:
+    both dispatch forms against :func:`moe_oracle` within ORACLE_TOL of
+    the largest |y| (and against each other); then in bf16, the forward
+    and the gradients of x and every leaf twice, bitwise; the layer's
+    forward ms by CUDA events."""
+    from repro_torch.core import pytree
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    reps = [moe.init_moe(gen, cfg, "cuda") for _ in range(MOE_P * MOE_D)]
+    p = pytree.tree_map(lambda *xs: torch.stack(xs).reshape(
+        (MOE_P, MOE_D) + tuple(xs[0].shape)), *reps)
+    del reps
+    x = torch.randn((MOE_P, MOE_D, 1, MOE_SEQ, cfg.d_model), generator=gen,
+                    device="cuda")
+    t0 = time.perf_counter()
+    want = moe_oracle(torch, p, x, cfg)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    scale = float(want.abs().max())
+    out, ys = {"layer": tag, "experts": cfg.moe.n_experts,
+               "top_k": cfg.moe.top_k, "d_expert": cfg.moe.d_expert,
+               "capacity": moe.capacity(MOE_SEQ, cfg.moe),
+               "max_abs_y": scale, "oracle_s": oracle_s}, {}
+    for dispatch in ("einsum", "gather"):
+        dcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch))
+        with torch.no_grad():
+            y, aux = moe.moe_block(p, x, dcfg)
+            err = float((y - want).abs().max())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                moe.moe_block(p, x, dcfg)
+            end.record()
+            end.synchronize()
+        out[dispatch] = {"max_abs_err": err, "limit": ORACLE_TOL * scale,
+                         "f32_ms": start.elapsed_time(end) / 3,
+                         "aux": aux.float().tolist()}
+        require(err <= ORACLE_TOL * scale, f"moe {tag} {dispatch}: "
+                f"{err} from the loop oracle, past {ORACLE_TOL} of "
+                f"{scale}")
+        ys[dispatch] = y
+    out["dispatches_bitwise"] = torch.equal(ys["einsum"], ys["gather"])
+    del ys, want
+    pb = pytree.tree_map(lambda a: a.to(torch.bfloat16), p)
+    del p
+    ct = torch.randn(x.shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    for dispatch in ("einsum", "gather"):
+        dcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch))
+        runs = []
+        for _ in range(2):
+            leaves, td = pytree.tree_flatten(pb)
+            leaves = [a.detach().requires_grad_(True) for a in leaves]
+            xb = x.to(torch.bfloat16).requires_grad_(True)
+            y, aux = moe.moe_block(pytree.tree_unflatten(td, leaves), xb,
+                                   dcfg)
+            g = torch.autograd.grad((y * ct).float().sum() + aux.sum(),
+                                    [xb] + leaves)
+            runs.append([y.detach()] + [a.detach() for a in g])
+            del y, aux, g, leaves, xb
+        differ = sum(int((a != b).sum()) for a, b in zip(*runs))
+        out[dispatch]["bf16_rerun_differing"] = differ
+        require(differ == 0, f"moe {tag} {dispatch}: two bf16 forwards "
+                f"and backwards differ in {differ} coordinates")
+        del runs
+    del pb, x, ct
+    torch.cuda.empty_cache()
+    emit({"moe": "layer vs oracle", **out})
+    return out
+
+
+def mla_decode_check(torch, cfg, attn_p) -> dict:
+    """The MLA layer alone, float32 weights (``attn_p``: one layer's), 8
+    rows: a prefill of 512 positions into the bfloat16 latent cache, then
+    the absorbed decode of position 512, against the train form's last
+    position over all 513: within MLA_DECODE_TOL of the largest |y| (the
+    decode reads the latents rounded to bfloat16)."""
+    from repro_torch.models import attention, build
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    t = MOE_SERVE_PROMPT
+    x = torch.randn((MOE_SERVE_B, t + 1, cfg.d_model), generator=gen,
+                    device="cuda")
+    pos = torch.arange(t + 1, device="cuda")
+    arch = build.make_archdef(cfg)
+    cache = build.make_cache(arch, MOE_SERVE_B, t + 8, "cuda")
+    layer0 = {k: v[0] for k, v in cache["stacks"]["dense"].items()}
+    with torch.no_grad():
+        _, c = attention.mla_attn(attn_p, x[:, :t], pos[:t], cfg,
+                                  cache=layer0, prefill=True)
+        dec, _ = attention.mla_attn(attn_p, x[:, t:], pos[t:], cfg,
+                                    cache=c, pos=t)
+        full = attention.mla_attn(attn_p, x, pos, cfg)[:, t:]
+    scale = float(full.abs().max())
+    err = float((dec - full).abs().max())
+    out = {"rows": MOE_SERVE_B, "prompt": t, "max_abs_err": err,
+           "max_abs_y": scale, "limit": MLA_DECODE_TOL * scale,
+           "cache_dtype": str(c["ckv"].dtype).split(".")[-1]}
+    require(err <= MLA_DECODE_TOL * scale, f"MLA absorbed decode vs the "
+            f"train form: {out}")
+    return out
+
+
+def moe_serve(torch, card: str, name: str, cfg, masters) -> dict:
+    """Serve ``cfg`` resident in bf16 from edge 0 of a run's [P, *leaf]
+    masters: 8 requests of MOE_SERVE_PROMPT tokens (and a vlm's
+    patches), MOE_SERVE_STEPS greedy steps, twice (the same tokens,
+    every logit finite); internvl2's decode step against the one-longer
+    prefill on the float32 views (the gemma check's 2e-2 and the same
+    greedy tokens); deepseek-v3's MLA layer alone (:func:`mla_decode_
+    check`)."""
+    from repro_torch.core.topology import Topology
+    from repro_torch.data import synthetic
+    from repro_torch.launch import specs
+    from repro_torch.models import build
+
+    built = build.build_model(cfg, Topology(1, 1, "cuda"))
+    require(built.serve_layout == "resident", f"{name}: serve layout "
+            f"{built.serve_layout}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = specs.serve_params_from_tree(masters, torch.bfloat16)
+    scfg = synthetic.LMStreamCfg(
+        vocab=cfg.vocab, seq_len=MOE_SERVE_PROMPT,
+        batch_per_device=MOE_SERVE_B, pods=1, devices_per_pod=1,
+        n_patches=cfg.n_patches, d_model=cfg.d_model)
+    batch = {k: v.cuda() for k, v in synthetic.serve_request_batch(
+        scfg, MOE_SERVE_B, MOE_SERVE_PROMPT + 1).items()}
+    prompt = dict(batch, tokens=batch["tokens"][:, :MOE_SERVE_PROMPT])
+    max_len = cfg.n_patches + MOE_SERVE_PROMPT + MOE_SERVE_STEPS + 8
+    runs = [serve_run(torch, built, params, prompt, max_len,
+                      MOE_SERVE_STEPS) for _ in range(2)]
+    same = torch.equal(runs[0]["tokens"], runs[1]["tokens"])
+    require(same and all(r["finite"] for r in runs), f"{name} serving: "
+            f"same tokens {same}, finite {[r['finite'] for r in runs]}")
+    out = {"serve": "run", "arch": cfg.name, "card": card,
+           "requests": MOE_SERVE_B, "patches": cfg.n_patches,
+           "prompt": MOE_SERVE_PROMPT, "decode_steps": MOE_SERVE_STEPS,
+           "max_len": max_len, "same_tokens_twice": same,
+           "prefill_ms": [r["prefill_ms"] for r in runs],
+           "decode_ms_per_step": [r["decode_ms_per_step"] for r in runs],
+           "tokens_per_s": [MOE_SERVE_B * 1e3 / r["decode_ms_per_step"]
+                            for r in runs],
+           "cache_bytes": runs[0]["cache_bytes"]}
+    del runs, params
+    if cfg.n_patches:                 # decode against the longer prefill
+        views = specs.serve_params_from_tree(masters)
+        with torch.no_grad():
+            _, cache = built.prefill(views, prompt, max_len)
+            dec, _ = built.decode_step(
+                views, cache, batch["tokens"][:, MOE_SERVE_PROMPT:])
+            del cache
+            full, _ = built.prefill(views, batch, max_len)
+        dec, full = dec[:, -1].float(), full[:, -1].float()
+        top2 = torch.topk(full, 2, dim=-1).values
+        check = {"dtype": "float32 views",
+                 "greedy_tokens_agree": torch.equal(dec.argmax(-1),
+                                                    full.argmax(-1)),
+                 "max_abs_logit_diff": float((dec - full).abs().max()),
+                 "max_abs_logit": float(full.abs().max()),
+                 "min_top2_gap": float((top2[:, 0] - top2[:, 1]).min())}
+        check["limit"] = SERVE_CHECK_TOL["float32 views"] * check[
+            "max_abs_logit"]
+        out["decode_consistency"] = check
+        require(check["greedy_tokens_agree"] and check["max_abs_logit_diff"]
+                <= check["limit"], f"{name}: decode against the longer "
+                f"prefill: {check}")
+        del views, dec, full
+    if cfg.mla is not None:
+        attn_p = {k: v[0, 0] for k, v in masters["stacks"]["dense"][
+            "attn"].items()}
+        out["mla_layer"] = mla_decode_check(torch, cfg, attn_p)
+    torch.cuda.synchronize()
+    out["peak_rise_gb"] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    emit(out)
+    return out
+
+
+def moe_algo(torch, mu: float):
+    """The moe phase's algorithm: DC at ``mu``, rho 0.2, T_E=3, bf16
+    compute and delta, f32 master, fused, tree."""
+    from repro_torch.core import hier
+    return hier.AlgoConfig(method="dc_hier_signsgd", mu=mu, rho=RHO,
+                           t_e=LM_TE, transport="fused", state_layout="tree",
+                           compute_dtype=torch.bfloat16,
+                           master_dtype=torch.float32,
+                           delta_dtype=torch.bfloat16)
+
+
+def moe_mu_sweep(torch, card: str) -> None:
+    """``python3 chip_smoke.py --mu-sweep``: the moe phase's three
+    main-path configs (:func:`moe_cells`), 6 steps of ``run_training``
+    each at every mu of MU_SWEEP, the phase's algorithm and data
+    otherwise.  One JSON line ``{"moe": "mu sweep"}`` a run: its losses,
+    round 2's mean beside step 0's.  It checks nothing: it reads which
+    step sizes these cuts' random weights take."""
+    from repro_torch.core.topology import Topology
+    from repro_torch.launch.train import RunCfg
+
+    cells = moe_cells()
+    topo = Topology(MOE_P, MOE_D, "cuda")
+    run = RunCfg(steps=MOE_STEPS, batch_per_device=1, seq_len=MOE_SEQ,
+                 log_every=1, seed=0)
+    for name in ("deepseek-v3", "arctic", "internvl2"):
+        for mu in MU_SWEEP:
+            res = lm_train(torch, f"[mu sweep] {name} mu {mu:g}",
+                           cells[name], topo, moe_algo(torch, mu), run, None)
+            losses = [h["loss"] for h in res["history"]]
+            emit({"moe": "mu sweep", "arch": cells[name].name, "card": card,
+                  "mu": mu, "losses": losses, "step0_loss": losses[0],
+                  "round2_mean_loss": statistics.mean(
+                      losses[LM_TE:2 * LM_TE])})
+            del res
+            torch.cuda.empty_cache()
+
+
+def phase_moe(torch, card: str) -> dict:
+    """The vlm and moe families on the card, FSDP, P=2 x D=2, 1 x 512
+    tokens a device (internvl2: and 256 patches), DC, mu 1e-5 (MOE_MU:
+    the largest step of :func:`moe_mu_sweep` at which all three losses
+    fall; at 1e-3 the reference's own step rises as the port's does at
+    these widths, ``tests/helpers/torch_mu_witness.py``), rho 0.2,
+    T_E=3, bf16 compute, f32 master, bf16 delta, fused, tree, random
+    weights from seed 0 (:func:`moe_cells`):
+
+      1. the lift's fused vote at every leaf shape of the four configs
+         on [2, 2] cotangents, bitwise its plain ``ag_packed`` vote
+         (:func:`fsdp_kernel_route`); one MoE layer of deepseek-v3 and
+         of arctic at full shapes against the loop oracle, both
+         dispatches, and bitwise on a bf16 rerun
+         (:func:`moe_layer_check`);
+      2. the check config, 3 steps FSDP fused/tree against the
+         replicated ag_packed/tree run at P=2 x D=1 (the replicated
+         regime's [P, D] copies, gradients and anchor of 1.5e9
+         parameters pass the card's 80 GB at D=2, so step 1 holds the
+         vote with two voters a pod at these shapes): bitwise;
+      3. deepseek-v3, arctic and internvl2, 6 steps of ``run_training``
+         each (a local step of round 2 profiled): round 2's mean loss
+         below step 0's, one sign_pack and one vote_update a leaf and
+         layer a step, the peak beside :func:`reckon_fsdp_peak`;
+      4. internvl2 and deepseek-v3 served resident from edge 0 of their
+         trained masters (:func:`moe_serve`).
+
+    Returns each config's kernel launches in step 3 (the main path)."""
+    from repro_torch.core import pytree
+    from repro_torch.core.topology import Topology
+    from repro_torch.launch.train import RunCfg
+    from repro_torch.models import build
+
+    t_phase = time.perf_counter()
+    cells = moe_cells()
+    topo = Topology(MOE_P, MOE_D, "cuda")
+    algo = moe_algo(torch, MOE_MU)
+    reckoned, abstracts = {}, {}
+    for name, cfg in cells.items():
+        b = build.build_model(cfg, topo)
+        abstract = abstracts[name] = b.abstract_params()
+        rows = lift_rows(abstract)
+        reckoned[name] = {
+            "count": build.param_count(abstract),
+            "leaf_layers_a_step": len(rows),
+            "bound_ms": lift_bounds(rows),
+            "reckoned": reckon_fsdp_peak(b.arch, abstract, 1, MOE_SEQ)}
+    emit({"moe": "parameters", "card": card, "pods": MOE_P,
+          "devices_per_pod": MOE_D, "seq": MOE_SEQ,
+          **{name: {"n_layers": cfg.n_layers, "vocab": cfg.vocab,
+                    "experts": cfg.moe.n_experts if cfg.moe else 0,
+                    **reckoned[name]} for name, cfg in cells.items()}})
+
+    # 1. the lift's vote at the leaf shapes with 2 voters a pod, and the
+    # MoE layer against the loop oracle
+    route = fsdp_kernel_route(torch, moe_route_shapes(abstracts), "moe")
+    del abstracts
+    for name in ("deepseek-v3", "arctic"):
+        moe_layer_check(torch, dataclasses.replace(
+            cells[name], param_mode="replicated"), name)
+
+    # 2. FSDP against replicated, bitwise.  Each run starts from seed 0's
+    # parameters made anew; the FSDP run's edge models wait on the host
+    ccfg = cells["check"]
+    ctopo = Topology(MOE_P, MOE_CHECK_D, "cuda")
+    run3 = RunCfg(steps=FSDP_CHECK_STEPS, batch_per_device=1,
+                  seq_len=MOE_SEQ, log_every=1, seed=0)
+
+    def check_params():
+        return build.build_model(ccfg, ctopo).init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+
+    fs = lm_train(torch, "[moe] check fsdp fused/tree", ccfg, ctopo, algo,
+                  run3, check_params())
+    fs_params = pytree.tree_map(lambda a: a.cpu(), fs["params"])
+    fs_peak, fs_launches, fs_hist = fs["peak_gb"], fs["launches"], fs[
+        "history"]
+    del fs
+    torch.cuda.empty_cache()
+    rp = lm_train(torch, "[moe] check replicated ag_packed/tree",
+                  dataclasses.replace(ccfg, param_mode="replicated"), ctopo,
+                  dataclasses.replace(algo, transport="ag_packed"), run3,
+                  check_params())
+    rp_params = pytree.tree_map(lambda a: a.cpu(), rp["params"])
+    differ = count_differing(torch, fs_params, rp_params)
+    total = sum(leaf.numel() for _, leaf in pytree_items(fs_params))
+    leaves = reckoned["check"]["leaf_layers_a_step"]
+    emit({"moe": "fsdp vs replicated", "arch": ccfg.name, "card": card,
+          "pods": MOE_P, "devices_per_pod": MOE_CHECK_D,
+          "count": reckoned["check"]["count"], "steps": FSDP_CHECK_STEPS,
+          "coordinates": total, "differing": differ, "bitwise": differ == 0,
+          "launches": fs_launches, "leaf_layers_a_step": leaves,
+          "losses_fsdp": [h["loss"] for h in fs_hist],
+          "losses_replicated": [h["loss"] for h in rp["history"]],
+          "peak_gb_fsdp": fs_peak, "peak_gb_replicated_tree": rp["peak_gb"]})
+    require(differ == 0, f"moe check: fsdp vs replicated, {differ} of "
+            f"{total} coordinates differ")
+    require(fs_launches["sign_pack"] == FSDP_CHECK_STEPS * leaves,
+            f"moe check: launches {fs_launches}")
+    del rp, rp_params, fs_params
+    torch.cuda.empty_cache()
+
+    # 3. training through run_training (the main path), 4. serving
+    launches = {}
+    run = RunCfg(steps=MOE_STEPS, batch_per_device=1, seq_len=MOE_SEQ,
+                 log_every=1, seed=0)
+    for name in ("deepseek-v3", "arctic", "internvl2"):
+        cfg = cells[name]
+        leaves = reckoned[name]["leaf_layers_a_step"]
+        res = lm_train(torch, f"[moe] {name} fused/tree", cfg, topo, algo,
+                       run, None, profile=MOE_PROFILED_STEP)
+        want = {"sign_pack": MOE_STEPS * leaves,
+                "vote_update": MOE_STEPS * leaves, "ternary_quant": 0}
+        require(res["launches"] == want, f"{name}: launches "
+                f"{res['launches']}, want {want}")
+        losses = [h["loss"] for h in res["history"]]
+        round2 = statistics.mean(losses[LM_TE:2 * LM_TE])
+        require(round2 < losses[0], f"{name}: the loss did not fall: step "
+                f"0 {losses[0]}, round 2 mean {round2}")
+        prof = res["prof"]
+        sp_ms, sp_n = prof["sign_pack_kernel"]
+        vu_ms, vu_n = prof["vote_update_kernel"]
+        require((sp_n, vu_n) == (leaves, leaves), f"{name}: the profiled "
+                f"step launched {sp_n} sign_pack and {vu_n} vote_update, "
+                f"want {leaves} each")
+        host = [h["ms"] for h in res["history"]]
+        local = host[LM_TE + 1:MOE_PROFILED_STEP] + host[
+            MOE_PROFILED_STEP + 1:]
+        emit({"moe": "step", "arch": cfg.name, "card": card,
+              "ms_per_step": host,
+              "ms_per_local_step_round2": statistics.mean(local),
+              "ms_prologue_step_round2": host[LM_TE],
+              "ms_profiled_step": host[MOE_PROFILED_STEP],
+              "data_ms_per_step": statistics.mean(
+                  h["data_ms"] for h in res["history"]),
+              "losses": losses, "round2_mean_loss": round2,
+              "launches": res["launches"], "leaf_layers_a_step": leaves})
+        sp_bound, vu_bound = reckoned[name]["bound_ms"]
+        emit({"moe": "profiled local step", "arch": cfg.name, "card": card,
+              "sign_pack_launches": sp_n, "sign_pack_device_ms": sp_ms,
+              "sign_pack_bound_ms": sp_bound,
+              "vote_update_launches": vu_n, "vote_update_device_ms": vu_ms,
+              "vote_update_bound_ms": vu_bound, "bound_by": "bytes",
+              "device_busy_ms": prof["busy_ms"],
+              "device_busy_share": prof["busy_ms"] / host[
+                  MOE_PROFILED_STEP],
+              "kernels_share_of_device_time":
+                  (sp_ms + vu_ms) / max(prof["busy_ms"], 1e-9),
+              "top": prof["top"]})
+        emit({"moe": "memory", "arch": cfg.name, "card": card,
+              "peak_gb": res["peak_gb"],
+              "reckoned_gb": reckoned[name]["reckoned"]["peak_gb"],
+              "total_gb": torch.cuda.get_device_properties(0).total_memory
+              / 1e9})
+        launches[name] = dict(res["launches"])
+        masters = res["params"]
+        del res
+        if name != "arctic":
+            moe_serve(torch, card, name, cfg, masters)
+        del masters
+        torch.cuda.empty_cache()
+    emit({"moe": "phase", "card": card, "route_max_abs_err":
+          route["max_abs_err"], "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def moe_oracle(torch, p, x, cfg):
+    """The MoE layer by plain loops, apart from ``models.moe``: for each
+    replica (the leading dims of x [*lead, b, t, d] and of every leaf of
+    p), each group of its tokens and each expert, the (token, choice)
+    pairs routed there in token-then-choice order up to the capacity,
+    through the expert's SwiGLU, weighted by the renormalised gate and
+    added to the token's row; then the shared experts and the dense
+    residual MLP.  The top-k is numpy's stable argsort of the negated
+    probabilities on the host (equal probabilities keep the lower
+    expert), the queues Python lists."""
+    import numpy as np
+    fn = torch.nn.functional
+    e = cfg.moe
+    lead = tuple(x.shape[:-3])
+    b, t, d = x.shape[-3:]
+    n = b * t
+    g = max(1, n // e.group_tokens)
+    s_len = n // g
+    cap = max(1, int(s_len * e.top_k / e.n_experts * e.capacity_factor))
+    flat = lambda a: a.reshape((-1,) + tuple(a.shape[len(lead):]))  # noqa
+    xs = x.reshape((-1, g, s_len, d))
+    pr = {k: (flat(v) if not isinstance(v, dict)
+              else {kk: flat(vv) for kk, vv in v.items()})
+          for k, v in p.items()}
+
+    def swiglu(gate, up, down, rows):
+        return (fn.silu(rows @ gate) * (rows @ up)) @ down
+
+    y = torch.zeros_like(xs)
+    for r in range(xs.shape[0]):
+        for gi in range(g):
+            rows = xs[r, gi]
+            probs = torch.softmax((rows @ pr["router"][r]).float(), dim=-1)
+            probs = probs.cpu().numpy()
+            order = np.argsort(-probs, axis=-1, kind="stable")[:, :e.top_k]
+            gates = np.take_along_axis(probs, order, axis=-1)
+            gates = gates / np.maximum(gates.sum(-1, keepdims=True),
+                                       np.float32(1e-9))
+            queues = [[] for _ in range(e.n_experts)]
+            for s in range(s_len):
+                for j in range(e.top_k):
+                    q = queues[order[s, j]]
+                    if len(q) < cap:
+                        q.append((s, float(gates[s, j])))
+            for ex, q in enumerate(queues):
+                if not q:
+                    continue
+                toks = torch.tensor([s for s, _ in q], device=x.device)
+                w = torch.tensor([gv for _, gv in q], dtype=x.dtype,
+                                 device=x.device)
+                out = swiglu(pr["w_gate"][r, ex], pr["w_up"][r, ex],
+                             pr["w_down"][r, ex], rows[toks])
+                y[r, gi, toks] += w[:, None] * out
+    y = y.reshape(x.shape)
+    xr = x.reshape((-1, n, d))
+    for name in ("shared", "dense"):
+        if name in pr:
+            m = pr[name]
+            y = y + torch.stack([swiglu(m["gate"][r], m["up"][r],
+                                        m["down"][r], xr[r])
+                                 for r in range(xr.shape[0])]).reshape(
+                                     x.shape)
+    return y
+
+
 def pytree_items(tree, prefix=""):
     """(dotted name, leaf) pairs of a nested dict of tensors."""
     if not isinstance(tree, dict):
@@ -2763,6 +3361,9 @@ def main() -> None:
 
     from repro_torch.core.topology import resolve_device
     resolve_device("cuda")
+    if sys.argv[1:] == ["--mu-sweep"]:
+        moe_mu_sweep(torch, card)
+        return
     timer = Timer(torch)
     main_rows = phase_kernels(torch, timer)
     phase_edges(torch, timer)
@@ -2783,6 +3384,7 @@ def main() -> None:
     ft = phase_fault_tolerant(torch, lm_launches["peak_gb"], card)
     serve_launches = phase_serve(torch, card)
     fsdp_launches = phase_fsdp(torch, card)
+    moe_launches = phase_moe(torch, card)
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
              "tally_acc": "clients, stream fused/flat (30 steps, K=2)",
@@ -2808,6 +3410,8 @@ def main() -> None:
             "fault_tolerant_launches": ft["launches"].get(name, 0),
             "serve_launches": serve_launches[name],
             "fsdp_launches": fsdp_launches.get(name, 0),
+            "moe_launches": {arch: m.get(name, 0)
+                             for arch, m in moe_launches.items()},
             "oracle_check_launches": sum(
                 r.get(name, 0) for r in ft["oracle"].values())})
     emit({"kernels": kernels})

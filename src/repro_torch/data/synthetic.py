@@ -28,12 +28,15 @@ times standard normals of shape [P, D, b, frames, frontend_dim], drawn
 the same way from a CPU generator seeded from (seed, step,
 ``FRAMES_TAG``); the parity tests hand both packages the same frames.
 
+The vlm family's stub vision patches (``n_patches`` > 0) are ``0.02``
+times standard normals of shape [P, D, b, n_patches, d_model], drawn
+the same way from a CPU generator seeded from (seed, step,
+``PATCHES_TAG``), a key apart from the frames'.
+
 ``serve_request_batch`` draws a batch of serving prompts (uniform
 tokens) from a CPU generator seeded from its ``seed``, where the JAX
 package draws ``jax.random.randint``; whisper's requests add stub frames
-drawn as the stream's are.
-
-Not ported yet: the vlm family's vision patches (ROADMAP item 15).
+and a vlm's stub patches, drawn as the stream's are.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from repro_torch.core.keys import key_seed
 from repro_torch.data import cluster
 
 FRAMES_TAG = 0xF4A3E5     # the frames' generator key, apart from the edges'
+PATCHES_TAG = 0x9A7C4E    # the patches' key, apart from the frames'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +77,8 @@ class LMStreamCfg:
                                  # data.cluster)
     frames: int = 0              # encdec/audio: stub audio frames a row
     frontend_dim: int = 0        # and their feature width
+    n_patches: int = 0           # vlm: stub vision patches a row
+    d_model: int = 0             # and their width
 
 
 def _edge_logits(cfg: LMStreamCfg) -> np.ndarray:
@@ -147,7 +153,8 @@ def validate_scenario(cfg: LMStreamCfg) -> None:
 def make_stream(cfg: LMStreamCfg):
     """Returns batch_at(step) -> {"tokens": [P, D, b, L] int64} on the
     CPU, with ``"frames"`` [P, D, b, frames, frontend_dim] float32 when
-    ``cfg.frames``.  Validates the carve contract and the scenario axes
+    ``cfg.frames`` and ``"patches"`` [P, D, b, n_patches, d_model]
+    float32 when ``cfg.n_patches``.  Validates the carve contract and the scenario axes
     up front."""
     if cfg.batch_per_device % cfg.clients_per_device:
         raise ValueError(
@@ -181,6 +188,12 @@ def make_stream(cfg: LMStreamCfg):
             batch["frames"] = 0.1 * torch.randn(
                 (p, d, cfg.batch_per_device, cfg.frames, cfg.frontend_dim),
                 generator=gen)
+        if cfg.n_patches:
+            gen = torch.Generator().manual_seed(
+                key_seed(cfg.seed, step, PATCHES_TAG))
+            batch["patches"] = 0.02 * torch.randn(
+                (p, d, cfg.batch_per_device, cfg.n_patches, cfg.d_model),
+                generator=gen)
         return batch
 
     return batch_at
@@ -189,9 +202,11 @@ def make_stream(cfg: LMStreamCfg):
 def serve_request_batch(cfg: LMStreamCfg, n_requests: int, prompt_len: int,
                         seed: int = 17) -> dict:
     """Batched serving requests on the CPU: ``{"tokens": [n_requests,
-    prompt_len] int64}`` uniform over the vocabulary, and with
+    prompt_len] int64}`` uniform over the vocabulary, with
     ``cfg.frames`` the requests' stub audio ``"frames"`` [n_requests,
-    frames, frontend_dim] (``0.1`` times standard normals)."""
+    frames, frontend_dim] (``0.1`` times standard normals), and with
+    ``cfg.n_patches`` their stub ``"patches"`` [n_requests, n_patches,
+    d_model] (``0.02`` times standard normals)."""
     gen = torch.Generator().manual_seed(key_seed(seed))
     batch = {"tokens": torch.randint(0, cfg.vocab, (n_requests, prompt_len),
                                      generator=gen)}
@@ -199,4 +214,8 @@ def serve_request_batch(cfg: LMStreamCfg, n_requests: int, prompt_len: int,
         gen = torch.Generator().manual_seed(key_seed(seed, FRAMES_TAG))
         batch["frames"] = 0.1 * torch.randn(
             (n_requests, cfg.frames, cfg.frontend_dim), generator=gen)
+    if cfg.n_patches:
+        gen = torch.Generator().manual_seed(key_seed(seed, PATCHES_TAG))
+        batch["patches"] = 0.02 * torch.randn(
+            (n_requests, cfg.n_patches, cfg.d_model), generator=gen)
     return batch

@@ -1,13 +1,16 @@
-"""Serving parameters straight from a flat-state checkpoint.
+"""Serving parameters straight from a training state.
 
-The JAX package's ``launch/specs.py`` for serving in the replicated
-regime: :func:`serve_params_from_flat` turns a training run's flat
+The JAX package's ``launch/specs.py`` for serving on one card:
+:func:`serve_params_from_flat` turns a training run's flat
 master (``state_layout="flat"``: ONE ``[P, n_pad]`` buffer) into the
 parameter tree that ``built.prefill`` and ``built.decode_step`` take,
 as slice views of edge 0's row -- zero-copy: every leaf shares the
 buffer's storage, and no per-leaf tree is assembled.  After the cloud
 mean the edge models are equal, so edge 0 stands for all.  Cast only
 when a ``dtype`` is given; the cast is then the only copy.
+:func:`serve_params_from_tree` does the same for a tree-layout state's
+``[P, *leaf]`` edge models -- the FSDP regime's masters, which an FSDP
+config within ``build.SERVE_RESIDENT_BUDGET`` serves resident.
 
 Not ported yet: the sharded layouts and their shardings
 (``serve_param_shardings``, the model-axis ``tree_views``) and the
@@ -46,6 +49,18 @@ def serve_params_from_flat(built: BuiltModel, fs: flatbuf.FlatState,
         return tree
     return pytree.tree_map(
         lambda v: v.to(dtype) if v.dtype.is_floating_point else v, tree)
+
+
+def serve_params_from_tree(params: PyTree,
+                           dtype: torch.dtype | None = None) -> PyTree:
+    """A tree-layout state's edge models (``[P, *leaf]`` leaves, e.g.
+    ``hier.edge_params(state)``) -> the serve tree: edge 0 of every leaf,
+    as views, cast to ``dtype`` when one is given."""
+    def take(v):
+        v = v[0]
+        return v.to(dtype) if dtype is not None and v.dtype.is_floating_point \
+            else v
+    return pytree.tree_map(take, params)
 
 
 def serve_params_abstract(built: BuiltModel) -> PyTree:

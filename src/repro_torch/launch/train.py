@@ -2,9 +2,10 @@
 
 Two trainers on the port's train step (``core.hier.make_hier_step``):
 ``run_paper_task`` trains the paper's MLP task (below), and
-``run_training`` an LM of the zoo (``--arch NAME``: the dense, ssm and
-encdec/audio families, in the replicated regime or, for an FSDP config
-such as gemma3-12b, in the FSDP regime of ``core.hier``):
+``run_training`` an LM of the zoo (``--arch NAME``: the dense, vlm,
+moe, ssm and encdec/audio families, in the replicated regime or, for an
+FSDP config -- gemma3-12b, internvl2, arctic, deepseek-v3 -- in the FSDP
+regime of ``core.hier``; their ``--smoke`` configs are replicated):
 the JAX package's ``launch/train.py`` trainer -- config -> model ->
 DC-HierSignSGD step -> synthetic token stream -> elastic membership ->
 async checkpointing -> failure recovery -- on one card, the P edges x D
@@ -308,7 +309,8 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
         alpha_client=run.alpha_client, edge_assign=run.edge_assign,
         frames=(cfg.encoder_frames if cfg.family in ("encdec", "audio")
                 else 0),
-        frontend_dim=cfg.frontend_dim))
+        frontend_dim=cfg.frontend_dim, n_patches=cfg.n_patches,
+        d_model=cfg.d_model))
     # with an active ClientConfig the membership mask is client-granular
     # [P, D, K], the step's own vocabulary
     member = elastic.Membership(topo.pods, topo.devices_per_pod,
@@ -402,8 +404,8 @@ def lm_main(argv=None):
     """The JAX package's LM CLI (``repro.launch.train``), flags and
     defaults, plus ``--pods``/``--devices_per_pod`` and ``--device``."""
     ap = argparse.ArgumentParser(description="LM training (the zoo's dense, "
-                                 "ssm and encdec/audio families) through "
-                                 "the port's step")
+                                 "vlm, moe, ssm and encdec/audio "
+                                 "families) through the port's step")
     ap.add_argument("--arch", default="gemma3_1b")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config (CPU-runnable)")

@@ -20,8 +20,19 @@ promotes them: float32 queries meet a bfloat16 cache in float32, the
 softmax weights are cast to the cache's bfloat16 for their product with
 v, and that product meets ``wo`` in float32.
 
-Not ported yet: MLA (ROADMAP item 15, with the moe family) and the
-cache's sharding specs (item 17).
+MLA (deepseek-v3's multi-head latent attention): ``init_mla``,
+``mla_attn`` in its three forms -- train; prefill, which attends as
+training does and writes the latent ``ckv`` and the shared rope key
+``kr`` from slot 0; and the absorbed decode, which scores ``q_nope
+W_uk^T`` against the latent cache, so a step reads the [L, r] cache
+and never recomputes H keys -- and ``mla_cache_init``.  The absorbed
+decode rounds as the reference does: the absorbed query in the compute
+dtype meets the cache cast to it, the two score products are summed
+and only then cast to float32 and scaled by 1/sqrt(nope + rope), and
+the softmax weights are cast back to x's dtype for their product with
+the cache.
+
+Not ported yet: the caches' sharding specs (item 17).
 """
 from __future__ import annotations
 
@@ -242,3 +253,88 @@ def cross_attn(p, x, enc_kv, cfg):
     out = _attend(q, _repeat_kv(enc_kv["k"].to(q.dtype), rep),
                   _repeat_kv(enc_kv["v"].to(q.dtype), rep), None)
     return _merge_heads(out, p["wo"])
+
+
+# -- MLA (deepseek-v3) --------------------------------------------------------
+
+def init_mla(gen, cfg, device) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    r, kr = m.q_lora_rank, m.kv_lora_rank
+    return {
+        "wdq": layers.he_init(gen, (d, r), device),
+        "qn": layers.init_rms(r, device),
+        "wuq": layers.he_init(gen, (r, h * qk), device, r).reshape(r, h, qk),
+        "wdkv": layers.he_init(gen, (d, kr), device),
+        "kvn": layers.init_rms(kr, device),
+        "wkr": layers.he_init(gen, (d, m.qk_rope_head_dim), device),
+        "wuk": layers.he_init(gen, (kr, h * m.qk_nope_head_dim), device,
+                              kr).reshape(kr, h, m.qk_nope_head_dim),
+        "wuv": layers.he_init(gen, (kr, h * m.v_head_dim), device,
+                              kr).reshape(kr, h, m.v_head_dim),
+        "wo": layers.he_init(gen, (h * m.v_head_dim, d), device,
+                             h * m.v_head_dim).reshape(h, m.v_head_dim, d),
+    }
+
+
+def _write(cache: torch.Tensor, new: torch.Tensor, at: int) -> torch.Tensor:
+    """cache [b, L, f] with new [b, t, f] (cast to the cache's dtype) at
+    offset ``at``; past the cache's end raises ``ValueError``."""
+    t, length = new.shape[-2], cache.shape[-2]
+    if at + t > length:
+        raise ValueError(f"writing {t} positions at {at} overruns the "
+                         f"cache's {length} (max_len)")
+    return torch.cat([cache[..., :at, :], new.to(cache.dtype),
+                      cache[..., at + t:, :]], dim=-2)
+
+
+def mla_attn(p, x, positions, cfg, *, cache=None, pos: int = 0,
+             prefill: bool = False):
+    """MLA: x [*, b, t, d] -> [*, b, t, d] without a cache (train mode);
+    with one (``{"ckv": [b, L, r], "kr": [b, L, rope]}``,
+    ``mla_cache_init``), (out, new_cache): ``prefill`` attends causally
+    over the fresh tokens and writes their latents from slot 0, decode
+    writes t tokens at ``pos`` (a host int) and attends over the cache
+    through the absorbed keys, masking ``kj <= pos``."""
+    m = cfg.mla
+    nope, rdim = m.qk_nope_head_dim, m.qk_rope_head_dim
+    ql = layers.rms_norm(p["qn"], layers.linear(x, p["wdq"]), cfg.norm_eps)
+    q = _proj_heads(ql, p["wuq"])
+    q_nope = q[..., :nope]
+    q_rope = layers.rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv = layers.rms_norm(p["kvn"], layers.linear(x, p["wdkv"]),
+                          cfg.norm_eps)                          # [*, b,t,r]
+    k_rope = layers.rope(layers.linear(x, p["wkr"])[..., None, :],
+                         positions, cfg.rope_theta)[..., 0, :]   # [*,b,t,rd]
+    if cache is None or prefill:
+        k_nope = _proj_heads(ckv, p["wuk"])
+        v = _proj_heads(ckv, p["wuv"])
+        k = torch.cat([k_nope, k_rope[..., None, :].expand(
+            k_rope.shape[:-1] + (cfg.n_heads, rdim))], dim=-1)
+        out = attend_causal(torch.cat([q_nope, q_rope], dim=-1), k, v)
+        if cache is None:
+            return _merge_heads(out, p["wo"])
+        new_cache = {"ckv": _write(cache["ckv"], ckv, 0),
+                     "kr": _write(cache["kr"], k_rope, 0)}
+        return _merge_heads(out, p["wo"]), new_cache
+    cc = _write(cache["ckv"], ckv, pos)
+    cr = _write(cache["kr"], k_rope, pos)
+    q_abs = torch.einsum("bthk,rhk->bthr", q_nope, p["wuk"])
+    scores = (torch.einsum("bthr,bsr->bhts", q_abs, cc.to(q_abs.dtype))
+              + torch.einsum("bthk,bsk->bhts", q_rope,
+                             cr.to(q_rope.dtype))).to(torch.float32)
+    scores = scores / layers.scalar(scores, math.sqrt(nope + rdim))
+    valid = torch.arange(cc.shape[-2], device=x.device) <= pos
+    scores = torch.where(valid, scores, layers.scalar(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhts,bsr->bthr", w, cc.to(x.dtype))
+    out = torch.einsum("bthr,rhk->bthk", o_lat, p["wuv"])
+    return _merge_heads(out, p["wo"]), {"ckv": cc, "kr": cr}
+
+
+def mla_cache_init(cfg, b: int, max_len: int) -> dict:
+    """The shapes of one layer's latent cache and rope-key cache."""
+    m = cfg.mla
+    return {"ckv": (b, max_len, m.kv_lora_rank),
+            "kr": (b, max_len, m.qk_rope_head_dim)}

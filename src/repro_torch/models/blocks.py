@@ -3,19 +3,25 @@
 The JAX package's ``models/blocks.py``: ``Ctx``, ``BlockDef``,
 ``dense_block`` (causal self-attention with an optional sliding window,
 or whisper's bidirectional encoder attention; with cross-attention over
-``Ctx.enc_out`` for whisper's decoder), and the xLSTM family's
+``Ctx.enc_out`` for whisper's decoder), the moe family's ``moe_block``
+(GQA or MLA, then the MoE FFN) and ``mla_dense_block`` (deepseek-v3's
+leading dense layers and its MTP block), and the xLSTM family's
 ``mlstm_block`` and ``slstm_block``.  Block protocol:
 
     init(gen, device)                     -> params for ONE layer
-    apply(p, x, ctx)                      -> x, on activations
-                                             [*lead, b, t, d] (train)
+    apply(p, x, ctx)                      -> (x, aux), on activations
+                                             [*lead, b, t, d] (train);
+                                             aux [*lead] float32, the
+                                             MoE load-balancing loss,
+                                             zeros for other blocks
     apply(p, x, ctx, cache)               -> (x, new_cache) (serving:
-                                             ctx.mode prefill or decode)
+                                             ctx.mode prefill or decode;
+                                             the aux loss is not kept)
     cache_init(b, max_len)                -> the shapes of one layer's
                                              decode cache
 
-Not ported yet: the moe, mla and mamba blocks (ROADMAP item 15; mamba
-with the hybrid family) and the caches' sharding specs (item 17).
+Not ported yet: the mamba block (with the hybrid family, ROADMAP item
+15) and the caches' sharding specs (item 17).
 """
 from __future__ import annotations
 
@@ -25,7 +31,9 @@ from typing import Callable
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.config import LMConfig
 
 
@@ -44,11 +52,17 @@ class Ctx:
 class BlockDef:
     name: str
     init: Callable                 # (gen, device) -> params of one layer
-    apply: Callable                # (p, x, ctx[, cache]) -> x or
-                                   # (x, new_cache)
+    apply: Callable                # (p, x, ctx[, cache]) -> (x, aux)
+                                   # or (x, new_cache)
     remat: bool = True             # recompute its activations in the
                                    # backward (see slstm_block)
     cache_init: Callable | None = None   # (b, max_len) -> shapes
+
+
+def no_aux(x: torch.Tensor) -> torch.Tensor:
+    """The aux loss of a block without one: float32 zeros [*lead] of x
+    [*lead, b, t, d]."""
+    return torch.zeros(x.shape[:-3], dtype=torch.float32, device=x.device)
 
 
 def dense_block(cfg: LMConfig, *, window: int = 0,
@@ -100,7 +114,7 @@ def dense_block(cfg: LMConfig, *, window: int = 0,
         x = x + layers.mlp(p["mlp"], layers.rms_norm(p["n2"], x,
                                                      cfg.norm_eps),
                            cfg.act)
-        return x if cache is None else (x, new_cache)
+        return (x, no_aux(x)) if cache is None else (x, new_cache)
 
     def cache_init(b, max_len):
         length = min(max_len, window) if window else max_len
@@ -109,6 +123,73 @@ def dense_block(cfg: LMConfig, *, window: int = 0,
             c["ek"] = c["ev"] = (b, cfg.encoder_frames, cfg.n_kv_heads,
                                  cfg.hd)
         return c
+
+    return BlockDef(name, init, apply, cache_init=cache_init)
+
+
+def moe_block(cfg: LMConfig, *, use_mla: bool = False,
+              name: str = "moe") -> BlockDef:
+    """GQA (no window, ``rope_theta``) or MLA, then the MoE FFN
+    (``moe.moe_block``); each behind an RMS norm and a residual add.  Its
+    train return carries the MoE's aux loss; its cache is the mixer's
+    (``gqa_cache_init`` or ``mla_cache_init``, not nested)."""
+
+    def init(gen, device):
+        return {"n1": layers.init_rms(cfg.d_model, device),
+                "n2": layers.init_rms(cfg.d_model, device),
+                "attn": (attn.init_mla(gen, cfg, device) if use_mla
+                         else attn.init_gqa(gen, cfg, device)),
+                "moe": moe_mod.init_moe(gen, cfg, device)}
+
+    def apply(p, x, ctx: Ctx, cache=None):
+        h = layers.rms_norm(p["n1"], x, cfg.norm_eps)
+        prefill = ctx.mode == "prefill"
+        if use_mla:
+            a = attn.mla_attn(p["attn"], h, ctx.positions, cfg, cache=cache,
+                              pos=ctx.pos, prefill=prefill)
+        else:
+            a = attn.gqa_attn(p["attn"], h, ctx.positions, cfg,
+                              theta=cfg.rope_theta, cache=cache, pos=ctx.pos,
+                              prefill=prefill)
+        if cache is not None:
+            a, new_cache = a
+        x = x + a
+        y, aux = moe_mod.moe_block(p["moe"], layers.rms_norm(
+            p["n2"], x, cfg.norm_eps), cfg)
+        return (x + y, aux) if cache is None else (x + y, new_cache)
+
+    def cache_init(b, max_len):
+        return (attn.mla_cache_init(cfg, b, max_len) if use_mla
+                else attn.gqa_cache_init(cfg, b, max_len))
+
+    return BlockDef(name, init, apply, cache_init=cache_init)
+
+
+def mla_dense_block(cfg: LMConfig, d_ff: int,
+                    name: str = "dense") -> BlockDef:
+    """MLA, then a dense MLP of width ``d_ff``: deepseek-v3's leading
+    dense layers and its MTP block.  Its cache is ``mla_cache_init``."""
+
+    def init(gen, device):
+        return {"n1": layers.init_rms(cfg.d_model, device),
+                "n2": layers.init_rms(cfg.d_model, device),
+                "attn": attn.init_mla(gen, cfg, device),
+                "mlp": layers.init_mlp(gen, cfg.d_model, d_ff, cfg.act,
+                                       device)}
+
+    def apply(p, x, ctx: Ctx, cache=None):
+        h = layers.rms_norm(p["n1"], x, cfg.norm_eps)
+        a = attn.mla_attn(p["attn"], h, ctx.positions, cfg, cache=cache,
+                          pos=ctx.pos, prefill=ctx.mode == "prefill")
+        if cache is not None:
+            a, new_cache = a
+        x = x + a
+        x = x + layers.mlp(p["mlp"], layers.rms_norm(p["n2"], x,
+                                                     cfg.norm_eps), cfg.act)
+        return (x, no_aux(x)) if cache is None else (x, new_cache)
+
+    def cache_init(b, max_len):
+        return attn.mla_cache_init(cfg, b, max_len)
 
     return BlockDef(name, init, apply, cache_init=cache_init)
 
@@ -126,7 +207,8 @@ def _mixer_block(cfg: LMConfig, name: str, init_mixer, mixer, state_init,
     def apply(p, x, ctx: Ctx, cache=None):
         h = layers.rms_norm(p["n1"], x, cfg.norm_eps)
         if cache is None:
-            return x + mixer(p[name], h, cfg)
+            x = x + mixer(p[name], h, cfg)
+            return x, no_aux(x)
         y, new_cache = mixer(p[name], h, cfg, state=cache)
         return x + y, new_cache
 

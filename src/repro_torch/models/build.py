@@ -1,8 +1,8 @@
 """Build ArchDefs, the train entry point and the serving entry points
 from an LMConfig.
 
-The JAX package's ``models/build.py`` for the dense, ssm (xlstm) and
-encdec/audio (whisper) families in the replicated regime:
+The JAX package's ``models/build.py`` for the dense, vlm, moe, ssm
+(xlstm) and encdec/audio (whisper) families:
 
     built = build_model(cfg, topo)
     built.init_params(generator)  -> one replica's parameters
@@ -12,36 +12,49 @@ encdec/audio (whisper) families in the replicated regime:
 
 The bundle's loss takes ``[P, D, *leaf]`` parameter copies and
 ``{"tokens": [P, D, b, L]}`` (whisper: and ``"frames": [P, D, b, f,
-frontend_dim]``) and returns the ``[P, D]`` losses (any leading dims
-work, none for one replica): the JAX ``make_loss_single``, which the JAX
-step vmaps, with the vmap written out as batch dims.
+frontend_dim]``; a vlm: and ``"patches": [P, D, b, n_patches,
+d_model]``) and returns the ``[P, D]`` losses (any leading dims work,
+none for one replica): the JAX ``make_loss_single``, which the JAX step
+vmaps, with the vmap written out as batch dims.  Each replica's loss is
+its next-token cross-entropy plus the blocks' aux losses (the MoE's
+load balance), plus for deepseek-v3 ``mtp_loss_weight`` times the MTP
+head's loss on the tokens two ahead.  A vlm's patches, cast to the
+compute dtype, go before the tokens; positions run over both, and the
+patch positions are cut off before the head.
 
 The parameter tree is the JAX package's leaf for leaf -- ``embed.table``,
 ``stacks.<block>.<leaf>`` with the leading layer dim, ``head.norm`` (and
 ``head.out`` when the embedding is not tied), whisper's
-``enc_stacks.enc.<leaf>`` and ``adapter.w`` -- so a JAX tree converts
-with ``convert.params_from_numpy``.
+``enc_stacks.enc.<leaf>`` and ``adapter.w``, deepseek-v3's ``mtp``
+(``proj``, ``n_x``, ``n_e``, ``block``) -- so a JAX tree converts with
+``convert.params_from_numpy``.
 
 Serving (``make_serve_fns``) runs one replica's parameters, ``lead``
 0, on their device: ``prefill(params, {"tokens": [b, t]}, max_len)``
-(whisper: and ``"frames"`` [b, frames, frontend_dim]) returns the last
-position's logits [b, 1, V] -- never the [b, t, V] of all of them --
-and the cache ``{"stacks": {block: [n_layers, *slice]}, "pos": t}``;
-``decode_step(params, cache, tokens [b, 1])`` returns the logits [b, 1,
-V] and the next cache.  ``pos`` is a host int (no device sync a step).
-The caches are bfloat16 whatever the compute dtype, as the JAX
-package's prefill builds them.  Both run without autograd.
+(whisper: and ``"frames"`` [b, frames, frontend_dim]; a vlm: and
+``"patches"`` [b, n_patches, d_model], whose slots ``max_len`` must
+hold) returns the last position's logits [b, 1, V] -- never the [b, t,
+V] of all of them -- and the cache ``{"stacks": {block: [n_layers,
+*slice]}, "pos": n_patches + t}``; ``decode_step(params, cache, tokens
+[b, 1])`` returns the logits [b, 1, V] and the next cache.  ``pos`` is
+a host int (no device sync a step).  The caches are bfloat16 whatever
+the compute dtype, as the JAX package's prefill builds them (MLA's are
+the latent ``ckv`` and rope key ``kr``).  Both run without autograd.
+The MoE's capacity is reckoned from the tokens of the call, as in the
+reference, so a decode step of a few tokens can drop routed pairs that
+a long prefill keeps (ROADMAP queue 3).
 
-An FSDP config (gemma3-12b) trains through ``bundle.loss_master``
-(:func:`make_loss_master`): the masters in, each layer lifted to its
-[P, D] copies inside the engine, the per-edge directions out of
-autograd.
+An FSDP config (gemma3-12b, internvl2, arctic, deepseek-v3) trains
+through ``bundle.loss_master`` (:func:`make_loss_master`): the masters
+in, each layer lifted to its [P, D] copies inside the engine, the
+per-edge directions out of autograd.  It serves resident, as the
+replicated regime does, where its bf16 weights fit
+``SERVE_RESIDENT_BUDGET`` (:func:`serve_layout`, the reference's rule).
 
-Not ported yet (ROADMAP item 15, each raises ``NotImplementedError``):
-the hybrid family (zamba2: its reference gradients are not finite,
-ROADMAP queue 3), vlm (internvl2's patches) and moe (arctic,
-deepseek-v3).  Nor serving an FSDP config (item 17: ``serve_layout``,
-``ServeGatherPlan``) and ``cache_specs``.
+Not ported yet (each raises ``NotImplementedError``): the hybrid family
+(zamba2, ROADMAP item 15: its reference gradients are not finite,
+ROADMAP queue 3); the ``"gather"`` serve layout of the FSDP configs
+above the budget (item 17: ``ServeGatherPlan``) and ``cache_specs``.
 """
 from __future__ import annotations
 
@@ -63,22 +76,43 @@ from repro_torch.models.engine import ArchDef, ReplicatedPlan, Segment
 PyTree = Any
 
 
-PORTED_FAMILIES = ("dense", "ssm", "encdec", "audio")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "encdec", "audio")
+SERVE_RESIDENT_BUDGET = 12e9   # bf16 bytes on the card below which an
+                               # FSDP config's weights serve resident
 
 
 def make_archdef(cfg: LMConfig) -> ArchDef:
-    """The block schedule: dense stacks, gemma3-style local:global
-    periods (local blocks with the sliding window and ``rope_theta``,
-    global ones with ``rope_theta_global``, a remainder of local blocks
-    after the last period); xlstm's periods of ``m_per_s`` mLSTM blocks
-    and one sLSTM block (a remainder of mLSTM blocks after the last);
-    whisper's bidirectional encoder and causal decoder with
-    cross-attention."""
+    """The block schedule: dense stacks (a vlm's too), gemma3-style
+    local:global periods (local blocks with the sliding window and
+    ``rope_theta``, global ones with ``rope_theta_global``, a remainder
+    of local blocks after the last period); the moe family's
+    ``first_dense`` leading dense blocks (MLA ones with ``cfg.mla``, of
+    width ``dense_ff``) and then its MoE stack, with deepseek-v3's MTP
+    block; xlstm's periods of ``m_per_s`` mLSTM blocks and one sLSTM
+    block (a remainder of mLSTM blocks after the last); whisper's
+    bidirectional encoder and causal decoder with cross-attention."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}): the ported families are "
             f"{', '.join(PORTED_FAMILIES)} (the others: ROADMAP queue 1 "
             "item 15)")
+    if cfg.family == "moe":
+        use_mla = cfg.mla is not None
+        blocks = {"moe": B.moe_block(cfg, use_mla=use_mla)}
+        segments = []
+        n_moe = cfg.n_layers
+        if cfg.moe.first_dense:
+            blocks["dense"] = (B.mla_dense_block(cfg, cfg.moe.dense_ff)
+                               if use_mla
+                               else B.dense_block(cfg, d_ff=cfg.moe.dense_ff))
+            segments.append(Segment((("dense", 1),), cfg.moe.first_dense))
+            n_moe -= cfg.moe.first_dense
+        segments.append(Segment((("moe", 1),), n_moe))
+        mtp = None
+        if cfg.mtp:
+            mtp = (B.mla_dense_block(cfg, cfg.moe.dense_ff, name="mtp")
+                   if use_mla else B.dense_block(cfg, name="mtp"))
+        return ArchDef(cfg, blocks, segments, mtp_block=mtp)
     if cfg.family == "ssm":
         m = cfg.xlstm.m_per_s
         groups = cfg.n_layers // (m + 1)
@@ -136,6 +170,13 @@ def init_params(arch: ArchDef, generator: torch.Generator | None = None,
     if not cfg.tie_embed:
         head["out"] = layers.he_init(generator, (cfg.d_model, cfg.vocab), dev)
     params["head"] = head
+    if arch.mtp_block is not None:
+        params["mtp"] = {
+            "proj": layers.he_init(generator, (2 * cfg.d_model, cfg.d_model),
+                                   dev),
+            "n_x": layers.init_rms(cfg.d_model, dev),
+            "n_e": layers.init_rms(cfg.d_model, dev),
+            "block": arch.mtp_block.init(generator, dev)}
     return params
 
 
@@ -155,12 +196,50 @@ def _logits(cfg: LMConfig, head, embed_p, x):
     return layers.linear(x, head["out"])
 
 
+def _patches_first(cfg: LMConfig, x: torch.Tensor, batch):
+    """A vlm's patches [*lead, b, n_patches, d], cast to x's dtype, before
+    the token embeddings x [*lead, b, t, d]: (x, n_patches)."""
+    if not cfg.n_patches:
+        return x, 0
+    patches = batch["patches"].to(x.dtype)
+    return torch.cat([patches, x], dim=-2), patches.shape[-2]
+
+
+def _losses(arch: ArchDef, head, embed_p, mtp, x, aux, tokens, mtp_apply):
+    """Each replica's loss: the cross-entropy of the head's logits on x
+    [*lead, b, t, d] plus ``aux``, plus with an MTP block
+    ``mtp_loss_weight`` times its cross-entropy on ``roll(tokens, -2)``
+    (the last two positions masked): ``mtp_apply(p, h)`` runs the block
+    on its input h, the projection of the normed x and the normed
+    embeddings of ``roll(tokens, -1)``."""
+    cfg = arch.cfg
+    targets, mask = _targets_and_mask(tokens)
+    losses = layers.softmax_xent(_logits(cfg, head, embed_p, x), targets,
+                                 mask) + aux
+    if arch.mtp_block is None:
+        return losses
+    e2 = layers.embed(embed_p, torch.roll(tokens, -1, dims=-1),
+                      cfg.embed_scale)
+    h = layers.linear(torch.cat(
+        [layers.rms_norm(mtp["n_x"], x, cfg.norm_eps),
+         layers.rms_norm(mtp["n_e"], e2, cfg.norm_eps)], dim=-1),
+        mtp["proj"].to(x.dtype))
+    h = mtp_apply(mtp["block"], h)
+    mask2 = torch.ones(tokens.shape, dtype=torch.float32,
+                       device=tokens.device)
+    mask2[..., -2:] = 0.0
+    return losses + cfg.mtp_loss_weight * layers.softmax_xent(
+        _logits(cfg, head, embed_p, h), torch.roll(tokens, -2, dims=-1),
+        mask2)
+
+
 def make_loss(arch: ArchDef, remat: bool = True) -> Callable:
-    """loss(params, batch) -> the mean next-token loss of every replica:
-    params with leading replica dims ``[*lead, *leaf]`` and ``{"tokens":
-    [*lead, b, L]}`` give ``[*lead]``.  An encoder-decoder first encodes
-    ``batch["frames"]`` [*lead, b, f, frontend_dim] (cast to the
-    embedding's dtype, through the adapter and the encoder segments)."""
+    """loss(params, batch) -> the loss of every replica (the module
+    docstring's): params with leading replica dims ``[*lead, *leaf]``
+    and ``{"tokens": [*lead, b, L]}`` give ``[*lead]``.  An
+    encoder-decoder first encodes ``batch["frames"]`` [*lead, b, f,
+    frontend_dim] (cast to the embedding's dtype, through the adapter and
+    the encoder segments); a vlm puts ``batch["patches"]`` first."""
     cfg = arch.cfg
     plan = ReplicatedPlan(cfg, remat)
 
@@ -168,23 +247,25 @@ def make_loss(arch: ArchDef, remat: bool = True) -> Callable:
         tokens = batch["tokens"]
         lead = tokens.dim() - 2
         x = layers.embed(params["embed"], tokens, cfg.embed_scale)
-        enc_out = None
+        enc_out, enc_aux = None, 0.0
         if arch.enc_segments:
             frames = batch["frames"].to(x.dtype)
             ex = layers.linear(frames, params["adapter"]["w"].to(x.dtype))
             ectx = Ctx(cfg, positions=torch.arange(frames.shape[-2],
                                                    device=frames.device))
-            enc_out = engine.run_segments(plan, arch, arch.enc_segments,
-                                          params["enc_stacks"], ex, ectx,
-                                          lead=lead)
-        ctx = Ctx(cfg, positions=torch.arange(tokens.shape[-1],
+            enc_out, enc_aux = engine.run_segments(
+                plan, arch, arch.enc_segments, params["enc_stacks"], ex,
+                ectx, lead=lead)
+        x, n_patch = _patches_first(cfg, x, batch)
+        ctx = Ctx(cfg, positions=torch.arange(x.shape[-2],
                                               device=tokens.device),
                   enc_out=enc_out)
-        x = engine.run_segments(plan, arch, arch.segments, params["stacks"],
-                                x, ctx, lead=lead)
-        targets, mask = _targets_and_mask(tokens)
-        logits = _logits(cfg, params["head"], params["embed"], x)
-        return layers.softmax_xent(logits, targets, mask)
+        x, aux = engine.run_segments(plan, arch, arch.segments,
+                                     params["stacks"], x, ctx, lead=lead)
+        x = x[..., n_patch:, :]
+        return _losses(arch, params["head"], params["embed"],
+                       params.get("mtp"), x, aux + enc_aux, tokens,
+                       lambda p, h: plan.block(arch.mtp_block, p, h, ctx)[0])
 
     return loss
 
@@ -196,37 +277,37 @@ def make_loss_master(arch: ArchDef) -> Callable:
         [P, D] losses)
 
     params: the [P, *leaf] masters (stacks [P, n_layers, *leaf]), delta
-    the same tree of corrections, ``{"tokens": [P, D, b, L]}``; ``lift(
-    tree, delta_tree)`` lifts a tree to its [P, D] copies (its backward
-    votes).  The embedding is lifted once and used twice when it is tied
-    (the embedding and the unembedding), so its two cotangents sum
-    before the sign; each layer is lifted inside its block
-    (``engine.FsdpPlan``), the head last."""
+    the same tree of corrections, ``{"tokens": [P, D, b, L]}`` (a vlm:
+    and ``"patches"``); ``lift(tree, delta_tree)`` lifts a tree to its
+    [P, D] copies (its backward votes).  The embedding is lifted once,
+    first, and used wherever it is (the tokens, the tied unembedding,
+    MTP's rolled tokens), so its cotangents sum before the sign; each
+    layer is lifted inside its block (``engine.FsdpPlan``), then the
+    head (the logits and MTP's) and the ``mtp`` subtree, each once.  The
+    losses are the replicated loss's, the layers' aux [P, D] included."""
     cfg = arch.cfg
     if arch.enc_segments:
         raise NotImplementedError(
             f"{cfg.name}: an encoder-decoder trains in the replicated "
             "regime (as in the JAX package)")
-    if cfg.n_patches:
-        raise NotImplementedError(
-            "vision patches (the vlm family) under FSDP: ROADMAP item 15")
-    if cfg.mtp:
-        raise NotImplementedError(
-            "the MTP head (the moe family) under FSDP: ROADMAP item 15")
 
     def loss_master(params, delta, batch, lift):
         plan = engine.FsdpPlan(cfg, lift)
         tokens = batch["tokens"]                       # [P, D, b, L]
         emb = lift(params["embed"], delta["embed"])
         x = layers.embed(emb, tokens, cfg.embed_scale)
-        ctx = Ctx(cfg, positions=torch.arange(tokens.shape[-1],
+        x, n_patch = _patches_first(cfg, x, batch)
+        ctx = Ctx(cfg, positions=torch.arange(x.shape[-2],
                                               device=tokens.device))
-        x = engine.run_segments(plan, arch, arch.segments, params["stacks"],
-                                x, ctx, lead=1, dstacks=delta["stacks"])
+        x, aux = engine.run_segments(plan, arch, arch.segments,
+                                     params["stacks"], x, ctx, lead=1,
+                                     dstacks=delta["stacks"])
+        x = x[..., n_patch:, :]
         head = lift(params["head"], delta["head"])
-        targets, mask = _targets_and_mask(tokens)
-        losses = layers.softmax_xent(_logits(cfg, head, emb, x), targets,
-                                     mask)
+        mtp = (lift(params["mtp"], delta["mtp"])
+               if arch.mtp_block is not None else None)
+        losses = _losses(arch, head, emb, mtp, x, aux, tokens,
+                         lambda p, h: arch.mtp_block.apply(p, h, ctx)[0])
         return losses.sum(), losses
 
     return loss_master
@@ -265,29 +346,36 @@ class ServeGatherPlan(ReplicatedPlan):
             "item 17")
 
 
-def serve_layout(cfg: LMConfig) -> str:
-    """``"resident"``: the replicated regime serves its parameters as
-    they are.  FSDP raises (ROADMAP item 17)."""
-    if cfg.param_mode == "fsdp":
-        raise NotImplementedError(
-            f"serving {cfg.name} (param_mode='fsdp'): ROADMAP item 17")
-    return "resident"
+def serve_layout(cfg: LMConfig, n_params: int) -> str:
+    """The reference's rule: ``"resident"`` (the weights served as they
+    are) for the replicated regime and for an FSDP config whose bf16
+    weights, ``2 * n_params`` bytes on the one card, fit
+    ``SERVE_RESIDENT_BUDGET``; ``"gather"`` (FSDP-stored weights gathered
+    a layer at a time, ROADMAP item 17) otherwise."""
+    if cfg.param_mode != "fsdp":
+        return "resident"
+    return "resident" if 2.0 * n_params <= SERVE_RESIDENT_BUDGET else "gather"
 
 
-def make_serve_fns(arch: ArchDef):
-    """(prefill, decode_step) as the module docstring gives them."""
+def make_serve_fns(arch: ArchDef, layout: str = "resident"):
+    """(prefill, decode_step) as the module docstring gives them; the
+    ``"gather"`` layout raises (ROADMAP item 17)."""
     cfg = arch.cfg
     plan = ReplicatedPlan(cfg, remat=False)
 
+    def check_layout():
+        if layout != "resident":
+            raise NotImplementedError(
+                f"serving {cfg.name} in the {layout!r} layout (FSDP-stored "
+                "weights gathered a layer at a time): ROADMAP item 17")
+
     def prefill(params, batch, max_len: int):
         """The whole prompt: (the last position's logits [b, 1, V], the
-        cache).  whisper's encoder runs in train mode first."""
-        serve_layout(cfg)
-        if cfg.n_patches or "patches" in batch:
-            raise NotImplementedError(
-                "vision patches (the vlm family): ROADMAP item 15")
+        cache).  whisper's encoder runs in train mode first; a vlm's
+        patches go before the tokens."""
+        check_layout()
         tokens = batch["tokens"]
-        b, t = tokens.shape
+        b = tokens.shape[0]
         with torch.no_grad():
             x = layers.embed(params["embed"], tokens, cfg.embed_scale)
             enc_out = None
@@ -297,9 +385,11 @@ def make_serve_fns(arch: ArchDef):
                                    params["adapter"]["w"].to(x.dtype))
                 ectx = Ctx(cfg, "train", positions=torch.arange(
                     frames.shape[-2], device=frames.device))
-                enc_out = engine.run_segments(
+                enc_out, _ = engine.run_segments(
                     plan, arch, arch.enc_segments, params["enc_stacks"],
                     ex, ectx)
+            x, _ = _patches_first(cfg, x, batch)
+            t = x.shape[-2]
             cache = make_cache(arch, b, max_len, tokens.device)
             ctx = Ctx(cfg, "prefill",
                       positions=torch.arange(t, device=tokens.device),
@@ -314,7 +404,7 @@ def make_serve_fns(arch: ArchDef):
     def decode_step(params, cache, tokens):
         """One step: tokens [b, 1] at ``cache["pos"]`` -> (logits [b, 1,
         V], the next cache)."""
-        serve_layout(cfg)
+        check_layout()
         pos, t = cache["pos"], tokens.shape[-1]
         with torch.no_grad():
             x = layers.embed(params["embed"], tokens, cfg.embed_scale)
@@ -340,13 +430,15 @@ class BuiltModel:
     prefill: Callable              # (params, batch, max_len) -> logits, cache
     decode_step: Callable          # (params, cache, tokens) -> logits, cache
     make_cache: Callable           # (b, max_len, device) -> cache
+    serve_layout: str = "resident"  # or "gather" (item 17)
 
 
 def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
     """The model's entry points; an FSDP config (``param_mode="fsdp"``)
     gets ``loss=None`` and a ``loss_master`` (:func:`make_loss_master`)."""
     arch = make_archdef(cfg)
-    prefill, decode_step = make_serve_fns(arch)
+    layout = serve_layout(cfg, param_count(init_params(arch, None, "meta")))
+    prefill, decode_step = make_serve_fns(arch, layout)
     fsdp = cfg.param_mode == "fsdp"
     return BuiltModel(
         cfg=cfg, arch=arch, topo=topo,
@@ -357,7 +449,7 @@ def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
         init_params=lambda generator: init_params(arch, generator),
         abstract_params=lambda: init_params(arch, None, "meta"),
         prefill=prefill, decode_step=decode_step,
-        make_cache=functools.partial(make_cache, arch))
+        make_cache=functools.partial(make_cache, arch), serve_layout=layout)
 
 
 def param_count(params: PyTree) -> int:

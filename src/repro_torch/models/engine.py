@@ -11,16 +11,21 @@ An encoder-decoder (whisper) has its own ``enc_blocks`` and
 ``enc_segments``, run by the same code over ``enc_stacks``.  Serving
 hands ``run_segments`` the caches, stacked per block name as the
 parameters are; each layer takes the slice its cursor gives, and the
-new slices are restacked in layer order.
+new slices are restacked in layer order.  In train mode every block
+returns its aux loss ([*lead] float32: the MoE's load balance, zeros
+elsewhere) and ``run_segments`` sums them per replica in layer order,
+as the JAX scan carries them.
 
 The FSDP regime (``FsdpPlan``): the segments run over the [P, n_layers,
 *leaf] masters, each layer lifted to its [P, D] copies inside its block
 (``core.device_axis``), the lift's backward voting.
 
+``ArchDef.mtp_block`` is deepseek-v3's MTP block, run by the loss
+(``models.build``) after the segments.
+
 Not ported yet: tied blocks (zamba2's shared attention, with the hybrid
-family, ROADMAP item 15; refused in both regimes), the MTP block
-(deepseek-v3, with the moe family, item 15), and the serving plan that
-gathers FSDP shards (item 17).
+family, ROADMAP item 15; refused in both regimes) and the serving plan
+that gathers FSDP shards (item 17).
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ class ArchDef:
     segments: list[Segment]
     enc_blocks: dict[str, BlockDef] | None = None
     enc_segments: list[Segment] | None = None
+    mtp_block: BlockDef | None = None
 
 
 def stack_counts(segments: list[Segment]) -> dict[str, int]:
@@ -98,7 +104,7 @@ class FsdpPlan:
     inside the block, and with ``cfg.remat`` the lift and the block run
     under ``torch.utils.checkpoint``, so the copies and activations are
     recomputed in the backward pass while the vote runs once.  Train
-    mode only."""
+    mode only: the block's (x, aux), aux [P, D]."""
 
     def __init__(self, cfg: LMConfig, lift):
         self.lift = lift
@@ -145,6 +151,8 @@ def run_segments(plan, arch: ArchDef, segments, stacks,
     old = ({name: _per_layer(tree, 0) for name, tree in caches.items()}
            if caches is not None else None)
     new = {name: [] for name in old} if old is not None else None
+    aux = (torch.zeros(x.shape[:-3], dtype=torch.float32, device=x.device)
+           if old is None else None)
     for seg in segments:
         if seg.tied:
             raise NotImplementedError(
@@ -154,16 +162,18 @@ def run_segments(plan, arch: ArchDef, segments, stacks,
                 for _ in range(cnt):
                     lp = per_layer[bname][cursors[bname]]
                     if dper is not None:
-                        x = plan.block(blocks[bname], lp, x, ctx,
-                                       ld=dper[bname][cursors[bname]])
+                        x, a = plan.block(blocks[bname], lp, x, ctx,
+                                          ld=dper[bname][cursors[bname]])
                     elif old is None:
-                        x = plan.block(blocks[bname], lp, x, ctx)
+                        x, a = plan.block(blocks[bname], lp, x, ctx)
                     else:
                         x, nc = plan.block(blocks[bname], lp, x, ctx,
                                            old[bname][cursors[bname]])
                         new[bname].append(nc)
+                    if old is None:
+                        aux = aux + a
                     cursors[bname] += 1
     if new is None:
-        return x
+        return x, aux
     return x, {name: pytree.tree_map(lambda *ls: torch.stack(ls), *layers_)
                for name, layers_ in new.items()}

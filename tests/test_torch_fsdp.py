@@ -356,15 +356,26 @@ def test_cli_reaches_the_fsdp_regime(capsys):
 
 
 def test_unported_parts_of_fsdp_raise_with_their_item():
-    """Serving an FSDP config stays item 17; the vlm and moe pieces of
-    the FSDP loss are item 15's."""
+    """An FSDP config serves resident where its bf16 weights fit
+    ``SERVE_RESIDENT_BUDGET`` (the reference's rule), else in the gather
+    layout, which stays item 17; the vlm and moe pieces of the FSDP loss
+    (patches, MTP) build."""
     cfg = smoke12()[1]
+    assert build.serve_layout(cfg, 6 * 10**9) == "resident"
+    assert build.serve_layout(cfg, 6 * 10**9 + 1) == "gather"
+    assert build.serve_layout(dataclasses.replace(
+        cfg, param_mode="replicated"), 10**12) == "resident"
+    full = build.build_model(configs.get_config("gemma3_12b"),
+                             Topology(1, 1, "cpu"))
+    assert full.serve_layout == "gather"
     with pytest.raises(NotImplementedError, match="item 17"):
-        build.serve_layout(cfg)
-    for kw in ({"n_patches": 4}, {"mtp": True}):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            build.build_model(dataclasses.replace(cfg, **kw),
-                              Topology(1, 1, "cpu"))
+        full.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
+                     4)
+    for name in ("internvl2_76b", "deepseek_v3_671b"):
+        built = build.build_model(dataclasses.replace(
+            configs.get_smoke(name), param_mode="fsdp"),
+            Topology(1, 1, "cpu"))
+        assert built.bundle.loss_master is not None
 
 
 # -- the reference's two FSDP quirks ------------------------------------------

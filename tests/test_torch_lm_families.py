@@ -154,7 +154,7 @@ def block_case(jblock, tblock, jcfg, cfg, x_shape, enc=None):
 
     def tfn(p, x, e=None):
         return tblock.apply(p, x, blocks.Ctx(cfg, positions=t(pos),
-                                             enc_out=e))
+                                             enc_out=e))[0]
 
     a = args(0)
     close(tfn(params_from_numpy(a[0]), *map(t, a[1:])), jfn(*a), 1e-5)
@@ -366,7 +366,7 @@ def test_bf16_blocks_keep_the_compute_dtype(kind):
                    t(x).to(torch.bfloat16),
                    blocks.Ctx(cfg, positions=t(pos),
                               enc_out=None if enc is None
-                              else t(enc).to(torch.bfloat16)))
+                              else t(enc).to(torch.bfloat16)))[0]
     assert want.dtype == bf and got.dtype == torch.bfloat16
     close(got.float(), np.asarray(want.astype(jnp.float32)), 2e-2)
 

@@ -10,11 +10,12 @@ and one mean differ, 1e-5 where matmuls and a softmax do.  The same
 functions also run with leading replica dims ([2, 3] copies of the
 parameters), where each replica must equal the unbatched call.
 
-Also the structure: for every config of a ported family (dense, ssm,
-encdec), the port's parameter tree has the JAX tree's keys and shapes,
-and the same ``param_count``; the other families raise
+Also the structure: for every config of a ported family (dense, vlm,
+moe, ssm, encdec), the port's parameter tree has the JAX tree's keys and
+shapes, and the same ``param_count``; the hybrid family raises
 ``NotImplementedError`` naming ROADMAP item 15.  The ssm and encdec
-modules themselves: ``tests/test_torch_lm_families.py``.
+modules themselves: ``tests/test_torch_lm_families.py``; the moe ones:
+``tests/test_torch_moe.py``.
 """
 import dataclasses
 
@@ -180,9 +181,13 @@ def test_dense_block():
                               None)
         ctx = blocks.Ctx(CFG, positions=t(pos))
         tp = params_from_numpy(p)
-        close(tb.apply(tp, t(x), ctx), want, 1e-5)
-        got = tb.apply(replicate(tp), t(x).expand((2, 3) + x.shape), ctx)
+        got, aux = tb.apply(tp, t(x), ctx)
+        close(got, want, 1e-5)
+        assert aux.shape == () and float(aux) == 0.0
+        got, aux = tb.apply(replicate(tp), t(x).expand((2, 3) + x.shape),
+                            ctx)
         close(got[1, 2], want, 1e-5)
+        assert torch.equal(aux, torch.zeros(2, 3))
 
 
 PORTED = [n for n in configs.ARCH_NAMES

@@ -233,7 +233,9 @@ def run_cli(capsys, *argv):
     return capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["gemma3_1b", "xlstm_350m", "whisper_base"])
+@pytest.mark.parametrize("arch", ["gemma3_1b", "xlstm_350m", "whisper_base",
+                                  "internvl2_76b", "arctic_480b",
+                                  "deepseek_v3_671b"])
 def test_arch_cli_prints_the_same_digits_on_every_route(arch, capsys):
     base = ("--device", "cpu", "--arch", arch, "--smoke", "--steps",
             "4", "--t_e", "2", "--batch", "2", "--seq", "16")
