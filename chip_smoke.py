@@ -6,7 +6,10 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --mu-sweep`` builds the kernels and runs only
-the ``moe`` phase's step-size sweep, ``moe_mu_sweep``.)
+the ``moe`` phase's step-size sweep, ``moe_mu_sweep``; ``python3
+chip_smoke.py --phase hybrid`` builds the kernels, runs phase 2's
+kernel checks and the ``hybrid`` phase, and prints the ``kernels`` line
+with the hybrid path's launches and the ``ok`` line.)
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -38,7 +41,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      then the tiled design's edges) and ``ternary_quant`` (the MLP's
      padded size and 2^22 x f32/bf16, zeros and subnormals in x where
      u = 0, the l2 norm and norm = 0; then n = 10, 64, 640, 50176 and
-     2^22 + 3, whose ragged tails the kernel takes itself);
+     2^22 + 3, whose ragged tails the kernel takes itself).  The u and
+     delta of ``sign_pack`` and ``tally_acc`` carry NaN, +inf and -inf
+     (``nonfinite_``), as the hybrid family's gradients do;
   3. train the paper's task (MLP 784-64-10, Q=4 edges x D=5 devices,
      Dirichlet(0.1), B=400, T_E=15, mu=5e-3, rho=0.2, 2 rounds = 30 steps)
      with ``dc_hier_signsgd`` on the fused transport and the flat state,
@@ -205,6 +210,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      "fsdp vs replicated" | "step" | "profiled local step" | "memory" |
      "phase"}`` and
      ``{"serve": "run"}``; the kernels line gains ``moe_launches``.
+ 13. ``hybrid``: zamba2-2.7b (``phase_hybrid``) at its published widths
+     cut to 12 layers (747,295,040 parameters; the tied shared block
+     occurs twice), the ``lm`` phase's algorithm and shapes: one step's
+     per-voter gradients twice, bitwise (NaN payloads included), with
+     each leaf's NaN count (the reference's SSD overflow, ROADMAP queue
+     3; the loss-falls check is not used); 6 steps fused/flat (6 + 6
+     launches, the last profiled) bitwise ag_packed/tree, every loss
+     finite, the peak beside ``reckon_peak``; the same config under
+     FSDP at P=2 x D=2, 3 steps, bitwise the replicated run, 156
+     launches of each kernel a step (the shared block's 9 leaves voted
+     once); zamba2 whole served as ``serve`` serves gemma (8 x 2048
+     prompts, 64 greedy steps; the cache's bytes equal to
+     ``hybrid_cache_reckon``; decode step 1 against the one-longer
+     prefill on the float32 views).  JSON lines ``{"hybrid":
+     "parameters" | "gradients" | "step" | "kernels" | "memory" | "fsdp
+     vs replicated" | "phase"}`` and zamba2's ``{"serve": ...}``; the
+     kernels line gains ``hybrid_launches``.
 
 The ``ternary`` cases of phase 2 include the QSGD step's per-row form:
 rows of the MLP's leaf lengths 10, 64, 640 and 50176, R = 20 and 40 rows
@@ -483,10 +505,26 @@ def vote_update_case(torch, timer, words, v0, mname, mask, update: bool,
     return row
 
 
+def nonfinite_(u, delta) -> None:
+    """NaN and +-inf written into u [P, D, n] and delta [P, n] (n >= 352),
+    in place, as the hybrid family's gradients carry them: u = +inf and
+    -inf (met by delta = -inf and +inf: u + rho*delta is NaN), delta NaN,
+    +inf and -inf under finite u.  The sign of NaN is -1 (``signs.sgn``),
+    of +inf +1 and of -inf -1."""
+    u[0, 0, 192:224] = float("inf")
+    u[0, 0, 224:256] = -float("inf")
+    delta[0, 192:224] = -float("inf")
+    delta[0, 224:240] = float("inf")
+    delta[0, 256:288] = float("nan")
+    delta[0, 288:320] = float("inf")
+    delta[0, 320:352] = -float("inf")
+
+
 def special_inputs(torch, gen, shape, dtype):
-    """u and delta of ``shape`` with signed zeros, NaN, subnormals, and
-    coordinates where u + rho*delta is exactly 0 in separate f32 rounding
-    (an FMA would not be), wherever the shape has room for them."""
+    """u and delta of ``shape`` with signed zeros, NaN, +-inf (in u and in
+    delta, :func:`nonfinite_`), subnormals, and coordinates where u +
+    rho*delta is exactly 0 in separate f32 rounding (an FMA would not
+    be), wherever the shape has room for them."""
     from repro_torch.kernels import ref
 
     p, d, n = shape
@@ -499,6 +537,7 @@ def special_inputs(torch, gen, shape, dtype):
     sub_at = (0, 2, slice(0, 32)) if d >= 3 else (0, d - 1, slice(160, 192))
     u[nan_at] = float("nan")
     u[sub_at] = -1e-40
+    nonfinite_(u, delta)
     q, c = (1, slice(0, 4096)) if p > 1 else (0, slice(n // 2, n))
     u[q, :, c] = (-(ref.f32(RHO) * delta[q, c].float())).to(dtype)
     return u, delta
@@ -727,6 +766,7 @@ def phase_tally(torch, timer):
             u[0, 0, 64:128] = -0.0
             u[0, 1, :32] = float("nan")
             u[0, 2, :32] = -1e-40
+            nonfinite_(u, delta)
             u[2, :, :4096] = (-(ref.f32(RHO) * delta[2, :4096].float())
                               ).to(dtype)
             for tdt, scale in ((torch.int8, 1), (torch.int16, 300),
@@ -1441,12 +1481,15 @@ def lm_setup(torch, cfg=None, **algo_kw):
     return cfg, Topology(LM_P, LM_D, "cuda"), hier.AlgoConfig(**kw)
 
 
-def lm_grads_bitwise(torch, built, params, batch, tag="lm") -> int:
+def lm_grads_bitwise(torch, built, params, batch, tag="lm",
+                     on_grads=None) -> int:
     """One step's per-voter gradients of the LM's loss on ``batch`` (its
     [P, D, ...] tensors on the card), twice, from fresh bf16 [P, D]
-    copies: the count of coordinates that differ (0 when autograd is
-    deterministic on the card, which the bitwise comparison of the two
-    layouts needs)."""
+    copies: the count of coordinates that differ, bit patterns compared
+    (NaN payloads too; 0 when autograd is deterministic on the card,
+    which the bitwise comparison of the two layouts needs).
+    ``on_grads(grads)`` sees the first evaluation's gradients, in the
+    order of ``pytree_items(params)``."""
     from repro_torch.core import pytree
 
     leaves, td = pytree.tree_flatten(params)
@@ -1464,6 +1507,8 @@ def lm_grads_bitwise(torch, built, params, batch, tag="lm") -> int:
     g2, l2 = grads()
     differ = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
                  for a, b in zip(g1, g2))
+    if on_grads is not None:
+        on_grads(g1)
     require(torch.equal(l1, l2), "the LM's losses differ between two "
             "evaluations on the same copies")
     print(f"[{tag}] per-voter losses {l1.float().tolist()}", flush=True)
@@ -1685,6 +1730,14 @@ FAMILIES = (("xlstm_350m", 1, 1152),     # (arch, batch, tokens) a device
 FAM_CUT_GB, FAM_CUT_LAYERS = 72.0, 16    # xlstm: two 7:1 periods
 
 
+def ssd_entries(cfg, seq: int) -> int:
+    """Entries of one row's SSD chunk matrices [nc, H, c, c] at ``seq``
+    positions (the ragged tail padded to a whole chunk)."""
+    c = min(cfg.ssm.chunk, seq)
+    heads = cfg.ssm.expand * cfg.d_model // 64
+    return -(-seq // c) * heads * c * c
+
+
 def reckon_peak(cfg, n: int, batch: int, seq: int, p: int = LM_P,
                 d: int = LM_D) -> dict:
     """A training run's peak device memory (GB), reckoned from the tree's
@@ -1704,13 +1757,19 @@ def reckon_peak(cfg, n: int, batch: int, seq: int, p: int = LM_P,
               and their sum, the bf16 gradient;
       block   the largest block's recompute and backward: the mLSTM's
               float32 [b, H, t, t] matrices, ten alive (40 bytes an
-              entry), or whisper's encoder scores [b, h, f, f], five
-              float32 and two bf16 (24 bytes an entry).
+              entry), the SSD scan's float32 [b, nc, H, c, c] chunk
+              matrices (rel's exp, gamma, the raw and the masked scores
+              kept for the backward, and their gradients: ten alive, 40
+              bytes an entry; ``ssd_entries``), or whisper's encoder
+              scores [b, h, f, f], five float32 and two bf16 (24 bytes an
+              entry).
 
     peak = state + max(anchor, grads + max(logits, block))."""
     rows = p * d * batch
     if cfg.family == "ssm":
         block = 40 * rows * cfg.n_heads * seq ** 2
+    elif cfg.family == "hybrid":
+        block = 40 * rows * ssd_entries(cfg, seq)
     else:
         block = 24 * rows * cfg.n_heads * cfg.encoder_frames ** 2
     terms = {"state": 8 * p * n, "anchor": 6 * p * d * n,
@@ -2249,12 +2308,15 @@ SERVES = (("gemma3_1b", 2048, 128, 2176),     # (arch, prompt, decode
           ("xlstm_350m", 1024, 64, 1088),    # steps, max_len)
           ("whisper_base", 4, 64, 448))      # whisper's text context
 SERVE_B, SERVE_P = 8, 2          # requests; edges of the flat master
-SERVE_CHECK_PROMPT = 1100        # gemma's decode-consistency check
+SERVE_CHECK_PROMPT = 1100        # the decode-consistency checks' prompt
 # its limits on the largest logit difference, of the largest |logit|:
 # float32 views, the JAX package's own (tests/test_arch_smoke.py);
 # bfloat16, set from sound runs on the card (PERF.md section 6)
 SERVE_CHECK_TOL = {"float32 views": 2e-2, "bfloat16": 2.0 ** -5}
 GEMMA_1B_PARAMS = 802_384_128
+HYB_FULL_PARAMS = 2_422_359_200    # zamba2-2.7b, 54 layers (the JAX tree's)
+SERVE_PARAMS = {"gemma3_1b": GEMMA_1B_PARAMS,
+                "zamba2_2p7b": HYB_FULL_PARAMS}
 
 
 def serve_reckon(cfg, n: int, n_pad: int, cache_bytes: int,
@@ -2265,13 +2327,17 @@ def serve_reckon(cfg, n: int, n_pad: int, cache_bytes: int,
     step's input stacks, its new per-layer slices and their restack),
     and the prefill's largest temporary, two float32 copies of the
     attention scores alive at a time in ``attention._attend`` (gemma's
-    [b, h, Q_CHUNK, keys] a query chunk, whisper's encoder [b, h, f, f])
-    or four of the mLSTM's [b, H, t, t] decay matrices."""
+    [b, h, Q_CHUNK, keys] a query chunk, whisper's encoder [b, h, f, f]),
+    four of the mLSTM's [b, H, t, t] decay matrices, or three of the SSD
+    scan's float32 [b, nc, H, c, c] chunk matrices (``rel``, its
+    ``exp`` and the masked ``gamma``; then the scores)."""
     from repro_torch.models.attention import Q_CHUNK
 
     b = SERVE_B
     if cfg.family == "ssm":
         temp = 4 * 4 * b * cfg.n_heads * prompt ** 2
+    elif cfg.family == "hybrid":
+        temp = 3 * 4 * b * ssd_entries(cfg, prompt)
     elif cfg.encoder_layers:
         temp = 2 * 4 * b * cfg.n_heads * cfg.encoder_frames ** 2
     else:
@@ -2342,11 +2408,13 @@ def serve_profile(torch, built, params, cache, tok) -> dict:
 
 
 def serve_consistency(torch, built, params, cfg, dtype: str) -> dict:
-    """gemma3-1b on ``params`` (its float32 views, or the bfloat16
+    """A served model on ``params`` (its float32 views, or the bfloat16
     weights the timed runs serve): decode step 1 after a
     SERVE_CHECK_PROMPT-token prefill against the last position of a
-    prefill one token longer (the window layers roll their caches, every
-    slot valid, the global ones write at offsets).  The greedy token of
+    prefill one token longer (gemma's window layers roll their caches,
+    every slot valid, the global ones write at offsets; zamba2's decode
+    takes the float32 recurrence from the state the chunked scan left,
+    where the longer prefill runs the scan again).  The greedy token of
     every request must agree and the largest logit difference stay
     within SERVE_CHECK_TOL[dtype] of the largest |logit|; the smallest
     gap between the longer prefill's two best logits is reported
@@ -2372,12 +2440,122 @@ def serve_consistency(torch, built, params, cfg, dtype: str) -> dict:
            "max_abs_logit": float(full.abs().max()),
            "min_top2_gap": float((top2[:, 0] - top2[:, 1]).min())}
     out["limit"] = SERVE_CHECK_TOL[dtype] * out["max_abs_logit"]
-    require(out["greedy_tokens_agree"], f"gemma3-1b {dtype}: decode step "
+    require(out["greedy_tokens_agree"], f"{cfg.name} {dtype}: decode step "
             f"1 and the longer prefill disagree on a greedy token: {out}")
     require(out["max_abs_logit_diff"] <= out["limit"],
-            f"gemma3-1b {dtype}: decode step 1 and the longer prefill "
+            f"{cfg.name} {dtype}: decode step 1 and the longer prefill "
             f"differ beyond the limit: {out}")
     return out
+
+
+def kernel_counters() -> tuple:
+    """The four kernels' wrappers, whose ``launches`` count their
+    launches."""
+    from repro_torch.kernels.sign_pack import sign_pack
+    from repro_torch.kernels.tally_acc import tally_acc
+    from repro_torch.kernels.ternary_quant import ternary_quant
+    from repro_torch.kernels.vote_update import vote_update
+
+    return sign_pack, vote_update, tally_acc, ternary_quant
+
+
+def serve_arch(torch, card: str, arch: str, prompt: int, steps: int,
+               max_len: int, checks: tuple = ()) -> None:
+    """One arch of the ``serve`` phase, whole, random weights from seed 0:
+    put into a [SERVE_P, n_pad] float32 FlatState (both edges equal, as
+    after the cloud mean) and served as bfloat16 from edge 0
+    (``specs.serve_params_from_flat``); SERVE_B requests of
+    ``serve_request_batch``, prefill, ``steps`` greedy decode steps,
+    twice (the tokens must be the same, every logit finite), one decode
+    step profiled; the float32 views share the buffer's storage; the
+    decode-consistency ``checks`` ("float32 views", "bfloat16") of
+    :func:`serve_consistency`.  zamba2's run line carries its cache's
+    reckoning beside the bytes."""
+    from repro_torch import configs
+    from repro_torch.core import flatbuf, pytree
+    from repro_torch.core.topology import Topology
+    from repro_torch.data import synthetic
+    from repro_torch.launch import specs
+    from repro_torch.models import build
+
+    tag = f"[serve] {arch}"
+    cfg = configs.get_config(arch)
+    topo = Topology(1, 1, "cuda")
+    built = build.build_model(cfg, topo)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    tree = built.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n = build.param_count(tree)
+    if arch in SERVE_PARAMS:
+        require(n == SERVE_PARAMS[arch], f"{arch} has {n} parameters")
+    fs = flatbuf.from_tree(pytree.tree_map(
+        lambda v: v.unsqueeze(0).expand((SERVE_P,) + tuple(v.shape)),
+        tree), batch_dims=1)
+    views = specs.serve_params_from_flat(built, fs)
+    ptr = fs.buf.untyped_storage().data_ptr()
+    leaves = pytree.tree_flatten(views)[0]
+    require(all(v.untyped_storage().data_ptr() == ptr for v in leaves),
+            f"{arch}: a float32 view does not share the buffer")
+    require(all(torch.equal(v, w) for v, w in zip(
+        leaves, pytree.tree_flatten(tree)[0])),
+        f"{arch}: a view differs from its leaf")
+    del tree, leaves
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = specs.serve_params_from_flat(built, fs,
+                                          dtype=torch.bfloat16)
+    batch = synthetic.serve_request_batch(
+        synthetic.LMStreamCfg(vocab=cfg.vocab, seq_len=prompt,
+                              batch_per_device=SERVE_B, pods=1,
+                              devices_per_pod=1,
+                              frames=cfg.encoder_frames
+                              if cfg.encoder_layers else 0,
+                              frontend_dim=cfg.frontend_dim),
+        SERVE_B, prompt)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    first = serve_run(torch, built, params, batch, max_len, steps)
+    second = serve_run(torch, built, params, batch, max_len, steps,
+                       snapshot_at=steps // 2)
+    require(first["finite"] and second["finite"],
+            f"{arch}: a logit is not finite")
+    require(torch.equal(first["tokens"], second["tokens"]),
+            f"{arch}: the generated tokens differ between two runs")
+    prof = serve_profile(torch, built, params, *second.pop("snapshot"))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    served = {"float32 views": views, "bfloat16": params}
+    done = [serve_consistency(torch, built, served[dtype], cfg, dtype)
+            for dtype in checks]
+    print(f"{tag}: tokens of request 0: "
+          f"{second['tokens'][0, :16].tolist()}", flush=True)
+    run = {"serve": "run", "arch": cfg.name, "card": card,
+           "parameters": n, "n_pad": fs.layout.n_pad,
+           "requests": SERVE_B, "prompt": prompt, "decode_steps": steps,
+           "max_len": max_len, "dtype": "bfloat16",
+           "prefill_ms": [first["prefill_ms"], second["prefill_ms"]],
+           "decode_ms_per_step": [first["decode_ms_per_step"],
+                                  second["decode_ms_per_step"]],
+           "decode_tokens_per_s": SERVE_B * 1e3
+           / second["decode_ms_per_step"],
+           "cache_bytes": second["cache_bytes"],
+           "tokens_identical_in_two_runs": True, "logits_finite": True,
+           "float32_views_zero_copy": True}
+    if cfg.family == "hybrid":
+        run["cache_reckoned"] = hybrid_cache_reckon(cfg, SERVE_B, max_len)
+        require(run["cache_reckoned"]["bytes"] == second["cache_bytes"],
+                f"{arch}: the cache holds {second['cache_bytes']} bytes, "
+                f"reckoned {run['cache_reckoned']}")
+    emit(run)
+    emit({"serve": "decode step", "arch": cfg.name, "card": card,
+          **prof})
+    emit({"serve": "memory", "arch": cfg.name, "card": card,
+          "peak_rise_gb": peak,
+          "reckoned": serve_reckon(cfg, n, fs.layout.n_pad,
+                                   second["cache_bytes"], prompt)})
+    for check in done:
+        emit({"serve": "decode consistency", "arch": cfg.name,
+              "card": card, **check})
+    del fs, views, params, batch, first, second, served
+    torch.cuda.empty_cache()
 
 
 def phase_serve(torch, card: str) -> dict:
@@ -2392,96 +2570,14 @@ def phase_serve(torch, card: str) -> dict:
     consistency on the float32 views and on the bfloat16 weights.  The
     four kernels' counters are set to 0 just before and read just after:
     serving launches none of them."""
-    from repro_torch import configs
-    from repro_torch.core import flatbuf, pytree
-    from repro_torch.core.topology import Topology
-    from repro_torch.data import synthetic
-    from repro_torch.kernels.sign_pack import sign_pack
-    from repro_torch.kernels.tally_acc import tally_acc
-    from repro_torch.kernels.ternary_quant import ternary_quant
-    from repro_torch.kernels.vote_update import vote_update
-    from repro_torch.launch import specs
-    from repro_torch.models import build
-
     t_phase = time.perf_counter()
-    counters = (sign_pack, vote_update, tally_acc, ternary_quant)
+    counters = kernel_counters()
     for fn in counters:
         fn.launches = 0
     for arch, prompt, steps, max_len in SERVES:
-        tag = f"[serve] {arch}"
-        cfg = configs.get_config(arch)
-        topo = Topology(1, 1, "cuda")
-        built = build.build_model(cfg, topo)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        tree = built.init_params(torch.Generator(device="cuda").manual_seed(0))
-        n = build.param_count(tree)
-        if arch == "gemma3_1b":
-            require(n == GEMMA_1B_PARAMS, f"gemma3-1b has {n} parameters")
-        fs = flatbuf.from_tree(pytree.tree_map(
-            lambda v: v.unsqueeze(0).expand((SERVE_P,) + tuple(v.shape)),
-            tree), batch_dims=1)
-        views = specs.serve_params_from_flat(built, fs)
-        ptr = fs.buf.untyped_storage().data_ptr()
-        leaves = pytree.tree_flatten(views)[0]
-        require(all(v.untyped_storage().data_ptr() == ptr for v in leaves),
-                f"{arch}: a float32 view does not share the buffer")
-        require(all(torch.equal(v, w) for v, w in zip(
-            leaves, pytree.tree_flatten(tree)[0])),
-            f"{arch}: a view differs from its leaf")
-        del tree, leaves
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        params = specs.serve_params_from_flat(built, fs,
-                                              dtype=torch.bfloat16)
-        batch = synthetic.serve_request_batch(
-            synthetic.LMStreamCfg(vocab=cfg.vocab, seq_len=prompt,
-                                  batch_per_device=SERVE_B, pods=1,
-                                  devices_per_pod=1,
-                                  frames=cfg.encoder_frames
-                                  if cfg.encoder_layers else 0,
-                                  frontend_dim=cfg.frontend_dim),
-            SERVE_B, prompt)
-        batch = {k: v.cuda() for k, v in batch.items()}
-        first = serve_run(torch, built, params, batch, max_len, steps)
-        second = serve_run(torch, built, params, batch, max_len, steps,
-                           snapshot_at=steps // 2)
-        require(first["finite"] and second["finite"],
-                f"{arch}: a logit is not finite")
-        require(torch.equal(first["tokens"], second["tokens"]),
-                f"{arch}: the generated tokens differ between two runs")
-        prof = serve_profile(torch, built, params, *second.pop("snapshot"))
-        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-        checks = []
-        if arch == "gemma3_1b":
-            checks = [serve_consistency(torch, built, p, cfg, dtype)
-                      for p, dtype in ((views, "float32 views"),
-                                       (params, "bfloat16"))]
-        print(f"{tag}: tokens of request 0: "
-              f"{second['tokens'][0, :16].tolist()}", flush=True)
-        emit({"serve": "run", "arch": cfg.name, "card": card,
-              "parameters": n, "n_pad": fs.layout.n_pad,
-              "requests": SERVE_B, "prompt": prompt, "decode_steps": steps,
-              "max_len": max_len, "dtype": "bfloat16",
-              "prefill_ms": [first["prefill_ms"], second["prefill_ms"]],
-              "decode_ms_per_step": [first["decode_ms_per_step"],
-                                     second["decode_ms_per_step"]],
-              "decode_tokens_per_s": SERVE_B * 1e3
-              / second["decode_ms_per_step"],
-              "cache_bytes": second["cache_bytes"],
-              "tokens_identical_in_two_runs": True, "logits_finite": True,
-              "float32_views_zero_copy": True})
-        emit({"serve": "decode step", "arch": cfg.name, "card": card,
-              **prof})
-        emit({"serve": "memory", "arch": cfg.name, "card": card,
-              "peak_rise_gb": peak,
-              "reckoned": serve_reckon(cfg, n, fs.layout.n_pad,
-                                       second["cache_bytes"], prompt)})
-        for check in checks:
-            emit({"serve": "decode consistency", "arch": cfg.name,
-                  "card": card, **check})
-        del fs, views, params, batch, first, second
-        torch.cuda.empty_cache()
+        serve_arch(torch, card, arch, prompt, steps, max_len,
+                   checks=("float32 views", "bfloat16")
+                   if arch == "gemma3_1b" else ())
     launches = {fn.__name__: fn.launches for fn in counters}
     require(not any(launches.values()),
             f"serving launched a training kernel: {launches}")
@@ -3318,6 +3414,218 @@ def moe_oracle(torch, p, x, cfg):
     return y
 
 
+HYB_ARCH, HYB_LAYERS = "zamba2_2p7b", 12   # two periods: 6 Mamba2 blocks
+                                           # and the shared block each
+HYB_PARAMS = 747_295_040         # the 12-layer cut (the JAX tree's count)
+HYB_FSDP_D, HYB_FSDP_STEPS = 2, 3
+HYB_PROMPT, HYB_DECODE = 2048, 64  # served whole: 8 requests
+
+
+def hybrid_cache_reckon(cfg, b: int, max_len: int) -> dict:
+    """The served zamba2's cache after prefill, in bytes: a float32 SSM
+    state [b, H, 64, d_state] and a bfloat16 conv state [b, d_conv - 1,
+    d_in] for each Mamba2 block (every one of ``n_layers``), and the
+    shared block's bfloat16 k and v [b, max_len, kv_heads, hd] for each
+    of its occurrences (``n_layers // attn_every``)."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    terms = {"ssm": cfg.n_layers * b * (d_in // 64) * 64 * s.d_state * 4,
+             "conv": cfg.n_layers * b * (s.d_conv - 1) * d_in * 2,
+             "kv": (cfg.n_layers // s.attn_every) * 2 * b * max_len
+             * cfg.n_kv_heads * cfg.hd * 2}
+    return {"bytes": sum(terms.values()), **terms}
+
+
+def vote_leaves(arch, abstract) -> int:
+    """The lift's votes a step under FSDP: one a leaf and layer of each
+    stacked block, one a leaf of a tied block (its cotangents summed over
+    the occurrences first), one a leaf of the embedding and head."""
+    tied = {name for seg in arch.segments for name in seg.tied}
+    return sum(leaf.shape[0] if name.startswith("stacks.")
+               and name.split(".")[1] not in tied else 1
+               for name, leaf in pytree_items(abstract))
+
+
+def phase_hybrid(torch, card: str) -> dict:
+    """The hybrid family on the card: zamba2-2.7b at its published widths
+    (d 2560, d_state 64, expand 2, chunk 256, the shared block every 6
+    layers: 32 heads of 80, ff 10240; vocab 32000), cut to 12 layers (two
+    periods, so the tied block occurs twice; 747,295,040 parameters),
+    random weights from seed 0, in the lm phase's algorithm (P=2 x D=3,
+    1 x 1152 tokens a device -- 1280 with the last chunk padded --, DC,
+    bf16 compute, f32 master, bf16 delta, mu 1e-3, rho 0.2, T_E=3):
+
+      1. one step's per-voter gradients twice, bitwise (NaN payloads
+         included), each leaf's NaN count printed: the SSD scan's
+         overflow gives the reference's NaN gradients (ROADMAP queue 3),
+         which the sign sends to -1;
+      2. 6 steps of ``run_training`` on fused/flat (6 sign_pack and 6
+         vote_update launches, the last step profiled) and on
+         ag_packed/tree: bitwise the same edge models, every loss finite
+         (the "loss falls" check is not used: the NaN coordinates vote -1
+         whatever the data), the peak beside ``reckon_peak``;
+      3. the same config with ``param_mode="fsdp"`` at P=2 x D=2, 3 steps
+         on fused/tree, bitwise the replicated ag_packed/tree run, one
+         vote a leaf and layer and ONE a leaf of the shared block a step
+         (``vote_leaves``: 156; 165 would be a vote an occurrence);
+      4. zamba2 whole (54 layers) served as the serve phase serves
+         (``serve_arch``: bf16 from a [2, n_pad] f32 master, 8 requests of
+         2048 tokens, 64 greedy steps, twice), the cache's bytes against
+         ``hybrid_cache_reckon``, decode step 1 against the one-longer
+         prefill on the float32 views; no training kernel launched.
+
+    Returns the kernels' launches of steps 2 (fused/flat) and 3."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.launch.train import RunCfg
+    from repro_torch.models import build
+
+    t_phase = time.perf_counter()
+    full = configs.get_config(HYB_ARCH)
+    cfg, topo, algo = lm_setup(torch, dataclasses.replace(
+        full, n_layers=HYB_LAYERS))
+    built = build.build_model(cfg, topo)
+    params = built.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n = build.param_count(params)
+    n_full = build.param_count(build.build_model(full, topo)
+                               .abstract_params())
+    occ = build.occurrence_counts(built.arch.segments)
+    reckoned = reckon_peak(cfg, n, 1, LM_SEQ)
+    emit({"hybrid": "parameters", "arch": cfg.name, "card": card,
+          "n_layers": cfg.n_layers, "count": n,
+          "cut": f"depth {full.n_layers} -> {HYB_LAYERS}",
+          "full_depth_count": n_full, "occurrences": occ,
+          "seq": LM_SEQ, "chunk": cfg.ssm.chunk, "reckoned": reckoned})
+    require(n == HYB_PARAMS and n_full == HYB_FULL_PARAMS,
+            f"zamba2: {n} parameters at {HYB_LAYERS} layers, {n_full} "
+            "whole")
+    tag = "[hybrid] zamba2"
+    tokens = synthetic.make_stream(synthetic.LMStreamCfg(
+        vocab=cfg.vocab, seq_len=LM_SEQ, batch_per_device=1, pods=LM_P,
+        devices_per_pod=LM_D, seed=0))(0)["tokens"].cuda()
+    nans = {}
+
+    def count_nans(grads):
+        for (name, _), g in zip(pytree_items(params), grads):
+            nans[name] = int(torch.isnan(g).sum())
+
+    differ = lm_grads_bitwise(torch, built, params, {"tokens": tokens},
+                              tag=tag, on_grads=count_nans)
+    emit({"hybrid": "gradients", "card": card,
+          "differing_between_two_evaluations": differ,
+          "leaves_with_nan": sum(1 for v in nans.values() if v),
+          "leaves": len(nans), "nan_counts": nans})
+    require(differ == 0, "zamba2: the per-voter gradients are not "
+            "deterministic on the card (bit patterns, NaN payloads too)")
+    print(f"{tag}: the loss-falls check is not used: the reference's "
+          f"NaN gradients ({sum(1 for v in nans.values() if v)} of "
+          f"{len(nans)} leaves) vote -1 whatever the data; the losses "
+          "must be finite and the routes bitwise", flush=True)
+
+    run = RunCfg(steps=LM_STEPS, batch_per_device=1, seq_len=LM_SEQ,
+                 log_every=1, seed=0)
+    fused = lm_train(torch, f"{tag} fused/flat", cfg, topo, algo, run,
+                     params, profile=LM_STEPS - 1)
+    want = {"sign_pack": LM_STEPS, "vote_update": LM_STEPS,
+            "ternary_quant": 0}
+    require(fused["launches"] == want, f"zamba2 fused/flat launches "
+            f"{fused['launches']}, want {want}")
+    tree = lm_train(torch, f"{tag} ag_packed/tree", cfg, topo,
+                    dataclasses.replace(algo, transport="ag_packed",
+                                        state_layout="tree"), run, params)
+    require(tree["launches"] == dict.fromkeys(want, 0),
+            f"zamba2 ag_packed/tree launched kernels: {tree['launches']}")
+    diff = count_differing(torch, fused["params"], tree["params"])
+    require(diff == 0, f"zamba2: fused/flat and ag_packed/tree edge "
+            f"models differ in {diff} coordinates")
+    print(f"{tag}: fused/flat == ag_packed/tree edge models, bitwise",
+          flush=True)
+    prof = fused["prof"]
+    shape = (LM_P, LM_D, fused["n_pad"].n_pad)
+    sp_ms, sp_n = prof["sign_pack_kernel"]
+    vu_ms, vu_n = prof["vote_update_kernel"]
+    sp_bytes = sign_pack_bytes(shape, 2, False)
+    vu_bytes = vote_update_bytes(shape, True, LM_P * LM_D)
+    host = [h["ms"] for h in fused["history"]]
+    emit({"hybrid": "step", "arch": cfg.name, "card": card,
+          "ms_per_step": host,
+          "ms_per_step_round2_fused_flat": statistics.mean(host[LM_TE:-1]),
+          "ms_profiled_step": host[-1],
+          "ms_per_step_round2_ag_packed_tree": statistics.mean(
+              h["ms"] for h in tree["history"][LM_TE:]),
+          "data_ms_per_step": statistics.mean(
+              h["data_ms"] for h in fused["history"]),
+          "losses": [h["loss"] for h in fused["history"]],
+          "launches": fused["launches"]})
+    emit({"hybrid": "kernels", "arch": cfg.name, "card": card,
+          "shape": list(shape),
+          "sign_pack_device_ms": sp_ms / max(sp_n, 1),
+          "sign_pack_bound_ms": bound(sp_bytes, sign_pack_ops(
+              shape, False))[0],
+          "vote_update_device_ms": vu_ms / max(vu_n, 1),
+          "vote_update_bound_ms": bound(vu_bytes, vote_update_ops(
+              shape, True))[0],
+          "launches_profiled": [sp_n, vu_n],
+          "device_busy_ms_profiled_step": prof["busy_ms"],
+          "device_busy_share": prof["busy_ms"] / host[-1],
+          "kernels_share_of_device_time":
+              (sp_ms + vu_ms) / max(prof["busy_ms"], 1e-9),
+          "top": prof["top"]})
+    emit({"hybrid": "memory", "arch": cfg.name, "card": card,
+          "peak_gb_fused_flat": fused["peak_gb"],
+          "peak_gb_ag_packed_tree": tree["peak_gb"],
+          "reckoned_gb": reckoned["peak_gb"],
+          "total_gb": torch.cuda.get_device_properties(0).total_memory / 1e9})
+    launches = {"replicated": fused["launches"]}
+    del fused, tree
+    torch.cuda.empty_cache()
+
+    # 3. FSDP against replicated, the shared block voted once a step
+    topo2 = dataclasses.replace(topo, devices_per_pod=HYB_FSDP_D)
+    algo2 = dataclasses.replace(algo, state_layout="tree")
+    cfgf = dataclasses.replace(cfg, param_mode="fsdp")
+    leaves = vote_leaves(built.arch, built.abstract_params())
+    run2 = dataclasses.replace(run, steps=HYB_FSDP_STEPS)
+    fs = lm_train(torch, f"{tag} fsdp fused/tree", cfgf, topo2, algo2,
+                  run2, params)
+    want2 = {"sign_pack": HYB_FSDP_STEPS * leaves,
+             "vote_update": HYB_FSDP_STEPS * leaves, "ternary_quant": 0}
+    rp = lm_train(torch, f"{tag} replicated ag_packed/tree", cfg, topo2,
+                  dataclasses.replace(algo2, transport="ag_packed"), run2,
+                  params)
+    differ = count_differing(torch, fs["params"], rp["params"])
+    emit({"hybrid": "fsdp vs replicated", "arch": cfg.name, "card": card,
+          "pods": LM_P, "devices_per_pod": HYB_FSDP_D,
+          "steps": HYB_FSDP_STEPS, "votes_a_step": leaves,
+          "launches": fs["launches"], "differing": differ,
+          "bitwise": differ == 0,
+          "ms_per_step_fsdp": [h["ms"] for h in fs["history"]],
+          "ms_per_step_replicated": [h["ms"] for h in rp["history"]],
+          "losses_fsdp": [h["loss"] for h in fs["history"]],
+          "peak_gb_fsdp": fs["peak_gb"], "peak_gb_replicated": rp["peak_gb"]})
+    require(fs["launches"] == want2, f"zamba2 fsdp launches "
+            f"{fs['launches']}, want {want2} (a vote a leaf and layer, "
+            f"the shared block's leaves once a step)")
+    require(differ == 0, f"zamba2 fsdp vs replicated: {differ} coordinates "
+            "differ")
+    launches["fsdp"] = fs["launches"]
+    del fs, rp, params, built
+    torch.cuda.empty_cache()
+
+    # 4. served whole
+    counters = kernel_counters()
+    for fn in counters:
+        fn.launches = 0
+    serve_arch(torch, card, HYB_ARCH, HYB_PROMPT, HYB_DECODE,
+               HYB_PROMPT + HYB_DECODE, checks=("float32 views",))
+    served = {fn.__name__: fn.launches for fn in counters}
+    require(not any(served.values()),
+            f"serving zamba2 launched a training kernel: {served}")
+    emit({"hybrid": "phase", "card": card,
+          "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def pytree_items(tree, prefix=""):
     """(dotted name, leaf) pairs of a nested dict of tensors."""
     if not isinstance(tree, dict):
@@ -3334,6 +3642,8 @@ def main() -> None:
     import os
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
+    if sys.argv[1:] not in ([], ["--mu-sweep"], ["--phase", "hybrid"]):
+        fail(f"usage: {sys.argv[0]} [--mu-sweep | --phase hybrid]")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -3369,6 +3679,16 @@ def main() -> None:
     phase_edges(torch, timer)
     main_rows["tally_acc"] = phase_tally(torch, timer)
     main_rows["ternary_quant"] = phase_ternary(torch, timer)
+    if sys.argv[1:] == ["--phase", "hybrid"]:
+        hybrid = phase_hybrid(torch, card)
+        paths = dict.fromkeys(SOURCES, "hybrid, zamba2 fused/flat (6 "
+                                       "steps, 12 layers)")
+        kernels = kernel_rows(main_rows, {
+            name: hybrid["replicated"].get(name, 0) for name in SOURCES},
+            paths, lambda name: {"hybrid_launches": {
+                regime: hybrid[regime].get(name, 0) for regime in hybrid}})
+        finish(torch, kernels)
+        return
     fused, plain, launches = phase_slice(torch)
     print(f"[slice] ms/step fused/flat {fused['ms_per_step']} "
           f"ag_packed/tree {plain['ms_per_step']}", flush=True)
@@ -3385,12 +3705,35 @@ def main() -> None:
     serve_launches = phase_serve(torch, card)
     fsdp_launches = phase_fsdp(torch, card)
     moe_launches = phase_moe(torch, card)
+    hybrid = phase_hybrid(torch, card)
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
              "tally_acc": "clients, stream fused/flat (30 steps, K=2)",
              "ternary_quant": "methods, hier_local_qsgd fused/flat (30 "
                               "steps, 4 leaves a step)"}
 
+    kernels = kernel_rows(main_rows, launches, paths, lambda name: {
+        "lm_dc_fused_flat_launches": lm_launches["dc"].get(name, 0),
+        "lm_qsgd_stream_launches": lm_launches["qsgd"].get(name, 0),
+        "families_launches": {arch: fam[name] if name in fam else 0
+                              for arch, fam in fam_launches.items()},
+        "fault_tolerant_launches": ft["launches"].get(name, 0),
+        "serve_launches": serve_launches[name],
+        "fsdp_launches": fsdp_launches.get(name, 0),
+        "moe_launches": {arch: m.get(name, 0)
+                         for arch, m in moe_launches.items()},
+        "oracle_check_launches": sum(
+            r.get(name, 0) for r in ft["oracle"].values()),
+        "hybrid_launches": {regime: hybrid[regime].get(name, 0)
+                            for regime in hybrid}})
+    finish(torch, kernels)
+
+
+def kernel_rows(main_rows: dict, launches: dict, paths: dict,
+                extra) -> list:
+    """The ``kernels`` line's rows: each kernel's main-path launches and
+    path, its main-shape row's error and times, and ``extra(name)``'s
+    launches on the other paths."""
     kernels = []
     for name in SOURCES:
         row = main_rows[name]
@@ -3402,18 +3745,11 @@ def main() -> None:
             "ms": row["kernel_ms"], "device_ms": row["kernel_device_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None,
-            "lm_dc_fused_flat_launches": lm_launches["dc"].get(name, 0),
-            "lm_qsgd_stream_launches": lm_launches["qsgd"].get(name, 0),
-            "families_launches": {arch: fam[name] if name in fam else 0
-                                  for arch, fam in fam_launches.items()},
-            "fault_tolerant_launches": ft["launches"].get(name, 0),
-            "serve_launches": serve_launches[name],
-            "fsdp_launches": fsdp_launches.get(name, 0),
-            "moe_launches": {arch: m.get(name, 0)
-                             for arch, m in moe_launches.items()},
-            "oracle_check_launches": sum(
-                r.get(name, 0) for r in ft["oracle"].values())})
+            "library_ms": None, **extra(name)})
+    return kernels
+
+
+def finish(torch, kernels: list) -> None:
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

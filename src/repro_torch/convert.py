@@ -4,8 +4,10 @@ and the port.
 A JAX parameter tree turned into numpy (``jax.tree.map(np.asarray, t)``)
 is a dict of arrays; these helpers turn it into the port's tensors, and
 back.  Nested dicts carry over leaf for leaf: an LM's tree
-(``embed.table``, ``stacks.<block>.<leaf>`` with the leading layer dim,
-``head.norm``) is the port's ``models.build`` tree.  bfloat16 arrays
+(``embed.table``, ``stacks.<block>.<leaf>`` with the leading layer dim
+-- a tied block's, zamba2's ``stacks.shared_attn``, without one --,
+``head.norm``) is the port's ``models.build`` tree; the flat buffers and
+train states of such a tree carry over the same way.  bfloat16 arrays
 (numpy dtype ``bfloat16`` from ``ml_dtypes``) move through their 16-bit
 pattern, so every value survives bitwise.
 A JAX ``TrainState`` mapped the same way (its flat slots keep their

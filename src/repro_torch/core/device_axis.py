@@ -109,8 +109,10 @@ def fsdp_lift(cfg: LiftCfg, w: torch.Tensor, delta: torch.Tensor, *,
 
 def fsdp_lift_tree(cfg: LiftCfg, tree: PyTree, delta_tree: PyTree, *,
                    maskf: torch.Tensor, devwf: torch.Tensor) -> PyTree:
-    """:func:`fsdp_lift` on every leaf of a tree (one layer's, or the
-    embedding's, or the head's)."""
+    """:func:`fsdp_lift` on every leaf of a tree (one layer's, the
+    embedding's, the head's, or a tied block's unstacked tree -- zamba2's
+    shared attention -- lifted once, so its backward votes once on the
+    cotangent summed over the block's occurrences)."""
     return pytree.tree_map(
         lambda w, dl: fsdp_lift(cfg, w, dl, maskf=maskf, devwf=devwf),
         tree, delta_tree)

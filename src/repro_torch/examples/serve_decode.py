@@ -10,9 +10,10 @@ training run holds its master (``state_layout="flat"``),
 ``specs.serve_params_from_flat`` hands the model slice views of it (no
 per-leaf tree is assembled), and a 4 x 24 prompt is prefilled and
 decoded greedily for 15 more tokens -- on the card unless ``--device``
-says otherwise.  The JAX example serves zamba2, the hybrid family, which
-the port does not build yet (ROADMAP item 15); this one serves xlstm's
-reduced config, whose decode state is as O(1) in the sequence.
+says otherwise.  As the JAX example, it serves zamba2's reduced config
+(the hybrid family): the Mamba2 blocks' decode state is O(1) in the
+sequence, and the tied shared-attention block keeps a KV cache for each
+of its occurrences.
 """
 import argparse
 import time
@@ -32,7 +33,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = configs.get_smoke("xlstm_350m")   # recurrent: O(1) decode state
+    cfg = configs.get_smoke("zamba2_2p7b")  # hybrid SSM: O(1) decode state
     topo = Topology(1, 1, args.device)       # the card unless "cpu"
     device = topo.device
     built = build.build_model(cfg, topo)

@@ -3,9 +3,10 @@
 Two trainers on the port's train step (``core.hier.make_hier_step``):
 ``run_paper_task`` trains the paper's MLP task (below), and
 ``run_training`` an LM of the zoo (``--arch NAME``: the dense, vlm,
-moe, ssm and encdec/audio families, in the replicated regime or, for an
-FSDP config -- gemma3-12b, internvl2, arctic, deepseek-v3 -- in the FSDP
-regime of ``core.hier``; their ``--smoke`` configs are replicated):
+moe, ssm, hybrid and encdec/audio families, in the replicated regime or,
+for an FSDP config -- gemma3-12b, internvl2, arctic, deepseek-v3 -- in
+the FSDP regime of ``core.hier``; their ``--smoke`` configs are
+replicated):
 the JAX package's ``launch/train.py`` trainer -- config -> model ->
 DC-HierSignSGD step -> synthetic token stream -> elastic membership ->
 async checkpointing -> failure recovery -- on one card, the P edges x D
@@ -404,7 +405,7 @@ def lm_main(argv=None):
     """The JAX package's LM CLI (``repro.launch.train``), flags and
     defaults, plus ``--pods``/``--devices_per_pod`` and ``--device``."""
     ap = argparse.ArgumentParser(description="LM training (the zoo's dense, "
-                                 "vlm, moe, ssm and encdec/audio "
+                                 "vlm, moe, ssm, hybrid and encdec/audio "
                                  "families) through the port's step")
     ap.add_argument("--arch", default="gemma3_1b")
     ap.add_argument("--smoke", action="store_true",

@@ -5,8 +5,9 @@ The JAX package's ``models/blocks.py``: ``Ctx``, ``BlockDef``,
 or whisper's bidirectional encoder attention; with cross-attention over
 ``Ctx.enc_out`` for whisper's decoder), the moe family's ``moe_block``
 (GQA or MLA, then the MoE FFN) and ``mla_dense_block`` (deepseek-v3's
-leading dense layers and its MTP block), and the xLSTM family's
-``mlstm_block`` and ``slstm_block``.  Block protocol:
+leading dense layers and its MTP block), the hybrid family's
+``mamba_block`` and the xLSTM family's ``mlstm_block`` and
+``slstm_block``.  Block protocol:
 
     init(gen, device)                     -> params for ONE layer
     apply(p, x, ctx)                      -> (x, aux), on activations
@@ -20,8 +21,7 @@ leading dense layers and its MTP block), and the xLSTM family's
     cache_init(b, max_len)                -> the shapes of one layer's
                                              decode cache
 
-Not ported yet: the mamba block (with the hybrid family, ROADMAP item
-15) and the caches' sharding specs (item 17).
+Not ported yet: the caches' sharding specs (ROADMAP item 17).
 """
 from __future__ import annotations
 
@@ -216,6 +216,11 @@ def _mixer_block(cfg: LMConfig, name: str, init_mixer, mixer, state_init,
         return state_init(cfg, b)
 
     return BlockDef(name, init, apply, remat, cache_init)
+
+
+def mamba_block(cfg: LMConfig) -> BlockDef:
+    return _mixer_block(cfg, "mamba", ssm.init_mamba2, ssm.mamba2_block,
+                        ssm.mamba2_state_init)
 
 
 def mlstm_block(cfg: LMConfig) -> BlockDef:

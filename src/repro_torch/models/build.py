@@ -2,7 +2,7 @@
 from an LMConfig.
 
 The JAX package's ``models/build.py`` for the dense, vlm, moe, ssm
-(xlstm) and encdec/audio (whisper) families:
+(xlstm), hybrid (zamba2) and encdec/audio (whisper) families:
 
     built = build_model(cfg, topo)
     built.init_params(generator)  -> one replica's parameters
@@ -23,7 +23,8 @@ compute dtype, go before the tokens; positions run over both, and the
 patch positions are cut off before the head.
 
 The parameter tree is the JAX package's leaf for leaf -- ``embed.table``,
-``stacks.<block>.<leaf>`` with the leading layer dim, ``head.norm`` (and
+``stacks.<block>.<leaf>`` with the leading layer dim (zamba2's tied
+``stacks.shared_attn.<leaf>`` without one), ``head.norm`` (and
 ``head.out`` when the embedding is not tied), whisper's
 ``enc_stacks.enc.<leaf>`` and ``adapter.w``, deepseek-v3's ``mtp``
 (``proj``, ``n_x``, ``n_e``, ``block``) -- so a JAX tree converts with
@@ -51,10 +52,12 @@ per-edge directions out of autograd.  It serves resident, as the
 replicated regime does, where its bf16 weights fit
 ``SERVE_RESIDENT_BUDGET`` (:func:`serve_layout`, the reference's rule).
 
-Not ported yet (each raises ``NotImplementedError``): the hybrid family
-(zamba2, ROADMAP item 15: its reference gradients are not finite,
-ROADMAP queue 3); the ``"gather"`` serve layout of the FSDP configs
-above the budget (item 17: ``ServeGatherPlan``) and ``cache_specs``.
+zamba2's gradients are not finite where its SSD scan overflows, as the
+reference's are (ROADMAP queue 3); the sign sends NaN to -1.
+
+Not ported yet (each raises ``NotImplementedError``): the ``"gather"``
+serve layout of the FSDP configs above the budget (item 17:
+``ServeGatherPlan``) and ``cache_specs``.
 """
 from __future__ import annotations
 
@@ -76,7 +79,8 @@ from repro_torch.models.engine import ArchDef, ReplicatedPlan, Segment
 PyTree = Any
 
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "encdec", "audio")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec",
+                   "audio")
 SERVE_RESIDENT_BUDGET = 12e9   # bf16 bytes on the card below which an
                                # FSDP config's weights serve resident
 
@@ -88,14 +92,13 @@ def make_archdef(cfg: LMConfig) -> ArchDef:
     of local blocks after the last period); the moe family's
     ``first_dense`` leading dense blocks (MLA ones with ``cfg.mla``, of
     width ``dense_ff``) and then its MoE stack, with deepseek-v3's MTP
-    block; xlstm's periods of ``m_per_s`` mLSTM blocks and one sLSTM
+    block; zamba2's periods of ``attn_every`` Mamba2 blocks and the one
+    tied shared-attention block (a remainder of Mamba2 blocks after the
+    last); xlstm's periods of ``m_per_s`` mLSTM blocks and one sLSTM
     block (a remainder of mLSTM blocks after the last); whisper's
     bidirectional encoder and causal decoder with cross-attention."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}): the ported families are "
-            f"{', '.join(PORTED_FAMILIES)} (the others: ROADMAP queue 1 "
-            "item 15)")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
     if cfg.family == "moe":
         use_mla = cfg.mla is not None
         blocks = {"moe": B.moe_block(cfg, use_mla=use_mla)}
@@ -113,6 +116,17 @@ def make_archdef(cfg: LMConfig) -> ArchDef:
             mtp = (B.mla_dense_block(cfg, cfg.moe.dense_ff, name="mtp")
                    if use_mla else B.dense_block(cfg, name="mtp"))
         return ArchDef(cfg, blocks, segments, mtp_block=mtp)
+    if cfg.family == "hybrid":
+        every = cfg.ssm.attn_every
+        groups = cfg.n_layers // every
+        rem = cfg.n_layers - groups * every
+        blocks = {"mamba": B.mamba_block(cfg),
+                  "shared_attn": B.dense_block(cfg, name="shared_attn")}
+        segments = [Segment((("mamba", every), ("shared_attn", 1)), groups,
+                            tied=frozenset({"shared_attn"}))]
+        if rem:
+            segments.append(Segment((("mamba", rem),), 1))
+        return ArchDef(cfg, blocks, segments)
     if cfg.family == "ssm":
         m = cfg.xlstm.m_per_s
         groups = cfg.n_layers // (m + 1)
@@ -276,13 +290,16 @@ def make_loss_master(arch: ArchDef) -> Callable:
     loss_master(params, delta, batch, lift) -> (sum of the losses, the
         [P, D] losses)
 
-    params: the [P, *leaf] masters (stacks [P, n_layers, *leaf]), delta
-    the same tree of corrections, ``{"tokens": [P, D, b, L]}`` (a vlm:
+    params: the [P, *leaf] masters (stacks [P, n_layers, *leaf]; a tied
+    block's, zamba2's shared attention, [P, *leaf]), delta the same tree
+    of corrections, ``{"tokens": [P, D, b, L]}`` (a vlm:
     and ``"patches"``); ``lift(tree, delta_tree)`` lifts a tree to its
     [P, D] copies (its backward votes).  The embedding is lifted once,
     first, and used wherever it is (the tokens, the tied unembedding,
-    MTP's rolled tokens), so its cotangents sum before the sign; each
-    layer is lifted inside its block (``engine.FsdpPlan``), then the
+    MTP's rolled tokens), so its cotangents sum before the sign; a tied
+    block likewise, once before the layers (``engine.run_segments``);
+    each other layer is lifted inside its block (``engine.FsdpPlan``),
+    then the
     head (the logits and MTP's) and the ``mtp`` subtree, each once.  The
     losses are the replicated loss's, the layers' aux [P, D] included."""
     cfg = arch.cfg
@@ -313,14 +330,24 @@ def make_loss_master(arch: ArchDef) -> Callable:
     return loss_master
 
 
+def occurrence_counts(segments) -> dict[str, int]:
+    """How often each block runs: a tied block once an occurrence."""
+    occ: dict[str, int] = {}
+    for seg in segments:
+        for bname, cnt in seg.layout:
+            occ[bname] = occ.get(bname, 0) + cnt * seg.repeats
+    return occ
+
+
 def make_cache(arch: ArchDef, b: int, max_len: int,
                device: str | torch.device | None = None) -> dict:
     """bfloat16 zeros of each block's ``cache_init`` slice shapes,
-    stacked over its layers, and ``pos`` 0.  Every leaf is zero, the
-    sLSTM's ``n`` too, where training starts it at ones: the JAX
-    package's ``make_cache`` does the same (ROADMAP queue 3)."""
+    stacked over its occurrences (a tied block has a slice for each),
+    and ``pos`` 0.  Every leaf is zero, the sLSTM's ``n`` too, where
+    training starts it at ones: the JAX package's ``make_cache`` does
+    the same (ROADMAP queue 3)."""
     stacks = {}
-    for name, n in engine.stack_counts(arch.segments).items():
+    for name, n in occurrence_counts(arch.segments).items():
         bd = arch.blocks[name]
         if bd.cache_init is None:
             continue

@@ -23,9 +23,18 @@ The FSDP regime (``FsdpPlan``): the segments run over the [P, n_layers,
 ``ArchDef.mtp_block`` is deepseek-v3's MTP block, run by the loss
 (``models.build``) after the segments.
 
-Not ported yet: tied blocks (zamba2's shared attention, with the hybrid
-family, ROADMAP item 15; refused in both regimes) and the serving plan
-that gathers FSDP shards (item 17).
+Tied blocks (zamba2's shared attention, a Segment's ``tied`` names)
+keep ONE parameter set, unstacked ([*lead, *leaf]), applied at every
+occurrence: replicated, autograd sums the occurrences' gradients into
+the [P, D] copies before the flatten and the sign; under FSDP the tree
+is lifted once, before the layer loop and outside the recompute (the
+JAX ``lift_once``), and each occurrence applies the lifted copies
+directly, so the lift's backward votes once, on the summed cotangent --
+the paper's per-coordinate semantics.  A tied block's cache has a slice
+per occurrence, on its own cursor.
+
+Not ported yet: the serving plan that gathers FSDP shards (ROADMAP item
+17).
 """
 from __future__ import annotations
 
@@ -130,46 +139,57 @@ def run_segments(plan, arch: ArchDef, segments, stacks,
                  x: torch.Tensor, ctx: Ctx, lead: int = 0, caches=None,
                  dstacks=None):
     """Apply all segments to x [*lead, b, t, d].  ``stacks`` holds each
-    block's parameters [*lead, n_layers, *leaf] (``lead`` replica dims);
-    the layers of a stack are used in order across the segments.  The
-    segments' block names are the decoder's or the encoder's.  With
-    ``caches`` (each block's [n_layers, *slice], serving, ``lead`` 0)
-    each layer takes its slice and the result is (x, the new caches
-    stacked the same way).
+    block's parameters [*lead, n_layers, *leaf] (``lead`` replica dims;
+    a tied block's [*lead, *leaf], one set); the layers of a stack are
+    used in order across the segments.  The segments' block names are
+    the decoder's or the encoder's.  With ``caches`` (each block's
+    [n_occurrences, *slice], serving, ``lead`` 0) each occurrence takes
+    its slice and the result is (x, the new caches stacked the same
+    way).
 
     FSDP (``plan`` an :class:`FsdpPlan`): ``stacks`` are the masters [P,
     n_layers, *leaf] and ``dstacks`` their corrections, ``lead`` 1 (the
     JAX ``slice_stack``); each is unbound once, so autograd stacks the
     layers' directions once (a per-layer ``select`` would build a
     full-size zero tensor for every layer), and each layer hands its
-    slices to ``plan.block``."""
+    slices to ``plan.block``.  A tied block's tree is never unbound: it
+    is lifted once and applied at each occurrence as it is, without the
+    recompute (the JAX ``lift_once`` and its direct apply)."""
     blocks = {**arch.blocks, **(arch.enc_blocks or {})}
-    per_layer = {name: _per_layer(tree, lead) for name, tree in stacks.items()}
-    dper = ({name: _per_layer(tree, lead) for name, tree in dstacks.items()}
-            if dstacks is not None else None)
-    cursors = dict.fromkeys(per_layer, 0)
+    tied = {name for seg in segments for name in seg.tied}
+    fsdp = dstacks is not None
+    per_layer = {name: _per_layer(tree, lead) for name, tree in stacks.items()
+                 if name not in tied}
+    dper = ({name: _per_layer(tree, lead) for name, tree in dstacks.items()
+             if name not in tied} if fsdp else None)
+    shared = {name: plan.lift(stacks[name], dstacks[name]) if fsdp
+              else stacks[name] for name in tied}
+    cursors = dict.fromkeys(stacks, 0)        # occurrences of each block
     old = ({name: _per_layer(tree, 0) for name, tree in caches.items()}
            if caches is not None else None)
     new = {name: [] for name in old} if old is not None else None
     aux = (torch.zeros(x.shape[:-3], dtype=torch.float32, device=x.device)
            if old is None else None)
     for seg in segments:
-        if seg.tied:
-            raise NotImplementedError(
-                "tied blocks (zamba2's shared attention): ROADMAP item 15")
         for _ in range(seg.repeats):
             for bname, cnt in seg.layout:
+                bd = blocks[bname]
                 for _ in range(cnt):
-                    lp = per_layer[bname][cursors[bname]]
-                    if dper is not None:
-                        x, a = plan.block(blocks[bname], lp, x, ctx,
-                                          ld=dper[bname][cursors[bname]])
-                    elif old is None:
-                        x, a = plan.block(blocks[bname], lp, x, ctx)
+                    at = cursors[bname]
+                    if bname in shared and fsdp:
+                        x, a = bd.apply(shared[bname], x, ctx)
+                    elif fsdp:
+                        x, a = plan.block(bd, per_layer[bname][at], x, ctx,
+                                          ld=dper[bname][at])
                     else:
-                        x, nc = plan.block(blocks[bname], lp, x, ctx,
-                                           old[bname][cursors[bname]])
-                        new[bname].append(nc)
+                        lp = (shared[bname] if bname in shared
+                              else per_layer[bname][at])
+                        if old is None:
+                            x, a = plan.block(bd, lp, x, ctx)
+                        else:
+                            x, nc = plan.block(bd, lp, x, ctx,
+                                               old[bname][at])
+                            new[bname].append(nc)
                     if old is None:
                         aux = aux + a
                     cursors[bname] += 1

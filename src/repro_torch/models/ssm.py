@@ -1,32 +1,39 @@
-"""Recurrent blocks of the xLSTM family: mLSTM and sLSTM, in train mode
-and with their recurrent states for serving.
+"""Recurrent blocks: Mamba2 (the hybrid family, zamba2) and mLSTM /
+sLSTM (the xLSTM family), in train mode and with their recurrent states
+for serving.
 
-The JAX package's ``models/ssm.py`` for xlstm: ``_causal_conv`` (with
-or without its decode state), ``init_mlstm``, ``mlstm_block`` with the
-parallel (decay-matrix) form ``_mlstm_parallel`` (train and prefill,
-which also forms the final state in closed form) and the recurrent
-decode step, ``mlstm_state_init``, ``init_slstm``, ``slstm_block``,
-whose ``lax.scan`` over time is a Python loop in the same order, from
-zeros or from a given state, and ``slstm_state_init``.  Activations
-are ``[*lead, b, t, d]`` and parameter leaves ``[*lead, *leaf]``
+The JAX package's ``models/ssm.py``: ``_causal_conv`` (with or without
+its decode state); ``init_mamba2``, ``mamba2_block`` with the chunkwise
+SSD scan ``ssd_chunked`` (train and prefill, which also gives the final
+state) and the recurrent decode step, ``mamba2_state_init``;
+``init_mlstm``, ``mlstm_block`` with the parallel (decay-matrix) form
+``_mlstm_parallel`` (train and prefill, which also forms the final
+state in closed form) and the recurrent decode step,
+``mlstm_state_init``, ``init_slstm``, ``slstm_block``, whose
+``lax.scan`` over time is a Python loop in the same order, from zeros
+or from a given state, and ``slstm_state_init``.  Activations are
+``[*lead, b, t, d]`` and parameter leaves ``[*lead, *leaf]``
 (``layers``' leading replica dims).
 
 Dtypes land where JAX's promotion puts them: ``torch.matmul`` refuses
 the mixed bf16 x f32 operands that ``jnp.einsum`` promotes, so the
 compute-dtype operand is cast to float32 at exactly those products
-(q, k and v in ``mlstm_parallel``, ``wr`` in the sLSTM recurrence).
+(q, k and v in ``mlstm_parallel``, ``wr`` in the sLSTM recurrence, x,
+B and C in the SSD scan and the Mamba2 decode step).
 Gradients split at ties as JAX's do: ``torch.amax`` and
 ``torch.maximum`` halve them, as ``jnp.max`` and ``jnp.maximum`` do.
 
 The serving quirks are the JAX package's: prefill (t > 1) uses the
-incoming mLSTM state only as a flag (the parallel form starts from
-zeros; the conv state is prepended), a one-token prompt takes the
-recurrent step from that state, and the recurrent step's denominator is
-``max(|n . q|, 1)``, where the parallel form's is ``max(|sum_j
-scores|, exp(-m))``.
+incoming mLSTM or Mamba2 state only as a flag (the parallel form and
+the SSD scan start from zeros; the conv state is prepended), a
+one-token prompt takes the recurrent step from that state, and the
+mLSTM's recurrent step's denominator is ``max(|n . q|, 1)``, where the
+parallel form's is ``max(|sum_j scores|, exp(-m))``.
 
-Not ported: mamba2 and its SSD scan (the hybrid family, ROADMAP item
-15).
+So are the SSD scan's non-finite gradients (ROADMAP queue 3): the scan
+forms ``exp(seg_i - seg_j)`` over the whole chunk and masks the upper
+triangle after the ``exp``; where that overflows, autograd's ``0 *
+inf`` gives NaN, as ``where``'s VJP does in JAX.
 """
 from __future__ import annotations
 
@@ -53,6 +60,155 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
     out = F.silu(sum(xp[..., i:i + t, :] * bcast(w[..., i, :], x)
                      for i in range(k)))
     return out if state is None else (out, xp[..., -(k - 1):, :])
+
+
+def init_mamba2(gen, cfg, device) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    heads = d_in // 64                      # mamba2 convention: headdim 64
+    return {
+        "in_x": he_init(gen, (d, d_in), device),
+        "in_z": he_init(gen, (d, d_in), device),
+        "in_b": he_init(gen, (d, s.n_groups * s.d_state), device),
+        "in_c": he_init(gen, (d, s.n_groups * s.d_state), device),
+        "in_dt": he_init(gen, (d, heads), device),
+        "dt_bias": torch.zeros((heads,), dtype=F32, device=device),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, heads, dtype=F32,
+                                          device=device)),
+        "d_skip": torch.ones((heads,), dtype=F32, device=device),
+        "conv": he_init(gen, (s.d_conv, d_in), device, s.d_conv),
+        "norm": layers.init_rms(d_in, device),
+        "out": he_init(gen, (d_in, d), device, d_in),
+    }
+
+
+def mamba2_block(p, x, cfg, state=None):
+    """The Mamba2 mixer: x [*lead, b, t, d] -> [*lead, b, t, d] (the z, x,
+    B, C and dt projections, the causal conv on x, the SSD, the D skip,
+    the SiLU gate, the norm and the out-projection), 64-wide heads, B and
+    C repeated over each group's heads.  dt is float32, ``softplus(x @
+    in_dt + dt_bias)``, and the log-decay ``dt * -exp(a_log)``.
+
+    With a ``state`` (``mamba2_state_init``'s keys) it returns (y,
+    new_state): for t > 1 the chunked scan from zeros and its final
+    state (float32 [*, b, H, 64, d_state]), else the float32 recurrence
+    from ``state["ssm"]``; the conv state comes back in x's dtype."""
+    s = cfg.ssm
+    d = x.shape[-1]
+    d_in = s.expand * d
+    heads = d_in // 64
+    lead_bt = x.shape[:-1]
+    z = linear(x, p["in_z"])
+    xc = linear(x, p["in_x"])
+    if state is None:
+        xc = causal_conv(xc, p["conv"])
+    else:
+        xc, new_conv = causal_conv(xc, p["conv"], state["conv"])
+    xh = xc.reshape(lead_bt + (heads, 64))
+    bm = linear(x, p["in_b"]).reshape(lead_bt + (s.n_groups, s.d_state))
+    cm = linear(x, p["in_c"]).reshape(lead_bt + (s.n_groups, s.d_state))
+    bm = torch.repeat_interleave(bm, heads // s.n_groups, dim=-2)
+    cm = torch.repeat_interleave(cm, heads // s.n_groups, dim=-2)
+    dt = linear(x, p["in_dt"]).to(F32)
+    dt = dt + bcast(p["dt_bias"], dt)
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))            # softplus
+    a = -torch.exp(p["a_log"])                                # [*lead, H]
+    decay = dt * bcast(a, dt)                                 # log-decay
+    if state is None or x.shape[-2] > 1:
+        y, final = ssd_chunked(xh, bm, cm, dt, decay, s.chunk)
+        if state is not None:
+            new_state = {"ssm": final, "conv": new_conv}
+    else:
+        y, st = mamba2_step(xh, bm, cm, dt, decay, state["ssm"])
+        new_state = {"ssm": st, "conv": new_conv}
+    y = y + xh * bcast(p["d_skip"].to(x.dtype), dt)[..., None]
+    y = y.reshape(lead_bt + (d_in,)) * F.silu(z)
+    y = layers.rms_norm(p["norm"], y, cfg.norm_eps)
+    y = linear(y, p["out"])
+    if state is None:
+        return y
+    return y, new_state
+
+
+def mamba2_step(xh, bm, cm, dt, decay, ssm_state):
+    """The float32 recurrence over t positions (one, at decode) from
+    ``ssm_state`` [*, b, H, 64, n]: s' = exp(decay) s + dt x B^T, y = s'
+    C.  Returns (y [*, b, t, H, 64] in xh's dtype, the state)."""
+    st = ssm_state.to(F32)
+    ys = []
+    for i in range(xh.shape[-3]):
+        g = torch.exp(decay[..., i, :])[..., None, None]      # [*, b, H, 1, 1]
+        upd = (dt[..., i, :, None, None] * xh[..., i, :, :, None].to(F32)
+               * bm[..., i, :, None, :].to(F32))
+        st = g * st + upd
+        ys.append((st @ cm[..., i, :, :, None].to(F32)).squeeze(-1))
+    return torch.stack(ys, dim=-3).to(xh.dtype), st
+
+
+def _pad_time(a: torch.Tensor, dim: int, pad: int) -> torch.Tensor:
+    shape = list(a.shape)
+    shape[dim] = pad
+    return torch.cat([a, a.new_zeros(shape)], dim=dim)
+
+
+def ssd_chunked(xh, bm, cm, dt, decay, chunk: int):
+    """The chunkwise SSD scan: xh [*, t, H, p], B and C [*, t, H, n], dt and
+    the log-decay [*, t, H] float32 -> (y [*, t, H, p] in xh's dtype,
+    the final state [*, H, p, n] float32, the decode layout).
+
+    Chunks of ``min(chunk, t)`` positions, a ragged tail zero-padded (dt
+    = 0: an identity transition, no contribution) and the outputs sliced
+    back.  Within a chunk the quadratic form, ``(C B^T * gamma) (dt x)``
+    with gamma[i, j] = exp(seg_i - seg_j) below the diagonal (seg the
+    chunk's cumulative log-decay, float32, ``torch.cumsum`` over the
+    chunk's positions); across chunks the carried state, each chunk's
+    summary ``(B exp(seg_end - seg))^T (dt x)`` added after the carry
+    decays by exp(seg_end).  Worked head-major ([*, nc, H, c, c]), the
+    JAX package's [b, nc, c, c, H] transposed."""
+    t = xh.shape[-3]
+    c = min(chunk, t)
+    if t % c:
+        pad = c - t % c
+        y, final = ssd_chunked(
+            *(_pad_time(a, -3, pad) for a in (xh, bm, cm)),
+            *(_pad_time(a, -2, pad) for a in (dt, decay)), chunk)
+        return y[..., :t, :, :], final
+    nc = t // c
+    lead = xh.shape[:-3]
+
+    def heads_major(a):             # [*, t, H, f] -> [*, nc, H, c, f]
+        return a.reshape(lead + (nc, c) + a.shape[-2:]).transpose(-3, -2)
+
+    xf = heads_major(xh.to(F32) * dt[..., None])              # dt-weighted
+    bf, cf = heads_major(bm.to(F32)), heads_major(cm.to(F32))
+    seg = torch.cumsum(decay.reshape(lead + (nc, c, decay.shape[-1])),
+                       dim=-2).transpose(-1, -2)              # [*, nc, H, c]
+    rel = seg[..., :, None] - seg[..., None, :]               # [*, nc, H, i, j]
+    mask = torch.ones((c, c), dtype=torch.bool, device=xh.device).tril()
+    gamma = torch.where(mask, torch.exp(rel), scalar(rel, 0.0))
+    scores = (cf @ bf.transpose(-1, -2)) * gamma
+    y_intra = scores @ xf                                     # [*, nc, H, c, p]
+    tail = seg[..., -1:] - seg                                # decay to end
+    s_chunk = (bf * torch.exp(tail)[..., None]).transpose(-1, -2) @ xf
+    g_chunk = torch.exp(seg[..., -1])                         # [*, nc, H]
+    carry = xf.new_zeros(lead + s_chunk.shape[-3:])           # [*, H, n, p]
+    prev = []
+    for g in range(nc):
+        prev.append(carry)
+        carry = (carry * g_chunk[..., g, :, None, None]
+                 + s_chunk[..., g, :, :, :])
+    y_inter = (cf * torch.exp(seg)[..., None]) @ torch.stack(prev, dim=-4)
+    y = (y_intra + y_inter).transpose(-3, -2).reshape(xh.shape)
+    return y.to(xh.dtype), carry.transpose(-1, -2)
+
+
+def mamba2_state_init(cfg, b: int) -> dict:
+    """The shapes of one layer's Mamba2 state."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return {"ssm": (b, d_in // 64, 64, s.d_state),
+            "conv": (b, s.d_conv - 1, d_in)}
 
 
 def init_mlstm(gen, cfg, device) -> dict:

@@ -10,12 +10,12 @@ and one mean differ, 1e-5 where matmuls and a softmax do.  The same
 functions also run with leading replica dims ([2, 3] copies of the
 parameters), where each replica must equal the unbatched call.
 
-Also the structure: for every config of a ported family (dense, vlm,
-moe, ssm, encdec), the port's parameter tree has the JAX tree's keys and
-shapes, and the same ``param_count``; the hybrid family raises
-``NotImplementedError`` naming ROADMAP item 15.  The ssm and encdec
-modules themselves: ``tests/test_torch_lm_families.py``; the moe ones:
-``tests/test_torch_moe.py``.
+Also the structure: for every config (dense, vlm, moe, ssm, hybrid,
+encdec), the port's parameter tree has the JAX tree's keys and shapes,
+and the same ``param_count``.  The ssm and encdec modules themselves:
+``tests/test_torch_lm_families.py``; the moe ones:
+``tests/test_torch_moe.py``; the hybrid ones:
+``tests/test_torch_hybrid.py``.
 """
 import dataclasses
 
@@ -223,10 +223,3 @@ def _named(tree, prefix=""):
     for k in sorted(tree):
         out += _named(tree[k], f"{prefix}.{k}" if prefix else k)
     return out
-
-
-@pytest.mark.parametrize("name", [n for n in configs.ARCH_NAMES
-                                  if n not in PORTED])
-def test_other_families_name_their_item(name):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build.build_model(configs.get_smoke(name), Topology(1, 1, "cpu"))

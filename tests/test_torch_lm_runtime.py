@@ -260,8 +260,8 @@ def test_paper_task_cli_runs_without_arch(capsys):
                                   "cli_chaos", "cli_multi_pod"])
 def test_unported_options_name_their_item(what, capsys, tmp_path):
     """The options still unported raise naming their ROADMAP item; the
-    checkpoint store (item 13) and the chaos engine (item 14) are ported,
-    and their options now run."""
+    checkpoint store (item 13), the chaos engine (item 14) and the hybrid
+    family (item 15) are ported, and their options now run."""
     cfg = configs.get_smoke("gemma3_1b")
     run = train.RunCfg(steps=1, batch_per_device=1, seq_len=8)
     topo = Topology(1, 1, "cpu")
@@ -275,17 +275,21 @@ def test_unported_options_name_their_item(what, capsys, tmp_path):
         "cli_chaos": lambda: train.main(
             ["--device", "cpu", "--arch", "gemma3_1b", "--smoke", "--steps",
              "1", "--batch", "1", "--seq", "8", "--chaos", "1"]),
+        "family": lambda: train.run_training(
+            configs.get_smoke("zamba2_2p7b"), topo, algo(), run,
+            log=lambda _: None),
     }
     if what in ported:
-        ported[what]()
+        out = ported[what]()
+        if what == "family":
+            _, hist = out
+            assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
         if what == "ckpt_dir":
             assert (tmp_path / "ckpt" / "LATEST").read_text() == "1"
         if what == "cli_chaos":
             assert "[train] chaos seed 1" in capsys.readouterr().out
         return
     cases = {
-        "family": (lambda: train.run_training(
-            configs.get_smoke("zamba2_2p7b"), topo, algo(), run), "item 15"),
         "cli_multi_pod": (lambda: train.main(
             ["--device", "cpu", "--arch", "gemma3_1b", "--smoke",
              "--multi_pod"]), "item 17"),

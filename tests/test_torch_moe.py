@@ -34,9 +34,8 @@ smoke configs:
     1e-5 on that cache widened to float32;
   * the blocks ``moe_block`` (GQA and MLA) and ``mla_dense_block``
     within 1e-5, their aux losses within 1e-6, with [2, 3] replicas;
-  * the structure: the full and smoke configs of internvl2, arctic and
-    deepseek-v3 build without importing JAX (zamba2 still names item
-    15), ``serve_layout`` gives the reference's answer for every config
+  * the structure: the full and smoke configs of internvl2, arctic,
+    deepseek-v3 and zamba2 build without importing JAX, ``serve_layout`` gives the reference's answer for every config
     in both regimes, and ``--arch`` of the three full configs reaches
     the FSDP regime.
 """
@@ -445,25 +444,18 @@ NEW = ("internvl2_76b", "arctic_480b", "deepseek_v3_671b")
 
 
 def test_new_families_build_without_jax():
-    """The full and smoke configs of the three archs build (and their
-    parameter shapes come out) in a process that never imports JAX;
-    zamba2 still raises naming item 15."""
+    """The full and smoke configs of the three archs and of zamba2 (the
+    hybrid family) build (and their parameter shapes come out) in a
+    process that never imports JAX."""
     code = (
         "import sys\n"
         "from repro_torch import configs\n"
         "from repro_torch.core.topology import Topology\n"
         "from repro_torch.models import build\n"
-        f"for name in {NEW!r}:\n"
+        f"for name in {NEW + ('zamba2_2p7b',)!r}:\n"
         "    for get in (configs.get_config, configs.get_smoke):\n"
         "        b = build.build_model(get(name), Topology(1, 1, 'cpu'))\n"
         "        assert build.param_count(b.abstract_params()) > 0\n"
-        "try:\n"
-        "    build.build_model(configs.get_smoke('zamba2_2p7b'), "
-        "Topology(1, 1, 'cpu'))\n"
-        "except NotImplementedError as e:\n"
-        "    assert 'item 15' in str(e)\n"
-        "else:\n"
-        "    raise SystemExit('zamba2 built')\n"
         "assert 'jax' not in sys.modules\n"
         "print('OK')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -473,8 +465,7 @@ def test_new_families_build_without_jax():
     assert out.stdout.strip() == "OK"
 
 
-@pytest.mark.parametrize("name", [n for n in configs.ARCH_NAMES
-                                  if n != "zamba2_2p7b"])
+@pytest.mark.parametrize("name", configs.ARCH_NAMES)
 def test_serve_layout_is_the_reference_rule(name):
     """Every buildable config, full and smoke, replicated and FSDP (an
     encoder-decoder trains replicated only): the port's layout is JAX's

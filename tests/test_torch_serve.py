@@ -5,7 +5,8 @@ Both packages serve the JAX package's parameters (numpy, converted with
 ``params_from_numpy``) on the same prompts (numpy, from a seed); the JAX
 side runs ``built.prefill`` and ``built.decode_step`` under ``jax.jit``,
 as its example runs decode.  For every arch the port's ``models.build``
-builds (the dense, vlm, moe, ssm and encdec smoke configs; a vlm's
+builds (the dense, vlm, moe, ssm and encdec smoke configs -- the hybrid
+one's in ``tests/test_torch_hybrid.py``; a vlm's
 requests carry patches and its ``max_len`` their slots):
 
   * prefill: the last position's logits within 1e-5 of the largest
@@ -365,8 +366,7 @@ def test_serving_the_flat_state_a_training_run_leaves():
 
 def test_unported_serving_raises():
     """The gather layout (an FSDP config whose bf16 weights pass the
-    budget: gemma3-12b whole) and the caches' specs stay item 17; the
-    hybrid family item 15."""
+    budget: gemma3-12b whole) and the caches' specs stay item 17."""
     gemma12 = build.build_model(configs.get_config("gemma3_12b"), CPU)
     n = build.param_count(gemma12.abstract_params())
     assert build.serve_layout(gemma12.cfg, n) == "gather" \
@@ -383,8 +383,6 @@ def test_unported_serving_raises():
         build.ServeGatherPlan(gemma12.cfg, CPU)
     cfg1 = configs.get_config("gemma3_1b")
     assert build.serve_layout(cfg1, 10**12) == "resident"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build.build_model(configs.get_smoke("zamba2_2p7b"), CPU)
 
 
 def test_serve_request_batch():
