@@ -9,7 +9,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 the ``moe`` phase's step-size sweep, ``moe_mu_sweep``; ``python3
 chip_smoke.py --phase hybrid`` builds the kernels, runs phase 2's
 kernel checks and the ``hybrid`` phase, and prints the ``kernels`` line
-with the hybrid path's launches and the ``ok`` line.)
+with the hybrid path's launches and the ``ok`` line; ``--phase mesh``
+does the same for the ``mesh`` phase.  ``--mesh-rank RANK DIR`` is one
+rank of the ``mesh`` phase, which the phase starts itself.)
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -227,6 +229,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      "parameters" | "gradients" | "step" | "kernels" | "memory" | "fsdp
      vs replicated" | "phase"}`` and zamba2's ``{"serve": ...}``; the
      kernels line gains ``hybrid_launches``.
+ 14. ``mesh``: the hierarchy across processes (``launch.mesh``,
+     ``core.comm``) on the one card: 4 ranks, 2 pods x 2 data, over
+     gloo (NCCL refuses two ranks on one GPU), each a [1, 1] block of
+     P=2 x D=2, started as ``chip_smoke.py --mesh-rank`` processes and
+     killed past ``MESH_JOIN_S``.  The one-process references run
+     first, in this process, and are freed.  The parity toy (injected
+     gradients, 6 steps of T_E=3, uneven weights) in four cells -- DC,
+     ``hier_sgd``, ``hier_local_qsgd``, DC with K=2 streamed clients at
+     Bernoulli(0.5) -- on fused/flat: every slot of the gathered state
+     bitwise the one-process run, the losses within 1e-5 (the forward's
+     sums run at the block's shape), and in every rank the four
+     kernels' launches counted (6 + 6, 18 ``ternary_quant``, 12
+     ``tally_acc``).  One fused vote-update at gemma3-1b's 417,468,416
+     coordinates (seeded bf16 directions, an f32 master) through
+     ``votes.fused_sign_vote_update``: each edge row's sha256 that of
+     the one-process [2, 2] result, and the words' gather timed.  Then
+     gemma3-1b as in ``lm`` (6 layers, 1 x 1152, DC, fused/flat) at P=2
+     x D=2, 6 steps of ``run_training`` over the ranks: step 0's
+     per-device gradients of each [1, 1] block against the one-process
+     [2, 2] run (the differing count; each rank's own gradients' sha256
+     that of the block computed here), the final masters' differing
+     count against the one-process run (bitwise required where the
+     gradients are), every loss finite, round 2's mean below step 0's,
+     6 + 6 launches a rank, each rank's local and prologue step ms,
+     bytes gathered and peak beside ``reckon_mesh_peak``.  JSON lines
+     ``{"mesh": "one-process references" | "reckoned rank peak" |
+     "before the ranks" | "toy" | "transport" | "lm" | "phase"}``; the
+     kernels line gains ``mesh_launches_per_rank``.
 
 The ``ternary`` cases of phase 2 include the QSGD step's per-row form:
 rows of the MLP's leaf lengths 10, 64, 640 and 50176, R = 20 and 40 rows
@@ -3626,6 +3656,583 @@ def phase_hybrid(torch, card: str) -> dict:
     return launches
 
 
+MESH_GRID = (2, 2)               # pods x data ranks, a [1, 1] block each
+MESH_P, MESH_D = 2, 2            # the global hierarchy over them
+MESH_STEPS, MESH_TE = 6, 3
+MESH_JOIN_S = 600                # the ranks' join limit
+MESH_TOY = {"w": (16, 64), "b": (33,), "w2": (64, 33)}   # the parity toy
+MESH_CELLS = {       # name -> (AlgoConfig fields, K clients or None)
+    "dc fused/flat": (dict(method="dc_hier_signsgd"), None),
+    "hier_sgd fused/flat": (dict(method="hier_sgd"), None),
+    "hier_local_qsgd fused/flat": (dict(method="hier_local_qsgd"), None),
+    "dc fused/flat K=2 stream": (dict(method="dc_hier_signsgd"), 2),
+}
+MESH_SEED = 1000                 # the LM-size transport's directions
+
+
+def mesh_toy_run(torch, topo, cell: str) -> dict:
+    """One parity-toy cell on ``topo`` (the one-process [2, 2] topology
+    or a rank's block): ``MESH_STEPS`` steps of the injected-gradient
+    toy (``tests/helpers/injected_grads.py``; gradients, weights and
+    masks drawn whole from seeds, every rank keeping its block), fused
+    transport, flat state, f32; returns the gathered global state as
+    numpy, the losses and the four kernels' launches in this process."""
+    import injected_grads
+    from repro_torch.convert import gather_train_state
+    from repro_torch.core import hier, pytree
+    from repro_torch.core.clients import ClientConfig
+
+    fields, k = MESH_CELLS[cell]
+    cc = ClientConfig()
+    if k:
+        cc = ClientConfig(count=k, participation="bernoulli", rate=0.5,
+                          seed=11, mode="stream", weights=tuple(
+                              tuple(tuple((q + 2 * d + 3 * c) % 5 + 1
+                                          for c in range(k))
+                                    for d in range(MESH_D))
+                              for q in range(MESH_P)))
+    algo = hier.AlgoConfig(t_e=MESH_TE, mu=MU, mu_sgd=0.05, rho=RHO,
+                           transport="fused", state_layout="flat",
+                           compute_dtype=torch.float32,
+                           delta_dtype=torch.float32, clients=cc, **fields)
+    gen = torch.Generator().manual_seed(5)
+    grads = injected_grads.make_grads(MESH_TOY, MESH_P, MESH_D, k or 1,
+                                      MESH_STEPS, gen)
+    w0 = {n: torch.randn(s, generator=gen) for n, s in MESH_TOY.items()}
+    ew = torch.tensor([0.375, 0.625])
+    dw = torch.tensor([[0.25, 0.75], [0.5, 0.5]])
+    mask = torch.ones((MESH_P, MESH_D) + ((k,) if k else ()))
+    init_fn, step = hier.make_hier_step(topo, algo,
+                                        injected_grads.make_bundle())
+    state = init_fn(w0)
+    counters = kernel_counters()
+    for kern in counters:
+        kern.launches = 0
+    losses = []
+    for g in grads:
+        batch = pytree.tree_map(lambda x: x.to("cuda"), topo.block(g))
+        state, metrics = step(state, {"train": batch}, ew, dw, mask)
+        losses.append(float(metrics["loss"]))
+    launches = dict(zip(("sign_pack", "vote_update", "tally_acc",
+                         "ternary_quant"),
+                        (kern.launches for kern in counters)))
+    full = gather_train_state(state, topo)
+    return {"state": {n: v for n, v in full._asdict().items()
+                      if n not in ("rng", "step")},
+            "losses": losses, "launches": launches}
+
+
+def mesh_directions(torch, topo, n: int):
+    """The LM-size transport's inputs, the rank's block of the seeded
+    global ones: [P_loc, D_loc, n] bf16 directions (row (q, d) drawn from
+    seed ``MESH_SEED + q*D + d``) and the [P_loc, n] f32 master (row q
+    from ``MESH_SEED - 1 - q``)."""
+    def row(seed, dtype):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(n, generator=g, device="cuda", dtype=dtype)
+
+    pods = range(topo.pod_offset, topo.pod_offset + topo.local_pods)
+    devs = range(topo.device_offset,
+                 topo.device_offset + topo.local_devices)
+    u = torch.stack([torch.stack([row(MESH_SEED + q * MESH_D + d,
+                                      torch.bfloat16) for d in devs])
+                     for q in pods])
+    v = torch.stack([row(MESH_SEED - 1 - q, torch.float32) for q in pods])
+    return u, v
+
+
+def mesh_transport(torch, topo, n: int) -> dict:
+    """One fused vote-update at the LM's size through
+    ``votes.fused_sign_vote_update`` (sign_pack on the rank's rows, the
+    words gathered over the data group, vote_update on its [P_loc, n]
+    master in place, mu 1e-3): each edge row's sha256, and the time of
+    the words' gather alone (median of 3, host clock around
+    synchronised calls)."""
+    from repro_torch.core import comm, flatbuf, votes
+    from repro_torch.kernels import ops as kops
+
+    u, v = mesh_directions(torch, topo, n)
+    layout = flatbuf.make_layout({"w": v}, batch_dims=1)
+    mask = torch.ones((topo.local_pods, MESH_D), dtype=torch.bool,
+                      device="cuda")
+    mu = 1e-3
+    out = votes.fused_sign_vote_update(
+        layout, {"w": u}, None, 0.0, mask, v,
+        torch.tensor(mu, dtype=torch.float32, device="cuda"), mu_static=mu,
+        topo=topo)
+    require(out is v, "the fused vote-update did not update in place")
+    torch.cuda.synchronize()
+    digests = row_digests(torch, v)
+    words = kops.fused_pack_flat(u, None, 0.0)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gathered = comm.gather_devices(topo, words)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    res = {"digests": digests, "word_bytes_per_device": words[0, 0].numel()
+           * words.element_size(), "gathered_shape": list(gathered.shape),
+           "gather_ms": statistics.median(times), "gather_ms_all": times}
+    del u, v, words, gathered
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_lm_grads(torch, built, params, tokens, shape):
+    """Per-voter gradients of the LM at ``params`` on ``tokens`` ([P', D',
+    1, seq]) from fresh bf16 [P', D'] copies, in ``pytree_items`` order,
+    flattened to one bf16 vector per voter: [P', D', n]."""
+    from repro_torch.core import pytree
+
+    leaves, td = pytree.tree_flatten(params)
+    copies = [leaf.unsqueeze(0).unsqueeze(0).expand(shape + tuple(leaf.shape))
+              .to(torch.bfloat16).contiguous().requires_grad_(True)
+              for leaf in leaves]
+    losses = built.bundle.loss(pytree.tree_unflatten(td, copies),
+                               {"tokens": tokens})
+    grads = torch.autograd.grad(losses.sum(), copies)
+    del copies, losses
+    return torch.cat([g.reshape(shape + (-1,)) for g in grads], dim=-1)
+
+
+def mesh_lm_setup(torch, topo):
+    """gemma3-1b at full width cut to ``LM_LAYERS`` layers on ``topo``:
+    (cfg, built, params from seed 0, the DC fused/flat algo, the run)."""
+    from repro_torch.launch.train import RunCfg
+    from repro_torch.models import build
+
+    cfg, _, algo = lm_setup(torch)
+    built = build.build_model(cfg, topo)
+    params = built.init_params(torch.Generator(device="cuda").manual_seed(0))
+    run = RunCfg(steps=MESH_STEPS, batch_per_device=1, seq_len=LM_SEQ,
+                 log_every=1, seed=0)
+    return cfg, built, params, algo, run
+
+
+def mesh_tokens(torch, cfg):
+    from repro_torch.data import synthetic
+
+    return synthetic.make_stream(synthetic.LMStreamCfg(
+        vocab=cfg.vocab, seq_len=LM_SEQ, batch_per_device=1, pods=MESH_P,
+        devices_per_pod=MESH_D, seed=0))(0)["tokens"]
+
+
+def row_digests(torch, buf) -> list:
+    import hashlib
+
+    return [hashlib.sha256(r.cpu().numpy().tobytes()).hexdigest()
+            for r in buf]
+
+
+def mesh_lm_rank(torch, topo, tmp: str) -> dict:
+    """The rank's part of the LM run: its step-0 gradients' digest, then
+    ``run_training`` over the mesh (6 steps, DC fused/flat) with the
+    kernels' counters and ``comm.traffic`` set to 0 just before it: its
+    losses, step times, launches and peak; the ranks of data column 0
+    write their edge's final master row to ``tmp/lm_row{q}.npy``."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.core import comm
+    from repro_torch.launch.train import run_training
+
+    cfg, built, params, algo, run = mesh_lm_setup(torch, topo)
+    tokens = topo.block(mesh_tokens(torch, cfg)).cuda()
+    g = mesh_lm_grads(torch, built, params, tokens, (1, 1))
+    grad_digest = hashlib.sha256(g.view(torch.int16).cpu().numpy()
+                                 .tobytes()).hexdigest()
+    del g, tokens
+    torch.cuda.empty_cache()
+    counters = kernel_counters()
+    for kern in counters:
+        kern.launches = 0
+    comm.reset_traffic()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, history = run_training(cfg, topo, algo, run, params=params,
+                                  log=lambda line: None)
+    torch.cuda.synchronize()
+    res = {"grad_digest": grad_digest,
+           "losses": [h["loss"] for h in history],
+           "ms": [h["ms"] for h in history],
+           "data_ms": [h["data_ms"] for h in history],
+           "launches": dict(zip(("sign_pack", "vote_update", "tally_acc",
+                                 "ternary_quant"),
+                                (kern.launches for kern in counters))),
+           "traffic": {op: dict(v) for op, v in comm.traffic.items()},
+           "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+           "held_gb": before / 1e9}
+    if topo.mesh.data_rank == 0:
+        np.save(pathlib.Path(tmp) / f"lm_row{topo.pod_offset}.npy",
+                state.params.buf[0].cpu().numpy())
+    del state, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def reckon_mesh_peak(n: int, p_loc: int = 1, d_loc: int = 1) -> dict:
+    """A mesh rank's peak device memory (GB) in the LM run, reckoned
+    from n parameters before any run (bf16 compute, f32 master, bf16
+    delta, DC; ``reckon_peak``'s terms at the rank's block).  The
+    cross-rank means gather and fold a chunk of coordinates at a time
+    (``votes._across_devices``, ``votes.pod_weighted_average``), so
+    their gathers add no term:
+
+      state   8n a pod row: the f32 master, bf16 delta and delta_next;
+      local   the backward's bf16 copies and gradients (4n a voter) and
+              the logits (18 bytes a logit);
+      anchor  the f32 flatten of the anchor gradients (4n a voter) and
+              c_q (4n a row);
+      cloud   c_q, c and their f32 difference (12n a row).
+
+    peak = state + max(local, anchor, cloud)."""
+    rows = p_loc * d_loc
+    terms = {"state": 8 * p_loc * n,
+             "local": 4 * rows * n + 18 * rows * LM_SEQ * 262144,
+             "anchor": 4 * rows * n + 4 * p_loc * n,
+             "cloud": 12 * p_loc * n}
+    peak = terms["state"] + max(terms["local"], terms["anchor"],
+                                terms["cloud"])
+    return {"peak_gb": peak / 1e9,
+            **{f"{k}_gb": v / 1e9 for k, v in terms.items()}}
+
+
+def mesh_rank_main(tmp: str, rank: int) -> None:
+    """One rank of the ``mesh`` phase (``chip_smoke.py --mesh-rank RANK
+    DIR``): gloo over ``DIR/rdv``, a 2 x 2 grid on the one card, the
+    parity toy's cells, the LM-size transport and the LM run; writes
+    ``DIR/rank{RANK}.pkl``."""
+    import os
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests" / "helpers"))
+    from repro_torch.core.topology import resolve_device
+    from repro_torch.launch import mesh
+    from repro_torch.kernels import build
+
+    resolve_device("cuda")
+    build.load()
+    d = pathlib.Path(tmp)
+    with open(d / "job.pkl", "rb") as f:
+        job = pickle.load(f)
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{d / 'rdv'}",
+                            rank=rank, world_size=MESH_GRID[0] * MESH_GRID[1],
+                            timeout=mesh.TIMEOUT)
+    topo = mesh.make_host_topology(*MESH_GRID, backend="gloo",
+                                   device="cuda")
+    res = {"rank": rank, "coords": (topo.mesh.pod_rank, topo.mesh.data_rank),
+           "init_s": time.perf_counter() - t0}
+    # gloo takes CUDA tensors: an int8 and an int32 sum, a bf16 gather
+    x = torch.full((4,), rank + 1, dtype=torch.int8, device="cuda")
+    dist.all_reduce(x)
+    y = x.to(torch.int32)
+    dist.all_reduce(y)
+    parts = [torch.empty(3, dtype=torch.bfloat16, device="cuda")
+             for _ in range(4)]
+    dist.all_gather(parts, torch.full((3,), float(rank), device="cuda",
+                                      dtype=torch.bfloat16))
+    res["probe"] = {"int8_sum": x.tolist(), "int32_sum": y.tolist(),
+                    "bf16_gather": [p.tolist() for p in parts]}
+    res["toy"] = {}
+    for cell in MESH_CELLS:
+        t1 = time.perf_counter()
+        out = mesh_toy_run(torch, topo, cell)
+        out["s"] = time.perf_counter() - t1
+        if rank:
+            del out["state"]
+        res["toy"][cell] = out
+    t1 = time.perf_counter()
+    res["transport"] = mesh_transport(torch, topo, job["n_pad"])
+    res["transport"]["s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    res["lm"] = mesh_lm_rank(torch, topo, tmp)
+    res["lm"]["s"] = time.perf_counter() - t1
+    with open(d / f"rank{rank}.tmp", "wb") as f:
+        pickle.dump(res, f)
+    os.replace(d / f"rank{rank}.tmp", d / f"rank{rank}.pkl")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_spawn(torch, tmp: str) -> list:
+    """Start the four ranks on the card (this process holds no tensor of
+    its own by then) and wait for them at most ``MESH_JOIN_S`` seconds;
+    a rank that fails or outlives it fails the phase, every rank killed
+    first.  Returns the ranks' results."""
+    import os
+    import pickle
+
+    world = MESH_GRID[0] * MESH_GRID[1]
+    env = dict(os.environ,
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    logs = [open(pathlib.Path(tmp) / f"rank{r}.log", "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+         str(r), tmp], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    deadline = time.monotonic() + MESH_JOIN_S
+
+    def tails():
+        out = []
+        for r, log in enumerate(logs):
+            log.flush()
+            log.seek(0)
+            out.append(f"--- rank {r}\n{log.read()[-4000:]}")
+        return "\n".join(out)
+
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 0.0))
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+        for proc in procs:
+            proc.wait()
+        fail(f"the mesh ranks outlived {MESH_JOIN_S} s: killed\n{tails()}")
+    codes = [proc.returncode for proc in procs]
+    if any(codes):
+        fail(f"a mesh rank failed (exit codes {codes})\n{tails()}")
+    for log in logs:
+        log.close()
+    out = []
+    for r in range(world):
+        with open(pathlib.Path(tmp) / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def states_differing(want: dict, got: dict) -> int:
+    """Coordinates (bytes compared) that differ between two gathered
+    numpy states."""
+    import numpy as np
+
+    total = 0
+    for name, w in want.items():
+        g = got[name]
+        require((w is None) == (g is None), f"slot {name} present in one "
+                "state only")
+        if w is None:
+            continue
+        wl = w if isinstance(w, dict) else {"": w}
+        gl = g if isinstance(g, dict) else {"": g}
+        for k in wl:
+            a, b = np.asarray(wl[k]), np.asarray(gl[k])
+            require(a.shape == b.shape, f"slot {name}/{k}: shape "
+                    f"{a.shape} vs {b.shape}")
+            total += int((a.view(np.uint8) != b.view(np.uint8)).sum())
+    return total
+
+
+def phase_mesh(torch, card: str) -> dict:
+    """The hierarchy across processes on the one card: 4 ranks (2 pods x
+    2 data) over gloo, each holding a [1, 1] block of P=2 x D=2.  The
+    one-process references run here first (and are freed), then the
+    ranks: the parity toy's cells bitwise the one-process run with the
+    four kernels counted in every rank; one fused vote-update at the
+    LM's size bitwise; gemma3-1b (6 layers, full width) 6 steps of
+    ``run_training`` over the ranks, its step-0 gradients and its
+    trajectory against the one-process run.  Returns the per-rank
+    launches of the toy's cells and of the LM run."""
+    import gc
+    import hashlib
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import flatbuf, signs, votes
+    from repro_torch.core.topology import Topology
+    from repro_torch.launch.train import run_training
+
+    t_phase = time.perf_counter()
+    one = Topology(MESH_P, MESH_D, "cuda")
+    # 1. the one-process references
+    toy_ref = {cell: mesh_toy_run(torch, one, cell) for cell in MESH_CELLS}
+    cfg, built, params, algo, run = mesh_lm_setup(torch, one)
+    tokens = mesh_tokens(torch, cfg).cuda()
+    g_ref = mesh_lm_grads(torch, built, params, tokens, (MESH_P, MESH_D))
+    n_params = g_ref.shape[-1]
+    grad_differ, grad_digests = {}, {}
+    for q in range(MESH_P):
+        for d in range(MESH_D):
+            g = mesh_lm_grads(torch, built, params,
+                              tokens[q:q + 1, d:d + 1], (1, 1))
+            grad_differ[f"{q},{d}"] = int(
+                (g[0, 0].view(torch.int16) != g_ref[q, d].view(torch.int16))
+                .sum())
+            grad_digests[f"{q},{d}"] = hashlib.sha256(
+                g.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            del g
+    del g_ref, tokens
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, history = run_training(cfg, one, algo, run, params=params,
+                                  log=lambda line: None)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t1
+    n_pad = state.params.layout.n_pad
+    lm_ref = {"losses": [h["loss"] for h in history],
+              "ms": [h["ms"] for h in history],
+              "rows": state.params.buf.cpu().numpy()}      # 3.3 GB, host
+    del state, params, built
+    torch.cuda.empty_cache()
+    u, v = mesh_directions(torch, one, n_pad)
+    layout = flatbuf.make_layout({"w": v}, batch_dims=1)
+    votes.fused_sign_vote_update(
+        layout, {"w": u}, None, 0.0,
+        torch.ones((MESH_P, MESH_D), dtype=torch.bool, device="cuda"), v,
+        torch.tensor(1e-3, dtype=torch.float32, device="cuda"),
+        mu_static=1e-3)
+    transport_ref = row_digests(torch, v)
+    del u, v
+    torch.cuda.empty_cache()
+    emit({"mesh": "one-process references", "wall_s": time.perf_counter()
+          - t_phase, "lm_run_s": ref_s, "lm_losses": lm_ref["losses"],
+          "lm_ms": lm_ref["ms"], "step0_grads_differing_by_block":
+          grad_differ, "n_params": n_params, "n_pad": n_pad})
+    reckoned = reckon_mesh_peak(n_pad)
+    emit({"mesh": "reckoned rank peak", **reckoned})
+
+    # 2. the ranks, with this process holding no tensor on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"mesh": "before the ranks",
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+          "free_gb": torch.cuda.mem_get_info()[0] / 1e9})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        with open(pathlib.Path(tmp) / "job.pkl", "wb") as f:
+            pickle.dump({"n_pad": n_pad}, f)
+        t1 = time.perf_counter()
+        ranks = mesh_spawn(torch, tmp)
+        ranks_s = time.perf_counter() - t1
+        traj = {}
+        for q in range(MESH_P):
+            row = np.load(pathlib.Path(tmp) / f"lm_row{q}.npy")
+            ref = lm_ref["rows"][q]
+            traj[q] = {"differing": int((row.view(np.int32)
+                                         != ref.view(np.int32)).sum()),
+                       "max_abs_diff": float(np.abs(row - ref).max())}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del lm_ref["rows"]
+
+    # 3. the checks
+    for r in ranks:
+        require(r["probe"]["int8_sum"] == [10] * 4
+                and r["probe"]["int32_sum"] == [40] * 4,
+                f"rank {r['rank']}: gloo sums on CUDA tensors {r['probe']}")
+    toy_launches = {}
+    for cell, ref in toy_ref.items():
+        got = ranks[0]["toy"][cell]
+        diff = states_differing(ref["state"], got["state"])
+        per_rank = [r["toy"][cell]["launches"] for r in ranks]
+        # the losses are the model's forward, summed by the card's
+        # reductions at the block's shape: not part of the trajectory
+        rel = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(got["losses"], ref["losses"]))
+        emit({"mesh": "toy", "cell": cell, "differing": diff,
+              "losses_equal": got["losses"] == ref["losses"],
+              "losses_max_rel_diff": rel,
+              "launches_per_rank": per_rank,
+              "one_process_launches": ref["launches"],
+              "rank_s": [r["toy"][cell]["s"] for r in ranks]})
+        require(diff == 0, f"mesh toy {cell}: {diff} coordinates differ "
+                "from the one-process run")
+        require(rel <= 1e-5, f"mesh toy {cell}: losses {got['losses']} "
+                f"against the one-process {ref['losses']}")
+        for r in ranks:
+            require(r["toy"][cell]["losses"] == got["losses"],
+                    f"mesh toy {cell}: rank {r['rank']}'s losses differ "
+                    "from rank 0's")
+        toy_launches[cell] = per_rank
+    for name in ("sign_pack", "vote_update", "tally_acc", "ternary_quant"):
+        for r in range(len(ranks)):
+            require(sum(toy_launches[c][r][name] for c in MESH_CELLS) > 0,
+                    f"rank {r} never launched {name} in the toy's cells")
+    tr = [r["transport"] for r in ranks]
+    emit({"mesh": "transport", "n_pad": n_pad,
+          "word_bytes_per_device": tr[0]["word_bytes_per_device"],
+          "gathered_shape": tr[0]["gathered_shape"],
+          "gather_ms_per_rank": [t["gather_ms"] for t in tr],
+          "gather_ms_all": [t["gather_ms_all"] for t in tr],
+          "bitwise": all(r["transport"]["digests"][0]
+                         == transport_ref[r["coords"][0]] for r in ranks),
+          "card": card})
+    for r in ranks:
+        require(r["transport"]["digests"][0]
+                == transport_ref[r["coords"][0]],
+                f"rank {r['rank']}: the LM-size fused vote-update differs "
+                "from the one-process result")
+    lm = [r["lm"] for r in ranks]
+    grads_same = all(grad_differ[f"{q},{d}"] == 0 for q in range(MESH_P)
+                     for d in range(MESH_D))
+    for r in ranks:
+        q, d = r["coords"]
+        require(r["lm"]["grad_digest"] == grad_digests[f"{q},{d}"],
+                f"rank {r['rank']}: its step-0 gradients are not the "
+                "[1, 1] block's computed in one process")
+    traj_same = all(t["differing"] == 0 for t in traj.values())
+    losses = lm[0]["losses"]
+    round2 = statistics.mean(losses[MESH_TE:2 * MESH_TE])
+    local = [[ms for s, ms in enumerate(x["ms"]) if s % MESH_TE]
+             for x in lm]
+    prologue = [[ms for s, ms in enumerate(x["ms"]) if s % MESH_TE == 0]
+                for x in lm]
+    words = tr[0]["word_bytes_per_device"]
+    emit({"mesh": "lm", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "grid": list(MESH_GRID), "P": MESH_P, "D": MESH_D,
+          "step0_grads_bitwise": grads_same,
+          "step0_grads_differing_by_block": grad_differ,
+          "trajectory_bitwise": traj_same,
+          "trajectory_differing_by_edge": traj,
+          "master_coordinates_per_edge": n_pad,
+          "losses": losses, "one_process_losses": lm_ref["losses"],
+          "round2_mean_loss": round2,
+          "local_step_ms_per_rank": [statistics.mean(x) for x in local],
+          "prologue_step_ms_per_rank": [statistics.mean(x)
+                                        for x in prologue],
+          "one_process_ms": lm_ref["ms"],
+          "data_ms_per_rank": [statistics.mean(x["data_ms"]) for x in lm],
+          "launches_per_rank": [x["launches"] for x in lm],
+          "traffic_rank0": lm[0]["traffic"],
+          "uplink_bits_per_device_round": signs.uplink_bits(
+              "dc_hier_signsgd", n_pad, MESH_TE),
+          "sign_words_bytes_per_step": words,
+          "peak_gb_per_rank": [x["peak_gb"] for x in lm],
+          "held_gb_per_rank": [x["held_gb"] for x in lm],
+          "reckoned_peak_gb": reckoned["peak_gb"],
+          "rank_s": [x["s"] for x in lm], "card": card})
+    for x in lm:
+        require(all(map(math.isfinite, x["losses"])), "non-finite loss")
+        require(x["losses"] == losses, "the ranks' losses differ")
+        require(x["launches"] == {"sign_pack": MESH_STEPS,
+                                  "vote_update": MESH_STEPS,
+                                  "tally_acc": 0, "ternary_quant": 0},
+                f"mesh lm launches {x['launches']}")
+    require(round2 < losses[0], f"mesh lm: the loss did not fall: step 0 "
+            f"{losses[0]}, round 2 mean {round2}")
+    if grads_same:
+        require(traj_same,
+                "mesh lm: the step-0 gradients are bitwise but the "
+                "trajectory is not")
+    emit({"mesh": "phase", "wall_s": time.perf_counter() - t_phase,
+          "ranks_s": ranks_s, "rank_init_s": [r["init_s"] for r in ranks]})
+    return {"toy": toy_launches, "lm": [x["launches"] for x in lm]}
+
+
 def pytree_items(tree, prefix=""):
     """(dotted name, leaf) pairs of a nested dict of tensors."""
     if not isinstance(tree, dict):
@@ -3642,8 +4249,13 @@ def main() -> None:
     import os
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
-    if sys.argv[1:] not in ([], ["--mu-sweep"], ["--phase", "hybrid"]):
-        fail(f"usage: {sys.argv[0]} [--mu-sweep | --phase hybrid]")
+    if sys.argv[1:2] == ["--mesh-rank"] and len(sys.argv) == 4:
+        mesh_rank_main(sys.argv[3], int(sys.argv[2]))
+        return
+    if sys.argv[1:] not in ([], ["--mu-sweep"], ["--phase", "hybrid"],
+                            ["--phase", "mesh"]):
+        fail(f"usage: {sys.argv[0]} [--mu-sweep | --phase hybrid | "
+             "--phase mesh]")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -3689,6 +4301,14 @@ def main() -> None:
                 regime: hybrid[regime].get(name, 0) for regime in hybrid}})
         finish(torch, kernels)
         return
+    if sys.argv[1:] == ["--phase", "mesh"]:
+        mesh = phase_mesh(torch, card)
+        paths = dict.fromkeys(SOURCES, "mesh, the parity toy's cells and "
+                              "gemma3-1b (6 steps) in rank 0 of 2 x 2")
+        kernels = kernel_rows(main_rows, mesh_rank0_launches(mesh), paths,
+                              lambda name: mesh_extra(mesh, name))
+        finish(torch, kernels)
+        return
     fused, plain, launches = phase_slice(torch)
     print(f"[slice] ms/step fused/flat {fused['ms_per_step']} "
           f"ag_packed/tree {plain['ms_per_step']}", flush=True)
@@ -3706,6 +4326,7 @@ def main() -> None:
     fsdp_launches = phase_fsdp(torch, card)
     moe_launches = phase_moe(torch, card)
     hybrid = phase_hybrid(torch, card)
+    mesh = phase_mesh(torch, card)
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
              "tally_acc": "clients, stream fused/flat (30 steps, K=2)",
@@ -3725,8 +4346,24 @@ def main() -> None:
         "oracle_check_launches": sum(
             r.get(name, 0) for r in ft["oracle"].values()),
         "hybrid_launches": {regime: hybrid[regime].get(name, 0)
-                            for regime in hybrid}})
+                            for regime in hybrid},
+        **mesh_extra(mesh, name)})
     finish(torch, kernels)
+
+
+def mesh_rank0_launches(mesh: dict) -> dict:
+    """Rank 0's launches of each kernel in the ``mesh`` phase: the toy's
+    cells and the LM run."""
+    return {name: sum(cell[0][name] for cell in mesh["toy"].values())
+            + mesh["lm"][0][name] for name in SOURCES}
+
+
+def mesh_extra(mesh: dict, name: str) -> dict:
+    """The kernels line's ``mesh_launches_per_rank``: per rank, the toy's
+    cells' and the LM run's launches of ``name``."""
+    return {"mesh_launches_per_rank": [
+        {"toy": sum(cell[r][name] for cell in mesh["toy"].values()),
+         "lm": mesh["lm"][r][name]} for r in range(len(mesh["lm"]))]}
 
 
 def kernel_rows(main_rows: dict, launches: dict, paths: dict,

@@ -16,6 +16,10 @@ with :func:`train_state_from_numpy`, so both packages can start from the
 same mid-run state.  A serving cache (``{"stacks": ..., "pos": ...}``,
 the JAX package's ``built.prefill``'s second output) carries over with
 :func:`cache_from_numpy` and back with :func:`cache_to_numpy`.
+Over a process mesh a rank takes its block of a global state
+(``train_state_from_numpy(..., topo=)``, the blocks of
+``hier.state_blocks``) and :func:`gather_train_state` brings the ranks'
+blocks back to the global numpy state, on every rank.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import flatbuf, hier, pytree
+from repro_torch.core import comm, flatbuf, hier, pytree
+from repro_torch.core.topology import Topology
 
 PyTree = Any
 
@@ -89,7 +94,8 @@ SLOTS = ("params", "agg_next", "delta", "delta_next", "ef", "mom",
          "corr_cl", "corr_edge")
 
 
-def train_state_from_numpy(state, like: hier.TrainState) -> hier.TrainState:
+def train_state_from_numpy(state, like: hier.TrainState,
+                           topo: Topology | None = None) -> hier.TrainState:
     """A train state with numpy leaves -- a JAX ``TrainState`` under
     ``jax.tree.map(np.asarray, ...)``, or :func:`train_state_to_numpy`'s
     output -- into the port's, every slot included.
@@ -101,24 +107,65 @@ def train_state_from_numpy(state, like: hier.TrainState) -> hier.TrainState:
     leaves.  Step comes from the source; the generator is ``like``'s (a
     ``jax.random`` key has no torch counterpart: seed ``like`` as the run
     needs).  A slot present in one state and None in the other raises,
-    as does a shape that does not match or a dtype that would round."""
+    as does a shape that does not match or a dtype that would round.
+
+    With a mesh topology ``state`` is the global state and ``like`` the
+    rank's (its ``init_fn``'s): each slot gets the rank's block
+    (``hier.state_blocks``)."""
     out = {"step": int(np.asarray(state.step)), "rng": like.rng}
+    blocks = (hier.state_blocks(topo, _clients(like, topo))
+              if topo is not None and topo.mesh is not None else None)
     for name in SLOTS:
         src, ref = getattr(state, name), getattr(like, name)
         if (src is None) != (ref is None):
             raise ValueError(
                 f"slot {name}: present in only one of the source and the "
                 "port's state (a different config?)")
+        cut = ((lambda a: np.asarray(a)[getattr(blocks, name)])
+               if blocks is not None else (lambda a: a))
         if ref is None:
             out[name] = None
         elif isinstance(ref, flatbuf.FlatState):
-            out[name] = ref.replace(_like(name, getattr(src, "buf", src),
-                                          ref.buf))
+            out[name] = ref.replace(_like(
+                name, cut(getattr(src, "buf", src)), ref.buf))
         else:
             ref_leaves, td = pytree.tree_flatten(ref)
             out[name] = pytree.tree_unflatten(td, [
-                _like(name, a, r) for a, r in zip(
+                _like(name, cut(a), r) for a, r in zip(
                     pytree.flatten_up_to(td, src), ref_leaves)])
+    return hier.TrainState(**out)
+
+
+def _clients(like: hier.TrainState, topo: Topology) -> int:
+    """K, read off the rank's per-voter slots (1 where it has none)."""
+    for name in hier.PER_VOTER:
+        slot = getattr(like, name)
+        if slot is not None:
+            lead = (slot.buf if isinstance(slot, flatbuf.FlatState)
+                    else pytree.tree_flatten(slot)[0][0]).shape[1]
+            return lead // topo.local_devices
+    return 1
+
+
+def gather_train_state(state: hier.TrainState,
+                       topo: Topology) -> hier.TrainState:
+    """The global state of a mesh run, as :func:`train_state_to_numpy`
+    gives it, on every rank: each per-voter slot gathered over the data
+    group, then every slot over the pod group (a collective: every rank
+    of the mesh calls it)."""
+    def full(name, x):
+        if name in hier.PER_VOTER:
+            x = comm.gather_devices(topo, x)
+        return tensor_to_numpy(comm.gather_pods(topo, x))
+
+    out = {"step": state.step, "rng": None}
+    for name in SLOTS:
+        slot = getattr(state, name)
+        if isinstance(slot, flatbuf.FlatState):
+            out[name] = full(name, slot.buf)
+        else:
+            out[name] = (None if slot is None else pytree.tree_map(
+                lambda x, n=name: full(n, x), slot))
     return hier.TrainState(**out)
 
 

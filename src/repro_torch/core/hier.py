@@ -30,6 +30,21 @@ P (edges) and D (devices) are the leading dims of every tensor on one
 card: per-device gradients come from autograd over ``[P, D, *leaf]``
 copies of the edge models (``vmap`` written out as batch dims).
 
+Over a process mesh (``Topology.mesh``, ``launch.mesh``) each rank holds
+the block ``[P_loc, D_loc]`` of edges and devices: its state is its
+edges' models (``[P_loc, ...]``; the ranks of a pod row hold the same
+copies) and its voters' slots (``[P_loc, D_loc*K, ...]``, see
+:func:`state_blocks`), its batch its block of the global batch.  The
+membership arrays stay global; the step takes each rank's block of
+them, and the vote masks are its edges' whole ``[P_loc, D*K]`` rows.
+Every reduction over D or P crosses ranks in ``core.votes`` (the words
+gathered and voted, the integer tallies summed, the float terms
+gathered and folded in the one-process order), the QSGD uniforms are
+drawn for the global block and sliced, and ``metrics["loss"]`` is the
+mean of the gathered ``[P, D*K]`` losses -- so a mesh run is the
+one-process run's, bitwise, given the same per-device gradients.  The
+FSDP regime under a mesh is ROADMAP item 17c (``NotImplementedError``).
+
 Transports (``core.votes``): ``ag_packed``, ``ar_int8`` and ``fused``,
 bitwise identical.  State layouts: ``tree`` keeps the master (and every
 other slot) as dicts of ``[P, *leaf]`` / ``[P, D*K, *leaf]`` tensors;
@@ -98,8 +113,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core import clients as vclients
-from repro_torch.core import (device_axis, flatbuf, pytree, schedule, signs,
-                              votes)
+from repro_torch.core import (comm, device_axis, flatbuf, pytree, schedule,
+                              signs, votes)
 from repro_torch.core.keys import key_seed
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import ops as kops
@@ -284,8 +299,16 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     """
     fsdp = bundle.param_mode == "fsdp"
     if fsdp:
+        if topo.mesh is not None:
+            raise NotImplementedError(
+                "the FSDP regime over a process mesh (the per-layer lift's "
+                "all-gather and its vote's reduce-scatter across ranks) is "
+                "ROADMAP item 17c")
         _check_fsdp(algo)
-    p, d = topo.pods, topo.devices_per_pod
+    # the rank's block (the whole without a mesh) and the global P x D
+    p, d = topo.local_pods, topo.local_devices
+    pg, dg = topo.pods, topo.devices_per_pod
+    rows = topo.pod_rows
     t_e = algo.t_e
     flat = algo.state_layout == "flat"
     # DC's correction, or under FSDP every method's: the lift threads
@@ -304,22 +327,25 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     virtual = cc.active
     k = cc.count
     stream = virtual and cc.mode == "stream"
-    d_virtual = d * k                 # the merged voter axis
+    d_virtual = d * k                 # the rank's merged voter axis
+    dg_virtual = dg * k               # an edge's whole merged voter axis
+    vcols = topo.voter_cols(k)        # the rank's voters on it
     # merged means re-associate to the streamed fold order (K clients,
     # then D devices) so both modes share one trajectory
     k_merge = k if virtual else None
-    vote_bound = cc.weight_bound(p, d) if virtual else None
-    w_int = (torch.as_tensor(cc.weight_array(p, d), device=dev)
+    vote_bound = cc.weight_bound(pg, dg) if virtual else None
+    w_int = (torch.as_tensor(cc.weight_array(pg, dg), device=dev)
              if virtual else None)                          # [P, D, K] int32
     part_cache: dict[int, torch.Tensor] = {}
     tmap = pytree.tree_map
 
     def participation(rnd_index: int) -> torch.Tensor:
-        """The round's [P, D, K] mask, drawn on the host once per round."""
+        """The round's global [P, D, K] mask, drawn on the host once per
+        round."""
         if rnd_index not in part_cache:
             part_cache.clear()
             part_cache[rnd_index] = torch.as_tensor(
-                vclients.participation_mask(cc, p, d, rnd_index),
+                vclients.participation_mask(cc, pg, dg, rnd_index),
                 device=dev)
         return part_cache[rnd_index]
 
@@ -342,7 +368,16 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
 
     def pod_mean(tree, edge_w):
         """The cloud mean of a tree or of a bare buffer."""
-        return tmap(lambda v: votes.pod_weighted_average(v, edge_w), tree)
+        return tmap(lambda v: votes.pod_weighted_average(v, edge_w, topo),
+                    tree)
+
+    def mean_dev(x, shares):
+        """The share-weighted mean over an edge's voters of the rank's
+        [P_loc, V_loc, *leaf] terms (shares: the edges' [P_loc, V] rows)."""
+        return votes.weighted_mean_dev(x, shares, clients=k_merge, topo=topo)
+
+    def fold_dev(acc):
+        return votes.fold_devices(acc, topo)
 
     def pod_avg(params, edge_w):
         if flat:
@@ -392,30 +427,35 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     draw_gen = torch.Generator(device=dev)      # reseeded for every client
 
     def leaf_uniforms(state, i, leaf_shape, voters: range):
-        """Leaf i's uniforms for ``voters`` of the merged axis on every
-        edge: [P, len(voters), *leaf] float32."""
-        shape = (p, len(voters)) + tuple(leaf_shape)
+        """Leaf i's uniforms for ``voters`` of an edge's whole merged
+        axis: drawn for every edge, [P, len(voters), *leaf] float32, and
+        the rank's block of them returned (over a mesh, the draws of
+        the one-process run, sliced)."""
+        shape = (pg, len(voters)) + tuple(leaf_shape)
+        one = len(voters) == dg       # one client: range(c, D*K, K)
+        cols = topo.voter_cols(1 if one else k)
         if uniforms is not None:
             u = torch.as_tensor(uniforms(state.step, i, shape, voters)).to(
                 device=dev, dtype=F32)
             if tuple(u.shape) != shape:
                 raise ValueError(f"uniforms for leaf {i}: shape "
                                  f"{tuple(u.shape)}, want {shape}")
-            return u
+            return u[rows, cols]
         seed = state.rng.initial_seed()
 
         def client_block(c):
             draw_gen.manual_seed(key_seed(seed, state.step, i, c))
-            return torch.empty((p, d) + tuple(leaf_shape), dtype=F32,
+            return torch.empty((pg, dg) + tuple(leaf_shape), dtype=F32,
                                device=dev).uniform_(0.0, 1.0,
                                                     generator=draw_gen)
 
-        if len(voters) == d:          # one client: range(c, D*K, K)
-            return client_block(voters.start)
-        u = torch.empty((p, d, k) + tuple(leaf_shape), dtype=F32, device=dev)
+        if one:
+            return client_block(voters.start)[rows, cols]
+        u = torch.empty((pg, dg, k) + tuple(leaf_shape), dtype=F32,
+                        device=dev)
         for c in range(k):            # voter d*K + c is client c's
             u[:, :, c] = client_block(c)
-        return u.reshape(shape)
+        return u.reshape(shape)[rows, cols]
 
     def quantize_dev(state, g_dev, voters: range):
         """Per device and leaf unbiased ternary quantization: each leaf
@@ -425,10 +465,11 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         leaves, td = pytree.tree_flatten(g_dev)
         out = []
         for i, g in enumerate(leaves):
-            rows = g.shape[0] * g.shape[1]
+            n_rows = g.shape[0] * g.shape[1]
             u = leaf_uniforms(state, i, g.shape[2:], voters)
             out.append(kops.ternary_quant_rows(
-                g.reshape(rows, -1), u.reshape(rows, -1)).reshape(g.shape))
+                g.reshape(n_rows, -1), u.reshape(n_rows, -1)
+            ).reshape(g.shape))
             del u
         return pytree.tree_unflatten(td, out)
 
@@ -436,7 +477,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         """What the mean methods average: f32 gradients, or their
         quantization (hier_local_qsgd)."""
         if algo.method == "hier_local_qsgd":
-            return quantize_dev(state, g_dev, range(d_virtual))
+            return quantize_dev(state, g_dev, range(dg_virtual))
         return tmap(lambda g: g.to(F32), g_dev)
 
     def mom_update(m, g):
@@ -489,13 +530,14 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
 
     def vote_tree(s_dev, vote_w):
         return tmap(lambda s: votes.majority_vote_dev(
-            s, vote_w, algo.transport, weight_bound=vote_bound), s_dev)
+            s, vote_w, algo.transport, weight_bound=vote_bound, topo=topo),
+            s_dev)
 
     def vote_direction(s_dev, vote_w):
         """The vote of pre-signed ±1 trees: the kernels' vote-only route
         on ``fused``, per leaf otherwise."""
         if algo.transport == "fused":
-            return votes.fused_sign_vote(s_dev, None, 0.0, vote_w)
+            return votes.fused_sign_vote(s_dev, None, 0.0, vote_w, topo)
         return vote_tree(s_dev, vote_w)
 
     # -- the FSDP regime: autograd returns the per-edge directions --------
@@ -556,11 +598,12 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
                 params_tree, vclients.client_slice(batch, k, c), devices=d)
             acc = fold_sum(acc, tmap(lambda g: wmul(g, shares3[:, :, c]),
                                      to_acc(g_c)))
-        return tmap(votes.fold_devices, acc)
+        return tmap(fold_dev, acc)
 
     def compute_delta(params, batch, edge_w, dev_w, delta=None, maskf=None):
-        """DC's anchor pass at the committed edge models; dev_w is
-        [P, D] (no clients), [P, D*K] (merged) or [P, D, K] (stream).
+        """DC's anchor pass at the committed edge models; dev_w is the
+        edges' [P, D] (no clients) or [P, D*K] (merged) rows, or the
+        rank's [P, D, K] block (stream).
         FSDP: the lift's ``wmean`` with rho 0 (``delta``'s values are not
         read), then ``c - c_q`` leaf by leaf, written into ``delta``'s
         buffers -- the delta the round's swap drops -- so no third delta
@@ -583,8 +626,10 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             else:
                 g_dev, _ = per_device_grads(params.tree(), batch)
                 g_buf = flatbuf.flatten_tree(layout, g_dev, 2, F32)
-                c_q = votes.weighted_mean_dev(g_buf, dev_w, clients=k_merge)
-            c = votes.pod_weighted_average(c_q, edge_w)
+                del g_dev
+                c_q = mean_dev(g_buf, dev_w)
+                del g_buf
+            c = votes.pod_weighted_average(c_q, edge_w, topo)
             return flatbuf.FlatState((c - c_q).to(dd),
                                      flatbuf.with_dtype(layout, dd))
         if stream:
@@ -592,13 +637,12 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
                                      lambda g: tmap(lambda x: x.to(F32), g))
         else:
             g_dev, _ = per_device_grads(params, batch)
-            c_q = tmap(lambda g: votes.weighted_mean_dev(
-                g.to(F32), dev_w, clients=k_merge), g_dev)
+            c_q = tmap(lambda g: mean_dev(g.to(F32), dev_w), g_dev)
         c = pod_mean(c_q, edge_w)
         return tmap(lambda a, b: (a - b).to(dd), c, c_q)
 
     def compute_corrections(params, corr_cl, corr_edge, batch, edge_w,
-                            dev_w, part, rnd_index):
+                            dev_w, part, live, rnd_index):
         """The round-boundary refresh of SCAFFOLD's / MTGC's correction
         state at the committed edge models, from the anchor gradients
         a_qk in f32, stored back in ``delta_dtype``.
@@ -610,13 +654,14 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         eta_q <- c - c_q every ``cloud_period`` rounds (c = sum_q ew_q
         c_q); an edge whose whole quorum abstains keeps both terms.
 
-        ``part`` gates the per-client refresh: [P, D*K] (merged) or
-        [P, D, K] (stream) live votes; None (no virtual clients) updates
-        every client."""
+        ``part`` gates the per-client refresh: the rank's [P, D*K]
+        (merged) or [P, D, K] (stream) live votes; None (no virtual
+        clients) updates every client.  ``live``: [P] whether an edge has
+        a live vote (None = every edge)."""
         do_cloud = rnd_index % algo.cloud_period == 0
         if stream:
             return corrections_stream(params, corr_cl, corr_edge, batch,
-                                      edge_w, dev_w, part, do_cloud)
+                                      edge_w, dev_w, part, live, do_cloud)
         dd = algo.delta_dtype
         g_dev, _ = per_device_grads(params.tree() if flat else params,
                                     batch)
@@ -635,8 +680,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
                 fresh, old)
 
         def wmean(t):
-            return tmap(lambda x: votes.weighted_mean_dev(
-                x, dev_w, clients=k_merge), t)
+            return tmap(lambda x: mean_dev(x, dev_w), t)
 
         if algo.is_scaffold:
             drift = pod_mean(wmean(tmap(lambda a, c: a - c.to(F32), a32,
@@ -646,7 +690,6 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             cl_new = gate(tmap(lambda a: a.to(dd), a32), cl_old)
         else:
             c_q = wmean(a32)
-            live = None if part is None else part.any(dim=1)
             ce_new = mtgc_edge_term(c_q, ce_old, edge_w, do_cloud, live)
             cl_new = gate(tmap(lambda cq, a: (cq[:, None] - a).to(dd), c_q,
                                a32), cl_old)
@@ -667,7 +710,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             live.reshape((p,) + (1,) * (f.dim() - 1)), f, o), eta, ce_old)
 
     def corrections_stream(params, corr_cl, corr_edge, batch, edge_w,
-                           shares3, part, do_cloud):
+                           shares3, part, live, do_cloud):
         """The streamed refresh: the share-weighted anchor sums fold over
         the clients in the merged re-association, one client's gradient
         live at a time; MTGC needs c_q before gamma, so it takes the
@@ -705,7 +748,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
                     a_c, cl_c))
                 new_cl.append(gate_c(c, tmap(lambda a: a.to(dd), a_c),
                                      cl_c))
-            drift = pod_mean(tmap(votes.fold_devices, acc), edge_w)
+            drift = pod_mean(tmap(fold_dev, acc), edge_w)
             ce_new = tmap(lambda e, dr: (e.to(F32) + dr).to(dd), ce_old,
                           drift)
         else:
@@ -713,8 +756,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             for c in range(k):
                 acc = fold_sum(acc, tmap(
                     lambda a: wmul(a, shares3[:, :, c]), grads_c(c)))
-            c_q = tmap(votes.fold_devices, acc)
-            live = None if part is None else part.any(dim=2).any(dim=1)
+            c_q = tmap(fold_dev, acc)
             ce_new = mtgc_edge_term(c_q, ce_old, edge_w, do_cloud, live)
             for c in range(k):
                 fresh = tmap(lambda cq, a: (cq[:, None] - a).to(dd), c_q,
@@ -733,8 +775,8 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         g_dev, losses = per_device_grads(params, batch)
         ef, mom = state.ef, state.mom
         if not algo.is_sign:
-            direction = tmap(lambda g: votes.weighted_mean_dev(
-                g, shares, clients=k_merge), mean_terms(state, g_dev))
+            direction = tmap(lambda g: mean_dev(g, shares),
+                             mean_terms(state, g_dev))
             return (tmap(lambda v, s: signs.descend_mean(v, mu, s), params,
                          direction), ef, mom, losses)
         u_dev = g_dev
@@ -751,12 +793,13 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         if fuse:
             direction = votes.fused_sign_vote(
                 u_dev, delta if fold_dc else None,
-                algo.rho if fold_dc else 0.0, vote_w)
+                algo.rho if fold_dc else 0.0, vote_w, topo)
         else:
             s_dev = tmap(signs.sgn, u_dev)
             if ef_on:
                 ef = ef_residual(u_dev, s_dev,
-                                 part=(vote_w > 0) if virtual else None)
+                                 part=(vote_w[:, vcols] > 0) if virtual
+                                 else None)
             direction = vote_direction(s_dev, vote_w)
         return (tmap(lambda v, s: signs.descend(v, mu, s), params,
                      direction), ef, mom, losses)
@@ -773,7 +816,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         if not algo.is_sign:
             t_buf = flatbuf.flatten_tree(layout, mean_terms(state, g_dev), 2,
                                          F32)
-            dir_buf = votes.weighted_mean_dev(t_buf, shares, clients=k_merge)
+            dir_buf = mean_dev(t_buf, shares)
             return (params.replace(signs.descend_mean(params.buf, mu,
                                                       dir_buf)),
                     ef, mom, losses)
@@ -795,12 +838,13 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             new_buf = votes.fused_sign_vote_update(
                 layout, u_dev, delta.buf if fold_dc else None,
                 algo.rho if fold_dc else 0.0, vote_w, params.buf, mu,
-                mu_static=None if algo.decay else algo.mu)
+                mu_static=None if algo.decay else algo.mu, topo=topo)
             return params.replace(new_buf), ef, mom, losses
         s_dev = tmap(signs.sgn, u_dev)
         if ef_on:
             ef = as_flat(state.ef, ef_residual(
-                u_dev, s_dev, part=(vote_w > 0) if virtual else None))
+                u_dev, s_dev, part=(vote_w[:, vcols] > 0) if virtual
+                else None))
         dir_buf = flatbuf.flatten_tree(layout, vote_direction(s_dev, vote_w),
                                        1, params.buf.dtype)
         return (params.replace(signs.descend(params.buf, mu, dir_buf)), ef,
@@ -816,7 +860,8 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         mean methods fold its share-weighted (quantized) gradient into an
         f32 accumulator.  Momentum, EF residuals and client corrections
         are sliced per client.  shares3 [P, D, K] f32 and vote_w3 [P, D,
-        K] int32 arrive unmerged."""
+        K] int32 arrive unmerged (the rank's block of shares, its edges'
+        whole rows of weights)."""
         params_tree = params.tree() if flat else params
         losses, new_ef, new_mom = [], [], []
         acc = tally = None
@@ -850,10 +895,10 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             g_c, loss_c = per_device_grads(
                 params_tree, vclients.client_slice(batch, k, c), devices=d)
             losses.append(loss_c)
-            w_c = vote_w3[:, :, c]
+            w_c = vote_w3[:, topo.voter_cols(), c]
             if not algo.is_sign:
                 if algo.method == "hier_local_qsgd":   # merged's draws
-                    g_c = quantize_dev(state, g_c, range(c, d_virtual, k))
+                    g_c = quantize_dev(state, g_c, range(c, dg_virtual, k))
                 if flat:
                     g_c = flatbuf.flatten_tree(params.layout, g_c, 2, F32)
                 else:
@@ -895,20 +940,20 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         if not algo.is_sign:
             if flat:
                 return (params.replace(signs.descend_mean(
-                    params.buf, mu, votes.fold_devices(acc))), ef, mom,
-                    losses)
+                    params.buf, mu, fold_dev(acc))), ef, mom, losses)
             return (tmap(lambda v, a: signs.descend_mean(
-                v, mu, votes.fold_devices(a)), params, acc), ef, mom,
-                losses)
+                v, mu, fold_dev(a)), params, acc), ef, mom, losses)
         n_eff = torch.sum(vote_w3, dim=(1, 2), dtype=torch.int32)
         if fuse:
             if flat:
                 return (params.replace(votes.fused_tally_finish(
-                    vlayout, tally, n_eff, params.buf, mu)), ef, mom, losses)
+                    vlayout, tally, n_eff, params.buf, mu, topo)), ef, mom,
+                    losses)
             direction = votes.fused_tally_finish(vlayout, tally, n_eff,
-                                                 None, None)
+                                                 None, None, topo)
         else:
-            direction = tmap(lambda t: votes.tally_vote_dev(t, n_eff), tally)
+            direction = tmap(lambda t: votes.tally_vote_dev(t, n_eff, topo),
+                             tally)
         if flat:
             dir_buf = flatbuf.flatten_tree(params.layout, direction, 1,
                                            params.buf.dtype)
@@ -927,15 +972,15 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             for x in (edge_weights, dev_weights, dev_mask))
         maskf = dev_mask.to(F32)
         rnd_index = state.step // t_e
-        vote_w3 = corr_part = None
+        vote_w3 = corr_part = live = None
         if not virtual:
             if maskf.dim() != 2:
                 raise ValueError(
                     "a client-granular [P, D, K] dev_mask requires an "
                     "active AlgoConfig.clients; without virtual clients "
                     "the step takes the [P, D] device mask")
-            vote_w = maskf > 0.5
-            shares = dev_weights
+            vote_w = maskf[rows] > 0.5
+            shares = dev_weights[rows]
             carve = lambda b: b                                # noqa: E731
         else:
             if maskf.dim() == 3 and maskf.shape[2] != k:
@@ -943,19 +988,23 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
                     f"dev_mask client dim {maskf.shape[2]} != K={k}")
             maskf3 = maskf if maskf.dim() == 3 else maskf[:, :, None]
             part = participation(rnd_index) * maskf3           # [P, D, K]
-            # int32 vote weights: |D_qk| never round through a float
-            vote_w3 = w_int * part.to(torch.int32)
-            vote_w = vote_w3.reshape(p, d_virtual)
+            # int32 vote weights: |D_qk| never round through a float;
+            # the rank's edges' whole rows of them and of the shares
+            vote_w3 = (w_int * part.to(torch.int32))[rows]
+            vote_w = vote_w3.reshape(p, dg_virtual)
             shares = vclients.participating_shares(
-                dev_weights.to(F32), w_int.to(F32), part)
+                dev_weights.to(F32), w_int.to(F32), part)[rows]
             if stream:
-                shares = shares.reshape(p, d, k)
+                # the streamed fold runs on the rank's own devices
+                shares = shares.reshape(p, dg, k)[:, topo.voter_cols()]
                 carve = lambda b: b                            # noqa: E731
             else:
                 carve = lambda b: vclients.carve_batch(b, k)   # noqa: E731
             # only clients with a live vote refresh their correction
             # terms (the EF carry-forward contract)
-            corr_part = (vote_w3 if stream else vote_w) > 0
+            corr_part = (vote_w3[:, topo.voter_cols()] if stream
+                         else vote_w[:, vcols]) > 0
+            live = (vote_w > 0).any(dim=1)
         train_batch = carve(on_device(batch["train"]))
         anchor_batch = carve(on_device(batch.get("anchor", batch["train"])))
         params, agg_next = state.params, state.agg_next
@@ -976,7 +1025,7 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             if algo.has_client_correction:
                 corr_cl, corr_edge = compute_corrections(
                     params, corr_cl, corr_edge, anchor_batch, edge_weights,
-                    shares, corr_part, rnd_index)
+                    shares, corr_part, live, rnd_index)
         # flushed once here (signs.descend takes it so): on the host, and
         # with decay once more on the card
         mu = signs.ftz(torch.tensor(algo.mu if algo.is_sign else algo.mu_sgd,
@@ -1000,15 +1049,18 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             step=state.step + 1, params=params, agg_next=agg_next,
             delta=delta, delta_next=delta_next, ef=ef, mom=mom,
             corr_cl=corr_cl, corr_edge=corr_edge, rng=state.rng)
-        losses = losses.to(F32)
+        # every rank's mean is the one-process mean of all [P, D*K] losses
+        losses = comm.gather_pods(topo, comm.gather_devices(
+            topo, losses.to(F32)))
         metrics = {"loss": losses.mean(), "loss_per_pod": losses.mean(1),
                    "mu": mu}
         return new_state, metrics
 
     def init_fn(params_single: PyTree, seed: int = 0) -> TrainState:
         """params_single: one replica's parameters (no leading dims),
-        copied to P edge models in the master dtype on ``topo.device``;
-        the slots are filled as the reference's ``init_fn`` fills them."""
+        copied to P edge models (the rank's P_loc over a mesh) in the
+        master dtype on ``topo.device``; the slots are filled as the
+        reference's ``init_fn`` fills them."""
         params_tree = tmap(
             lambda x: torch.as_tensor(x, device=dev).unsqueeze(0)
             .expand((p,) + tuple(x.shape)).to(algo.master_dtype)
@@ -1092,9 +1144,32 @@ def make_global_round(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     return init_fn, global_round
 
 
-def edge_params(state: TrainState) -> PyTree:
+def edge_params(state: TrainState, topo: Topology | None = None) -> PyTree:
     """The [P, *leaf] edge models of a state as a tree, in either layout
-    (flat views alias the buffer)."""
-    if isinstance(state.params, flatbuf.FlatState):
-        return state.params.tree()
-    return state.params
+    (flat views alias the buffer).  With a mesh topology, every rank's
+    [P_loc, *leaf] edges gathered over its pod group: all P."""
+    tree = (state.params.tree() if isinstance(state.params,
+                                              flatbuf.FlatState)
+            else state.params)
+    if topo is None or topo.mesh is None:
+        return tree
+    return pytree.tree_map(lambda x: comm.gather_pods(topo, x), tree)
+
+
+PER_VOTER = ("ef", "mom", "corr_cl")     # [P, D*K, ...] slots; the rest
+                                         # of the tensor slots are [P, ...]
+
+
+def state_blocks(topo: Topology, clients: int = 1) -> TrainState:
+    """The counterpart of the JAX ``state_shardings``: for each tensor
+    slot of a ``TrainState`` the index of the block this rank holds in
+    the global slot -- ``(pod rows,)`` for the per-edge slots, ``(pod
+    rows, voter cols)`` on the merged ``D*K`` axis for the per-voter
+    ones (ef, mom, corr_cl; ``clients`` = K) -- in either layout (a flat
+    slot's buffer is indexed the same way).  ``step`` and ``rng`` are None: every
+    rank holds them whole."""
+    edge = (topo.pod_rows,)
+    voter = (topo.pod_rows, topo.voter_cols(clients))
+    return TrainState(step=None, rng=None, **{
+        name: voter if name in PER_VOTER else edge
+        for name in TrainState._fields if name not in ("step", "rng")})

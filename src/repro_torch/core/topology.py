@@ -1,13 +1,26 @@
-"""The hierarchy on one card: P edges x D devices as leading tensor dims.
+"""The hierarchy: P edges x D devices, on one process or over a grid of them.
 
 The JAX package maps edges and devices onto mesh axes; here both tiers
 are the leading dims of every per-device tensor (``[P, D, ...]``) and
-per-edge tensor (``[P, ...]``) on one device, so no collective exists
-until the multi-device slice.
+per-edge tensor (``[P, ...]``).  Without a process mesh one process
+holds the whole ``[P, D]`` block on one device and no collective exists.
+
+With a :class:`ProcessMesh` (``launch.mesh.make_host_topology``) the
+``[P, D]`` grid is laid over ``pods x data`` processes: the rank at
+coordinates ``(a, b)`` holds the block of edges ``[a*P_loc,
+(a+1)*P_loc)`` and of their devices ``[b*D_loc, (b+1)*D_loc)``, with P
+= pods * P_loc and D = data * D_loc.  ``pods`` and ``devices_per_pod``
+stay the **global** P and D, as the JAX ``Topology``'s are; the block
+is ``local_pods`` x ``local_devices`` at ``pod_offset`` /
+``device_offset``.  The data group of a rank is its pod row -- the
+ranks ``(a, .)``, across which an edge's sign words travel -- and its
+pod group its data column -- the ranks ``(., b)``, across which the
+edge models travel to the cloud (``core.comm``).  The model axis is 1.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -30,16 +43,91 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProcessMesh:
+    """A ``pods x data`` grid of processes (model axis 1) and this rank's
+    place in it: global rank ``pod_rank * data + data_rank``.
+
+    ``data_group``: the ranks of this rank's pod row, in data order;
+    ``pod_group``: the ranks of its data column, in pod order (both
+    ``torch.distributed`` process groups, or None on an axis of size 1);
+    ``backend``: ``"gloo"`` or ``"nccl"``."""
+    pods: int
+    data: int
+    pod_rank: int
+    data_rank: int
+    pod_group: Any
+    data_group: Any
+    backend: str
+    model: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.pods * self.data
+
+    @property
+    def rank(self) -> int:
+        return self.pod_rank * self.data + self.data_rank
+
+
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """P edges x D devices on one device: CUDA unless the caller passes
-    ``device="cpu"`` (see :func:`resolve_device`)."""
+    """P edges x D devices: CUDA unless the caller passes
+    ``device="cpu"`` (see :func:`resolve_device`); over a process mesh
+    when ``mesh`` is given (P and D stay global, see the module
+    docstring)."""
     pods: int                    # P edges (the T_E tier)
     devices_per_pod: int         # D devices per edge (the 1-bit tier)
     device: str | torch.device = "cuda"
+    mesh: ProcessMesh | None = None
 
     def __post_init__(self):
         if self.pods < 1 or self.devices_per_pod < 1:
             raise ValueError(f"need pods, devices_per_pod >= 1: "
                              f"{self.pods}, {self.devices_per_pod}")
+        m = self.mesh
+        if m is not None and (self.pods % m.pods
+                              or self.devices_per_pod % m.data):
+            raise ValueError(
+                f"P x D = {self.pods} x {self.devices_per_pod} does not "
+                f"divide into the {m.pods} x {m.data} process mesh")
         object.__setattr__(self, "device", resolve_device(self.device))
+
+    # -- this rank's block --------------------------------------------------
+    @property
+    def local_pods(self) -> int:
+        return self.pods // (self.mesh.pods if self.mesh else 1)
+
+    @property
+    def local_devices(self) -> int:
+        return self.devices_per_pod // (self.mesh.data if self.mesh else 1)
+
+    @property
+    def pod_offset(self) -> int:
+        return self.mesh.pod_rank * self.local_pods if self.mesh else 0
+
+    @property
+    def device_offset(self) -> int:
+        return self.mesh.data_rank * self.local_devices if self.mesh else 0
+
+    @property
+    def pod_rows(self) -> slice:
+        """This rank's edges on the global P axis."""
+        return slice(self.pod_offset, self.pod_offset + self.local_pods)
+
+    def voter_cols(self, per_device: int = 1) -> slice:
+        """This rank's voters on a global ``D * per_device`` axis (the
+        merged ``D*K`` voter axis with ``per_device=K``)."""
+        lo = self.device_offset * per_device
+        return slice(lo, lo + self.local_devices * per_device)
+
+    def block(self, tree, per_device: int = 1):
+        """This rank's ``[P_loc, D_loc*per_device, ...]`` block of a tree
+        of global ``[P, D*per_device, ...]`` arrays (views; the whole
+        tree without a mesh)."""
+        if self.mesh is None:
+            return tree
+        rows, cols = self.pod_rows, self.voter_cols(per_device)
+        if isinstance(tree, dict):
+            return {k: self.block(v, per_device) for k, v in tree.items()}
+        return tree[rows, cols]

@@ -17,6 +17,18 @@ identical (ties -> +1):
     on the CPU).  With the flat state layout the vote never forms: the
     kernel updates the master buffer in place.
 
+Over a process mesh (``core.topology``) every function that reduces over
+D or P takes the topology: a rank holds the block ``[P_loc, D_loc,
+*leaf]``, its masks are its edges' whole ``[P_loc, D]`` rows of the
+global mask (the tally dtype and the empty quorum follow the edge's
+global weights), and the reduction crosses ranks through ``core.comm``:
+the packed words are gathered over the data group and voted on
+``[P_loc, D, ...]`` (``ag_packed``, ``fused``), the integer tally is
+summed over it (``ar_int8``, the streamed tallies), and the float means
+gather their per-device (or per-edge) terms and fold them in the
+one-process order -- so every result is the one-process run's, bitwise.
+Without a mesh (``topo`` None or one process) nothing crosses.
+
 The FSDP lift votes one leaf at a time (``fused_sign_vote_leaf``: the
 same two kernels on the leaf's [P, D, numel] rows) and takes its large
 leaves by coordinate chunks (``per_chunk``, ``corrected_leaf``).
@@ -34,7 +46,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core import flatbuf, pytree, signs
+from repro_torch.core import comm, flatbuf, pytree, signs
+from repro_torch.core.topology import Topology
 from repro_torch.kernels import ops as kops
 
 PACK = signs.PACK_WIDTH
@@ -64,32 +77,72 @@ def _tally_acc(weight_bound: int) -> torch.dtype:
     return torch.int32
 
 
+def _block_cols(topo: Topology | None, n_local: int) -> slice:
+    """This rank's voters on its edges' global voter axis, whose
+    ``n_local`` voters a rank holds (the whole axis without a mesh)."""
+    if topo is None or topo.mesh is None:
+        return slice(0, n_local)
+    b = topo.mesh.data_rank
+    return slice(b * n_local, (b + 1) * n_local)
+
+
+def _crosses(topo: Topology | None, axis: str) -> bool:
+    """Whether a reduction over ``axis`` ("data" or "pods") leaves the
+    process: a mesh whose axis has more than one rank."""
+    m = None if topo is None else topo.mesh
+    return m is not None and getattr(m, axis) > 1
+
+
+def _across_devices(topo: Topology, fold, x: torch.Tensor) -> torch.Tensor:
+    """``fold`` (a coordinate-wise reduction [P, V, *leaf] -> [P, *leaf]
+    in one process) of the rank's [P_loc, V_loc, *leaf] terms over its
+    edges' whole voter axis: chunk by chunk of the leaf's coordinates,
+    each chunk gathered over the data group and folded (``per_chunk``),
+    so the bits are the one-process fold's and the gathered terms live
+    one chunk at a time."""
+    p, v = x.shape[:2]
+    x3 = x.reshape(p, v, -1)
+    out = torch.empty((p, x3.shape[-1]), dtype=x.dtype, device=x.device)
+    per_chunk(lambda c: fold(comm.gather_devices(topo, c)), out, x3)
+    return out.reshape((p,) + tuple(x.shape[2:]))
+
+
 def _abstain(vote: torch.Tensor, n_eff: torch.Tensor) -> torch.Tensor:
     """Vote 0 where the quorum's weight sum is not positive."""
     return torch.where(n_eff > 0, vote, torch.zeros_like(vote))
 
 
 def vote_ar_int8(s_dev: torch.Tensor, mask: torch.Tensor | None,
-                 weight_bound: int | None = None) -> torch.Tensor:
+                 weight_bound: int | None = None,
+                 topo: Topology | None = None) -> torch.Tensor:
     """sgn(sum_k w_k s_k) via an integer tally over the device dim.
 
     The tally is int8 while its range ``sum(w) <= 127`` fits and int16 /
     int32 beyond; ``weight_bound`` is the static per-edge range
     ``max_q sum_k w_qk``, required for integer weights (None means unit
     weights: the voter count D).  Integer weights without a bound raise:
-    defaulting to the voter count could wrap the tally."""
+    defaulting to the voter count could wrap the tally.
+
+    Over a mesh, s_dev is the rank's [P_loc, V_loc, *leaf] block and
+    mask its edges' [P_loc, V] rows: the rank's tally is summed over
+    the data group in the tally dtype (``comm.sum_devices``), exact."""
     if weight_bound is None and mask is not None and _is_int_weights(mask):
         raise ValueError(
             "vote_ar_int8: integer vote weights need an explicit static "
             "weight_bound (max per-edge sum(w)) to size the tally dtype; "
             "the voter-count default only covers {0,1} masks")
-    bound = weight_bound if weight_bound is not None else s_dev.shape[1]
+    n_loc = s_dev.shape[1]
+    voters = (mask.shape[1] if mask is not None
+              else n_loc * (topo.mesh.data if topo and topo.mesh else 1))
+    bound = weight_bound if weight_bound is not None else voters
     acc = _tally_acc(bound)
     tally = s_dev.to(acc)
-    m = _mask_bcast(mask, s_dev.dim() - 2)
+    m = _mask_bcast(None if mask is None
+                    else mask[:, _block_cols(topo, n_loc)], s_dev.dim() - 2)
     if m is not None:
         tally = tally * m.to(acc)
     tally = torch.sum(tally, dim=1, dtype=acc)                 # [P, *leaf]
+    tally = comm.sum_devices(topo, tally)
     vote = signs.sgn(tally.to(torch.int32))
     if mask is not None:
         n_eff = torch.sum(mask.to(torch.int32), dim=1)
@@ -97,17 +150,20 @@ def vote_ar_int8(s_dev: torch.Tensor, mask: torch.Tensor | None,
     return vote
 
 
-def vote_ag_packed(s_dev: torch.Tensor,
-                   mask: torch.Tensor | None) -> torch.Tensor:
+def vote_ag_packed(s_dev: torch.Tensor, mask: torch.Tensor | None,
+                   topo: Topology | None = None) -> torch.Tensor:
     """Bit-packed popcount vote: s_dev [P, D, *leaf] int8 with the leaf's
     minor dim % 32 == 0 -> [P, *leaf] int8.  The packed rows are counted
     one voter at a time (:func:`_popcount_vote_words`), so no [P, D,
-    *leaf] int32 bit tensor forms."""
+    *leaf] int32 bit tensor forms.  Over a mesh the rank packs its
+    block's rows and the words are gathered over the data group first
+    (mask: the edges' whole [P_loc, D] rows)."""
     if s_dev.shape[-1] % PACK:
         raise ValueError("vote_ag_packed needs a minor dim % 32 == 0")
     p, d = s_dev.shape[:2]
     words = signs.pack_signs(s_dev).reshape(p, d, -1)        # [P, D, W]
-    return _popcount_vote_words(words, mask, d).reshape(
+    words = comm.gather_devices(topo, words)
+    return _popcount_vote_words(words, mask, words.shape[1]).reshape(
         (p,) + tuple(s_dev.shape[2:]))
 
 
@@ -182,18 +238,32 @@ def _packed_vote(layout: flatbuf.FlatLayout, u_dev, delta_tree, rho: float,
     return _popcount_vote_words(words, mask, n_dev)
 
 
+def _fused_vote(topo: Topology | None, u_buf, d_buf, rho: float,
+                mask: torch.Tensor | None, v_buf: torch.Tensor | None,
+                mu: float) -> torch.Tensor:
+    """The kernel route's two halves with the data-axis gather between
+    them: ONE ``sign_pack`` over the rank's rows, the [P_loc, D, n_words]
+    words gathered over the data group, ONE ``vote_update`` on them
+    (updating ``v_buf`` in place, or the int8 vote without it)."""
+    words = comm.gather_devices(topo, kops.fused_pack_flat(u_buf, d_buf,
+                                                           rho))
+    return kops.fused_vote_update_words(words, v_buf, mask, mu)
+
+
 def fused_sign_vote(u_dev, delta=None, rho: float = 0.0,
-                    mask: torch.Tensor | None = None):
+                    mask: torch.Tensor | None = None,
+                    topo: Topology | None = None):
     """Whole-tree fused sign transport: tree in, vote tree out.
 
     u_dev: tree of [P, D, *leaf] pre-sign directions; delta: optional
     tree of [P, *leaf] DC corrections, fused pre-sign as
     ``u + rho * delta``; mask: optional [P, D] voter mask or integer
     weights.  Returns the [P, *leaf] int8 vote tree, bit-identical to
-    ``ag_packed`` / ``ar_int8`` applied leaf by leaf."""
+    ``ag_packed`` / ``ar_int8`` applied leaf by leaf.  Over a mesh the
+    words cross the data group between the two launches."""
     layout = flatbuf.make_layout(u_dev, batch_dims=2)
     u_buf, d_buf = _fused_kernel_bufs(layout, u_dev, delta, None, rho)
-    vote = kops.fused_sign_vote_flat(u_buf, d_buf, rho, mask)
+    vote = _fused_vote(topo, u_buf, d_buf, rho, mask, None, 0.0)
     return flatbuf.unflatten_tree(layout, vote, batch_dims=1, cast=False)
 
 
@@ -201,7 +271,8 @@ def fused_sign_vote_update(layout: flatbuf.FlatLayout, u_dev,
                            delta_buf: torch.Tensor | None, rho: float,
                            mask: torch.Tensor | None, v_buf: torch.Tensor,
                            mu: torch.Tensor,
-                           mu_static: float | None = None) -> torch.Tensor:
+                           mu_static: float | None = None,
+                           topo: Topology | None = None) -> torch.Tensor:
     """Flat-state fused transport: ``v_buf <- v_buf - mu * vote``.
 
     u_dev: tree of [P, D, *leaf] pre-sign directions; delta_buf:
@@ -212,12 +283,14 @@ def fused_sign_vote_update(layout: flatbuf.FlatLayout, u_dev,
     kernel's read-modify-write and is **updated in place**; otherwise
     (e.g. ``decay``) the vote-only kernel route runs and ``v_buf - mu *
     vote`` is a new tensor.  Either way the arithmetic is the tree
-    path's ``v - mu * vote``."""
+    path's ``v - mu * vote``.  Over a mesh: the rank's [P_loc, n_pad]
+    master, its rows' signs packed, the words gathered over the data
+    group, the vote on its edges' [P_loc, D] mask rows."""
     u_buf, d_buf = _fused_kernel_bufs(layout, u_dev, None, delta_buf, rho)
     if mu_static is not None and v_buf.dtype == torch.float32:
-        return kops.fused_vote_update_flat(u_buf, d_buf, rho, mask, v_buf,
-                                           float(mu_static))
-    vote = kops.fused_sign_vote_flat(u_buf, d_buf, rho, mask)
+        return _fused_vote(topo, u_buf, d_buf, rho, mask, v_buf,
+                           float(mu_static))
+    vote = _fused_vote(topo, u_buf, d_buf, rho, mask, None, 0.0)
     return signs.descend(v_buf, mu, vote)
 
 
@@ -281,17 +354,18 @@ def fused_sign_vote_leaf(u_dev: torch.Tensor, delta: torch.Tensor | None,
 
 
 def majority_vote_dev(s_dev: torch.Tensor, mask: torch.Tensor | None,
-                      transport: str,
-                      weight_bound: int | None = None) -> torch.Tensor:
+                      transport: str, weight_bound: int | None = None,
+                      topo: Topology | None = None) -> torch.Tensor:
     """Vote [P, D, *leaf] -> [P, *leaf] by transport and leaf shape: a
     minor dim that is not a multiple of 32 takes the integer tally."""
     if transport in ("ag_packed", "fused") and s_dev.shape[-1] % PACK == 0:
-        return vote_ag_packed(s_dev, mask)
-    return vote_ar_int8(s_dev, mask, weight_bound=weight_bound)
+        return vote_ag_packed(s_dev, mask, topo)
+    return vote_ar_int8(s_dev, mask, weight_bound=weight_bound, topo=topo)
 
 
 def weighted_mean_dev(g_dev: torch.Tensor, dev_weights: torch.Tensor,
-                      clients: int | None = None) -> torch.Tensor:
+                      clients: int | None = None,
+                      topo: Topology | None = None) -> torch.Tensor:
     """Edge aggregation ``sum_k (|D_qk|/D_q) g_k`` -> [P, *leaf].
 
     The device sum is a fold in voter order, so a leaf and its slice of
@@ -307,7 +381,16 @@ def weighted_mean_dev(g_dev: torch.Tensor, dev_weights: torch.Tensor,
     them; with weights in [0, 1] a subnormal operand gives a subnormal
     or zero product, so flushing the results is its whole rule).  So the
     mean is the eager reference's to the last bit where the sums run in
-    the same order (``tests/test_torch_means.py``)."""
+    the same order (``tests/test_torch_means.py``).
+
+    Over a mesh g_dev is the rank's [P_loc, V_loc, *leaf] block and
+    dev_weights its edges' whole [P_loc, V] rows: the terms are
+    gathered over the data group and folded as above, so the mean is
+    the one-process mean to the bit (:func:`_across_devices`)."""
+    if _crosses(topo, "data"):
+        return _across_devices(
+            topo, lambda g: weighted_mean_dev(g, dev_weights, clients),
+            g_dev)
     if clients is not None:
         p, dk = g_dev.shape[:2]
         g3 = g_dev.reshape((p, dk // clients, clients) + g_dev.shape[2:])
@@ -328,10 +411,15 @@ def weighted_mean_dev(g_dev: torch.Tensor, dev_weights: torch.Tensor,
     return acc
 
 
-def fold_devices(acc: torch.Tensor) -> torch.Tensor:
+def fold_devices(acc: torch.Tensor,
+                 topo: Topology | None = None) -> torch.Tensor:
     """[P, D, *leaf] -> [P, *leaf], summed over D one device at a time
     (a fixed order: ``torch.sum`` may reduce a leaf and its flat slice
-    in different orders), subnormal partial sums flushed."""
+    in different orders), subnormal partial sums flushed.  Over a mesh
+    the rank's [P_loc, D_loc, *leaf] terms are gathered over the data
+    group first (:func:`_across_devices`)."""
+    if _crosses(topo, "data"):
+        return _across_devices(topo, fold_devices, acc)
     out = acc[:, 0]
     for k in range(1, acc.shape[1]):
         out = signs.ftz(out + acc[:, k])
@@ -385,10 +473,14 @@ def tally_vote(tally: torch.Tensor, n_eff: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 0, vote, torch.zeros_like(vote))
 
 
-def tally_vote_dev(tally: torch.Tensor, n_eff: torch.Tensor) -> torch.Tensor:
+def tally_vote_dev(tally: torch.Tensor, n_eff: torch.Tensor,
+                   topo: Topology | None = None) -> torch.Tensor:
     """[P, D, *leaf] per-device tallies -> [P, *leaf] int8 vote: the sum
-    over D in int32 (exact, any order), then :func:`tally_vote`."""
-    return tally_vote(torch.sum(tally, dim=1, dtype=torch.int32), n_eff)
+    over D in int32 (exact, any order; over a mesh the rank's sum, then
+    the sum over the data group), then :func:`tally_vote` (n_eff: the
+    edges' global participating weight)."""
+    t = torch.sum(tally, dim=1, dtype=torch.int32)
+    return tally_vote(comm.sum_devices(topo, t), n_eff)
 
 
 def fused_sign_tally_accumulate(layout: flatbuf.FlatLayout, u_dev,
@@ -411,26 +503,40 @@ def fused_sign_tally_accumulate(layout: flatbuf.FlatLayout, u_dev,
 
 def fused_tally_finish(layout: flatbuf.FlatLayout, tally: torch.Tensor,
                        n_eff: torch.Tensor, v_buf: torch.Tensor | None,
-                       mu: torch.Tensor | None):
+                       mu: torch.Tensor | None,
+                       topo: Topology | None = None):
     """Edge-side half of the streamed fused transport, once per local
     step: sum the [P, D, n_pad] tallies over D, threshold them into the
     vote, and return ``v_buf - mu * vote`` (a new [P, n_pad] buffer; mu
     a flushed 0-dim tensor, as ``signs.descend`` takes it) or, without
     ``v_buf``, the vote as a [P, *leaf] int8 tree."""
-    vote = tally_vote_dev(tally, n_eff)                      # [P, n_pad]
+    vote = tally_vote_dev(tally, n_eff, topo)                # [P, n_pad]
     if v_buf is None:
         return flatbuf.unflatten_tree(layout, vote, batch_dims=1,
                                       cast=False)
     return signs.descend(v_buf, mu, vote)
 
 
-def pod_weighted_average(v: torch.Tensor,
-                         edge_weights: torch.Tensor) -> torch.Tensor:
+def pod_weighted_average(v: torch.Tensor, edge_weights: torch.Tensor,
+                         topo: Topology | None = None) -> torch.Tensor:
     """Cloud aggregation ``w = sum_q (D_q/N) v_q``, copied back to every
     pod: a new [P, *leaf] tensor (never a broadcast view, since the
     fused update writes each pod's row in place).  Folded in pod order
     with subnormal products and partial sums flushed, as
-    :func:`weighted_mean_dev` folds devices."""
+    :func:`weighted_mean_dev` folds devices.  Over a mesh v is the
+    rank's [P_loc, *leaf] edges, gathered over the pod group to [P,
+    *leaf] and folded with the global [P] ``edge_weights``; the result
+    is [P_loc, *leaf], gathered and folded chunk by chunk of the leaf's
+    coordinates (``per_chunk``: the fold is coordinate-wise, so the bits
+    are the unchunked fold's, with temporaries of one chunk)."""
+    if _crosses(topo, "pods"):
+        rows = v.shape[0]
+        v2 = v.reshape(rows, -1)
+        out = torch.empty_like(v2)
+        per_chunk(lambda x: pod_weighted_average(
+            comm.gather_pods(topo, x.contiguous()), edge_weights)[:rows],
+            out, v2)
+        return out.reshape(v.shape)
     w = edge_weights.reshape((-1,) + (1,) * (v.dim() - 1)).to(v.dtype)
     glob = signs.ftz(v[0] * w[0])
     for q in range(1, v.shape[0]):

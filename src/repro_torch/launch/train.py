@@ -15,8 +15,20 @@ default: the on-card counterpart of the JAX CLI's one-device mesh).
 ``--ckpt DIR`` resumes from and saves to a checkpoint store
 (``checkpoint.store``, the JAX package's format); ``--chaos SEED`` runs
 under a seeded fault schedule (``runtime.chaos``), an injected nan
-answered by restore-and-replay.  The multi-pod mesh (``--multi_pod``,
-ROADMAP item 17) is not ported and raises ``NotImplementedError``.
+answered by restore-and-replay.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the LM CLI lays ``--pods x
+--devices_per_pod`` over the ranks (``launch.mesh``): each rank trains
+its block of edges and devices and the votes and means cross ranks
+(``core.comm``), printing the one-process run's digits.  The backend is
+gloo on the CPU and for ranks that share a card, NCCL with a card a
+rank.  ``--multi_pod`` (the production mesh's model axis, ROADMAP item
+17b) and ``--ckpt`` under a mesh (item 17e) raise
+``NotImplementedError``.
+
+  PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \
+      --device cpu --arch gemma3_1b --smoke --steps 6 --t_e 3 --pods 2 \
+      --devices_per_pod 2
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch gemma3_1b --smoke --steps 6 --t_e 3
@@ -68,10 +80,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.checkpoint import store
@@ -80,6 +94,7 @@ from repro_torch.core import clients as vclients
 from repro_torch.core import hier, schedule, signs, votes
 from repro_torch.core.topology import Topology, resolve_device
 from repro_torch.data import cluster, emnist_like, synthetic
+from repro_torch.launch import mesh
 from repro_torch.models import build, mlp
 from repro_torch.runtime import chaos, elastic, failures
 
@@ -136,20 +151,27 @@ def client_config(cfg: FedBenchCfg, data) -> vclients.ClientConfig:
         seed=cfg.client_seed, weights=weights, mode=cfg.client_mode)
 
 
-def _stack_batches(client_data, cfg: FedBenchCfg, rng, dev):
+def _stack_batches(client_data, cfg: FedBenchCfg, rng, dev,
+                   topo: Topology | None = None):
     """One step's [P, D, B, ...] batch: per device its K clients' B/K
     rows each, stacked in carve order (client c of device d is data
-    client ``d*K + c``), sampled in (edge, device, client) order."""
+    client ``d*K + c``), sampled in (edge, device, client) order.  With
+    a mesh topology the whole batch is sampled (so the stream is the
+    one-process run's) and the rank's block kept."""
     k = cfg.clients_per_device
     rows = [[[emnist_like.device_batches(client_data, q, d * k + c,
                                          cfg.batch // k, rng)
               for c in range(k)]
              for d in range(cfg.devices_per_edge)]
             for q in range(cfg.q_edges)]
-    return {key: torch.from_numpy(np.stack(
+    batch = {key: np.stack(
         [np.stack([np.concatenate([r[key] for r in dev_rows])
-                   for dev_rows in edge]) for edge in rows])).to(dev)
+                   for dev_rows in edge]) for edge in rows])
         for key in ("x", "y")}
+    if topo is not None:
+        batch = topo.block(batch)
+    return {key: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for key, v in batch.items()}
 
 
 def _federated_data(cfg: FedBenchCfg):
@@ -170,28 +192,40 @@ def _federated_data(cfg: FedBenchCfg):
     return data, test, ew, dw
 
 
-def sample_batches(cfg: FedBenchCfg, device: str = "cuda") -> list:
+def sample_batches(cfg: FedBenchCfg, device: str = "cuda",
+                   topo: Topology | None = None) -> list:
     """The ``rounds * t_e`` batches ``run_paper_task`` samples for this
-    config, in order, on the device: pass them back as its ``batches`` to
-    run several methods on the same data without sampling again."""
+    config, in order, on the device (with a mesh topology, the rank's
+    blocks of them): pass them back as its ``batches`` to run several
+    methods on the same data without sampling again."""
     dev = resolve_device(device)
     data = _federated_data(cfg)[0]
     rng = np.random.default_rng(cfg.seed)
-    return [_stack_batches(data, cfg, rng, dev)
+    return [_stack_batches(data, cfg, rng, dev, topo)
             for _ in range(cfg.rounds * cfg.t_e)]
 
 
 def run_paper_task(cfg: FedBenchCfg, device: str = "cuda", log=print,
-                   batches: list | None = None) -> dict:
+                   batches: list | None = None,
+                   topo: Topology | None = None) -> dict:
     """Train and evaluate; returns per-round curves (and ``loss_init``,
     the test loss of the initial model), timings, the final state and
     its edge models.  Deterministic given ``cfg.seed``; ``batches`` (from
     :func:`sample_batches` of the same data fields) replaces the
-    sampling, with the same result; the data time is then a lookup."""
+    sampling, with the same result; the data time is then a lookup.
+    ``topo``: a mesh topology of Q x D (``launch.mesh``) to train the
+    rank's block on (the state is the rank's, the edge models and the
+    curves the whole run's); None trains all of it in this process."""
     dev = resolve_device(device)
     k = cfg.clients_per_device
     data, test, ew, dw = _federated_data(cfg)
-    topo = Topology(cfg.q_edges, cfg.devices_per_edge, dev)
+    if topo is None:
+        topo = Topology(cfg.q_edges, cfg.devices_per_edge, dev)
+    elif (topo.pods, topo.devices_per_pod) != (cfg.q_edges,
+                                               cfg.devices_per_edge):
+        raise ValueError(f"topology {topo.pods} x {topo.devices_per_pod} "
+                         f"!= the task's {cfg.q_edges} x "
+                         f"{cfg.devices_per_edge}")
     cc = client_config(cfg, data)
     algo = hier.AlgoConfig(
         method=cfg.method, mu=cfg.mu, mu_sgd=cfg.mu_sgd, t_e=cfg.t_e,
@@ -223,14 +257,15 @@ def run_paper_task(cfg: FedBenchCfg, device: str = "cuda", log=print,
         for tau in range(cfg.t_e):
             t0 = time.perf_counter()
             batch = {"train": (batches[t * cfg.t_e + tau] if batches
-                               else _stack_batches(data, cfg, rng, dev))}
+                               else _stack_batches(data, cfg, rng, dev,
+                                                   topo))}
             t1 = time.perf_counter()
             state, metrics = step(state, batch, ew_t, dw_t, mask)
             train_loss = float(metrics["loss"])      # waits for the step
             step_s += time.perf_counter() - t1
             data_s += t1 - t0
         w = {k: votes.pod_weighted_average(v, ew_t)[0]
-             for k, v in hier.edge_params(state).items()}
+             for k, v in hier.edge_params(state, topo).items()}
         out["train_loss"].append(train_loss)
         out["loss"].append(float(mlp.loss_fn(w, sub)))
         out["acc"].append(float(mlp.accuracy(w, test_t)))
@@ -242,7 +277,7 @@ def run_paper_task(cfg: FedBenchCfg, device: str = "cuda", log=print,
             f"(+ data {out['data_ms_per_step'][-1]:.3f})")
     d = mlp.param_count(params0)
     rate = cfg.rate if cfg.participation != "full" else 1.0
-    out.update(state=state, params=hier.edge_params(state), d=d,
+    out.update(state=state, params=hier.edge_params(state, topo), d=d,
                clients=cc,
                uplink_bits_per_round=signs.uplink_bits(
                    cfg.method, d, cfg.t_e, clients=k,
@@ -294,7 +329,17 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
     detector's restore budget, it raises.  ``on_checkpoint(event)``
     hears of each resume and restore (``restore_s``, the seconds to
     verify and load) and, at the end, of each save (the saver's
-    ``records``)."""
+    ``records``).
+
+    With a mesh topology (``launch.mesh``) the rank trains its block:
+    every rank draws the whole token stream and keeps its block, the
+    membership stays global (the step takes the rank's block of it), and
+    the loss is the whole run's.  Checkpoints under a mesh are ROADMAP
+    item 17e (``NotImplementedError``)."""
+    if run.ckpt_dir and topo.mesh is not None:
+        raise NotImplementedError(
+            "checkpoints and restore under a process mesh (each rank's "
+            "block of the store): ROADMAP item 17e")
     built = build.build_model(cfg, topo)
     init_fn, step_fn = hier.make_hier_step(topo, algo, built.bundle)
     if params is None:
@@ -347,7 +392,7 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
                                now=float(step))
         arrays = member.weights()
         t0 = time.perf_counter()
-        batch = {"train": stream(step)}
+        batch = {"train": topo.block(stream(step))}
         t1 = time.perf_counter()
         state, metrics = step_fn(state, batch, arrays.edge_weights,
                                  arrays.dev_weights, arrays.mask)
@@ -446,7 +491,8 @@ def lm_main(argv=None):
                          "demotion, recoveries -- same seed, same "
                          "schedule); nan-loss recovery needs --ckpt")
     ap.add_argument("--multi_pod", action="store_true",
-                    help="not ported: ROADMAP queue 1 item 17")
+                    help="not ported: the production mesh's model axis, "
+                         "ROADMAP item 17b")
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--devices_per_pod", type=int, default=1)
     ap.add_argument("--device", default="cuda")
@@ -462,8 +508,7 @@ def lm_main(argv=None):
     except ValueError as e:
         ap.error(str(e))
     if args.multi_pod:
-        raise NotImplementedError(
-            "--multi_pod (the multi-device mesh): ROADMAP queue 1 item 17")
+        mesh.make_topology(multi_pod=True)           # raises: item 17b
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     # the schedule x regime combination, up front as the JAX CLI checks it
@@ -472,7 +517,10 @@ def lm_main(argv=None):
                  f"regime, but --arch {args.arch} uses param_mode='fsdp' "
                  f"(the staged in-flight aggregate is a whole-model "
                  f"master snapshot the FSDP lift never materializes)")
-    topo = Topology(args.pods, args.devices_per_pod, args.device)
+    topo = launch_topology(args.pods, args.devices_per_pod, args.device)
+    # over a mesh every rank prints the same digits: rank 0 says them
+    log = (print if topo.mesh is None or topo.mesh.rank == 0
+           else (lambda *a, **kw: None))
     algo = hier.AlgoConfig(
         method=args.method, mu=args.mu, rho=args.rho,
         cloud_period=args.cloud_period, cloud_overlap=args.cloud_overlap,
@@ -492,16 +540,45 @@ def lm_main(argv=None):
         injector = chaos.FaultInjector.seeded(
             args.chaos, args.steps, topo.pods, topo.devices_per_pod,
             algo.clients.count)
-        print(f"[train] chaos seed {args.chaos}: "
-              f"{len(injector.events)} scheduled events")
+        log(f"[train] chaos seed {args.chaos}: "
+            f"{len(injector.events)} scheduled events")
     _, history = run_training(cfg, topo, algo, run,
-                              fault_injector=injector)
+                              fault_injector=injector, log=log)
+    if topo.mesh is not None:
+        dist.destroy_process_group()
     if not history:
-        print(f"[train] done: the checkpoint in {args.ckpt} is at or past "
-              f"--steps {args.steps}, no step to run")
+        log(f"[train] done: the checkpoint in {args.ckpt} is at or past "
+            f"--steps {args.steps}, no step to run")
         return
-    print(f"[train] done: loss {history[0]['loss']:.4f} -> "
-          f"{history[-1]['loss']:.4f}")
+    log(f"[train] done: loss {history[0]['loss']:.4f} -> "
+        f"{history[-1]['loss']:.4f}")
+
+
+def launch_topology(pods: int, devices_per_pod: int, device: str) -> Topology:
+    """The CLI's topology: P x D in this process, or under ``torchrun``
+    (``WORLD_SIZE`` > 1) laid over the ranks (``mesh.host_grid``) after
+    the default group is initialised from torchrun's environment.  The
+    backend: NCCL when every rank of the host has a card of its own
+    (``cuda:LOCAL_RANK``), else gloo (the CPU, or ranks sharing a card,
+    which NCCL refuses)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return Topology(pods, devices_per_pod, device)
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    if torch.device(device).type == "cuda":
+        resolve_device(device)
+        own_card = torch.cuda.device_count() >= local_world
+        device = f"cuda:{local if own_card else 0}"
+        backend = "nccl" if own_card else "gloo"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method="env://",
+                            timeout=mesh.TIMEOUT)
+    grid = mesh.host_grid(world, pods, devices_per_pod)
+    return mesh.make_host_topology(
+        *grid, backend=backend, device=device,
+        block=(pods // grid[0], devices_per_pod // grid[1]))
 
 
 def main(argv=None):

@@ -32,7 +32,7 @@ and only then cast to float32 and scaled by 1/sqrt(nope + rope), and
 the softmax weights are cast back to x's dtype for their product with
 the cache.
 
-Not ported yet: the caches' sharding specs (item 17).
+Not ported yet: the caches' sharding specs (item 17d).
 """
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ leading dense layers and its MTP block), the hybrid family's
     cache_init(b, max_len)                -> the shapes of one layer's
                                              decode cache
 
-Not ported yet: the caches' sharding specs (ROADMAP item 17).
+Not ported yet: the caches' sharding specs (ROADMAP item 17d).
 """
 from __future__ import annotations
 

@@ -56,7 +56,7 @@ zamba2's gradients are not finite where its SSD scan overflows, as the
 reference's are (ROADMAP queue 3); the sign sends NaN to -1.
 
 Not ported yet (each raises ``NotImplementedError``): the ``"gather"``
-serve layout of the FSDP configs above the budget (item 17:
+serve layout of the FSDP configs above the budget (item 17d:
 ``ServeGatherPlan``) and ``cache_specs``.
 """
 from __future__ import annotations
@@ -360,17 +360,18 @@ def make_cache(arch: ArchDef, b: int, max_len: int,
 
 def cache_specs(arch: ArchDef):
     raise NotImplementedError(
-        "cache_specs (the caches' sharding): ROADMAP item 17")
+        "cache_specs (the caches' sharding, with the gather serve "
+        "layout): ROADMAP item 17d")
 
 
 class ServeGatherPlan(ReplicatedPlan):
     """The serving plan for FSDP-stored parameters (a per-layer
-    all-gather): ROADMAP item 17."""
+    all-gather): ROADMAP item 17d."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "ServeGatherPlan (serving FSDP-stored parameters): ROADMAP "
-            "item 17")
+            "item 17d")
 
 
 def serve_layout(cfg: LMConfig, n_params: int) -> str:
@@ -378,7 +379,7 @@ def serve_layout(cfg: LMConfig, n_params: int) -> str:
     are) for the replicated regime and for an FSDP config whose bf16
     weights, ``2 * n_params`` bytes on the one card, fit
     ``SERVE_RESIDENT_BUDGET``; ``"gather"`` (FSDP-stored weights gathered
-    a layer at a time, ROADMAP item 17) otherwise."""
+    a layer at a time, ROADMAP item 17d) otherwise."""
     if cfg.param_mode != "fsdp":
         return "resident"
     return "resident" if 2.0 * n_params <= SERVE_RESIDENT_BUDGET else "gather"
@@ -386,7 +387,7 @@ def serve_layout(cfg: LMConfig, n_params: int) -> str:
 
 def make_serve_fns(arch: ArchDef, layout: str = "resident"):
     """(prefill, decode_step) as the module docstring gives them; the
-    ``"gather"`` layout raises (ROADMAP item 17)."""
+    ``"gather"`` layout raises (ROADMAP item 17d)."""
     cfg = arch.cfg
     plan = ReplicatedPlan(cfg, remat=False)
 
@@ -394,7 +395,8 @@ def make_serve_fns(arch: ArchDef, layout: str = "resident"):
         if layout != "resident":
             raise NotImplementedError(
                 f"serving {cfg.name} in the {layout!r} layout (FSDP-stored "
-                "weights gathered a layer at a time): ROADMAP item 17")
+                "weights gathered a layer at a time, the gather serve "
+                "layout): ROADMAP item 17d")
 
     def prefill(params, batch, max_len: int):
         """The whole prompt: (the last position's logits [b, 1, V], the
@@ -457,7 +459,7 @@ class BuiltModel:
     prefill: Callable              # (params, batch, max_len) -> logits, cache
     decode_step: Callable          # (params, cache, tokens) -> logits, cache
     make_cache: Callable           # (b, max_len, device) -> cache
-    serve_layout: str = "resident"  # or "gather" (item 17)
+    serve_layout: str = "resident"  # or "gather" (item 17d)
 
 
 def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:

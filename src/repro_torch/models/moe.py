@@ -2,7 +2,7 @@
 forms.
 
 The JAX package's ``models/moe.py`` (its ``moe_specs``, the expert
-sharding, are not ported: item 17).  Activations are ``[*lead, b, t, d]``
+sharding, are not ported: item 17d).  Activations are ``[*lead, b, t, d]``
 and parameters ``[*lead, *leaf]``, as in ``layers``; each replica's
 ``n = b*t`` tokens split into ``g = max(1, n // group_tokens)`` groups of
 their own (the replica dims are never folded into the groups), and the
