@@ -10,8 +10,9 @@ the ``moe`` phase's step-size sweep, ``moe_mu_sweep``; ``python3
 chip_smoke.py --phase hybrid`` builds the kernels, runs phase 2's
 kernel checks and the ``hybrid`` phase, and prints the ``kernels`` line
 with the hybrid path's launches and the ``ok`` line; ``--phase mesh``
-does the same for the ``mesh`` phase.  ``--mesh-rank RANK DIR`` is one
-rank of the ``mesh`` phase, which the phase starts itself.)
+and ``--phase tp`` do the same for the ``mesh`` and ``tp`` phases.
+``--mesh-rank RANK DIR`` and ``--tp-rank RANK DIR`` are one rank of
+those phases, which each starts itself.)
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -99,8 +100,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      client) and their peak memory.
   8. ``families``: the ssm and encdec families whole, each as ``lm``
      runs gemma3-1b (P=2 x D=3, bf16 compute, f32 master, DC, T_E=3,
-     random weights from seed 0): xlstm-350m (24 blocks, 528,280,672
-     parameters, batch 1 x 1152 tokens a device) and whisper-base (6 + 6
+     random weights from seed 0): xlstm-350m cut to 8 blocks (one 7:1
+     period; its host-bound sLSTM loop runs once a step), batch 1 x 1152
+     tokens a device, and whisper-base (6 + 6
      layers, 97,206,784 parameters, batch 4 x 448 tokens and 1500 x 80
      frames a device).  One step's per-voter gradients twice (bitwise),
      6 steps of ``run_training`` on fused/flat (exactly 6 ``sign_pack``
@@ -108,8 +110,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the kernels' device time beside their byte bounds, the device's
      busy time, the top device ops), the same on ag_packed/tree (bitwise
      the same edge models, no launch), the mean loss of round 2 below
-     step 0's, the peaks beside ``reckon_peak``'s reckoning (xlstm cut to
-     16 blocks if it passed 72 GB; it does not).
+     step 0's, the peaks beside ``reckon_peak``'s reckoning.
   9. ``fault_tolerant``: first the oracle check -- the paper task at full
      width (Q=4 x D=5, B=400, 2 rounds of T_E=15) under a compiled chaos
      schedule of the parity harness's kinds (a client killed mid-round,
@@ -257,6 +258,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``{"mesh": "one-process references" | "reckoned rank peak" |
      "before the ranks" | "toy" | "transport" | "lm" | "phase"}``; the
      kernels line gains ``mesh_launches_per_rank``.
+ 15. ``tp``: the model axis across processes (``core.shardflat``, the
+     dense family tensor-parallel) on the one card: 8 ranks, 2 pods x 2
+     data x 2 model, over gloo, each a [1, 1] block of P=2 x D=2 and one
+     model shard, started as ``chip_smoke.py --tp-rank`` processes.  The
+     one-process references first, in this process.  The parity toy on
+     injected gradients (``w`` column-, ``w2`` row-parallel) in five
+     cells -- DC at hidden 64 and 65 (padded blocks), ``hier_sgd``,
+     ``hier_local_qsgd``, DC with K=2 streamed clients -- on fused/flat:
+     the gathered logical state bitwise the one-process run (QSGD
+     within 1e-5), the losses within 1e-5, the four kernels counted in
+     every rank.  One fused vote-update on gemma3-1b's sharded layout
+     (6 layers, M=2), each rank on its bucket: its logical block's
+     sha256 that of the one-process result, the word bytes it sent
+     ``4 * bucket_words``.  gemma3-1b (``lm``'s algorithm) 6 steps of
+     ``run_training`` tensor-parallel over the ranks: step 0's
+     gradients gathered over model against the model=1 run of the same
+     block (the differing count, the largest difference over the leaf's
+     largest |value|), the copies bitwise across model ranks at every
+     step (an all-gathered sha256), round 2's mean below step 0's, 6 + 6
+     launches a rank, local and prologue step ms, the bytes sent on each
+     group, the peak beside ``reckon_mesh_peak`` at the bucket.  JSON
+     lines ``{"tp": ...}``; the kernels line gains
+     ``tp_launches_per_rank``.  ``--phase tp`` runs phase 2's kernel
+     checks and this phase alone.
 
 The ``ternary`` cases of phase 2 include the QSGD step's per-row form:
 rows of the MLP's leaf lengths 10, 64, 640 and 50176, R = 20 and 40 rows
@@ -1757,7 +1782,8 @@ def phase_lm(torch) -> dict:
 
 FAMILIES = (("xlstm_350m", 1, 1152),     # (arch, batch, tokens) a device
             ("whisper_base", 4, 448))    # whisper's text context
-FAM_CUT_GB, FAM_CUT_LAYERS = 72.0, 16    # xlstm: two 7:1 periods
+FAM_XLSTM_LAYERS = 8     # xlstm cut to one 7:1 period: one sLSTM block,
+                         # whose host-bound loop a position sets its step
 
 
 def ssd_entries(cfg, seq: int) -> int:
@@ -1812,8 +1838,9 @@ def reckon_peak(cfg, n: int, batch: int, seq: int, p: int = LM_P,
 
 
 def phase_families(torch) -> dict:
-    """The ssm and encdec families on the card, whole: xlstm-350m (24
-    blocks, batch 1 x 1152 tokens a device) and whisper-base (6 + 6
+    """The ssm and encdec families on the card: xlstm-350m (cut to
+    ``FAM_XLSTM_LAYERS`` blocks, batch 1 x 1152 tokens a device) and
+    whisper-base whole (6 + 6
     layers, batch 4 x 448 tokens and 1500 x 80 frames a device), each at
     P=2 x D=3 in the lm phase's algorithm (DC, bf16 compute, f32 master,
     T_E=3, 6 steps, random weights from seed 0): one step's per-voter
@@ -1834,9 +1861,9 @@ def phase_families(torch) -> dict:
         n = build.param_count(build.build_model(cfg, topo).abstract_params())
         reckoned = reckon_peak(cfg, n, batch, seq)
         cut = None
-        if cfg.family == "ssm" and reckoned["peak_gb"] > FAM_CUT_GB:
-            cut = f"depth {cfg.n_layers} -> {FAM_CUT_LAYERS}"
-            cfg = dataclasses.replace(cfg, n_layers=FAM_CUT_LAYERS)
+        if cfg.family == "ssm":
+            cut = f"depth {cfg.n_layers} -> {FAM_XLSTM_LAYERS}"
+            cfg = dataclasses.replace(cfg, n_layers=FAM_XLSTM_LAYERS)
         built = build.build_model(cfg, topo)
         params = built.init_params(
             torch.Generator(device="cuda").manual_seed(0))
@@ -3873,7 +3900,8 @@ def mesh_lm_rank(torch, topo, tmp: str) -> dict:
     return res
 
 
-def reckon_mesh_peak(n: int, p_loc: int = 1, d_loc: int = 1) -> dict:
+def reckon_mesh_peak(n: int, p_loc: int = 1, d_loc: int = 1,
+                     vocab: int = 262144) -> dict:
     """A mesh rank's peak device memory (GB) in the LM run, reckoned
     from n parameters before any run (bf16 compute, f32 master, bf16
     delta, DC; ``reckon_peak``'s terms at the rank's block).  The
@@ -3883,7 +3911,9 @@ def reckon_mesh_peak(n: int, p_loc: int = 1, d_loc: int = 1) -> dict:
 
       state   8n a pod row: the f32 master, bf16 delta and delta_next;
       local   the backward's bf16 copies and gradients (4n a voter) and
-              the logits (18 bytes a logit);
+              the logits (18 bytes a logit, ``vocab`` a position: a
+              model rank's vocab block under tensor parallelism, where n
+              is its bucket);
       anchor  the f32 flatten of the anchor gradients (4n a voter) and
               c_q (4n a row);
       cloud   c_q, c and their f32 difference (12n a row).
@@ -3891,7 +3921,7 @@ def reckon_mesh_peak(n: int, p_loc: int = 1, d_loc: int = 1) -> dict:
     peak = state + max(local, anchor, cloud)."""
     rows = p_loc * d_loc
     terms = {"state": 8 * p_loc * n,
-             "local": 4 * rows * n + 18 * rows * LM_SEQ * 262144,
+             "local": 4 * rows * n + 18 * rows * LM_SEQ * vocab,
              "anchor": 4 * rows * n + 4 * p_loc * n,
              "cloud": 12 * p_loc * n}
     peak = terms["state"] + max(terms["local"], terms["anchor"],
@@ -3962,24 +3992,25 @@ def mesh_rank_main(tmp: str, rank: int) -> None:
     dist.destroy_process_group()
 
 
-def mesh_spawn(torch, tmp: str) -> list:
-    """Start the four ranks on the card (this process holds no tensor of
-    its own by then) and wait for them at most ``MESH_JOIN_S`` seconds;
-    a rank that fails or outlives it fails the phase, every rank killed
-    first.  Returns the ranks' results."""
+def mesh_spawn(torch, tmp: str, world: int = MESH_GRID[0] * MESH_GRID[1],
+               flag: str = "--mesh-rank", limit: float = MESH_JOIN_S) -> list:
+    """Start the ``world`` ranks on the card as ``chip_smoke.py FLAG RANK
+    DIR`` (this process holds no tensor of its own by then) and wait for
+    them at most ``limit`` seconds; a rank that fails or outlives it
+    fails the phase, every rank killed first.  Returns the ranks'
+    results."""
     import os
     import pickle
 
-    world = MESH_GRID[0] * MESH_GRID[1]
     env = dict(os.environ,
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     logs = [open(pathlib.Path(tmp) / f"rank{r}.log", "w+")
             for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag,
          str(r), tmp], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(world)]
-    deadline = time.monotonic() + MESH_JOIN_S
+    deadline = time.monotonic() + limit
 
     def tails():
         out = []
@@ -3997,10 +4028,10 @@ def mesh_spawn(torch, tmp: str) -> list:
             proc.kill()
         for proc in procs:
             proc.wait()
-        fail(f"the mesh ranks outlived {MESH_JOIN_S} s: killed\n{tails()}")
+        fail(f"the {flag} ranks outlived {limit} s: killed\n{tails()}")
     codes = [proc.returncode for proc in procs]
     if any(codes):
-        fail(f"a mesh rank failed (exit codes {codes})\n{tails()}")
+        fail(f"a {flag} rank failed (exit codes {codes})\n{tails()}")
     for log in logs:
         log.close()
     out = []
@@ -4233,6 +4264,580 @@ def phase_mesh(torch, card: str) -> dict:
     return {"toy": toy_launches, "lm": [x["launches"] for x in lm]}
 
 
+TP_GRID = (2, 2, 2)              # pods x data x model ranks, a [1, 1] block
+TP_P, TP_D, TP_M = 2, 2, 2       # the global hierarchy and the model axis
+TP_JOIN_S = 600                  # the ranks' join limit
+TP_SPECS = {"w": (None, "model"), "b": (None,), "w2": ("model", None)}
+TP_CELLS = {     # name -> (AlgoConfig fields, toy hidden width, K or None)
+    "dc fused/flat h64": (dict(method="dc_hier_signsgd"), 64, None),
+    "dc fused/flat h65": (dict(method="dc_hier_signsgd"), 65, None),
+    "hier_sgd fused/flat h64": (dict(method="hier_sgd"), 64, None),
+    "hier_local_qsgd fused/flat h65": (dict(method="hier_local_qsgd"), 65,
+                                       None),
+    "dc fused/flat K=2 stream h65": (dict(method="dc_hier_signsgd"), 65, 2),
+}
+TP_QSGD_ATOL = 1e-5              # the multi-device parity atol
+TP_SEED = 2000                   # the LM-size transport's directions
+# step 0's bf16 gradients, gathered over model, against the model=1 run:
+# the largest max|a - b| / max|b| of a leaf.  A sound port reads 0.0077-
+# 0.0135 at full width on the H100 and 0.030 at gemma3-1b's smoke width
+# on the CPU; with sum_model or copy_to_model dropped it reads above 1.1
+# (tests/helpers/torch_tp_step0_bound.py).
+TP_STEP0_REL = 0.1
+
+
+def tp_toy_run(torch, topo, cell: str) -> dict:
+    """One parity-toy cell over ``topo``'s model axis (or none: the
+    one-process [2, 2] reference): ``MESH_STEPS`` steps of the
+    injected-gradient toy at the cell's hidden width, ``w`` and ``w2``
+    split by ``TP_SPECS`` (``injected_grads.make_tp_bundle``), fused
+    transport, flat state, f32.  Returns the gathered logical state
+    (numpy trees), the losses, the four kernels' launches in this
+    process and the bytes it sent."""
+    import injected_grads
+    from repro_torch.convert import gather_train_state
+    from repro_torch.core import comm, hier, pytree, shardflat
+    from repro_torch.core.clients import ClientConfig
+
+    fields, hid, k = TP_CELLS[cell]
+    shapes = {"w": (16, hid), "b": (33,), "w2": (hid, 33)}
+    cc = ClientConfig()
+    if k:
+        cc = ClientConfig(count=k, participation="bernoulli", rate=0.5,
+                          seed=11, mode="stream", weights=tuple(
+                              tuple(tuple((q + 2 * d + 3 * c) % 5 + 1
+                                          for c in range(k))
+                                    for d in range(TP_D))
+                              for q in range(TP_P)))
+    algo = hier.AlgoConfig(t_e=MESH_TE, mu=MU, mu_sgd=0.05, rho=RHO,
+                           transport="fused", state_layout="flat",
+                           compute_dtype=torch.float32,
+                           delta_dtype=torch.float32, clients=cc, **fields)
+    gen = torch.Generator().manual_seed(5)
+    grads = injected_grads.make_grads(shapes, TP_P, TP_D, k or 1,
+                                      MESH_STEPS, gen)
+    w0 = {n: torch.randn(s, generator=gen) for n, s in shapes.items()}
+    ew = torch.tensor([0.375, 0.625])
+    dw = torch.tensor([[0.25, 0.75], [0.5, 0.5]])
+    mask = torch.ones((TP_P, TP_D) + ((k,) if k else ()))
+    init_fn, step = hier.make_hier_step(
+        topo, algo, injected_grads.make_tp_bundle(topo, shapes, TP_SPECS))
+    state = init_fn(w0)
+    layout = shardflat.param_layout(topo, TP_SPECS, w0)
+    counters = kernel_counters()
+    for kern in counters:
+        kern.launches = 0
+    comm.reset_traffic()
+    losses = []
+    for g in grads:
+        batch = pytree.tree_map(lambda x: x.to("cuda"), topo.block(g))
+        state, metrics = step(state, {"train": batch}, ew, dw, mask)
+        losses.append(float(metrics["loss"]))
+    launches = dict(zip(("sign_pack", "vote_update", "tally_acc",
+                         "ternary_quant"),
+                        (kern.launches for kern in counters)))
+    sent = {op: v["sent"] for op, v in comm.traffic.items()}
+    full = gather_train_state(state, topo, layout=layout, logical=True)
+    return {"state": {n: v for n, v in full._asdict().items()
+                      if n not in ("rng", "step")},
+            "losses": losses, "launches": launches, "sent": sent,
+            "shards": layout.shards}
+
+
+def tp_gemma(torch, topo):
+    """gemma3-1b at full width cut to ``LM_LAYERS`` layers on ``topo``:
+    (cfg, built, its abstract parameters, their sharded layout at
+    ``TP_M``)."""
+    from repro_torch.core import flatbuf
+    from repro_torch.models import build
+
+    cfg, _, _ = lm_setup(torch)
+    built = build.build_model(cfg, topo)
+    abstract = built.abstract_params()
+    specs = build.compute_specs(build.make_archdef(cfg, TP_M), TP_M)
+    layout = flatbuf.make_layout(abstract, sharding=flatbuf.ModelSharding(
+        TP_M, "model", specs))
+    return cfg, built, abstract, layout
+
+
+def tp_directions(torch, layout, abstract, pods, devs):
+    """The LM-size transport's inputs for edges ``pods`` and devices
+    ``devs``, trees of whole logical leaves: leaf i's bf16 directions of
+    (q, d) from seed ``TP_SEED + (i*P + q)*D + d``, its f32 master row q
+    from ``TP_SEED - 1 - (i*P + q)``."""
+    from repro_torch.core import pytree
+
+    def row(seed, shape, dtype):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+
+    u, v = [], []
+    for i, leaf in enumerate(pytree.flatten_up_to(layout.treedef, abstract)):
+        shape = tuple(leaf.shape)
+        u.append(torch.stack([torch.stack([
+            row(TP_SEED + (i * TP_P + q) * TP_D + d, shape, torch.bfloat16)
+            for d in devs]) for q in pods]))
+        v.append(torch.stack([row(TP_SEED - 1 - (i * TP_P + q), shape,
+                                  torch.float32) for q in pods]))
+    return (pytree.tree_unflatten(layout.treedef, u),
+            pytree.tree_unflatten(layout.treedef, v))
+
+
+def tp_digest(torch, layout, tree, q: int, m: int,
+              local: bool = False) -> str:
+    """sha256 of model block m of edge row q of a [P', *leaf] tree of
+    logical leaves (each leaf's logical block, in flatten order);
+    ``local``: the tree is rank m's own blocks already."""
+    import hashlib
+
+    from repro_torch.core import flatbuf, pytree
+
+    h = hashlib.sha256()
+    for slot, leaf in zip(layout.slots,
+                          pytree.flatten_up_to(layout.treedef, tree)):
+        blk = leaf[q]
+        if slot.shard_dim is not None:
+            if not local:
+                blk = flatbuf.slot_block(slot, blk, m, layout.shards)
+            blk = blk.narrow(slot.shard_dim, 0,
+                             slot.local_extent(layout.shards, m))
+        h.update(blk.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_transport(torch, topo, layout, abstract) -> dict:
+    """One fused vote-update on gemma3-1b's sharded layout, the rank's
+    bucket only (``votes.fused_sign_vote_update`` on its [1, 1] block of
+    the seeded directions, its words gathered over the data group, its
+    [1, bucket_pad] master updated in place, mu 1e-3): the digest of its
+    edge row's logical block and the bytes it sent."""
+    from repro_torch.core import comm, flatbuf, shardflat, votes
+
+    m = topo.model_rank
+    u, v = tp_directions(torch, layout, abstract, [topo.pod_offset],
+                         [topo.device_offset])
+    u = shardflat.local_block(topo, layout, u, 2)
+    v_buf = shardflat.flatten(topo, layout, shardflat.local_block(
+        topo, layout, v, 1), 1)
+    del v
+    mask = torch.ones((1, TP_D), dtype=torch.bool, device="cuda")
+    comm.reset_traffic()
+    out = votes.fused_sign_vote_update(
+        layout.bucket(), u, None, 0.0, mask, v_buf,
+        torch.tensor(1e-3, dtype=torch.float32, device="cuda"),
+        mu_static=1e-3, topo=topo)
+    torch.cuda.synchronize()
+    require(out is v_buf, "the fused vote-update did not update in place")
+    sent = {op: x["sent"] for op, x in comm.traffic.items()}
+    del u
+    local = flatbuf.unflatten_tree(layout.bucket(), out, 1)
+    digest = tp_digest(torch, layout, local, 0, m, local=True)
+    res = {"digest": digest, "sent": sent,
+           "bucket_words": layout.bucket_words,
+           "bucket_pad": layout.bucket_pad, "n_pad": layout.n_pad}
+    del out, v_buf, local
+    torch.cuda.empty_cache()
+    return res
+
+
+def copies_digest(torch, state, layout) -> bytes:
+    """sha256 of every copy leaf (no spec splits it) of the master and
+    the DC corrections in a rank's flat state."""
+    import hashlib
+
+    from repro_torch.core import pytree
+
+    h = hashlib.sha256()
+    for slot in (state.params, state.delta, state.delta_next):
+        leaves = pytree.flatten_up_to(layout.treedef, slot.tree(cast=False))
+        for s, leaf in zip(layout.slots, leaves):
+            if s.shard_dim is None:
+                h.update(leaf.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+    return h.digest()
+
+
+def tp_lm_grads(torch, built, params, tokens, topo=None, layout=None):
+    """Per-voter gradients of the LM at ``params`` (a rank's blocks with
+    ``layout``'s sharding, or the whole tree) on ``tokens`` [1, 1, 1,
+    seq], from fresh bf16 [1, 1] copies cut to their logical rows: the
+    gradient tree, with each sharded leaf's blocks gathered over the
+    model group (tails dropped) when ``topo`` is given, and whether the
+    copies' gradients were bitwise the same on every model rank."""
+    import torch.distributed as dist
+
+    from repro_torch.core import pytree, shardflat
+
+    leaves, td = pytree.tree_flatten(params)
+    copies = [leaf.unsqueeze(0).unsqueeze(0).to(torch.bfloat16)
+              .contiguous().requires_grad_(True) for leaf in leaves]
+    tree = pytree.tree_unflatten(td, copies)
+    if topo is not None:
+        tree = shardflat.logical(topo, layout, tree, 2)
+    losses = built.bundle.loss(tree, {"tokens": tokens})
+    grads = list(torch.autograd.grad(losses.sum(), copies))
+    del copies, losses, tree
+    agree = True
+    if topo is not None:
+        for s, g in zip(layout.slots, grads):
+            if s.shard_dim is None:
+                parts = [torch.empty_like(g) for _ in range(TP_M)]
+                dist.all_gather(parts, g.contiguous(),
+                                group=topo.mesh.model_group)
+                agree &= all(torch.equal(parts[0], x) for x in parts[1:])
+        grads = pytree.flatten_up_to(td, shardflat.gather(
+            topo, layout, pytree.tree_unflatten(td, grads), 2))
+    return grads, bool(agree)
+
+
+def tp_lm_rank(torch, topo) -> dict:
+    """The rank's part of the LM run: step 0's gradients on its [1, 1]
+    block tensor-parallel, gathered over the model group, against the
+    model=1 run of the same block (model rank 0 takes the latter; the
+    differing count and the largest difference over the leaf's largest
+    |value|); then ``run_training`` over the ranks (6 steps, DC
+    fused/flat) with the counters and ``comm.traffic`` set to 0 just
+    before it: its losses, step times, launches, the bytes sent on each
+    group at each step, the copies' digest agreement at each step and
+    the peak."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm, shardflat
+    from repro_torch.core.topology import Topology
+    from repro_torch.launch.train import RunCfg, run_training
+    from repro_torch.models import build
+
+    cfg, built, abstract, _ = tp_gemma(torch, topo)
+    _, _, algo = lm_setup(torch)
+    params = built.init_params(torch.Generator(device="cuda").manual_seed(0))
+    layout = shardflat.param_layout(topo, built.bundle.specs, params)
+    tokens = topo.block(mesh_tokens(torch, cfg)).cuda()
+    local = shardflat.local_block(topo, layout, params)
+    g_tp, grads_agree = tp_lm_grads(torch, built, local, tokens, topo,
+                                    layout)
+    del local
+    res = {"step0_copies_agree": grads_agree}
+    if topo.model_rank == 0:
+        plain = build.build_model(cfg, Topology(1, 1, "cuda"))
+        g_one, _ = tp_lm_grads(torch, plain, params, tokens)
+        differ, worst, n = 0, 0.0, 0
+        for a, b in zip(g_tp, g_one):
+            differ += int((a.view(torch.int16) != b.view(torch.int16)).sum())
+            scale = float(b.float().abs().max())
+            worst = max(worst, float((a.float() - b.float()).abs().max())
+                        / max(scale, 1e-30))
+            n += b.numel()
+        res.update(step0_differing=differ, step0_max_rel_diff=worst,
+                   step0_coordinates=n)
+        del g_one, plain
+    del g_tp, tokens
+    torch.cuda.empty_cache()
+    run = RunCfg(steps=MESH_STEPS, batch_per_device=1, seq_len=LM_SEQ,
+                 log_every=1, seed=0)
+    counters = kernel_counters()
+    for kern in counters:
+        kern.launches = 0
+    comm.reset_traffic()
+    per_step, agree = [], []
+
+    def on_state(step, state):
+        torch.cuda.synchronize()
+        per_step.append({op: v["sent"] for op, v in comm.traffic.items()})
+        digest = torch.tensor(list(copies_digest(torch, state, layout)),
+                              dtype=torch.uint8, device="cuda")
+        parts = [torch.empty_like(digest) for _ in range(TP_M)]
+        dist.all_gather(parts, digest, group=topo.mesh.model_group)
+        agree.append(all(torch.equal(parts[0], x) for x in parts[1:]))
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, history = run_training(cfg, topo, algo, run, params=params,
+                                  log=lambda line: None, on_state=on_state)
+    torch.cuda.synchronize()
+    res.update({
+        "losses": [h["loss"] for h in history],
+        "ms": [h["ms"] for h in history],
+        "data_ms": [h["data_ms"] for h in history],
+        "launches": dict(zip(("sign_pack", "vote_update", "tally_acc",
+                              "ternary_quant"),
+                             (kern.launches for kern in counters))),
+        "sent_per_step": per_step, "copies_agree": agree,
+        "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+        "held_gb": before / 1e9, "bucket_pad": layout.bucket_pad,
+        "n_pad": layout.n_pad})
+    del state, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank_main(tmp: str, rank: int) -> None:
+    """One rank of the ``tp`` phase (``chip_smoke.py --tp-rank RANK
+    DIR``): gloo over ``DIR/rdv``, a 2 x 2 x 2 grid on the one card, the
+    toy's cells, the LM-size transport and the LM run; writes
+    ``DIR/rank{RANK}.pkl``."""
+    import os
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests" / "helpers"))
+    from repro_torch.core.topology import resolve_device
+    from repro_torch.launch import mesh
+    from repro_torch.kernels import build
+
+    resolve_device("cuda")
+    build.load()
+    d = pathlib.Path(tmp)
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{d / 'rdv'}",
+                            rank=rank, world_size=math.prod(TP_GRID),
+                            timeout=mesh.TIMEOUT)
+    topo = mesh.make_host_topology(*TP_GRID, backend="gloo", device="cuda")
+    m = topo.mesh
+    res = {"rank": rank, "coords": (m.pod_rank, m.data_rank, m.model_rank),
+           "init_s": time.perf_counter() - t0}
+    # does gloo sum a bf16 CUDA tensor?  (comm's model sums cross as
+    # float32 either way)
+    x = torch.full((4,), 0.5 * (rank + 1), dtype=torch.bfloat16,
+                   device="cuda")
+    try:
+        dist.all_reduce(x, group=m.model_group)
+        res["bf16_all_reduce"] = x.tolist()
+    except RuntimeError as e:
+        res["bf16_all_reduce"] = f"refused: {e}"[:200]
+    res["toy"] = {}
+    for cell in TP_CELLS:
+        t1 = time.perf_counter()
+        out = tp_toy_run(torch, topo, cell)
+        out["s"] = time.perf_counter() - t1
+        if rank:
+            del out["state"]
+        res["toy"][cell] = out
+    t1 = time.perf_counter()
+    _, _, abstract, layout = tp_gemma(torch, topo)
+    res["transport"] = tp_transport(torch, topo, layout, abstract)
+    res["transport"]["s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    res["lm"] = tp_lm_rank(torch, topo)
+    res["lm"]["s"] = time.perf_counter() - t1
+    with open(d / f"rank{rank}.tmp", "wb") as f:
+        pickle.dump(res, f)
+    os.replace(d / f"rank{rank}.tmp", d / f"rank{rank}.pkl")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_spawn(torch, tmp: str) -> list:
+    """Start the eight ranks on the card and wait for them at most
+    ``TP_JOIN_S`` seconds (``mesh_spawn``'s rules)."""
+    return mesh_spawn(torch, tmp, world=math.prod(TP_GRID), flag="--tp-rank",
+                      limit=TP_JOIN_S)
+
+
+def states_max_abs(want: dict, got: dict) -> float:
+    """The largest |difference| between two gathered logical states."""
+    import numpy as np
+
+    worst = 0.0
+    for name, w in want.items():
+        if w is None:
+            continue
+        for k in w:
+            worst = max(worst, float(np.abs(np.asarray(got[name][k])
+                                            - np.asarray(w[k])).max()))
+    return worst
+
+
+def phase_tp(torch, card: str) -> dict:
+    """The model axis across processes on the one card: 8 ranks (2 pods
+    x 2 data x 2 model) over gloo, each a [1, 1] block of P=2 x D=2 and
+    one model shard.  The one-process references run here first and
+    are freed; then the ranks: the parity toy's cells (w column-, w2
+    row-parallel) on logical coordinates against the one-process run
+    with the four kernels counted in every rank; one fused vote-update on
+    gemma3-1b's sharded layout, each rank's bucket bitwise the one
+    process's block; gemma3-1b (6 layers, full width) 6 steps of
+    ``run_training`` tensor-parallel over the ranks.  Returns the
+    per-rank launches of the toy's cells and of the LM run."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.core import flatbuf, signs, votes
+    from repro_torch.core.topology import Topology
+
+    t_phase = time.perf_counter()
+    one = Topology(TP_P, TP_D, "cuda")
+    toy_ref = {cell: tp_toy_run(torch, one, cell) for cell in TP_CELLS}
+    cfg, _, abstract, layout = tp_gemma(torch, one)
+    u, v = tp_directions(torch, layout, abstract, range(TP_P), range(TP_D))
+    flat = flatbuf.make_layout(v, batch_dims=1)
+    v_buf = flatbuf.flatten_tree(flat, v, 1)
+    del v
+    votes.fused_sign_vote_update(
+        flat, u, None, 0.0,
+        torch.ones((TP_P, TP_D), dtype=torch.bool, device="cuda"), v_buf,
+        torch.tensor(1e-3, dtype=torch.float32, device="cuda"),
+        mu_static=1e-3)
+    del u
+    done = flatbuf.unflatten_tree(flat, v_buf, 1)
+    transport_ref = {(q, m): tp_digest(torch, layout, done, q, m)
+                     for q in range(TP_P) for m in range(TP_M)}
+    del done, v_buf
+    n_params = layout.n
+    reckoned = reckon_mesh_peak(layout.bucket_pad, vocab=cfg.vocab // TP_M)
+    emit({"tp": "one-process references", "wall_s": time.perf_counter()
+          - t_phase, "n_params": n_params, "n_pad": layout.n_pad,
+          "bucket_pad": layout.bucket_pad, "unsharded_n_pad": flat.n_pad,
+          "copies": [int(s.size) for s in layout.slots
+                     if s.shard_dim is None]})
+    emit({"tp": "reckoned rank peak", **reckoned})
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"tp": "before the ranks",
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "free_gb": torch.cuda.mem_get_info()[0] / 1e9})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        t1 = time.perf_counter()
+        ranks = tp_spawn(torch, tmp)
+        ranks_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the checks
+    emit({"tp": "gloo bf16 all_reduce on CUDA tensors",
+          "per_rank": [r["bf16_all_reduce"] for r in ranks]})
+    toy_launches = {}
+    for cell, ref in toy_ref.items():
+        got = ranks[0]["toy"][cell]
+        diff = states_differing(ref["state"], got["state"])
+        worst = states_max_abs(ref["state"], got["state"])
+        per_rank = [r["toy"][cell]["launches"] for r in ranks]
+        qsgd = "qsgd" in cell
+        rel = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(got["losses"], ref["losses"]))
+        emit({"tp": "toy", "cell": cell, "shards": got["shards"],
+              "differing": diff, "max_abs_diff": worst,
+              "losses_equal": got["losses"] == ref["losses"],
+              "losses_max_rel_diff": rel,
+              "launches_per_rank": per_rank,
+              "one_process_launches": ref["launches"],
+              "sent_rank0": got["sent"],
+              "rank_s": [r["toy"][cell]["s"] for r in ranks]})
+        require(got["shards"] == TP_M, f"tp toy {cell}: not sharded")
+        if qsgd:
+            require(worst <= TP_QSGD_ATOL, f"tp toy {cell}: {worst} from "
+                    "the one-process run")
+        else:
+            require(diff == 0, f"tp toy {cell}: {diff} coordinates differ "
+                    "from the one-process run")
+        # the losses are the injected forward's sums, run by the card's
+        # reductions at the block's shape: held at 1e-5 (as in ``mesh``)
+        require(rel <= 1e-5, f"tp toy {cell}: losses {got['losses']} "
+                f"against {ref['losses']}")
+        for r in ranks:
+            require(r["toy"][cell]["losses"] == got["losses"],
+                    f"tp toy {cell}: rank {r['rank']}'s losses differ")
+        toy_launches[cell] = per_rank
+    for name in ("sign_pack", "vote_update", "tally_acc", "ternary_quant"):
+        for r in range(len(ranks)):
+            require(sum(toy_launches[c][r][name] for c in TP_CELLS) > 0,
+                    f"rank {r} never launched {name} in the toy's cells")
+    tr = [r["transport"] for r in ranks]
+    emit({"tp": "transport", "n_pad": tr[0]["n_pad"],
+          "bucket_pad": tr[0]["bucket_pad"],
+          "word_bytes_sent_per_rank": [t["sent"]["gather_devices"]
+                                       for t in tr],
+          "four_bucket_words": 4 * tr[0]["bucket_words"],
+          "model_group_bytes_per_rank": [
+              sum(t["sent"][op] for op in ("sum_model", "copy_to_model",
+                                           "max_model", "gather_model"))
+              for t in tr],
+          "bitwise": all(r["transport"]["digest"]
+                         == transport_ref[(r["coords"][0], r["coords"][2])]
+                         for r in ranks),
+          "rank_s": [t["s"] for t in tr], "card": card})
+    for r in ranks:
+        require(r["transport"]["digest"]
+                == transport_ref[(r["coords"][0], r["coords"][2])],
+                f"rank {r['rank']}: its bucket of the fused vote-update "
+                "differs from the one-process block")
+        require(r["transport"]["sent"]["gather_devices"]
+                == 4 * r["transport"]["bucket_words"],
+                f"rank {r['rank']}: sent {r['transport']['sent']}")
+    lm = [r["lm"] for r in ranks]
+    losses = lm[0]["losses"]
+    round2 = statistics.mean(losses[MESH_TE:2 * MESH_TE])
+    local = [[ms for s, ms in enumerate(x["ms"]) if s % MESH_TE] for x in lm]
+    prologue = [[ms for s, ms in enumerate(x["ms"]) if s % MESH_TE == 0]
+                for x in lm]
+
+    def group_bytes(sent, ops):
+        return sum(sent[op] for op in ops)
+
+    groups = {"data": ("gather_devices", "sum_devices"),
+              "pod": ("gather_pods",),
+              "model": ("sum_model", "copy_to_model", "max_model",
+                        "gather_model")}
+    sent = []
+    for x in lm:
+        steps = [dict(x["sent_per_step"][0])] + [
+            {op: b[op] - a[op] for op in b}
+            for a, b in zip(x["sent_per_step"], x["sent_per_step"][1:])]
+        sent.append({g: {"local_step": group_bytes(steps[1], ops),
+                         "prologue_step": group_bytes(steps[0], ops),
+                         "round": sum(group_bytes(s, ops)
+                                      for s in steps[:MESH_TE])}
+                     for g, ops in groups.items()})
+    step0 = [x for x in lm if "step0_differing" in x]
+    emit({"tp": "lm", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "grid": list(TP_GRID), "P": TP_P, "D": TP_D, "M": TP_M,
+          "n_params": n_params, "bucket_pad": lm[0]["bucket_pad"],
+          "step0_differing": [x["step0_differing"] for x in step0],
+          "step0_coordinates": step0[0]["step0_coordinates"],
+          "step0_max_rel_diff": [x["step0_max_rel_diff"] for x in step0],
+          "step0_copies_agree": all(x["step0_copies_agree"] for x in lm),
+          "copies_agree_every_step": [all(x["copies_agree"][s] for x in lm)
+                                      for s in range(len(losses))],
+          "losses": losses, "round2_mean_loss": round2,
+          "local_step_ms_per_rank": [statistics.mean(x) for x in local],
+          "prologue_step_ms_per_rank": [statistics.mean(x)
+                                        for x in prologue],
+          "data_ms_per_rank": [statistics.mean(x["data_ms"]) for x in lm],
+          "launches_per_rank": [x["launches"] for x in lm],
+          "bytes_sent_per_rank": sent,
+          "uplink_bits_per_device_round": signs.uplink_bits(
+              "dc_hier_signsgd", lm[0]["bucket_pad"], MESH_TE),
+          "peak_gb_per_rank": [x["peak_gb"] for x in lm],
+          "held_gb_per_rank": [x["held_gb"] for x in lm],
+          "reckoned_peak_gb": reckoned["peak_gb"],
+          "rank_s": [x["s"] for x in lm], "card": card})
+    for x in lm:
+        require(all(map(math.isfinite, x["losses"])), "non-finite loss")
+        require(x["losses"] == losses, "the ranks' losses differ")
+        require(all(x["copies_agree"]) and x["step0_copies_agree"],
+                "tp lm: a copy leaf differs across the model group")
+        require(x["launches"] == {"sign_pack": MESH_STEPS,
+                                  "vote_update": MESH_STEPS,
+                                  "tally_acc": 0, "ternary_quant": 0},
+                f"tp lm launches {x['launches']}")
+    require(round2 < losses[0], f"tp lm: the loss did not fall: step 0 "
+            f"{losses[0]}, round 2 mean {round2}")
+    for x in step0:
+        require(x["step0_max_rel_diff"] <= TP_STEP0_REL,
+                f"tp lm: step 0's gradients {x['step0_max_rel_diff']} of a "
+                f"leaf's scale from the model=1 run's (limit {TP_STEP0_REL})")
+    require(len(step0) == TP_P * TP_D, "tp lm: a block's step-0 check "
+            "is missing")
+    emit({"tp": "phase", "wall_s": time.perf_counter() - t_phase,
+          "ranks_s": ranks_s, "rank_init_s": [r["init_s"] for r in ranks]})
+    return {"toy": toy_launches, "lm": [x["launches"] for x in lm]}
+
+
 def pytree_items(tree, prefix=""):
     """(dotted name, leaf) pairs of a nested dict of tensors."""
     if not isinstance(tree, dict):
@@ -4252,10 +4857,13 @@ def main() -> None:
     if sys.argv[1:2] == ["--mesh-rank"] and len(sys.argv) == 4:
         mesh_rank_main(sys.argv[3], int(sys.argv[2]))
         return
+    if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 4:
+        tp_rank_main(sys.argv[3], int(sys.argv[2]))
+        return
     if sys.argv[1:] not in ([], ["--mu-sweep"], ["--phase", "hybrid"],
-                            ["--phase", "mesh"]):
+                            ["--phase", "mesh"], ["--phase", "tp"]):
         fail(f"usage: {sys.argv[0]} [--mu-sweep | --phase hybrid | "
-             "--phase mesh]")
+             "--phase mesh | --phase tp]")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -4309,6 +4917,14 @@ def main() -> None:
                               lambda name: mesh_extra(mesh, name))
         finish(torch, kernels)
         return
+    if sys.argv[1:] == ["--phase", "tp"]:
+        tp = phase_tp(torch, card)
+        paths = dict.fromkeys(SOURCES, "tp, the parity toy's cells and "
+                              "gemma3-1b (6 steps) in rank 0 of 2 x 2 x 2")
+        kernels = kernel_rows(main_rows, mesh_rank0_launches(tp), paths,
+                              lambda name: tp_extra(tp, name))
+        finish(torch, kernels)
+        return
     fused, plain, launches = phase_slice(torch)
     print(f"[slice] ms/step fused/flat {fused['ms_per_step']} "
           f"ag_packed/tree {plain['ms_per_step']}", flush=True)
@@ -4327,6 +4943,7 @@ def main() -> None:
     moe_launches = phase_moe(torch, card)
     hybrid = phase_hybrid(torch, card)
     mesh = phase_mesh(torch, card)
+    tp = phase_tp(torch, card)
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
              "tally_acc": "clients, stream fused/flat (30 steps, K=2)",
@@ -4347,7 +4964,7 @@ def main() -> None:
             r.get(name, 0) for r in ft["oracle"].values()),
         "hybrid_launches": {regime: hybrid[regime].get(name, 0)
                             for regime in hybrid},
-        **mesh_extra(mesh, name)})
+        **mesh_extra(mesh, name), **tp_extra(tp, name)})
     finish(torch, kernels)
 
 
@@ -4364,6 +4981,13 @@ def mesh_extra(mesh: dict, name: str) -> dict:
     return {"mesh_launches_per_rank": [
         {"toy": sum(cell[r][name] for cell in mesh["toy"].values()),
          "lm": mesh["lm"][r][name]} for r in range(len(mesh["lm"]))]}
+
+
+def tp_extra(tp: dict, name: str) -> dict:
+    """The kernels line's ``tp_launches_per_rank``: per rank, the toy's
+    cells' and the LM run's launches of ``name`` in the ``tp`` phase."""
+    return {"tp_launches_per_rank": mesh_extra(tp, name)[
+        "mesh_launches_per_rank"]}
 
 
 def kernel_rows(main_rows: dict, launches: dict, paths: dict,

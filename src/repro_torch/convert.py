@@ -19,7 +19,13 @@ the JAX package's ``built.prefill``'s second output) carries over with
 Over a process mesh a rank takes its block of a global state
 (``train_state_from_numpy(..., topo=)``, the blocks of
 ``hier.state_blocks``) and :func:`gather_train_state` brings the ranks'
-blocks back to the global numpy state, on every rank.
+blocks back to the global numpy state, on every rank.  With a model
+axis the global state of a flat slot is the JAX sharded layout's
+multi-bucket buffer (each model rank's bucket side by side), and of a
+tree slot the logical leaves (each sharded leaf's blocks concatenated,
+the zero tail dropped); a rank takes bucket ``model_rank`` of the one
+and block ``model_rank`` of the other (:func:`local_params` for a
+parameter tree).
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import comm, flatbuf, hier, pytree
+from repro_torch.core import comm, flatbuf, hier, pytree, shardflat
 from repro_torch.core.topology import Topology
 
 PyTree = Any
@@ -59,6 +65,21 @@ def params_from_numpy(tree: PyTree,
 
 def params_to_numpy(tree: PyTree) -> PyTree:
     return pytree.tree_map(tensor_to_numpy, tree)
+
+
+def local_params(tree: PyTree, topo: Topology, specs: PyTree | None,
+                 device: str | torch.device = "cpu",
+                 batch_dims: int = 0) -> tuple:
+    """A JAX parameter tree (numpy leaves, ``batch_dims`` leading dims)
+    -> (this model rank's local tree, the tree's sharded layout, this
+    rank's bucket ``[*batch, bucket_pad]``): block ``model_rank`` of
+    every leaf ``specs`` split (zero tail included) and every other
+    leaf whole; the bucket is bucket ``model_rank`` of the JAX sharded
+    layout's buffer, bitwise."""
+    full = params_from_numpy(tree, device)
+    layout = shardflat.param_layout(topo, specs, full, batch_dims)
+    local = shardflat.local_block(topo, layout, full, batch_dims)
+    return local, layout, shardflat.flatten(topo, layout, local, batch_dims)
 
 
 def cache_from_numpy(cache, device: str | torch.device = "cpu") -> dict:
@@ -94,8 +115,25 @@ SLOTS = ("params", "agg_next", "delta", "delta_next", "ef", "mom",
          "corr_cl", "corr_edge")
 
 
+def _shard_layout(state: hier.TrainState, topo: Topology | None,
+                  layout: flatbuf.FlatLayout | None):
+    """The master's sharded layout under a model axis (given, or read off
+    a flat slot's bucket), else None."""
+    if topo is None or topo.model_shards == 1:
+        return None
+    if layout is None:
+        for name in SLOTS:
+            slot = getattr(state, name)
+            if isinstance(slot, flatbuf.FlatState):
+                layout = slot.layout.sharded(topo.model_shards)
+                break
+    return layout if layout is not None and layout.shards > 1 else None
+
+
 def train_state_from_numpy(state, like: hier.TrainState,
-                           topo: Topology | None = None) -> hier.TrainState:
+                           topo: Topology | None = None,
+                           layout: flatbuf.FlatLayout | None = None
+                           ) -> hier.TrainState:
     """A train state with numpy leaves -- a JAX ``TrainState`` under
     ``jax.tree.map(np.asarray, ...)``, or :func:`train_state_to_numpy`'s
     output -- into the port's, every slot included.
@@ -111,28 +149,45 @@ def train_state_from_numpy(state, like: hier.TrainState,
 
     With a mesh topology ``state`` is the global state and ``like`` the
     rank's (its ``init_fn``'s): each slot gets the rank's block
-    (``hier.state_blocks``)."""
+    (``hier.state_blocks``), with a model axis its bucket of a flat
+    slot and its blocks of a tree slot's sharded leaves (``layout``: the
+    master's sharded layout, needed where ``like`` has no flat slot)."""
     out = {"step": int(np.asarray(state.step)), "rng": like.rng}
-    blocks = (hier.state_blocks(topo, _clients(like, topo))
-              if topo is not None and topo.mesh is not None else None)
+    mesh = topo is not None and topo.mesh is not None
+    lay = _shard_layout(like, topo, layout) if mesh else None
+    # a tree slot's index is the [P, D] block's; a flat slot's ends in
+    # the rank's bucket
+    blocks = flat_blocks = None
+    if mesh:
+        blocks = hier.state_blocks(topo, _clients(like, topo))
+        flat_blocks = hier.state_blocks(topo, _clients(like, topo), lay)
     for name in SLOTS:
         src, ref = getattr(state, name), getattr(like, name)
         if (src is None) != (ref is None):
             raise ValueError(
                 f"slot {name}: present in only one of the source and the "
                 "port's state (a different config?)")
-        cut = ((lambda a: np.asarray(a)[getattr(blocks, name)])
-               if blocks is not None else (lambda a: a))
         if ref is None:
             out[name] = None
-        elif isinstance(ref, flatbuf.FlatState):
+            continue
+        flat = isinstance(ref, flatbuf.FlatState)
+        idx = (getattr(flat_blocks if flat else blocks, name) if mesh
+               else None)
+        cut = ((lambda a: np.asarray(a)[idx]) if idx is not None
+               else (lambda a: a))
+        if flat:
             out[name] = ref.replace(_like(
                 name, cut(getattr(src, "buf", src)), ref.buf))
-        else:
-            ref_leaves, td = pytree.tree_flatten(ref)
-            out[name] = pytree.tree_unflatten(td, [
-                _like(name, cut(a), r) for a, r in zip(
-                    pytree.flatten_up_to(td, src), ref_leaves)])
+            continue
+        ref_leaves, td = pytree.tree_flatten(ref)
+        leaves = [cut(a) for a in pytree.flatten_up_to(td, src)]
+        if lay is not None:
+            batch = 2 if name in hier.PER_VOTER else 1
+            leaves = [tensor_to_numpy(flatbuf.slot_block(
+                s, tensor_from_numpy(a), topo.model_rank, lay.shards, batch))
+                for s, a in zip(lay.slots, leaves)]
+        out[name] = pytree.tree_unflatten(td, [
+            _like(name, a, r) for a, r in zip(leaves, ref_leaves)])
     return hier.TrainState(**out)
 
 
@@ -147,25 +202,47 @@ def _clients(like: hier.TrainState, topo: Topology) -> int:
     return 1
 
 
-def gather_train_state(state: hier.TrainState,
-                       topo: Topology) -> hier.TrainState:
+def gather_train_state(state: hier.TrainState, topo: Topology,
+                       layout: flatbuf.FlatLayout | None = None,
+                       logical: bool = False) -> hier.TrainState:
     """The global state of a mesh run, as :func:`train_state_to_numpy`
     gives it, on every rank: each per-voter slot gathered over the data
     group, then every slot over the pod group (a collective: every rank
-    of the mesh calls it)."""
+    of the mesh calls it).  With a model axis, a flat slot's buckets
+    are gathered over the model group into the JAX sharded layout's
+    global multi-bucket buffer, and a tree slot's sharded leaves into
+    their logical extent (``layout``: the master's sharded layout,
+    needed for a tree state; a flat slot's bucket carries it).
+    ``logical=True`` gives every flat slot as its logical numpy tree
+    instead (the zero tails and the padding dropped), the form in
+    which states of any model axis compare."""
+    lay = _shard_layout(state, topo, layout)
+
     def full(name, x):
         if name in hier.PER_VOTER:
             x = comm.gather_devices(topo, x)
-        return tensor_to_numpy(comm.gather_pods(topo, x))
+        return comm.gather_pods(topo, x)
 
     out = {"step": state.step, "rng": None}
     for name in SLOTS:
         slot = getattr(state, name)
+        batch = 2 if name in hier.PER_VOTER else 1
         if isinstance(slot, flatbuf.FlatState):
-            out[name] = full(name, slot.buf)
+            buf = full(name, slot.buf)
+            glay = slot.layout
+            if lay is not None:
+                buf = comm.gather_model(topo, buf, buf.dim() - 1)
+                glay = slot.layout.sharded(topo.model_shards)
+            out[name] = (params_to_numpy(flatbuf.unflatten_tree(
+                glay, buf, batch, cast=False)) if logical
+                else tensor_to_numpy(buf))
+        elif slot is None:
+            out[name] = None
         else:
-            out[name] = (None if slot is None else pytree.tree_map(
-                lambda x, n=name: full(n, x), slot))
+            tree = pytree.tree_map(lambda x, n=name: full(n, x), slot)
+            if lay is not None:
+                tree = shardflat.gather(topo, lay, tree, batch)
+            out[name] = params_to_numpy(tree)
     return hier.TrainState(**out)
 
 

@@ -45,6 +45,22 @@ mean of the gathered ``[P, D*K]`` losses -- so a mesh run is the
 one-process run's, bitwise, given the same per-device gradients.  The
 FSDP regime under a mesh is ROADMAP item 17c (``NotImplementedError``).
 
+With a model axis above 1 (``topo.model_shards``) and a bundle with
+``specs``, the parameters are laid out by the sharded flat
+layout (``core.shardflat``, the JAX ``hier.py``'s sharded init): each
+rank holds model shard ``model_rank`` of every leaf the specs split --
+its bucket ``[P_loc, bucket_pad]`` in the flat layout, or its blocks at
+the padded block size in the tree layout (an uneven last block's zero
+tail is don't-care) -- and every other leaf whole.  The bundle's loss
+runs tensor-parallel on the rank's blocks, cut to their logical rows
+(``shardflat.logical``), and returns each block's gradient and the
+whole gradient of every copy.  Every step above is coordinatewise on
+the rank's blocks, so the words still cross the data group only; the
+two sums that span a leaf -- QSGD's norm and EF's ``mean|u|`` -- are
+formed over the rank's logical coordinates and summed over the model
+group (``comm.sum_model``), and a shard's QSGD uniforms
+are its slice of the whole leaf's draw.
+
 Transports (``core.votes``): ``ag_packed``, ``ar_int8`` and ``fused``,
 bitwise identical.  State layouts: ``tree`` keeps the master (and every
 other slot) as dicts of ``[P, *leaf]`` / ``[P, D*K, *leaf]`` tensors;
@@ -114,7 +130,7 @@ import torch
 
 from repro_torch.core import clients as vclients
 from repro_torch.core import (comm, device_axis, flatbuf, pytree, schedule,
-                              signs, votes)
+                              shardflat, signs, votes)
 from repro_torch.core.keys import key_seed
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import ops as kops
@@ -238,6 +254,8 @@ class ModelBundle:
     loss: Callable[[PyTree, Any], torch.Tensor] | None
     loss_master: Callable | None = None
     param_mode: str = "replicated"    # replicated | fsdp
+    specs: PyTree | None = None   # leaf specs over the model axis
+                                  # (None: nothing shards)
 
 
 # (step, leaf_index, shape [P, V, *leaf], voters) -> float32 uniforms in
@@ -302,7 +320,8 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         if topo.mesh is not None:
             raise NotImplementedError(
                 "the FSDP regime over a process mesh (the per-layer lift's "
-                "all-gather and its vote's reduce-scatter across ranks) is "
+                "all-gather and its vote's reduce-scatter across ranks, at "
+                f"any model axis; this one's is {topo.model_shards}) is "
                 "ROADMAP item 17c")
         _check_fsdp(algo)
     # the rank's block (the whole without a mesh) and the global P x D
@@ -338,6 +357,37 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
              if virtual else None)                          # [P, D, K] int32
     part_cache: dict[int, torch.Tensor] = {}
     tmap = pytree.tree_map
+    # the sharded layout of the [P, *leaf] master, set by init_fn (a
+    # one-bucket layout where nothing shards)
+    sharding: dict[str, flatbuf.FlatLayout] = {}
+
+    def shard_layout() -> flatbuf.FlatLayout | None:
+        """The master's sharded layout, or None where nothing shards."""
+        if topo.model_shards == 1 or bundle.specs is None:
+            return None
+        if "layout" not in sharding:
+            raise RuntimeError("a model-sharded step needs its state from "
+                               "init_fn (which lays the master out)")
+        lay = sharding["layout"]
+        return lay if lay.shards > 1 else None
+
+    def sharded_slots(tree) -> list:
+        """Each leaf's slot where it is model-sharded, else None."""
+        lay = shard_layout()
+        if lay is None:
+            return [None] * len(pytree.tree_flatten(tree)[0])
+        return [s if s.shard_dim is not None else None for s in lay.slots]
+
+    def leaf_sums(x, slot):
+        """[P, V, *leaf] -> [P*V] sums of each row over the leaf's logical
+        coordinates, in ``signs.row_sums``' order; for a sharded leaf the
+        rank's logical rows, then the sum over the model group."""
+        rows = x.shape[0] * x.shape[1]
+        if slot is None:
+            return signs.row_sums(x.reshape(rows, -1))
+        x = x.narrow(2 + slot.shard_dim, 0, slot.local_extent(
+            topo.model_shards, topo.model_rank))
+        return comm.sum_model(topo, signs.row_sums(x.reshape(rows, -1)))
 
     def participation(rnd_index: int) -> torch.Tensor:
         """The round's global [P, D, K] mask, drawn on the host once per
@@ -361,8 +411,12 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             .expand((p, devices) + tuple(leaf.shape[1:]))
             .to(algo.compute_dtype).contiguous().requires_grad_(True)
             for leaf in leaves]
+        lay = shard_layout()
         with torch.enable_grad():
-            losses = bundle.loss(pytree.tree_unflatten(td, copies), batch)
+            tree = pytree.tree_unflatten(td, copies)
+            if lay is not None:     # the blocks' logical rows (views)
+                tree = shardflat.logical(topo, lay, tree, 2)
+            losses = bundle.loss(tree, batch)
             grads = torch.autograd.grad(losses.sum(), copies)
         return pytree.tree_unflatten(td, list(grads)), losses.detach()
 
@@ -426,11 +480,17 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
 
     draw_gen = torch.Generator(device=dev)      # reseeded for every client
 
-    def leaf_uniforms(state, i, leaf_shape, voters: range):
+    def leaf_uniforms(state, i, leaf_shape, voters: range, slot=None):
         """Leaf i's uniforms for ``voters`` of an edge's whole merged
         axis: drawn for every edge, [P, len(voters), *leaf] float32, and
         the rank's block of them returned (over a mesh, the draws of
-        the one-process run, sliced)."""
+        the one-process run, sliced; a model-sharded leaf's ``slot``
+        gives its whole logical shape, and the rank keeps its block)."""
+        if slot is not None:
+            u = leaf_uniforms(state, i, slot.global_shape(topo.model_shards),
+                              voters)
+            return flatbuf.slot_block(slot, u, topo.model_rank,
+                                      topo.model_shards, 2)
         shape = (pg, len(voters)) + tuple(leaf_shape)
         one = len(voters) == dg       # one client: range(c, D*K, K)
         cols = topo.voter_cols(1 if one else k)
@@ -463,12 +523,15 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         norm (``ternary_quant`` on CUDA) -> f32.  A leaf's uniforms are
         drawn just before its launch and dropped after it."""
         leaves, td = pytree.tree_flatten(g_dev)
+        slots = sharded_slots(g_dev)
         out = []
-        for i, g in enumerate(leaves):
+        for i, (g, slot) in enumerate(zip(leaves, slots)):
             n_rows = g.shape[0] * g.shape[1]
-            u = leaf_uniforms(state, i, g.shape[2:], voters)
+            u = leaf_uniforms(state, i, g.shape[2:], voters, slot)
+            norms = (None if slot is None else torch.sqrt(leaf_sums(
+                signs.ftz_(g.to(F32).square()), slot)))
             out.append(kops.ternary_quant_rows(
-                g.reshape(n_rows, -1), u.reshape(n_rows, -1)
+                g.reshape(n_rows, -1), u.reshape(n_rows, -1), norms
             ).reshape(g.shape))
             del u
         return pytree.tree_unflatten(td, out)
@@ -494,10 +557,13 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         (a fixed-order row sum, so it does not depend on the voter
         count).  A client masked out of the round (``part`` 0, virtual
         path only) sent nothing and carries ``e' = u``."""
+        slots = iter(sharded_slots(u_dev))
+
         def upd(u, s):
-            rows = u.shape[0] * u.shape[1]
-            scale = (signs.row_sums(u.abs().reshape(rows, -1))
-                     / float(max(u[0, 0].numel(), 1)))
+            slot = next(slots)
+            numel = (u[0, 0].numel() if slot is None
+                     else slot.global_size(topo.model_shards))
+            scale = leaf_sums(u.abs(), slot) / float(max(numel, 1))
             sent = scale.reshape(u.shape[:2] + (1,) * (u.dim() - 2)) \
                 * s.to(u.dtype)
             if part is not None:
@@ -1065,8 +1131,16 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
             lambda x: torch.as_tensor(x, device=dev).unsqueeze(0)
             .expand((p,) + tuple(x.shape)).to(algo.master_dtype)
             .contiguous(), params_single)
+        layout = None
+        if topo.model_shards > 1 and bundle.specs is not None:
+            # the rank keeps its blocks of the sharded layout
+            sharding["layout"] = shardflat.param_layout(
+                topo, bundle.specs, params_tree, batch_dims=1)
+            params_tree = shardflat.local_block(topo, sharding["layout"],
+                                                params_tree, 1)
+            layout = sharding["layout"].bucket()
         if flat:
-            layout = flatbuf.make_layout(params_tree, batch_dims=1)
+            layout = layout or flatbuf.make_layout(params_tree, batch_dims=1)
             params = flatbuf.FlatState(
                 flatbuf.flatten_tree(layout, params_tree, 1), layout)
 
@@ -1144,15 +1218,26 @@ def make_global_round(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
     return init_fn, global_round
 
 
-def edge_params(state: TrainState, topo: Topology | None = None) -> PyTree:
+def edge_params(state: TrainState, topo: Topology | None = None,
+                layout: flatbuf.FlatLayout | None = None) -> PyTree:
     """The [P, *leaf] edge models of a state as a tree, in either layout
     (flat views alias the buffer).  With a mesh topology, every rank's
-    [P_loc, *leaf] edges gathered over its pod group: all P."""
-    tree = (state.params.tree() if isinstance(state.params,
-                                              flatbuf.FlatState)
-            else state.params)
+    [P_loc, *leaf] edges gathered over its pod group: all P; with a
+    model axis, each sharded leaf's blocks gathered over the model group
+    too and cut to its logical extent.  ``layout`` is the master's
+    sharded layout (``shardflat.param_layout``), needed for a tree
+    state's sharded leaves (a flat state's bucket carries it)."""
+    flat = isinstance(state.params, flatbuf.FlatState)
+    tree = state.params.tree() if flat else state.params
     if topo is None or topo.mesh is None:
         return tree
+    if topo.model_shards > 1:
+        lay = layout if layout is not None else (
+            state.params.layout.sharded(topo.model_shards) if flat else None)
+        if lay is None:
+            raise ValueError("edge_params of a model-sharded tree state "
+                             "needs the master's sharded layout")
+        tree = shardflat.gather(topo, lay, tree, batch_dims=1)
     return pytree.tree_map(lambda x: comm.gather_pods(topo, x), tree)
 
 
@@ -1160,16 +1245,26 @@ PER_VOTER = ("ef", "mom", "corr_cl")     # [P, D*K, ...] slots; the rest
                                          # of the tensor slots are [P, ...]
 
 
-def state_blocks(topo: Topology, clients: int = 1) -> TrainState:
+def state_blocks(topo: Topology, clients: int = 1,
+                 layout: flatbuf.FlatLayout | None = None) -> TrainState:
     """The counterpart of the JAX ``state_shardings``: for each tensor
     slot of a ``TrainState`` the index of the block this rank holds in
     the global slot -- ``(pod rows,)`` for the per-edge slots, ``(pod
     rows, voter cols)`` on the merged ``D*K`` axis for the per-voter
     ones (ef, mom, corr_cl; ``clients`` = K) -- in either layout (a flat
-    slot's buffer is indexed the same way).  ``step`` and ``rng`` are None: every
-    rank holds them whole."""
+    slot's buffer is indexed the same way).  With a sharded ``layout``
+    (the master's, ``layout.shards`` model ranks) each index ends in
+    the rank's bucket, ``[m * bucket_pad, (m+1) * bucket_pad)``, of a
+    flat slot's global multi-bucket buffer; a tree slot's sharded leaf
+    takes its block by ``flatbuf.slot_block``.  ``step`` and ``rng`` are
+    None: every rank holds them whole."""
     edge = (topo.pod_rows,)
     voter = (topo.pod_rows, topo.voter_cols(clients))
+    if layout is not None and layout.shards > 1:
+        bp = layout.bucket_pad
+        coords = (Ellipsis, slice(topo.model_rank * bp,
+                                  (topo.model_rank + 1) * bp))
+        edge, voter = edge + coords, voter + coords
     return TrainState(step=None, rng=None, **{
         name: voter if name in PER_VOTER else edge
         for name in TrainState._fields if name not in ("step", "rng")})

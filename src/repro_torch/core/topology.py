@@ -6,16 +6,21 @@ per-edge tensor (``[P, ...]``).  Without a process mesh one process
 holds the whole ``[P, D]`` block on one device and no collective exists.
 
 With a :class:`ProcessMesh` (``launch.mesh.make_host_topology``) the
-``[P, D]`` grid is laid over ``pods x data`` processes: the rank at
-coordinates ``(a, b)`` holds the block of edges ``[a*P_loc,
+``[P, D]`` grid is laid over ``pods x data x model`` processes: the
+rank at coordinates ``(a, b, m)`` holds the block of edges ``[a*P_loc,
 (a+1)*P_loc)`` and of their devices ``[b*D_loc, (b+1)*D_loc)``, with P
-= pods * P_loc and D = data * D_loc.  ``pods`` and ``devices_per_pod``
-stay the **global** P and D, as the JAX ``Topology``'s are; the block
-is ``local_pods`` x ``local_devices`` at ``pod_offset`` /
-``device_offset``.  The data group of a rank is its pod row -- the
-ranks ``(a, .)``, across which an edge's sign words travel -- and its
-pod group its data column -- the ranks ``(., b)``, across which the
-edge models travel to the cloud (``core.comm``).  The model axis is 1.
+= pods * P_loc and D = data * D_loc, and model shard m of every leaf
+that the model's specs split (tensor parallelism, ``core.shardflat``).
+``pods`` and ``devices_per_pod`` stay the **global** P and D, as the
+JAX ``Topology``'s are; the block is ``local_pods`` x
+``local_devices`` at ``pod_offset`` / ``device_offset``.  The ranks
+are numbered as the JAX mesh lays out its devices, ``rank = (a*data +
+b)*model + m``.  The data group of a rank is the ranks ``(a, ., m)``
+-- across which an edge's sign words travel --, its pod group the
+ranks ``(., b, m)`` -- across which the edge models travel to the
+cloud -- and its model group the ranks ``(a, b, .)``, across which
+only the tensor-parallel forward's and backward's sums travel
+(``core.comm``).
 """
 from __future__ import annotations
 
@@ -45,13 +50,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ProcessMesh:
-    """A ``pods x data`` grid of processes (model axis 1) and this rank's
-    place in it: global rank ``pod_rank * data + data_rank``.
+    """A ``pods x data x model`` grid of processes and this rank's place
+    in it: global rank ``(pod_rank * data + data_rank) * model +
+    model_rank``.
 
-    ``data_group``: the ranks of this rank's pod row, in data order;
-    ``pod_group``: the ranks of its data column, in pod order (both
-    ``torch.distributed`` process groups, or None on an axis of size 1);
-    ``backend``: ``"gloo"`` or ``"nccl"``."""
+    ``data_group``: the ranks of this rank's pod and model shard, in
+    data order; ``pod_group``: the ranks of its data column and model
+    shard, in pod order; ``model_group``: the ranks of its (pod, data)
+    cell, in model order (``torch.distributed`` process groups, or None
+    on an axis of size 1); ``backend``: ``"gloo"`` or ``"nccl"``."""
     pods: int
     data: int
     pod_rank: int
@@ -60,14 +67,17 @@ class ProcessMesh:
     data_group: Any
     backend: str
     model: int = 1
+    model_rank: int = 0
+    model_group: Any = None
 
     @property
     def size(self) -> int:
-        return self.pods * self.data
+        return self.pods * self.data * self.model
 
     @property
     def rank(self) -> int:
-        return self.pod_rank * self.data + self.data_rank
+        return (self.pod_rank * self.data + self.data_rank) * self.model \
+            + self.model_rank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +102,16 @@ class Topology:
                 f"P x D = {self.pods} x {self.devices_per_pod} does not "
                 f"divide into the {m.pods} x {m.data} process mesh")
         object.__setattr__(self, "device", resolve_device(self.device))
+
+    @property
+    def model_shards(self) -> int:
+        """The model axis: how many ranks split a sharded leaf (1
+        without a mesh)."""
+        return self.mesh.model if self.mesh else 1
+
+    @property
+    def model_rank(self) -> int:
+        return self.mesh.model_rank if self.mesh else 0
 
     # -- this rank's block --------------------------------------------------
     @property

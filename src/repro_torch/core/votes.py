@@ -27,7 +27,12 @@ the packed words are gathered over the data group and voted on
 summed over it (``ar_int8``, the streamed tallies), and the float means
 gather their per-device (or per-edge) terms and fold them in the
 one-process order -- so every result is the one-process run's, bitwise.
-Without a mesh (``topo`` None or one process) nothing crosses.
+Without a mesh (``topo`` None or one process) nothing crosses.  With a
+model axis (``core.shardflat``) a rank calls these on its own bucket:
+its local blocks and the bucket layout (``layout.bucket()``), so every
+sign, vote, tally and mean stays coordinatewise on the rank's shard,
+the words and tallies cross the data group (the ranks of its pod and
+model shard) only, and nothing here crosses the model group.
 
 The FSDP lift votes one leaf at a time (``fused_sign_vote_leaf``: the
 same two kernels on the leaf's [P, D, numel] rows) and takes its large

@@ -161,7 +161,8 @@ def rows_per_launch(cols: int) -> int:
     return rows
 
 
-def ternary_quant_rows(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def ternary_quant_rows(x: torch.Tensor, u: torch.Tensor,
+                       norms: torch.Tensor | None = None) -> torch.Tensor:
     """Row-wise unbiased ternary quantization (the QSGD step's
     compressor): x [R, C] float, u [R, C] float32 uniforms -> [R, C]
     float32, row r quantized with its own l2 norm.  One ``ternary_quant``
@@ -174,12 +175,19 @@ def ternary_quant_rows(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     So rows that hold ``MAX_NUMEL`` coordinates or more are split into
     runs of :func:`rows_per_launch` whole rows, one launch (and one cast
     to float32 and one norm pass) a run, each writing its rows of the
-    output: bitwise the one call (``tests/test_torch_kernels.py``)."""
+    output: bitwise the one call (``tests/test_torch_kernels.py``).
+
+    ``norms`` [R] float32, when given, are the rows' norms and none is
+    computed here: a row that is one model rank's block of a leaf takes
+    the norm of the whole leaf's row (``core.hier``'s tensor-parallel
+    QSGD)."""
     rows, cols = x.shape
     out = torch.empty((rows, cols), dtype=torch.float32, device=x.device)
     per = rows_per_launch(cols)
     for r0 in range(0, rows, per):
         xf = _aligned(x[r0:r0 + per].to(torch.float32))
-        ternary_quant(xf, _aligned(u[r0:r0 + per]), signs.row_norms(xf),
+        norm = (signs.row_norms(xf) if norms is None
+                else norms[r0:r0 + per].contiguous())
+        ternary_quant(xf, _aligned(u[r0:r0 + per]), norm,
                       out=out[r0:r0 + per])
     return out

@@ -12,10 +12,10 @@ when a ``dtype`` is given; the cast is then the only copy.
 ``[P, *leaf]`` edge models -- the FSDP regime's masters, which an FSDP
 config within ``build.SERVE_RESIDENT_BUDGET`` serves resident.
 
-Not ported yet: the sharded layouts and their shardings
-(``serve_param_shardings``, the model-axis ``tree_views``) and the
-rest of the module (the dry run's input and state specs): ROADMAP items
-16 and 17.
+Not ported yet: serving over a model axis (``serve_param_shardings``
+over the sharded layouts of ``core.shardflat``) and the rest of the
+module (the dry run's input and state specs): ROADMAP items 16 and
+17d.
 """
 from __future__ import annotations
 

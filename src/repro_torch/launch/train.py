@@ -22,8 +22,10 @@ Under ``torchrun`` (``WORLD_SIZE`` > 1) the LM CLI lays ``--pods x
 its block of edges and devices and the votes and means cross ranks
 (``core.comm``), printing the one-process run's digits.  The backend is
 gloo on the CPU and for ranks that share a card, NCCL with a card a
-rank.  ``--multi_pod`` (the production mesh's model axis, ROADMAP item
-17b) and ``--ckpt`` under a mesh (item 17e) raise
+rank.  ``--multi_pod`` lays the production grid (2 pods x 16 data x 16
+model, ``mesh.make_topology``) over 512 ranks: P = 2 x D = 16, the
+dense family tensor-parallel over the model axis (``ValueError`` on
+another world size).  ``--ckpt`` under a mesh (item 17e) raises
 ``NotImplementedError``.
 
   PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \
@@ -80,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import time
 
@@ -307,7 +310,7 @@ class RunCfg:
 def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
                  fault_injector: chaos.FaultInjector | None = None,
                  on_metrics=None, params=None, log=print,
-                 on_checkpoint=None):
+                 on_checkpoint=None, on_state=None):
     """Train the LM ``cfg`` for ``run.steps`` steps; returns (final_state,
     history).  Deterministic given the seeds.
 
@@ -329,13 +332,17 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
     detector's restore budget, it raises.  ``on_checkpoint(event)``
     hears of each resume and restore (``restore_s``, the seconds to
     verify and load) and, at the end, of each save (the saver's
-    ``records``).
+    ``records``); ``on_state(step, state)`` sees the state after each
+    executed step.
 
     With a mesh topology (``launch.mesh``) the rank trains its block:
     every rank draws the whole token stream and keeps its block, the
     membership stays global (the step takes the rank's block of it), and
-    the loss is the whole run's.  Checkpoints under a mesh are ROADMAP
-    item 17e (``NotImplementedError``)."""
+    the loss is the whole run's.  With a model axis the ranks of a (pod,
+    device) cell draw the same batch, and a dense model trains
+    tensor-parallel on each rank's blocks (``models.build``).
+    Checkpoints under a mesh are ROADMAP item 17e
+    (``NotImplementedError``)."""
     if run.ckpt_dir and topo.mesh is not None:
         raise NotImplementedError(
             "checkpoints and restore under a process mesh (each rank's "
@@ -429,6 +436,8 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
                         "ms": 1e3 * dt, "data_ms": 1e3 * (t1 - t0)})
         if on_metrics:
             on_metrics(step, metrics)
+        if on_state:
+            on_state(step, state)
         if run.log_every and step % run.log_every == 0:
             log(f"[train] step {step:5d} loss {loss:.4f} "
                 f"mu {float(metrics['mu']):.2e} "
@@ -491,8 +500,8 @@ def lm_main(argv=None):
                          "demotion, recoveries -- same seed, same "
                          "schedule); nan-loss recovery needs --ckpt")
     ap.add_argument("--multi_pod", action="store_true",
-                    help="not ported: the production mesh's model axis, "
-                         "ROADMAP item 17b")
+                    help="the production mesh (2 pods x 16 data x 16 "
+                         "model): 512 ranks under torchrun")
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--devices_per_pod", type=int, default=1)
     ap.add_argument("--device", default="cuda")
@@ -507,8 +516,6 @@ def lm_main(argv=None):
             alpha_client=args.alpha_client, edge_assign=args.edge_assign))
     except ValueError as e:
         ap.error(str(e))
-    if args.multi_pod:
-        mesh.make_topology(multi_pod=True)           # raises: item 17b
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     # the schedule x regime combination, up front as the JAX CLI checks it
@@ -517,7 +524,8 @@ def lm_main(argv=None):
                  f"regime, but --arch {args.arch} uses param_mode='fsdp' "
                  f"(the staged in-flight aggregate is a whole-model "
                  f"master snapshot the FSDP lift never materializes)")
-    topo = launch_topology(args.pods, args.devices_per_pod, args.device)
+    topo = launch_topology(args.pods, args.devices_per_pod, args.device,
+                           multi_pod=args.multi_pod)
     # over a mesh every rank prints the same digits: rank 0 says them
     log = (print if topo.mesh is None or topo.mesh.rank == 0
            else (lambda *a, **kw: None))
@@ -554,14 +562,26 @@ def lm_main(argv=None):
         f"{history[-1]['loss']:.4f}")
 
 
-def launch_topology(pods: int, devices_per_pod: int, device: str) -> Topology:
+def launch_topology(pods: int, devices_per_pod: int, device: str,
+                    multi_pod: bool = False) -> Topology:
     """The CLI's topology: P x D in this process, or under ``torchrun``
-    (``WORLD_SIZE`` > 1) laid over the ranks (``mesh.host_grid``) after
-    the default group is initialised from torchrun's environment.  The
-    backend: NCCL when every rank of the host has a card of its own
+    (``WORLD_SIZE`` > 1) laid over the ranks (``mesh.host_grid``, a model
+    axis of 1: the JAX CLI has no flag for the host mesh's model axis)
+    after the default group is initialised from torchrun's environment.
+    ``multi_pod``: the production grid of 2 pods x 16 data x 16 model
+    ranks (``mesh.make_topology``, P = 2 x D = 16), which needs 512 ranks
+    (``ValueError`` before any group is made otherwise).  The backend:
+    NCCL when every rank of the host has a card of its own
     (``cuda:LOCAL_RANK``), else gloo (the CPU, or ranks sharing a card,
     which NCCL refuses)."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
+    if multi_pod:
+        shape, _ = mesh.make_production_mesh(multi_pod=True)
+        if world != math.prod(shape):
+            raise ValueError(
+                f"--multi_pod: the production grid "
+                f"{' x '.join(map(str, shape))} needs {math.prod(shape)} "
+                f"ranks, torchrun gave {world}")
     if world == 1:
         return Topology(pods, devices_per_pod, device)
     local = int(os.environ.get("LOCAL_RANK", "0"))
@@ -575,6 +595,9 @@ def launch_topology(pods: int, devices_per_pod: int, device: str) -> Topology:
         backend = "gloo"
     dist.init_process_group(backend, init_method="env://",
                             timeout=mesh.TIMEOUT)
+    if multi_pod:
+        return mesh.make_topology(multi_pod=True, backend=backend,
+                                  device=device)
     grid = mesh.host_grid(world, pods, devices_per_pod)
     return mesh.make_host_topology(
         *grid, backend=backend, device=device,

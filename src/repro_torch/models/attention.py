@@ -32,6 +32,19 @@ and only then cast to float32 and scaled by 1/sqrt(nope + rope), and
 the softmax weights are cast back to x's dtype for their product with
 the cache.
 
+Sharding specs (``gqa_specs``, ``_heads_spec``): the heads axis of
+``wq``/``wo`` (and of ``wk``/``wv``) splits over the model axis where
+the head count divides it.  ``gqa_attn``'s train mode runs tensor-
+parallel with ``tp`` (``models.layers``): a rank projects its own query
+heads (column-parallel, the input marked ``comm.copy_to_model``), and
+``wo`` is row-parallel, the product summed over the model group.  A kv
+head count that does not divide (gemma3-1b's single head) keeps
+``wk``/``wv``/``kn`` whole on every rank: the keys and values are
+formed whole, then marked ``copy_to_model`` so that their gradient --
+each rank's heads' part -- is summed, and every rank's copy of those
+leaves gets the whole gradient; ``qn``, read by the rank's heads only,
+is marked the same way.
+
 Not ported yet: the caches' sharding specs (item 17d).
 """
 from __future__ import annotations
@@ -40,10 +53,27 @@ import math
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.models import layers
 
 NEG_INF = -2.0**30
 Q_CHUNK = 1024  # query-block size for the exact chunked path
+
+
+def _heads_spec(n_heads: int, model_shards: int):
+    return (layers.MODEL if (model_shards and n_heads % model_shards == 0)
+            else None)
+
+
+def gqa_specs(cfg, model_shards: int) -> dict:
+    hs = _heads_spec(cfg.n_heads, model_shards)
+    hks = _heads_spec(cfg.n_kv_heads, model_shards)
+    s = {"wq": (None, hs, None), "wk": (None, hks, None),
+         "wv": (None, hks, None), "wo": (hs, None, None)}
+    if cfg.qk_norm:
+        s["qn"] = (None,)
+        s["kn"] = (None,)
+    return s
 
 
 def init_gqa(gen, cfg, device) -> dict:
@@ -143,9 +173,40 @@ def _merge_heads(out, wo):
                          wo.reshape(wo.shape[:-3] + (-1, wo.shape[-1])))
 
 
+def _gqa_train_tp(p, x, positions, cfg, theta, window, mask_extra, tp):
+    """Train-mode GQA on a rank's heads (``gqa_attn``'s ``tp``)."""
+    m = tp.model_shards
+    split_q = cfg.n_heads % m == 0
+    split_kv = cfg.n_kv_heads % m == 0
+    if not split_q:             # nothing splits: every rank the whole
+        return gqa_attn(p, x, positions, cfg, theta=theta, window=window,
+                        mask_extra=mask_extra)
+    h_loc = cfg.n_heads // m
+    xq = comm.copy_to_model(tp, x)
+    q = _proj_heads(xq, p["wq"])
+    k = _proj_heads(xq if split_kv else x, p["wk"])
+    v = _proj_heads(xq if split_kv else x, p["wv"])
+    if cfg.qk_norm:
+        q = layers.rms_norm(comm.copy_to_model(tp, p["qn"]), q,
+                            cfg.norm_eps)
+        k = layers.rms_norm(p["kn"] if not split_kv
+                            else comm.copy_to_model(tp, p["kn"]), k,
+                            cfg.norm_eps)
+    q = layers.rope(q, positions, theta)
+    k = layers.rope(k, positions, theta)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _repeat_kv(k, rep), _repeat_kv(v, rep)
+    if not split_kv:            # whole kv heads: the rank's heads' share
+        lo = tp.model_rank * h_loc
+        k = comm.copy_to_model(tp, k)[..., lo:lo + h_loc, :]
+        v = comm.copy_to_model(tp, v)[..., lo:lo + h_loc, :]
+    out = attend_causal(q, k, v, window, mask_extra)
+    return comm.sum_model(tp, _merge_heads(out, p["wo"]))
+
+
 def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
              mask_extra=None, cache=None, pos: int = 0,
-             prefill: bool = False):
+             prefill: bool = False, tp=None):
     """Causal GQA: x [*, b, t, d] -> [*, b, t, d] without a cache (train
     mode); with one, (out, new_cache).
 
@@ -162,7 +223,15 @@ def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
     > pos - window`` with a window), the same mask for each of the t
     queries, as the JAX package's is.  An offset write past the cache's
     end raises ``ValueError`` (the JAX package's ``dynamic_update_slice``
-    would clamp it into the last slots)."""
+    would clamp it into the last slots).  ``tp`` (train mode): the
+    rank's heads, see the module docstring."""
+    if tp is not None:
+        if cache is not None:
+            raise NotImplementedError(
+                "serving over a model axis (the caches' specs): ROADMAP "
+                "item 17d")
+        return _gqa_train_tp(p, x, positions, cfg, theta, window,
+                             mask_extra, tp)
     rep = cfg.n_heads // cfg.n_kv_heads
     q = _proj_heads(x, p["wq"])
     k = _proj_heads(x, p["wk"])

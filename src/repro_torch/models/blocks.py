@@ -21,6 +21,11 @@ leading dense layers and its MTP block), the hybrid family's
     cache_init(b, max_len)                -> the shapes of one layer's
                                              decode cache
 
+``dense_block`` carries its leaves' sharding specs (``BlockDef.specs``,
+the JAX block's) and runs tensor-parallel in train mode when
+``Ctx.tp`` is set (``models.layers``, ``models.attention``); the other
+blocks have no specs yet (ROADMAP item 17f).
+
 Not ported yet: the caches' sharding specs (ROADMAP item 17d).
 """
 from __future__ import annotations
@@ -46,6 +51,8 @@ class Ctx:
     enc_out: torch.Tensor | None = None      # whisper's encoder output
                                              # [*lead, b, f, d]; None at
                                              # decode (the cache has it)
+    tp: object | None = None                 # the topology of a model
+                                             # axis above 1 (train mode)
 
 
 @dataclasses.dataclass
@@ -57,6 +64,7 @@ class BlockDef:
     remat: bool = True             # recompute its activations in the
                                    # backward (see slstm_block)
     cache_init: Callable | None = None   # (b, max_len) -> shapes
+    specs: dict | None = None      # the leaves' model-axis specs
 
 
 def no_aux(x: torch.Tensor) -> torch.Tensor:
@@ -65,7 +73,7 @@ def no_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros(x.shape[:-3], dtype=torch.float32, device=x.device)
 
 
-def dense_block(cfg: LMConfig, *, window: int = 0,
+def dense_block(cfg: LMConfig, model_shards: int = 0, *, window: int = 0,
                 theta: float | None = None, causal: bool = True,
                 cross: bool = False, d_ff: int | None = None,
                 name: str = "dense") -> BlockDef:
@@ -96,7 +104,8 @@ def dense_block(cfg: LMConfig, *, window: int = 0,
             a = attn.gqa_attn(p["attn"], h, ctx.positions, cfg, theta=th,
                               window=window,
                               cache=None if cache is None else cache["self"],
-                              pos=ctx.pos, prefill=ctx.mode == "prefill")
+                              pos=ctx.pos, prefill=ctx.mode == "prefill",
+                              tp=ctx.tp)
             if cache is not None:
                 a, new_cache["self"] = a
             x = x + a
@@ -113,7 +122,7 @@ def dense_block(cfg: LMConfig, *, window: int = 0,
                 new_cache["ev"] = ekv["v"].to(cache["ev"].dtype)
         x = x + layers.mlp(p["mlp"], layers.rms_norm(p["n2"], x,
                                                      cfg.norm_eps),
-                           cfg.act)
+                           cfg.act, tp=ctx.tp)
         return (x, no_aux(x)) if cache is None else (x, new_cache)
 
     def cache_init(b, max_len):
@@ -124,7 +133,14 @@ def dense_block(cfg: LMConfig, *, window: int = 0,
                                  cfg.hd)
         return c
 
-    return BlockDef(name, init, apply, cache_init=cache_init)
+    specs = {"n1": (None,), "n2": (None,),
+             "attn": attn.gqa_specs(cfg, model_shards),
+             "mlp": layers.mlp_specs(cfg.act)}
+    if cross:
+        specs["nx"] = (None,)
+        specs["xattn"] = {k: attn.gqa_specs(cfg, model_shards)[k]
+                          for k in ("wq", "wk", "wv", "wo")}
+    return BlockDef(name, init, apply, cache_init=cache_init, specs=specs)
 
 
 def moe_block(cfg: LMConfig, *, use_mla: bool = False,

@@ -55,9 +55,18 @@ replicated regime does, where its bf16 weights fit
 zamba2's gradients are not finite where its SSD scan overflows, as the
 reference's are (ROADMAP queue 3); the sign sends NaN to -1.
 
+Over a model axis above 1 (``topo.model_shards``) the dense family
+trains tensor-parallel: ``compute_specs`` gives each leaf's spec (the
+JAX function's, leaf for leaf), the bundle carries them, and the loss
+runs on a rank's blocks (``Ctx.tp``): the vocab-parallel embedding,
+the blocks' split heads and MLP columns, the column-parallel tied
+unembedding and the vocab-parallel cross-entropy (``models.layers``).
+
 Not ported yet (each raises ``NotImplementedError``): the ``"gather"``
 serve layout of the FSDP configs above the budget (item 17d:
-``ServeGatherPlan``) and ``cache_specs``.
+``ServeGatherPlan``), ``cache_specs`` and serving over a model axis
+(17d), and the other families' tensor-parallel forwards and specs
+(item 17f).
 """
 from __future__ import annotations
 
@@ -68,7 +77,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core import hier, pytree
+from repro_torch.core import comm, hier, pytree
 from repro_torch.core.topology import Topology
 from repro_torch.models import blocks as B
 from repro_torch.models import engine, layers
@@ -85,7 +94,18 @@ SERVE_RESIDENT_BUDGET = 12e9   # bf16 bytes on the card below which an
                                # FSDP config's weights serve resident
 
 
-def make_archdef(cfg: LMConfig) -> ArchDef:
+TP_FAMILIES = ("dense",)        # families with a tensor-parallel forward
+
+
+def _refuse_tp(cfg: LMConfig, model_shards: int) -> None:
+    if model_shards > 1 and cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family over a model axis of "
+            f"{model_shards} (its tensor-parallel forward and its *_specs) "
+            "is ROADMAP item 17f; the dense family runs tensor-parallel")
+
+
+def make_archdef(cfg: LMConfig, model_shards: int = 0) -> ArchDef:
     """The block schedule: dense stacks (a vlm's too), gemma3-style
     local:global periods (local blocks with the sliding window and
     ``rope_theta``, global ones with ``rope_theta_global``, a remainder
@@ -96,9 +116,12 @@ def make_archdef(cfg: LMConfig) -> ArchDef:
     tied shared-attention block (a remainder of Mamba2 blocks after the
     last); xlstm's periods of ``m_per_s`` mLSTM blocks and one sLSTM
     block (a remainder of mLSTM blocks after the last); whisper's
-    bidirectional encoder and causal decoder with cross-attention."""
+    bidirectional encoder and causal decoder with cross-attention.
+    ``model_shards`` sizes the dense blocks' specs (the heads split
+    where they divide it); another family raises above 1 (item 17f)."""
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
+    _refuse_tp(cfg, model_shards)
     if cfg.family == "moe":
         use_mla = cfg.mla is not None
         blocks = {"moe": B.moe_block(cfg, use_mla=use_mla)}
@@ -149,17 +172,43 @@ def make_archdef(cfg: LMConfig) -> ArchDef:
         groups = cfg.n_layers // period
         rem = cfg.n_layers - groups * period
         blocks = {
-            "local": B.dense_block(cfg, window=cfg.window,
+            "local": B.dense_block(cfg, model_shards, window=cfg.window,
                                    theta=cfg.rope_theta, name="local"),
-            "global": B.dense_block(cfg, theta=cfg.rope_theta_global,
+            "global": B.dense_block(cfg, model_shards,
+                                    theta=cfg.rope_theta_global,
                                     name="global"),
         }
         segments = [Segment((("local", loc), ("global", glob)), groups)]
         if rem:
             segments.append(Segment((("local", rem),), 1))
         return ArchDef(cfg, blocks, segments)
-    blocks = {"dense": B.dense_block(cfg)}
+    blocks = {"dense": B.dense_block(cfg, model_shards)}
     return ArchDef(cfg, blocks, [Segment((("dense", 1),), cfg.n_layers)])
+
+
+def compute_specs(arch: ArchDef, model_shards: int = 0) -> PyTree:
+    """Each parameter leaf's spec over the model axis (the JAX
+    ``compute_specs``, leaf for leaf): the embedding vocab-sharded where
+    the vocabulary divides the axis, each stack its block's specs behind
+    a replicated layer dim, the head's norm (and an untied ``out``'s
+    vocab columns).  The dense family's; another family raises above 1
+    (item 17f) and has None below."""
+    cfg = arch.cfg
+    if any(bd.specs is None for bd in arch.blocks.values()):
+        _refuse_tp(cfg, max(model_shards, 2))
+    specs: dict = {"embed": layers.embed_specs(cfg.vocab, model_shards)}
+    counts = engine.stack_counts(arch.segments)
+    specs["stacks"] = {
+        name: (pytree.tree_map(lambda sp: (None,) + tuple(sp),
+                               arch.blocks[name].specs)
+               if n else arch.blocks[name].specs)
+        for name, n in counts.items()}
+    head = {"norm": (None,)}
+    if not cfg.tie_embed:
+        head["out"] = (None, layers.MODEL if layers.vocab_sharded(
+            cfg.vocab, model_shards) else None)
+    specs["head"] = head
+    return specs
 
 
 def init_params(arch: ArchDef, generator: torch.Generator | None = None,
@@ -203,11 +252,13 @@ def _targets_and_mask(tokens: torch.Tensor):
     return targets, mask
 
 
-def _logits(cfg: LMConfig, head, embed_p, x):
+def _logits(cfg: LMConfig, head, embed_p, x, tp=None):
+    """The head's logits (with ``tp`` and a vocab-sharded table or
+    ``out``, the rank's vocab block)."""
     x = layers.rms_norm(head["norm"], x, cfg.norm_eps)
     if cfg.tie_embed:
-        return layers.unembed(embed_p["table"], x)
-    return layers.linear(x, head["out"])
+        return layers.unembed(embed_p["table"], x, tp)
+    return layers.linear(comm.copy_to_model(tp, x), head["out"])
 
 
 def _patches_first(cfg: LMConfig, x: torch.Tensor, batch):
@@ -219,7 +270,8 @@ def _patches_first(cfg: LMConfig, x: torch.Tensor, batch):
     return torch.cat([patches, x], dim=-2), patches.shape[-2]
 
 
-def _losses(arch: ArchDef, head, embed_p, mtp, x, aux, tokens, mtp_apply):
+def _losses(arch: ArchDef, head, embed_p, mtp, x, aux, tokens, mtp_apply,
+            tp=None):
     """Each replica's loss: the cross-entropy of the head's logits on x
     [*lead, b, t, d] plus ``aux``, plus with an MTP block
     ``mtp_loss_weight`` times its cross-entropy on ``roll(tokens, -2)``
@@ -228,8 +280,8 @@ def _losses(arch: ArchDef, head, embed_p, mtp, x, aux, tokens, mtp_apply):
     embeddings of ``roll(tokens, -1)``."""
     cfg = arch.cfg
     targets, mask = _targets_and_mask(tokens)
-    losses = layers.softmax_xent(_logits(cfg, head, embed_p, x), targets,
-                                 mask) + aux
+    losses = layers.softmax_xent(_logits(cfg, head, embed_p, x, tp),
+                                 targets, mask, tp) + aux
     if arch.mtp_block is None:
         return losses
     e2 = layers.embed(embed_p, torch.roll(tokens, -1, dims=-1),
@@ -247,20 +299,29 @@ def _losses(arch: ArchDef, head, embed_p, mtp, x, aux, tokens, mtp_apply):
         mask2)
 
 
-def make_loss(arch: ArchDef, remat: bool = True) -> Callable:
+def make_loss(arch: ArchDef, remat: bool = True,
+              topo: Topology | None = None) -> Callable:
     """loss(params, batch) -> the loss of every replica (the module
     docstring's): params with leading replica dims ``[*lead, *leaf]``
     and ``{"tokens": [*lead, b, L]}`` give ``[*lead]``.  An
     encoder-decoder first encodes ``batch["frames"]`` [*lead, b, f,
     frontend_dim] (cast to the embedding's dtype, through the adapter and
-    the encoder segments); a vlm puts ``batch["patches"]`` first."""
+    the encoder segments); a vlm puts ``batch["patches"]`` first.  Over
+    a model axis above 1 (``topo``) params are a rank's blocks (the
+    dense family's tensor-parallel forward); every model rank returns
+    the same losses."""
     cfg = arch.cfg
     plan = ReplicatedPlan(cfg, remat)
+    tp = topo if topo is not None and topo.model_shards > 1 else None
+    if tp is not None:
+        _refuse_tp(cfg, tp.model_shards)
+    tp_vocab = tp if tp is not None and layers.vocab_sharded(
+        cfg.vocab, tp.model_shards) else None
 
     def loss(params, batch):
         tokens = batch["tokens"]
         lead = tokens.dim() - 2
-        x = layers.embed(params["embed"], tokens, cfg.embed_scale)
+        x = layers.embed(params["embed"], tokens, cfg.embed_scale, tp_vocab)
         enc_out, enc_aux = None, 0.0
         if arch.enc_segments:
             frames = batch["frames"].to(x.dtype)
@@ -273,13 +334,14 @@ def make_loss(arch: ArchDef, remat: bool = True) -> Callable:
         x, n_patch = _patches_first(cfg, x, batch)
         ctx = Ctx(cfg, positions=torch.arange(x.shape[-2],
                                               device=tokens.device),
-                  enc_out=enc_out)
+                  enc_out=enc_out, tp=tp)
         x, aux = engine.run_segments(plan, arch, arch.segments,
                                      params["stacks"], x, ctx, lead=lead)
         x = x[..., n_patch:, :]
         return _losses(arch, params["head"], params["embed"],
                        params.get("mtp"), x, aux + enc_aux, tokens,
-                       lambda p, h: plan.block(arch.mtp_block, p, h, ctx)[0])
+                       lambda p, h: plan.block(arch.mtp_block, p, h, ctx)[0],
+                       tp_vocab)
 
     return loss
 
@@ -392,6 +454,11 @@ def make_serve_fns(arch: ArchDef, layout: str = "resident"):
     plan = ReplicatedPlan(cfg, remat=False)
 
     def check_layout():
+        if layout == "tp":
+            raise NotImplementedError(
+                f"serving {cfg.name} over a model axis above 1 (the "
+                "caches' specs and the sharded serve layouts): ROADMAP "
+                "item 17d")
         if layout != "resident":
             raise NotImplementedError(
                 f"serving {cfg.name} in the {layout!r} layout (FSDP-stored "
@@ -464,17 +531,23 @@ class BuiltModel:
 
 def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
     """The model's entry points; an FSDP config (``param_mode="fsdp"``)
-    gets ``loss=None`` and a ``loss_master`` (:func:`make_loss_master`)."""
-    arch = make_archdef(cfg)
+    gets ``loss=None`` and a ``loss_master`` (:func:`make_loss_master`).
+    The bundle carries the dense family's specs at ``topo``'s model axis
+    (the replicated regime's masters are laid out as computed, as in the
+    JAX ``build_master_specs``); over a model axis above 1 the loss is
+    tensor-parallel and serving raises (item 17d)."""
+    m = topo.model_shards
+    arch = make_archdef(cfg, m)
     layout = serve_layout(cfg, param_count(init_params(arch, None, "meta")))
-    prefill, decode_step = make_serve_fns(arch, layout)
+    prefill, decode_step = make_serve_fns(arch, layout if m == 1 else "tp")
     fsdp = cfg.param_mode == "fsdp"
+    specs = compute_specs(arch, m) if cfg.family in TP_FAMILIES else None
     return BuiltModel(
         cfg=cfg, arch=arch, topo=topo,
         bundle=hier.ModelBundle(
-            loss=None if fsdp else make_loss(arch),
+            loss=None if fsdp else make_loss(arch, topo=topo),
             loss_master=make_loss_master(arch) if fsdp else None,
-            param_mode=cfg.param_mode),
+            param_mode=cfg.param_mode, specs=specs),
         init_params=lambda generator: init_params(arch, generator),
         abstract_params=lambda: init_params(arch, None, "meta"),
         prefill=prefill, decode_step=decode_step,

@@ -87,3 +87,34 @@ def test_loss_and_grads_match_jax(name, kw):
             else 1.0
         np.testing.assert_allclose(g[0, 0].numpy(), jg, rtol=0,
                                    atol=1e-5 * scale)
+
+
+
+def test_a_schedule_cut_below_its_period_fails_in_both_packages():
+    """gemma3-1b's 5:1 local:global schedule cut to 2 layers (under one
+    period) keeps a zero-count ``stacks.global`` block, initialised
+    unstacked as a tied block is (both packages' ``stack_counts`` and
+    ``_stack_init``): JAX's forward cannot trace it (its segment scan
+    slices the unstacked set), and the port's step raises too, where
+    autograd finds leaves no layer reads (ROADMAP section 3).  So the
+    card's runs cut gemma3 to whole periods."""
+    jcfg, cfg = smoke("gemma3_1b", n_layers=2)
+    jbuilt, p = jax_params(jcfg)
+    assert "global" in p["stacks"] and p["stacks"]["global"]["n1"].ndim == 1
+    batch = {"tokens": np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 16)).astype(np.int32)}
+    loss_fn = jbuild.make_loss_single(jbuilt.arch)
+    with pytest.raises(ValueError):
+        jax.grad(lambda pp: loss_fn(pp, jax.tree.map(jnp.asarray, batch),
+                                    None))(p)
+    from repro_torch.core import hier
+
+    built = build.build_model(cfg, Topology(1, 1, "cpu"))
+    init_fn, step = hier.make_hier_step(
+        Topology(1, 1, "cpu"), hier.AlgoConfig(compute_dtype=torch.float32),
+        built.bundle)
+    state = init_fn(params_from_numpy(p))
+    tokens = torch.from_numpy(batch["tokens"]).long()[:1][None, None]
+    with pytest.raises(RuntimeError, match="not have been used"):
+        step(state, {"train": {"tokens": tokens}}, torch.ones(1),
+             torch.ones((1, 1)), torch.ones((1, 1)))

@@ -289,11 +289,13 @@ def test_unported_options_name_their_item(what, capsys, tmp_path):
         if what == "cli_chaos":
             assert "[train] chaos seed 1" in capsys.readouterr().out
         return
+    # --multi_pod is ported (item 17b): the production grid needs its
+    # 512 ranks, and a world of one is refused naming them
     cases = {
         "cli_multi_pod": (lambda: train.main(
             ["--device", "cpu", "--arch", "gemma3_1b", "--smoke",
-             "--multi_pod"]), "item 17"),
+             "--multi_pod"]), ValueError, "needs 512 ranks"),
     }
-    fn, item = cases[what]
-    with pytest.raises(NotImplementedError, match=item):
+    fn, error, item = cases[what]
+    with pytest.raises(error, match=item):
         fn()

@@ -26,7 +26,7 @@ function on the whole inputs.  On the 2 x 2 mesh the MLP trajectory
 ``ref_fed.global_round`` and, with injected gradients, the sign methods
 are bitwise JAX's oracle.  Then the refusals of the parts of ROADMAP
 item 17 still to come, and a one-process topology that touches no
-process group.
+process group (the model axis: ``tests/test_torch_tp_*.py``).
 """
 import concurrent.futures
 import functools
@@ -524,15 +524,17 @@ def fake_mesh(pods=2, data=1) -> ProcessMesh:
 
 
 def test_refusals_name_their_part_of_item_17(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        mesh.make_host_topology(2, 2, 2, backend="gloo", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        mesh.make_production_mesh(multi_pod=True)
-    with pytest.raises(NotImplementedError, match="item 17b"):
+    # the model axis (item 17b) is ported: the production grids are
+    # shapes, and laying one needs its 256 or 512 ranks
+    assert mesh.make_production_mesh(multi_pod=True) == (
+        (2, 16, 16), ("pod", "data", "model"))
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         mesh.make_topology()
-    with pytest.raises(NotImplementedError, match="item 17b"):
+    with pytest.raises(ValueError, match="needs 512 ranks"):
         train.main(["--device", "cpu", "--arch", "gemma3_1b", "--smoke",
                     "--multi_pod"])
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        mesh.make_host_topology(2, 2, 2, backend="gloo", device="cpu")
     topo = Topology(2, 1, "cpu", mesh=fake_mesh())
     with pytest.raises(NotImplementedError, match="item 17c"):
         hier.make_hier_step(topo, hier.AlgoConfig(),
@@ -571,7 +573,12 @@ def test_one_process_topology_has_no_collective(monkeypatch):
         W.run_cell(Topology(2, 2, "cpu"), cells(2, 2)[name])
     assert not torch.distributed.is_initialized()
     assert all(v["calls"] == 0 for v in comm.traffic.values())
+    # the model group's collectives are the identity without a mesh
+    x = torch.ones(3)
+    assert comm.sum_model(None, x) is x and comm.copy_to_model(None, x) is x
+    assert comm.gather_model(Topology(2, 2, "cpu"), x, 0) is x
     topo = Topology(2, 3, "cpu")
+    assert topo.model_shards == 1 and topo.model_rank == 0
     assert (topo.local_pods, topo.local_devices) == (2, 3)
     assert topo.block({"x": np.zeros((2, 3))})["x"].shape == (2, 3)
     blocks = hier.state_blocks(Topology(4, 6, "cpu", mesh=ProcessMesh(
