@@ -122,7 +122,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      MTGC (bitwise when one step's per-voter gradients of the two forms
      are, else within 1e-5, the count printed) and hier_sgd (1e-5) on
      dyadic data shares, and for DC on the task's own uneven |D_qd|.
-     Then the ``lm`` phase's gemma3-1b with checkpoints (10 GB each,
+     Then gemma3-1b, as in ``lm`` but cut to one local and one global
+     layer (``two_layer_cut``), with checkpoints (4.0 GB each,
      ``build/fault_tolerant_ckpt``, the disk checked for three first and
      emptied at the end): run A, K=1, a device killed at 1, a straggler
      at 2, a heartbeat loss at 4 (each back two steps later) and a nan
@@ -261,9 +262,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      "before the ranks" | "toy" | "transport" | "lm" | "phase"}``; the
      kernels line gains ``mesh_launches_per_rank``.
  15. ``tp``: the model axis across processes (``core.shardflat``, the
-     dense family tensor-parallel) on the one card: 8 ranks, 2 pods x 2
-     data x 2 model, over gloo, each a [1, 1] block of P=2 x D=2 and one
-     model shard, started as ``chip_smoke.py --tp-rank`` processes.  The
+     dense, vlm and moe families tensor-parallel) on the one card: 8
+     ranks, 2 pods x 2 data x 2 model, over gloo, each a [1, 1] block of
+     P=2 x D=2 and one model shard, started as ``chip_smoke.py
+     --tp-rank`` processes.  The
      one-process references first, in this process.  The parity toy on
      injected gradients (``w`` column-, ``w2`` row-parallel) in five
      cells -- DC at hidden 64 and 65 (padded blocks), ``hier_sgd``,
@@ -271,19 +273,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the gathered logical state bitwise the one-process run (QSGD
      within 1e-5), the losses within 1e-5, the four kernels counted in
      every rank.  One fused vote-update on gemma3-1b's sharded layout
-     (6 layers, M=2), each rank on its bucket: its logical block's
-     sha256 that of the one-process result, the word bytes it sent
-     ``4 * bucket_words``.  gemma3-1b (``lm``'s algorithm) 6 steps of
+     (cut to a local and a global layer, M=2), each rank on its bucket:
+     its logical block's sha256 that of the one-process result, the word
+     bytes it sent ``4 * bucket_words``.  gemma3-1b (that cut, ``lm``'s
+     algorithm) 6 steps of
      ``run_training`` tensor-parallel over the ranks: step 0's
      gradients gathered over model against the model=1 run of the same
      block (the differing count, the largest difference over the leaf's
      largest |value|), the copies bitwise across model ranks at every
      step (an all-gathered sha256), round 2's mean below step 0's, 6 + 6
      launches a rank, local and prologue step ms, the bytes sent on each
-     group, the peak beside ``reckon_mesh_peak`` at the bucket.  JSON
+     group, the peak beside ``reckon_mesh_peak`` at the bucket.  Then
+     the moe and vlm families (item 17f, part one) at their published
+     widths: deepseek-v3 (1 dense MLA + 1 MoE layer, 16 of 256 routed
+     experts and the shared one, MTP, 16160 words) and internvl2 (1
+     layer, 16032 words, 256 patches), their seed-0 trees drawn once
+     here and written to ``build/`` files that every rank maps (the
+     card never holds a rank's whole tree).  Step 0's gradients through
+     the replicated loss on the first [1, 1] block, tensor-parallel and
+     gathered over model, against the model=1 run of the block under
+     ``TP_STEP0_REL`` (deepseek in float32: its top-k routing flips on
+     bf16's reordered sums), copies bitwise on both model ranks; then 4
+     steps of ``run_training`` in the FSDP regime (``moe_algo`` at
+     ``MOE_MU``, 1 x 512 tokens a device, the prologue and a local
+     step): step 1's loss below step 0's,
+     one ``sign_pack`` and one ``vote_update`` a lifted leaf and layer a
+     step in every rank, each rank's master its model block's data
+     shard to the byte, each group's bytes a local and a prologue step
+     beside ``reckon_fsdp_mesh_bytes`` and ``reckon_tp_model_bytes``,
+     the step ms, the peak beside ``reckon_fsdp_mesh_peak``.  JSON
      lines ``{"tp": ...}``; the kernels line gains
-     ``tp_launches_per_rank``.  ``--phase tp`` runs phase 2's kernel
-     checks and this phase alone.
+     ``tp_launches_per_rank`` and ``tp_moe_launches_per_rank``.
+     ``--phase tp`` runs phase 2's kernel checks and this phase alone.
  16. ``fsdp_mesh``: the FSDP regime across processes (``core.device_axis``
      over a mesh: each rank a shard of every master and correction), run
      by the ``mesh`` phase's 4 ranks and the ``tp`` phase's 8 after
@@ -293,12 +314,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rank's direction shard bitwise the one-process lift on the same
      coordinates of all D voters, its forward's copies its block of the
      master, one ``sign_pack`` and one ``vote_update`` a fused lift.
-     gemma3-1b (6 layers) FSDP over the 8 ranks, 3 steps fused/tree,
+     gemma3-1b (2 layers) FSDP over the 8 ranks, 3 steps fused/tree,
      against the replicated regime's ag_packed/tree run on the same
      ranks from the same parameters and tokens: 0 differing coordinates
      over the ranks' shards, the losses equal.  gemma3-12b at full
-     width cut to 6 layers over the 4 ranks (2 pods x 2 data, a [1, 1]
-     block each), DC, mu 1e-3, rho 0.2, T_E=3, bf16 compute, f32
+     width cut to 2 layers (a local and a global one) over the 4 ranks
+     (2 pods x 2 data, a [1, 1] block each), DC, mu 1e-3, rho 0.2,
+     T_E=3, bf16 compute, f32
      master, bf16 delta, fused/tree, 4 steps of ``run_training``: step
      3's loss (round 2's first) below step 0's, one ``sign_pack`` and one
      ``vote_update`` a leaf and layer a step in every rank, each rank's
@@ -1563,6 +1585,18 @@ def lm_setup(torch, cfg=None, **algo_kw):
     return cfg, Topology(LM_P, LM_D, "cuda"), hier.AlgoConfig(**kw)
 
 
+def two_layer_cut(arch: str = LM_ARCH):
+    """``arch`` (a gemma3 config) at full width cut to one local and one
+    global layer (its 5:1 period as 1:1): the depth of the runs whose
+    time is the bytes they move -- the ``fault_tolerant`` phase's
+    checkpoints, the ``mesh`` and ``tp`` phases' gloo exchanges --, each
+    block kind kept."""
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(arch), n_layers=2,
+                               local_global=(1, 1))
+
+
 def lm_grads_bitwise(torch, built, params, batch, tag="lm",
                      on_grads=None) -> int:
     """One step's per-voter gradients of the LM's loss on ``batch`` (its
@@ -2250,7 +2284,8 @@ def ft_restores(res) -> list:
 def phase_fault_tolerant(torch, lm: dict, card: str) -> dict:
     """Fault-tolerant training on the card (see the module docstring):
     the oracle check, then run A and run B of gemma3-1b at full width
-    with checkpoints, restores and resumes, each bitwise its
+    cut to two layers with checkpoints, restores and resumes, each
+    bitwise its
     uninterrupted reference; then tally_acc at the streamed LM shape.
     Returns the kernel launches of the phase's runs."""
     import shutil
@@ -2264,7 +2299,7 @@ def phase_fault_tolerant(torch, lm: dict, card: str) -> dict:
 
     t_phase = time.perf_counter()
     oracle_launches = phase_oracle(torch, card)
-    cfg, topo, algo = lm_setup(torch)
+    cfg, topo, algo = lm_setup(torch, two_layer_cut())
     params = build.build_model(cfg, topo).init_params(
         torch.Generator(device="cuda").manual_seed(0))
     n_pad = flatbuf.make_layout(params).n_pad
@@ -2364,8 +2399,10 @@ def phase_fault_tolerant(torch, lm: dict, card: str) -> dict:
     torch.cuda.empty_cache()
     shutil.rmtree(root)
 
-    # tally_acc at the streamed step's shape: one client's bf16 signs
-    shape = (LM_P, LM_D, n_pad)
+    # tally_acc at the lm phase's streamed step's shape (6 layers): one
+    # client's bf16 signs
+    shape = (LM_P, LM_D, flatbuf.make_layout(build.build_model(
+        lm_setup(torch)[0], topo).abstract_params()).n_pad)
     gen = torch.Generator(device="cuda").manual_seed(2)
     u = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
     w = torch.ones((LM_P, LM_D), dtype=torch.int32, device="cuda")
@@ -3853,12 +3890,13 @@ def mesh_lm_grads(torch, built, params, tokens, shape):
 
 
 def mesh_lm_setup(torch, topo):
-    """gemma3-1b at full width cut to ``LM_LAYERS`` layers on ``topo``:
-    (cfg, built, params from seed 0, the DC fused/flat algo, the run)."""
+    """gemma3-1b at full width cut to two layers (:func:`two_layer_cut`)
+    on ``topo``: (cfg, built, params from seed 0, the DC fused/flat
+    algo, the run)."""
     from repro_torch.launch.train import RunCfg
     from repro_torch.models import build
 
-    cfg, _, algo = lm_setup(torch)
+    cfg, _, algo = lm_setup(torch, two_layer_cut())
     built = build.build_model(cfg, topo)
     params = built.init_params(torch.Generator(device="cuda").manual_seed(0))
     run = RunCfg(steps=MESH_STEPS, batch_per_device=1, seq_len=LM_SEQ,
@@ -4038,16 +4076,18 @@ def mesh_rank_work(torch, topo, job: dict, tmp: str, res: dict) -> None:
 
 
 def mesh_spawn(torch, tmp: str, world: int = MESH_GRID[0] * MESH_GRID[1],
-               flag: str = "--mesh-rank", limit: float = MESH_JOIN_S) -> list:
+               flag: str = "--mesh-rank", limit: float = MESH_JOIN_S,
+               meanwhile=None) -> list:
     """Start the ``world`` ranks on the card as ``chip_smoke.py FLAG RANK
-    DIR`` (this process holds no tensor of its own by then) and wait for
-    them at most ``limit`` seconds; a rank that fails or outlives it
-    fails the phase, every rank killed first.  Returns the ranks'
-    results."""
+    DIR`` (one intra-op thread each: the ranks share the host's cores,
+    and their work there is gloo's copies), run ``meanwhile()`` here if
+    given, and wait for them at most ``limit`` seconds; a rank that fails
+    or outlives it, or a failing ``meanwhile``, fails the phase, every
+    rank killed first.  Returns the ranks' results."""
     import os
     import pickle
 
-    env = dict(os.environ,
+    env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     logs = [open(pathlib.Path(tmp) / f"rank{r}.log", "w+")
             for r in range(world)]
@@ -4055,6 +4095,15 @@ def mesh_spawn(torch, tmp: str, world: int = MESH_GRID[0] * MESH_GRID[1],
         [sys.executable, str(ROOT / "chip_smoke.py"), flag,
          str(r), tmp], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(world)]
+    if meanwhile is not None:
+        try:
+            meanwhile()
+        except BaseException:
+            for proc in procs:
+                proc.kill()
+            for proc in procs:
+                proc.wait()
+            raise
     deadline = time.monotonic() + limit
 
     def tails():
@@ -4395,13 +4444,13 @@ def tp_toy_run(torch, topo, cell: str) -> dict:
 
 
 def tp_gemma(torch, topo):
-    """gemma3-1b at full width cut to ``LM_LAYERS`` layers on ``topo``:
-    (cfg, built, its abstract parameters, their sharded layout at
-    ``TP_M``)."""
+    """gemma3-1b at full width cut to two layers (:func:`two_layer_cut`)
+    on ``topo``: (cfg, built, its abstract parameters, their sharded
+    layout at ``TP_M``)."""
     from repro_torch.core import flatbuf
     from repro_torch.models import build
 
-    cfg, _, _ = lm_setup(torch)
+    cfg = two_layer_cut()
     built = build.build_model(cfg, topo)
     abstract = built.abstract_params()
     specs = build.compute_specs(build.make_archdef(cfg, TP_M), TP_M)
@@ -4657,6 +4706,8 @@ def tp_rank_main(tmp: str, rank: int) -> None:
         t1 = time.perf_counter()
         res["fsdp_tp"] = fsdp_tp_rank(torch, topo)
         res["fsdp_tp_s"] = time.perf_counter() - t1
+    if "moe" in job["parts"]:
+        res["moe_tp"] = tp_moe_rank(torch, topo, job["trees"])
     with open(d / f"rank{rank}.tmp", "wb") as f:
         pickle.dump(res, f)
     os.replace(d / f"rank{rank}.tmp", d / f"rank{rank}.pkl")
@@ -4696,11 +4747,11 @@ def tp_rank_work(torch, topo, res: dict) -> None:
     res["lm"]["s"] = time.perf_counter() - t1
 
 
-def tp_spawn(torch, tmp: str) -> list:
+def tp_spawn(torch, tmp: str, meanwhile=None) -> list:
     """Start the eight ranks on the card and wait for them at most
     ``TP_JOIN_S`` seconds (``mesh_spawn``'s rules)."""
     return mesh_spawn(torch, tmp, world=math.prod(TP_GRID), flag="--tp-rank",
-                      limit=TP_JOIN_S)
+                      limit=TP_JOIN_S, meanwhile=meanwhile)
 
 
 def states_max_abs(want: dict, got: dict) -> float:
@@ -4717,29 +4768,15 @@ def states_max_abs(want: dict, got: dict) -> float:
     return worst
 
 
-def phase_tp(torch, card: str, fsdp: bool = False) -> dict:
-    """The model axis across processes on the one card: 8 ranks (2 pods
-    x 2 data x 2 model) over gloo, each a [1, 1] block of P=2 x D=2 and
-    one model shard.  The one-process references run here first and
-    are freed; then the ranks: the parity toy's cells (w column-, w2
-    row-parallel) on logical coordinates against the one-process run
-    with the four kernels counted in every rank; one fused vote-update on
-    gemma3-1b's sharded layout, each rank's bucket bitwise the one
-    process's block; gemma3-1b (6 layers, full width) 6 steps of
-    ``run_training`` tensor-parallel over the ranks.  With ``fsdp`` the
-    ranks then run gemma3-1b in the FSDP regime against the replicated
-    one (:func:`fsdp_tp_rank`), whose results come back under
-    ``"ranks"``.  Returns the per-rank launches of the toy's cells and
-    of the LM run."""
-    import gc
-    import pickle
-    import shutil
-    import tempfile
-
-    from repro_torch.core import flatbuf, signs, votes
+def tp_references(torch) -> dict:
+    """The ``tp`` part's one-process references, run here before the
+    ranks and freed: the toy's cells and the fused vote-update on
+    gemma3-1b's sharded layout (its blocks' digests), and the rank's
+    reckoned peak."""
+    from repro_torch.core import flatbuf, votes
     from repro_torch.core.topology import Topology
 
-    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
     one = Topology(TP_P, TP_D, "cuda")
     toy_ref = {cell: tp_toy_run(torch, one, cell) for cell in TP_CELLS}
     cfg, _, abstract, layout = tp_gemma(torch, one)
@@ -4760,27 +4797,89 @@ def phase_tp(torch, card: str, fsdp: bool = False) -> dict:
     n_params = layout.n
     reckoned = reckon_mesh_peak(layout.bucket_pad, vocab=cfg.vocab // TP_M)
     emit({"tp": "one-process references", "wall_s": time.perf_counter()
-          - t_phase, "n_params": n_params, "n_pad": layout.n_pad,
+          - t0, "n_params": n_params, "n_pad": layout.n_pad,
           "bucket_pad": layout.bucket_pad, "unsharded_n_pad": flat.n_pad,
           "copies": [int(s.size) for s in layout.slots
                      if s.shard_dim is None]})
     emit({"tp": "reckoned rank peak", **reckoned})
+    return {"toy": toy_ref, "transport": transport_ref, "cfg": cfg,
+            "n_params": n_params, "reckoned": reckoned}
+
+
+def phase_tp(torch, card: str, parts: tuple = ("tp", "moe")) -> dict:
+    """The model axis across processes on the one card: 8 ranks (2 pods
+    x 2 data x 2 model) over gloo, each a [1, 1] block of P=2 x D=2 and
+    one model shard.  The one-process references run here first and
+    are freed (:func:`tp_references`); then the ranks, each running the
+    ``parts`` named: ``"tp"`` -- the parity toy's cells (w column-, w2
+    row-parallel) on logical coordinates against the one-process run
+    with the four kernels counted in every rank; one fused vote-update
+    on gemma3-1b's sharded layout, each rank's bucket bitwise the one
+    process's block; gemma3-1b (2 layers, full width) 6 steps of
+    ``run_training`` tensor-parallel over the ranks (:func:`tp_report`);
+    ``"fsdp"`` -- gemma3-1b in the FSDP regime against the replicated
+    one (:func:`fsdp_tp_rank`, checked by ``fsdp_mesh_report``);
+    ``"moe"`` -- deepseek-v3 and internvl2 at their published widths,
+    tensor-parallel: step 0's gradients against one process and 4 steps
+    in the FSDP regime (:func:`tp_moe_rank`, :func:`tp_moe_report`),
+    their seed-0 trees written once to git-ignored ``build/`` files
+    that every rank maps.  Returns the per-rank launches of each part
+    and the ranks' results (``"ranks"``)."""
+    import gc
+    import pickle
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    refs = tp_references(torch) if "tp" in parts else None
     gc.collect()
     torch.cuda.empty_cache()
-    emit({"tp": "before the ranks",
-          "allocated_gb": torch.cuda.memory_allocated() / 1e9,
-          "free_gb": torch.cuda.mem_get_info()[0] / 1e9})
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    (ROOT / "build").mkdir(exist_ok=True)
+    trees = pathlib.Path(tempfile.mkdtemp(prefix="tp_moe_params_",
+                                          dir=ROOT / "build"))
+
+    def write_trees():
+        # while the ranks run their earlier parts; they wait for "ready"
+        written = tp_moe_write_params(torch, trees)
+        (trees / "ready").touch()
+        emit({"tp": "moe parameters written", "card": card, **written})
+
     try:
+        emit({"tp": "before the ranks",
+              "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+              "free_gb": torch.cuda.mem_get_info()[0] / 1e9})
         with open(pathlib.Path(tmp) / "job.pkl", "wb") as f:
-            pickle.dump({"parts": ("tp", "fsdp") if fsdp else ("tp",)}, f)
+            pickle.dump({"parts": tuple(parts), "trees": str(trees)}, f)
         t1 = time.perf_counter()
-        ranks = tp_spawn(torch, tmp)
+        ranks = tp_spawn(torch, tmp, write_trees if "moe" in parts
+                         else None)
         ranks_s = time.perf_counter() - t1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(trees, ignore_errors=True)
+    out = {"ranks": ranks}
+    if "tp" in parts:
+        out.update(tp_report(torch, card, ranks, refs))
+    if "moe" in parts:
+        out["moe"] = tp_moe_report(torch, card, ranks)
+    emit({"tp": "phase", "parts": list(parts),
+          "wall_s": time.perf_counter() - t_phase, "ranks_s": ranks_s,
+          "rank_init_s": [r["init_s"] for r in ranks]})
+    return out
 
-    # the checks
+
+def tp_report(torch, card: str, ranks: list, refs: dict) -> dict:
+    """The ``tp`` part's checks, from the ranks' results and
+    :func:`tp_references`: the toy's cells against one process (bitwise,
+    QSGD within ``TP_QSGD_ATOL``), every kernel launched in every rank,
+    the vote-update's buckets bitwise, gemma3-1b's losses, copies, step
+    0's gradients under ``TP_STEP0_REL`` and its launches.  Returns the
+    per-rank launches of the toy's cells and of the LM run."""
+    from repro_torch.core import signs
+
+    toy_ref, transport_ref = refs["toy"], refs["transport"]
+    cfg, n_params, reckoned = refs["cfg"], refs["n_params"], refs["reckoned"]
     emit({"tp": "gloo bf16 all_reduce on CUDA tensors",
           "per_rank": [r["bf16_all_reduce"] for r in ranks]})
     toy_launches = {}
@@ -4905,10 +5004,7 @@ def phase_tp(torch, card: str, fsdp: bool = False) -> dict:
                 f"leaf's scale from the model=1 run's (limit {TP_STEP0_REL})")
     require(len(step0) == TP_P * TP_D, "tp lm: a block's step-0 check "
             "is missing")
-    emit({"tp": "phase", "wall_s": time.perf_counter() - t_phase,
-          "ranks_s": ranks_s, "rank_init_s": [r["init_s"] for r in ranks]})
-    return {"toy": toy_launches, "lm": [x["launches"] for x in lm],
-            "ranks": ranks}
+    return {"toy": toy_launches, "lm": [x["launches"] for x in lm]}
 
 
 # -- the FSDP regime across processes (ROADMAP item 17c) ------------------------
@@ -4933,13 +5029,12 @@ def zero_launches() -> None:
 
 
 def fsdp_mesh_model(topo):
-    """(cfg, built): gemma3-12b at full width cut to FSDP_LAYERS layers,
-    in the FSDP regime on ``topo`` (its master specs at topo's D)."""
-    from repro_torch import configs
+    """(cfg, built): gemma3-12b at full width cut to two layers
+    (:func:`two_layer_cut`), in the FSDP regime on ``topo`` (its master
+    specs at topo's D)."""
     from repro_torch.models import build
 
-    cfg = dataclasses.replace(configs.get_config(FSDP_ARCH),
-                              n_layers=FSDP_LAYERS, param_mode="fsdp")
+    cfg = dataclasses.replace(two_layer_cut(FSDP_ARCH), param_mode="fsdp")
     return cfg, build.build_model(cfg, topo)
 
 
@@ -5061,7 +5156,7 @@ def fsdp_lift_rank(torch, topo) -> list:
 
 
 def fsdp_mesh_lm_rank(torch, topo) -> dict:
-    """The rank's part of gemma3-12b (6 layers, full width) in the FSDP
+    """The rank's part of gemma3-12b (2 layers, full width) in the FSDP
     regime over the mesh: ``run_training`` for FSDP_MESH_STEPS steps (DC,
     mu 1e-3, rho 0.2, T_E=3, bf16 compute, f32 master, bf16 delta,
     fused, tree, 1 x FSDP_SEQ tokens a device) with the kernels'
@@ -5113,7 +5208,7 @@ def fsdp_mesh_lm_rank(torch, topo) -> dict:
 
 
 def fsdp_tp_rank(torch, topo) -> dict:
-    """gemma3-1b (6 layers, full width) over the tp phase's ranks (2 pods
+    """gemma3-1b (2 layers, full width) over the tp phase's ranks (2 pods
     x 2 data x 2 model) from the same parameters and tokens: FSDP_TP_STEPS
     steps of the replicated regime (ag_packed/tree), then of the FSDP
     regime (fused/tree, its launches counted), and the coordinates where
@@ -5124,7 +5219,8 @@ def fsdp_tp_rank(torch, topo) -> dict:
     from repro_torch.launch.train import RunCfg, run_training
     from repro_torch.models import build
 
-    cfg, _, algo = lm_setup(torch, state_layout="tree")
+    cfg, _, _, _ = tp_gemma(torch, topo)
+    _, _, algo = lm_setup(torch, state_layout="tree")
     cfg_f = dataclasses.replace(cfg, param_mode="fsdp")
     run = RunCfg(steps=FSDP_TP_STEPS, batch_per_device=1, seq_len=LM_SEQ,
                  log_every=1, seed=0)
@@ -5159,33 +5255,432 @@ def fsdp_tp_rank(torch, topo) -> dict:
     return res
 
 
-def reckon_fsdp_mesh_bytes(built, data: int, pods: int) -> dict:
-    """The bytes one rank sends on each group in a local and in a
-    prologue step of the FSDP regime over ``pods x data`` ranks with a
-    [1, 1] block (P_loc = D_loc = 1), reckoned from the leaves and their
-    master specs before any run (bf16 compute and delta, f32 master, DC,
-    fused, every layer recomputed under remat).  A data-sharded leaf of
-    s coordinates a shard: the forward's gather sends its bf16 shard,
-    2s, once a pass and again in the recompute (a stacked leaf); the
-    backward's correction gather 2s and the words (data - 1) s/8, s
-    padded to the 4096-coordinate tile for both; in a prologue the
-    anchor pass's
-    gathers again, wmean's f32 terms (data - 1) 4s, and over the pod
-    group the cloud mean of the master and of c_q, 4s each.  A leaf no
-    spec shards moves its words (and terms) by ``gather_devices``:
-    n/8 (4n)."""
-    from repro_torch.core import device_axis
+# -- the moe and vlm families over the model axis (item 17f, part one) --------
 
+TP_MOE_STEPS = 2                 # the prologue and a local step: each
+                                 # prologue moves 2.4-3.8 times a local
+                                 # step's bytes through gloo, and the
+                                 # script's 1200 s hold no second one
+TP_INTERNVL2_LAYERS = 1          # internvl2's cut on the tp ranks
+# step 0's gradients against model=1 (under TP_STEP0_REL): bf16 as for
+# gemma3-1b, but float32 for an MoE, whose top-k routing flips on
+# bf16's reordered sums: deepseek-v3's smoke config on the CPU reads
+# 0.47 of a leaf's scale sound and 1.09 with copy_to_model dropped in
+# bf16, 0.047 with every expert chosen and none dropped, and 2.8e-6
+# against 1.07 in float32 (tests/helpers/torch_tp_step0_bound.py)
+TP_MOE_STEP0_DTYPE = {"deepseek-v3": "float32", "internvl2": "bfloat16"}
+
+
+def tp_moe_cells() -> dict:
+    """The configs the tp ranks train over the model axis, FSDP, at
+    their published widths: :func:`moe_cells`' deepseek-v3 (1 dense MLA
+    layer and 1 MoE layer, 16 of 256 routed experts and the shared one,
+    MTP, 16160 words) and internvl2 cut to ``TP_INTERNVL2_LAYERS``
+    layers (16032 words, 256 patches)."""
+    cells = moe_cells()
+    return {"deepseek-v3": cells["deepseek-v3"],
+            "internvl2": dataclasses.replace(cells["internvl2"],
+                                             n_layers=TP_INTERNVL2_LAYERS)}
+
+
+def tp_moe_write_params(torch, root: pathlib.Path) -> dict:
+    """Each :func:`tp_moe_cells` config's seed-0 parameters, drawn once
+    on the card as ``run_training`` draws them (``init_params`` on a
+    CUDA generator), written to ``root/NAME/I.npy`` a leaf at a time in
+    pytree order: the 8 ranks map the same files, so no rank holds a
+    whole tree on the card.  Returns each config's seconds and bytes."""
+    import numpy as np
+
+    from repro_torch.core import pytree
+    from repro_torch.core.topology import Topology
+    from repro_torch.models import build
+
+    out = {}
+    for name, cfg in tp_moe_cells().items():
+        t0 = time.perf_counter()
+        leaves = pytree.tree_flatten(build.build_model(
+            cfg, Topology(1, 1, "cuda")).init_params(
+                torch.Generator(device="cuda").manual_seed(0)))[0]
+        d = root / name
+        d.mkdir()
+        nbytes = 0
+        for i in range(len(leaves)):
+            a = leaves[i].cpu().numpy()
+            leaves[i] = None
+            np.save(d / f"{i}.npy", a)
+            nbytes += a.nbytes
+        torch.cuda.empty_cache()
+        out[name] = {"s": time.perf_counter() - t0, "bytes": nbytes}
+    return out
+
+
+def tp_moe_host_params(torch, built, d: pathlib.Path):
+    """The tree :func:`tp_moe_write_params` wrote to ``d``, as host
+    tensors over copy-on-write maps of its files (nothing is read until
+    a leaf moves)."""
+    import numpy as np
+
+    from repro_torch.core import pytree
+
+    leaves, td = pytree.tree_flatten(built.abstract_params())
+    return pytree.tree_unflatten(td, [
+        torch.from_numpy(np.load(d / f"{i}.npy", mmap_mode="c"))
+        for i in range(len(leaves))])
+
+
+def tp_moe_batch(torch, topo, cfg) -> dict:
+    """Step 0's batch of the run's stream (seed 0, 1 x MOE_SEQ tokens a
+    device, a vlm's patches), the rank's block, on the card."""
+    from repro_torch.data import synthetic
+
+    batch = synthetic.make_stream(synthetic.LMStreamCfg(
+        vocab=cfg.vocab, seq_len=MOE_SEQ, batch_per_device=1, pods=TP_P,
+        devices_per_pod=TP_D, seed=0, n_patches=cfg.n_patches,
+        d_model=cfg.d_model))(0)
+    return {k: v.to(topo.device) for k, v in topo.block(batch).items()}
+
+
+def tp_moe_copies(torch, host, dtype, layout=None, rank: int = 0) -> list:
+    """Fresh [1, 1] copies in ``dtype`` on the card of model rank
+    ``rank``'s blocks of the mapped tree ``host`` (``layout`` sharded;
+    the whole leaves without one), each block cut from the map, so only
+    its pages are read, and moved alone."""
+    from repro_torch.core import flatbuf, pytree
+
+    out = []
+    for i, x in enumerate(pytree.tree_flatten(host)[0]):
+        if layout is not None and layout.shards > 1:
+            x = flatbuf.slot_block(layout.slots[i], x, rank, layout.shards)
+        out.append(x.to(device="cuda", dtype=dtype)[None, None]
+                   .contiguous().requires_grad_(True))
+    return out
+
+
+def tp_moe_step0(torch, topo, cfg, host, batch, dtype) -> dict:
+    """Step 0's gradients of ``cfg`` in ``dtype`` through the
+    replicated-regime loss on the first [1, 1] block (pod 0, device 0;
+    the other ranks wait, so the card holds that block's runs alone):
+    its two model ranks take theirs tensor-parallel -- every copy leaf's
+    gradient bitwise the same on both --, then model rank 0 takes the
+    model=1 run's of the same block and tokens and holds each leaf,
+    gathered over the model group, against them: the coordinates that
+    differ and the largest difference over the leaf's largest |value|.
+    The other blocks differ only in their tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm, pytree, shardflat
+    from repro_torch.core.topology import Topology
+    from repro_torch.models import build
+
+    rcfg = dataclasses.replace(cfg, param_mode="replicated")
+    built = build.build_model(rcfg, topo)
+    layout = shardflat.param_layout(topo, built.bundle.specs,
+                                    built.abstract_params())
+    td = pytree.tree_flatten(host)[1]
+    m = topo.mesh
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    res = {}
+    if (m.pod_rank, m.data_rank) == (0, 0):
+        t0 = time.perf_counter()
+        copies = tp_moe_copies(torch, host, dtype, layout, topo.model_rank)
+        tree = shardflat.logical(topo, layout, pytree.tree_unflatten(
+            td, copies), 2)
+        losses = built.bundle.loss(tree, batch)
+        grads = list(torch.autograd.grad(losses.sum(), copies))
+        torch.cuda.synchronize()
+        res.update(grads_s=time.perf_counter() - t0,
+                   losses=losses.detach().float().flatten().tolist())
+        del copies, tree, losses
+        agree = True
+        for slot, g in zip(layout.slots, grads):
+            if slot.shard_dim is None:
+                got = comm.gather_model(topo, g, 0)
+                agree &= all(torch.equal(got[:1], got[i:i + 1])
+                             for i in range(1, got.shape[0]))
+        res["copies_agree"] = bool(agree)
+        t1 = time.perf_counter()
+        one = None
+        if m.model_rank == 0:
+            plain = build.build_model(rcfg, Topology(1, 1, "cuda"))
+            whole = tp_moe_copies(torch, host, dtype)
+            ones = plain.bundle.loss(pytree.tree_unflatten(td, whole),
+                                     batch)
+            one = torch.autograd.grad(ones.sum(), whole)
+            res["losses_one_process"] = ones.detach().float() \
+                .flatten().tolist()
+            del whole, ones
+        differ, worst, n = 0, 0.0, 0
+        for i, (slot, g) in enumerate(zip(layout.slots, grads)):
+            if slot.shard_dim is not None:
+                ax = 2 + slot.shard_dim
+                g = comm.gather_model(topo, g, ax)
+                g = g.narrow(ax, 0, g.shape[ax] - slot.shard_pad)
+            if one is not None:
+                b = one[i]
+                differ += int((g.view(bits) != b.view(bits)).sum())
+                scale = float(b.float().abs().max())
+                worst = max(worst, float((g.float() - b.float()).abs()
+                                         .max()) / max(scale, 1e-30))
+                n += b.numel()
+            del g
+        if one is not None:
+            res.update(step0_differing=differ, step0_max_rel_diff=worst,
+                       step0_coordinates=n,
+                       one_process_s=time.perf_counter() - t1)
+        del one, grads
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def tp_moe_fsdp(torch, topo, cfg, host) -> dict:
+    """``run_training`` of ``cfg`` in the FSDP regime over the ranks for
+    TP_MOE_STEPS steps (:func:`moe_algo` at MOE_MU: DC, rho 0.2, T_E=3,
+    bf16 compute and delta, f32 master, fused, tree; 1 x MOE_SEQ tokens
+    a device) from the mapped seed-0 tree (``init_fn`` moves and cuts it
+    a leaf at a time), with the kernels' counters and ``comm.traffic``
+    at 0 just before it: its losses, step times, launches, each group's
+    bytes at each step, the bytes of its master and corrections, and its
+    peak above what it held."""
+    from repro_torch.core import comm, pytree
+    from repro_torch.launch.train import RunCfg, run_training
+
+    run = RunCfg(steps=TP_MOE_STEPS, batch_per_device=1, seq_len=MOE_SEQ,
+                 log_every=1, seed=0)
+    per_step, held = [], {}
+
+    def on_state(step, state):
+        per_step.append(comm.group_bytes())
+        if not held:
+            held.update({name: sum(x.numel() * x.element_size() for x in
+                                   pytree.tree_flatten(getattr(state,
+                                                               name))[0])
+                         for name in ("params", "delta", "delta_next")})
+
+    zero_launches()
+    comm.reset_traffic()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, history = run_training(cfg, topo, moe_algo(torch, MOE_MU), run,
+                                  params=host, log=lambda line: None,
+                                  on_state=on_state)
+    torch.cuda.synchronize()
+    res = {"losses": [h["loss"] for h in history],
+           "ms": [h["ms"] for h in history],
+           "data_ms": [h["data_ms"] for h in history],
+           "launches": counted_launches(),
+           "bytes_per_step": [per_step[0]] + [
+               {g: {k: b[g][k] - a[g][k] for k in b[g]} for g in b}
+               for a, b in zip(per_step, per_step[1:])],
+           "held_bytes": held,
+           "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+           "held_gb": before / 1e9}
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_moe_rank(torch, topo, trees: str) -> dict:
+    """The rank's ``moe`` part: for each :func:`tp_moe_cells` config,
+    :func:`tp_moe_step0` then :func:`tp_moe_fsdp`, from the tree the
+    parent writes under ``trees`` while the ranks run their earlier
+    parts (waited for here, at most ``TP_JOIN_S``)."""
+    from repro_torch.models import build
+
+    t0 = time.perf_counter()
+    while not (pathlib.Path(trees) / "ready").exists():
+        if time.perf_counter() - t0 > TP_JOIN_S:
+            raise RuntimeError(f"no parameters under {trees}")
+        time.sleep(0.5)
+    out = {"wait_s": time.perf_counter() - t0}
+    for name, cfg in tp_moe_cells().items():
+        t0 = time.perf_counter()
+        host = tp_moe_host_params(torch, build.build_model(cfg, topo),
+                                  pathlib.Path(trees) / name)
+        res = {"step0": tp_moe_step0(
+            torch, topo, cfg, host, tp_moe_batch(torch, topo, cfg),
+            getattr(torch, TP_MOE_STEP0_DTYPE[name]))}
+        res["step0"]["s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        res["fsdp"] = tp_moe_fsdp(torch, topo, cfg, host)
+        res["fsdp"]["s"] = time.perf_counter() - t1
+        del host
+        out[name] = res
+    return out
+
+
+def tp_moe_report(torch, card: str, ranks: list) -> dict:
+    """The ``moe`` part's checks, from the ranks' results, for each
+    config: step 0's gradients on the first block -- every copy leaf's
+    bitwise the same on both model ranks, and so are the losses, each
+    leaf within ``TP_STEP0_REL`` of the model=1 run's; the FSDP run --
+    finite losses, the same on every rank, the last step's below step
+    0's, one ``sign_pack`` and one ``vote_update`` a lifted
+    leaf and layer a step in every rank and no other kernel, each rank's
+    master the data shard of its model block to the byte; each group's
+    bytes a local and a prologue step beside their reckonings
+    (:func:`reckon_fsdp_mesh_bytes`, :func:`reckon_tp_model_bytes`), the
+    step times and the peak beside :func:`reckon_fsdp_mesh_peak`.
+    Returns each config's per-rank launches."""
+    from repro_torch.core import device_axis
+    from repro_torch.core.topology import Topology
+    from repro_torch.models import build
+
+    launches = {}
+    for name, cfg in tp_moe_cells().items():
+        times = [r["moe_tp"][name]["step0"]["s"] for r in ranks]
+        step0 = [x for x in (r["moe_tp"][name]["step0"] for r in ranks)
+                 if "copies_agree" in x]          # the first block's pair
+        checked = [x for x in step0 if "step0_differing" in x]
+        emit({"tp": "moe step 0", "arch": cfg.name, "card": card,
+              "n_layers": cfg.n_layers, "grid": list(TP_GRID),
+              "block": [0, 0], "dtype": TP_MOE_STEP0_DTYPE[name],
+              "step0_differing": [x["step0_differing"] for x in checked],
+              "step0_coordinates": [x["step0_coordinates"]
+                                    for x in checked],
+              "step0_max_rel_diff": [x["step0_max_rel_diff"]
+                                     for x in checked],
+              "limit": TP_STEP0_REL,
+              "copies_agree": [x["copies_agree"] for x in step0],
+              "losses_model_ranks": [x["losses"] for x in step0],
+              "losses_one_process": [x["losses_one_process"]
+                                     for x in checked],
+              "grads_s_per_model_rank": [x["grads_s"] for x in step0],
+              "one_process_s": [x["one_process_s"] for x in checked],
+              "rank_s": times,
+              "trees_wait_s_per_rank": [r["moe_tp"]["wait_s"]
+                                        for r in ranks]})
+        require(len(step0) == TP_M and len(checked) == 1,
+                f"tp moe {name}: the first block's step-0 check is missing")
+        for x in step0:
+            require(x["copies_agree"], f"tp moe {name}: a copy leaf's "
+                    "step-0 gradient differs across the model group")
+            require(x["losses"] == step0[0]["losses"]
+                    and all(map(math.isfinite, x["losses"])),
+                    f"tp moe {name}: the model ranks' step-0 losses "
+                    f"{[y['losses'] for y in step0]}")
+        for x in checked:
+            require(x["step0_max_rel_diff"] <= TP_STEP0_REL,
+                    f"tp moe {name}: step 0's gradients "
+                    f"{x['step0_max_rel_diff']} of a leaf's scale from the "
+                    f"model=1 run's (limit {TP_STEP0_REL})")
+
+        lm = [r["moe_tp"][name]["fsdp"] for r in ranks]
+        built = build.build_model(cfg, Topology(TP_P, TP_D, "cpu"))
+        abstract = built.abstract_params()
+        leaves = len(lift_rows(abstract))
+        master = sum(4 * max(stack, 1) * (numel // TP_D if device_axis
+                                          .data_dim(spec) is not None
+                                          else numel)
+                     for _, stack, numel, spec in mesh_leaves(built, TP_M))
+        data_pod = reckon_fsdp_mesh_bytes(built, TP_D, TP_P, TP_M)
+        model = reckon_tp_model_bytes(cfg, built.arch, 1, MOE_SEQ, TP_M)
+        reckoned = reckon_fsdp_mesh_peak(built, 1, MOE_SEQ, TP_D, TP_M,
+                                         host_init=True)
+        losses = lm[0]["losses"]
+        sent = [{g: {"local_step": x["bytes_per_step"][1][g]["sent"],
+                     "prologue_step": x["bytes_per_step"][0][g]["sent"]}
+                 for g in ("data", "pod", "model")} for x in lm]
+        emit({"tp": "moe fsdp", "arch": cfg.name, "card": card,
+              "n_layers": cfg.n_layers,
+              "count": build.param_count(abstract), "grid": list(TP_GRID),
+              "P": TP_P, "D": TP_D, "M": TP_M, "seq": MOE_SEQ,
+              "n_patches": cfg.n_patches, "steps": TP_MOE_STEPS,
+              "mu": MOE_MU, "losses": losses,
+              "last_loss": losses[-1],
+              "launches_per_rank": [x["launches"] for x in lm],
+              "leaf_layers_a_step": leaves,
+              "held_bytes_per_rank": [x["held_bytes"] for x in lm],
+              "master_bytes_reckoned": master,
+              "bytes_sent_per_rank": sent,
+              "bytes_reckoned": {**data_pod, "model": model},
+              "local_step_ms_per_rank": [
+                  statistics.mean(ms for s, ms in enumerate(x["ms"])
+                                  if s % LM_TE) for x in lm],
+              "prologue_step_ms_per_rank": [
+                  statistics.mean(ms for s, ms in enumerate(x["ms"])
+                                  if s % LM_TE == 0) for x in lm],
+              "ms_per_rank": [x["ms"] for x in lm],
+              "data_ms_per_rank": [statistics.mean(x["data_ms"])
+                                   for x in lm],
+              "peak_gb_per_rank": [x["peak_gb"] for x in lm],
+              "held_gb_per_rank": [x["held_gb"] for x in lm],
+              "reckoned_peak": reckoned,
+              "rank_s": [x["s"] for x in lm]})
+        want = {"sign_pack": TP_MOE_STEPS * leaves,
+                "vote_update": TP_MOE_STEPS * leaves, "tally_acc": 0,
+                "ternary_quant": 0}
+        for x in lm:
+            require(all(map(math.isfinite, x["losses"])),
+                    f"tp moe {name}: non-finite loss")
+            require(x["losses"] == losses, f"tp moe {name}: the ranks' "
+                    "losses differ")
+            require(x["launches"] == want, f"tp moe {name}: launches "
+                    f"{x['launches']}, want {want}")
+            require(x["held_bytes"]["params"] == master, f"tp moe {name}: "
+                    f"a rank holds {x['held_bytes']['params']} master "
+                    f"bytes, its shard of its model block {master}")
+        require(losses[-1] < losses[0], f"tp moe {name}: step "
+                f"{TP_MOE_STEPS - 1}'s loss {losses[-1]} is not below "
+                f"step 0's {losses[0]}")
+        launches[name] = [x["launches"] for x in lm]
+    return launches
+
+
+def block_numel(shape, spec, model: int) -> int:
+    """A leaf's coordinates on one model rank: the dim its spec names
+    ``"model"`` on (alone or as ``("model", "data")``) cut in ``model``
+    even blocks; the whole leaf where none is."""
+    numel = math.prod(shape)
+    for entry in spec or ():
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if "model" in names and model > 1:
+            return numel // model
+    return numel
+
+
+def mesh_leaves(built, model: int) -> list:
+    """(name, layers, per-layer coordinates on a model rank, the
+    per-layer master spec) of every leaf: a stack's without its layer
+    dim (``layers`` its count), another's whole (``layers`` 0)."""
     abstract = built.abstract_params()
-    tile = 4096
-    fwd = delta = words = terms = pod = 0
+    out = []
     for (name, leaf), spec in zip(pytree_items(abstract), flat_specs(
             built.bundle.master_specs, abstract)):
         stacked = name.startswith("stacks.")
-        layers = leaf.shape[0] if stacked else 1
-        numel = math.prod(leaf.shape[1:] if stacked else leaf.shape)
-        dim = device_axis.data_dim(spec[1:] if stacked else spec)
-        passes = 2 if stacked else 1
+        shape, sp = ((leaf.shape[1:], spec[1:]) if stacked
+                     else (leaf.shape, spec))
+        out.append((name, leaf.shape[0] if stacked else 0,
+                     block_numel(shape, sp, model), sp))
+    return out
+
+
+def reckon_fsdp_mesh_bytes(built, data: int, pods: int,
+                           model: int = 1) -> dict:
+    """The bytes one rank sends on each group in a local and in a
+    prologue step of the FSDP regime over ``pods x data x model`` ranks
+    with a [1, 1] block (P_loc = D_loc = 1), reckoned from the leaves
+    and their master specs before any run (bf16 compute and delta, f32
+    master, DC, fused, every layer recomputed under remat).  Each leaf
+    counts at its model block (:func:`block_numel`).  A data-sharded
+    leaf of s coordinates a shard: the forward's gather sends its bf16
+    shard, 2s, once a pass and again in the recompute (a stacked leaf);
+    the backward's correction gather 2s and the words (data - 1) s/8, s
+    padded to the 4096-coordinate tile for both; in a prologue the
+    anchor pass's gathers again, wmean's f32 terms (data - 1) 4s, and
+    over the pod group the cloud mean of the master and of c_q, 4s
+    each.  A leaf no spec shards moves its words (and terms) by
+    ``gather_devices``: n/8 (4n).  The model group's bytes are
+    :func:`reckon_tp_model_bytes`'."""
+    from repro_torch.core import device_axis
+
+    tile = 4096
+    fwd = delta = words = terms = pod = 0
+    for _, stack, numel, spec in mesh_leaves(built, model):
+        layers = max(stack, 1)
+        dim = device_axis.data_dim(spec)
+        passes = 2 if stack else 1
         if dim is None or data == 1:
             words += layers * (numel + 31) // 32 * 4
             terms += layers * 4 * numel
@@ -5205,6 +5700,80 @@ def reckon_fsdp_mesh_bytes(built, data: int, pods: int) -> dict:
                     "prologue_step": pod if pods > 1 else 0}}
 
 
+def reckon_tp_model_bytes(cfg, arch, batch: int, seq: int, model: int,
+                          elt: int = 2, lead: int = 1) -> dict:
+    """The bytes one rank sends on the model group in a local and in a
+    prologue step (the anchor pass runs the loss a second time) of the
+    FSDP regime's tensor-parallel loss over ``model`` ranks, with
+    ``lead`` replicas a rank, ``batch`` rows of ``seq`` tokens (and a
+    vlm's patches) and activations of ``elt`` bytes, reckoned from the
+    config alone.  A sum counts the tensor it is handed
+    (``comm.traffic``: a bf16 sum as bf16).  With A the [rows,
+    positions, d_model] activations: forward, the vocab-parallel lookup
+    (A, tokens only), each split attention's and FFN's row-parallel sum
+    (A; an MoE layer's experts and MLPs in one) and each
+    cross-entropy's max, sum of exponentials and gold logit (f32 a
+    position); each layer's recompute again sums its attention's but
+    not its FFN's (the checkpoint stops once the last tensor its
+    backward saved is back, and nothing after the FFN's sum is saved);
+    backward, each ``copy_to_model``'s gradient: a split GQA's input
+    (and its whole kv heads, repeated, where they do not split), MLA's
+    query latent, kv latent and rope key, an MLP's input (A), an MoE
+    layer's input and its f32 combine [g, S, E, C] where the experts
+    split, and each head's input (A).  deepseek-v3's MTP runs its
+    lookup, its block (not recomputed) and its head once more on the
+    tokens."""
+    from repro_torch.models import build, moe
+
+    d, m = cfg.d_model, model
+    tok = lead * batch * seq
+    pos = lead * batch * (seq + cfg.n_patches)
+
+    def attn(npos):
+        if cfg.n_heads % m:
+            return 0, 0
+        if cfg.mla is not None:
+            r = cfg.mla
+            return npos * d * elt, npos * elt * (
+                r.q_lora_rank + r.kv_lora_rank + r.qk_rope_head_dim)
+        bwd = npos * d * elt
+        if cfg.qk_norm:
+            bwd += lead * cfg.hd * elt * (1 if cfg.n_kv_heads % m else 2)
+        if cfg.n_kv_heads % m:
+            bwd += 2 * npos * cfg.n_heads * cfg.hd * elt
+        return npos * d * elt, bwd
+
+    def ffn(block, npos):
+        if block != "moe":
+            return npos * d * elt, npos * d * elt
+        e = cfg.moe
+        split = e.n_experts % m == 0
+        if not (split or e.n_shared or e.dense_residual_ff):
+            return 0, 0
+        bwd = npos * d * elt
+        if split:
+            per = batch * (seq + cfg.n_patches)
+            g = max(1, per // e.group_tokens)
+            s_len = per // g
+            bwd += lead * g * s_len * e.n_experts * moe.capacity(
+                s_len, e) * 4
+        return npos * d * elt, bwd
+
+    xent = 3 * tok * 4
+    fwd, bwd = tok * d * elt + xent, tok * d * elt   # lookup; head input
+    for block, n in build.occurrence_counts(arch.segments).items():
+        a, b = attn(pos)
+        f, g = ffn(block, pos)
+        fwd += n * (2 * a + f)
+        bwd += n * (b + g)
+    if arch.mtp_block is not None:
+        a, b = attn(tok)
+        f, g = ffn("mlp", tok)
+        fwd += tok * d * elt + xent + a + f
+        bwd += b + g + tok * d * elt
+    return {"local_step": fwd + bwd, "prologue_step": 2 * (fwd + bwd)}
+
+
 def flat_specs(specs, abstract) -> list:
     """``specs`` in ``pytree_items(abstract)``'s order."""
     from repro_torch.core import pytree
@@ -5212,30 +5781,57 @@ def flat_specs(specs, abstract) -> list:
     return pytree.flatten_up_to(pytree.tree_flatten(abstract)[1], specs)
 
 
-def reckon_fsdp_mesh_peak(built, batch: int, seq: int, data: int) -> dict:
-    """A mesh rank's peak device memory (GB) in the gemma3-12b FSDP run
-    over ``data`` data ranks with a [1, 1] block, reckoned before any
-    run: ``reckon_fsdp_peak``'s terms at p = d = 1 with the state and
-    the means at the shard's size (n/data); at the table's vote (t
-    coordinates, the largest leaf), its bf16 cotangent 2t, its gathered
-    correction 2t and the backward's shard-major copy of the cotangent
-    2t (the correction added in place); at its mean, the cotangent, the
-    copy and the f32 mean 4t/data; at the head, the lifted table, the
-    logits and the cotangent; and the init's full float32 tree before
-    the rank cuts its shards (4n + 4n/data).  Each direction goes into
-    its master as soon as it is known (``hier``), so none waits."""
-    abstract = built.abstract_params()
+def reckon_fsdp_mesh_peak(built, batch: int, seq: int, data: int,
+                          model: int = 1, host_init: bool = False) -> dict:
+    """A mesh rank's peak device memory (GB) in an FSDP run over ``data``
+    data ranks and ``model`` model ranks with a [1, 1] block, reckoned
+    before any run from each leaf's model block (:func:`block_numel`):
+    ``reckon_fsdp_peak``'s terms at p = d = 1 with the state and the
+    means at the shard's size (n/data); at the table's vote (t
+    coordinates), its bf16 cotangent 2t, its gathered correction 2t and
+    the backward's shard-major copy of the cotangent 2t (the correction
+    added in place); at its mean, the cotangent, the copy and the f32
+    mean 4t/data; at the head, its lifted leaf h (the table when tied,
+    else ``head.out``) and MTP's lifted subtree u, the logits of the
+    rank's vocab block (twice with MTP) and the head's cotangent 2h; at
+    a layer's vote (or MTP's), its lifted leaves 2L, its largest leaf
+    l's cotangent, gathered correction and shard-major copy 6l -- an
+    MoE layer's expert block outweighs the table; and the init: the
+    full float32 tree before the rank cuts its shards (4n + 4n/data),
+    or with ``host_init`` (parameters handed over on the host, moved
+    and cut a leaf at a time) the master so far and one whole leaf
+    (4n/data + 4 l_max).  Each direction goes into its master as soon
+    as it is known (``hier``), so none waits."""
+    from repro_torch.models import layers
+
     cfg = built.cfg
-    n = sum(math.prod(a.shape) for _, a in pytree_items(abstract))
-    t = math.prod(abstract["embed"]["table"].shape)
-    tt = {"state": 8 * n / data, "cot": 2 * t,
-          "logits": 18 * batch * seq * cfg.vocab, "lifted": 2 * t,
-          "by_shard": 2 * t, "delta_gathered": 2 * t, "mean": 4 * t / data,
-          "init": 4 * n + 4 * n / data}
+    leaves = mesh_leaves(built, model)
+    n = sum(max(stack, 1) * numel for _, stack, numel, _ in leaves)
+    size = {name: numel for name, _, numel, _ in leaves}
+    t = size["embed.table"]
+    h = t if cfg.tie_embed else size["head.out"]
+    mtp = sum(numel for name, _, numel, _ in leaves
+              if name.startswith("mtp."))
+    vocab = (cfg.vocab // model if layers.vocab_sharded(cfg.vocab, model)
+             else cfg.vocab)
+    abstract = built.abstract_params()
+    biggest = max(math.prod(a.shape) for _, a in pytree_items(abstract))
+    units = [[numel for name, _, numel, _ in leaves
+              if name.startswith(f"stacks.{block}.")]
+             for block in abstract["stacks"]]
+    units.append([numel for name, _, numel, _ in leaves
+                  if name.startswith("mtp.")])
+    tt = {"state": 8 * n / data, "cot": 2 * h,
+          "logits": 18 * batch * seq * vocab * (2 if mtp else 1),
+          "lifted": 2 * (h + mtp), "by_shard": 2 * t,
+          "delta_gathered": 2 * t, "mean": 4 * t / data,
+          "layer": max(2 * sum(u) + 6 * max(u) for u in units if u),
+          "init": (4 * n / data + 4 * biggest if host_init
+                   else 4 * n + 4 * n / data)}
     head = tt["lifted"] + tt["logits"] + tt["cot"]
-    vote = tt["cot"] + tt["delta_gathered"] + tt["by_shard"]
-    mean = tt["cot"] + tt["by_shard"] + tt["mean"]
-    peak = max(tt["init"], tt["state"] + max(head, vote, mean))
+    vote = 2 * t + tt["delta_gathered"] + tt["by_shard"]
+    mean = 2 * t + tt["by_shard"] + tt["mean"]
+    peak = max(tt["init"], tt["state"] + max(head, vote, mean, tt["layer"]))
     return {"peak_gb": peak / 1e9,
             **{f"{k}_gb": v / 1e9 for k, v in tt.items()}}
 
@@ -5481,7 +6077,8 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "tp"]:
         tp = phase_tp(torch, card)
         paths = dict.fromkeys(SOURCES, "tp, the parity toy's cells and "
-                              "gemma3-1b (6 steps) in rank 0 of 2 x 2 x 2")
+                              "gemma3-1b (6 steps, 2 layers) in rank 0 of "
+                              "2 x 2 x 2")
         kernels = kernel_rows(main_rows, mesh_rank0_launches(tp), paths,
                               lambda name: tp_extra(tp, name))
         finish(torch, kernels)
@@ -5489,7 +6086,7 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "fsdp_mesh"]:
         fm = phase_fsdp_mesh(torch, card)
         paths = dict.fromkeys(SOURCES, "fsdp_mesh, gemma3-12b FSDP (4 steps, "
-                              "6 layers) in rank 0 of 2 x 2")
+                              "2 layers) in rank 0 of 2 x 2")
         kernels = kernel_rows(main_rows, fm["lm"][0], paths,
                               lambda name: fsdp_mesh_extra(fm, name))
         finish(torch, kernels)
@@ -5512,7 +6109,7 @@ def main() -> None:
     moe_launches = phase_moe(torch, card)
     hybrid = phase_hybrid(torch, card)
     mesh = phase_mesh(torch, card, fsdp=True)
-    tp = phase_tp(torch, card, fsdp=True)
+    tp = phase_tp(torch, card, parts=("tp", "fsdp", "moe"))
     fm = fsdp_mesh_report(torch, card, mesh.pop("ranks"), tp.pop("ranks"))
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
@@ -5556,9 +6153,14 @@ def mesh_extra(mesh: dict, name: str) -> dict:
 
 def tp_extra(tp: dict, name: str) -> dict:
     """The kernels line's ``tp_launches_per_rank``: per rank, the toy's
-    cells' and the LM run's launches of ``name`` in the ``tp`` phase."""
+    cells' and the LM run's launches of ``name`` in the ``tp`` phase;
+    and ``tp_moe_launches_per_rank``: per config, each rank's launches
+    of ``name`` in its FSDP run over the model axis."""
     return {"tp_launches_per_rank": mesh_extra(tp, name)[
-        "mesh_launches_per_rank"]}
+        "mesh_launches_per_rank"],
+        "tp_moe_launches_per_rank": {
+            arch: [x[name] for x in per_rank]
+            for arch, per_rank in tp["moe"].items()}}
 
 
 def kernel_rows(main_rows: dict, launches: dict, paths: dict,

@@ -120,10 +120,10 @@ two quirks are the reference's own (ROADMAP section 3):
 ``hier_local_qsgd`` takes the ``wmean`` of the raw gradients, and
 ``error_feedback`` / ``momentum`` are dropped.  Over a process mesh a
 rank holds, of every master and correction, its shard: its edges'
-rows, its model block (a model axis above 1: the dense family,
-tensor-parallel) and its data rank's run along the dim the bundle's
-``master_specs`` name ``"data"`` (JAX's layout at the global D, a
-rank holding its ``D_loc`` blocks).  Each layer's lift gathers the
+rows, its model block (a model axis above 1: the dense, vlm and moe
+families, tensor-parallel) and its data rank's run along the dim the
+bundle's ``master_specs`` name ``"data"`` (JAX's layout at the global
+D, a rank holding its ``D_loc`` blocks).  Each layer's lift gathers the
 shards over the data group and its backward votes the rank's shard
 over all D voters (``core.device_axis``); the update, the cloud mean
 (over the pod group) and DC's anchor ``c - c_q`` are coordinatewise on
@@ -1147,33 +1147,46 @@ def make_hier_step(topo: Topology, algo: AlgoConfig, bundle: ModelBundle,
         return new_state, metrics
 
     def init_fn(params_single: PyTree, seed: int = 0) -> TrainState:
-        """params_single: one replica's parameters (no leading dims),
-        copied to P edge models (the rank's P_loc over a mesh) in the
-        master dtype on ``topo.device``; the slots are filled as the
-        reference's ``init_fn`` fills them."""
-        params_tree = tmap(
-            lambda x: torch.as_tensor(x, device=dev).unsqueeze(0)
-            .expand((p,) + tuple(x.shape)).to(algo.master_dtype)
-            .contiguous(), params_single)
-        layout = None
+        """params_single: one replica's parameters (no leading dims; on
+        the host or on any device), copied to P edge models (the rank's
+        P_loc over a mesh) in the master dtype on ``topo.device``, a
+        leaf at a time: each leaf is cut where it lies to the rank's
+        model block and, under FSDP, its data rank's shard, and only
+        that part moves, so ``topo.device`` never holds more of the
+        tree than the rank's part (and a tree already there is not
+        copied whole); the slots are filled as the reference's
+        ``init_fn`` fills them."""
+        leaves, td = pytree.tree_flatten(params_single)
+        shapes = pytree.tree_unflatten(td, [
+            torch.empty((p,) + tuple(x.shape), dtype=algo.master_dtype,
+                        device="meta") for x in leaves])
+        layout, blocks = None, [None] * len(leaves)
         if topo.model_shards > 1 and bundle.specs is not None:
             # the rank keeps its blocks of the sharded layout
-            sharding["layout"] = shardflat.param_layout(
-                topo, bundle.specs, params_tree, batch_dims=1)
-            if fsdp and any(sl.shard_pad for sl in sharding["layout"].slots):
+            lay = sharding["layout"] = shardflat.param_layout(
+                topo, bundle.specs, shapes, batch_dims=1)
+            if fsdp and any(sl.shard_pad for sl in lay.slots):
                 raise NotImplementedError(
                     "the FSDP regime over a model axis that does not divide "
                     "a split leaf dim (the lifted copies would carry the "
                     "zero tail into the forward)")
-            params_tree = shardflat.local_block(topo, sharding["layout"],
-                                                params_tree, 1)
-            layout = sharding["layout"].bucket()
-        if fsdp:          # and of each master, its data rank's shard
-            leaves, td = pytree.tree_flatten(params_tree)
-            params_tree = pytree.tree_unflatten(td, [
-                device_axis.shard(x, dim, topo).contiguous()
-                for x, dim in zip(leaves, device_axis.data_dims(
-                    bundle.master_specs, params_tree))])
+            if lay.shards > 1:
+                blocks = lay.slots
+            layout = lay.bucket()
+        # under FSDP, of each master its data rank's shard
+        dims = (device_axis.data_dims(bundle.master_specs, shapes) if fsdp
+                else [None] * len(leaves))
+        out = []
+        for x, slot, dim in zip(leaves, blocks, dims):
+            y = torch.as_tensor(x)
+            y = y.unsqueeze(0).expand((p,) + tuple(y.shape))
+            if slot is not None:
+                y = flatbuf.slot_block(slot, y, topo.model_rank,
+                                       lay.shards, 1)
+            y = device_axis.shard(y, dim, topo)
+            out.append(y.to(device=dev, dtype=algo.master_dtype)
+                       .contiguous())
+        params_tree = pytree.tree_unflatten(td, out)
         if flat:
             layout = layout or flatbuf.make_layout(params_tree, batch_dims=1)
             params = flatbuf.FlatState(

@@ -27,9 +27,9 @@ regime over the ranks, each holding its shard of every master
 gloo on the CPU and for ranks that share a card, NCCL with a card a
 rank.  ``--multi_pod`` lays the production grid (2 pods x 16 data x 16
 model, ``mesh.make_topology``) over 512 ranks: P = 2 x D = 16, the
-dense family tensor-parallel over the model axis (``ValueError`` on
-another world size).  ``--ckpt`` under a mesh (item 17e) raises
-``NotImplementedError``.
+dense, vlm and moe families tensor-parallel over the model axis
+(``ValueError`` on another world size).  ``--ckpt`` under a mesh (item
+17e) raises ``NotImplementedError``.
 
   PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \
       --device cpu --arch gemma3_1b --smoke --steps 6 --t_e 3 --pods 2 \
@@ -342,9 +342,10 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
     every rank draws the whole token stream and keeps its block, the
     membership stays global (the step takes the rank's block of it), and
     the loss is the whole run's.  With a model axis the ranks of a (pod,
-    device) cell draw the same batch, and a dense model trains
-    tensor-parallel on each rank's blocks (``models.build``).  An FSDP
-    config holds each master's shard on each rank (``core.hier``).
+    device) cell draw the same batch, and a dense, vlm or moe model
+    trains tensor-parallel on each rank's blocks (``models.build``).  An
+    FSDP config holds each master's shard on each rank (``core.hier``),
+    over a model axis its model block's.
     Checkpoints under a mesh are ROADMAP item 17e
     (``NotImplementedError``)."""
     if run.ckpt_dir and topo.mesh is not None:

@@ -43,7 +43,13 @@ head count that does not divide (gemma3-1b's single head) keeps
 formed whole, then marked ``copy_to_model`` so that their gradient --
 each rank's heads' part -- is summed, and every rank's copy of those
 leaves gets the whole gradient; ``qn``, read by the rank's heads only,
-is marked the same way.
+is marked the same way.  ``mla_attn``'s train mode runs
+tensor-parallel the same way (``mla_specs``): ``wuq``, ``wuk`` and
+``wuv`` column-parallel over the heads, ``wo`` row-parallel and summed;
+the replicated ``wdq``/``qn``, ``wdkv``/``kvn`` and ``wkr`` form the
+query latent, the kv latent and the shared rope key whole, each marked
+``copy_to_model`` before the rank's heads read it.  Heads that do not
+divide the axis run whole on every rank, for both mixers.
 
 Not ported yet: the caches' sharding specs (item 17d).
 """
@@ -213,6 +219,13 @@ def _gqa_train_tp(p, x, positions, cfg, theta, window, mask_extra, tp):
     return comm.sum_model(tp, _merge_heads(out, p["wo"]))
 
 
+def _refuse_cache(cache) -> None:
+    if cache is not None:
+        raise NotImplementedError(
+            "serving over a model axis (the caches' specs): ROADMAP item "
+            "17d")
+
+
 def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
              mask_extra=None, cache=None, pos: int = 0,
              prefill: bool = False, tp=None):
@@ -235,10 +248,7 @@ def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
     would clamp it into the last slots).  ``tp`` (train mode): the
     rank's heads, see the module docstring."""
     if tp is not None:
-        if cache is not None:
-            raise NotImplementedError(
-                "serving over a model axis (the caches' specs): ROADMAP "
-                "item 17d")
+        _refuse_cache(cache)
         return _gqa_train_tp(p, x, positions, cfg, theta, window,
                              mask_extra, tp)
     rep = cfg.n_heads // cfg.n_kv_heads
@@ -368,31 +378,38 @@ def _write(cache: torch.Tensor, new: torch.Tensor, at: int) -> torch.Tensor:
 
 
 def mla_attn(p, x, positions, cfg, *, cache=None, pos: int = 0,
-             prefill: bool = False):
+             prefill: bool = False, tp=None):
     """MLA: x [*, b, t, d] -> [*, b, t, d] without a cache (train mode);
     with one (``{"ckv": [b, L, r], "kr": [b, L, rope]}``,
     ``mla_cache_init``), (out, new_cache): ``prefill`` attends causally
     over the fresh tokens and writes their latents from slot 0, decode
     writes t tokens at ``pos`` (a host int) and attends over the cache
-    through the absorbed keys, masking ``kj <= pos``."""
+    through the absorbed keys, masking ``kj <= pos``.  ``tp`` (train
+    mode): the rank's heads, see the module docstring."""
+    if tp is not None:
+        _refuse_cache(cache)
+        if cfg.n_heads % tp.model_shards:   # the heads whole on every rank
+            tp = None
     m = cfg.mla
     nope, rdim = m.qk_nope_head_dim, m.qk_rope_head_dim
-    ql = layers.rms_norm(p["qn"], layers.linear(x, p["wdq"]), cfg.norm_eps)
+    ql = comm.copy_to_model(tp, layers.rms_norm(
+        p["qn"], layers.linear(x, p["wdq"]), cfg.norm_eps))
     q = _proj_heads(ql, p["wuq"])
     q_nope = q[..., :nope]
     q_rope = layers.rope(q[..., nope:], positions, cfg.rope_theta)
-    ckv = layers.rms_norm(p["kvn"], layers.linear(x, p["wdkv"]),
-                          cfg.norm_eps)                          # [*, b,t,r]
-    k_rope = layers.rope(layers.linear(x, p["wkr"])[..., None, :],
-                         positions, cfg.rope_theta)[..., 0, :]   # [*,b,t,rd]
+    ckv = comm.copy_to_model(tp, layers.rms_norm(
+        p["kvn"], layers.linear(x, p["wdkv"]), cfg.norm_eps))   # [*, b,t,r]
+    k_rope = comm.copy_to_model(tp, layers.rope(
+        layers.linear(x, p["wkr"])[..., None, :], positions,
+        cfg.rope_theta)[..., 0, :])                              # [*,b,t,rd]
     if cache is None or prefill:
         k_nope = _proj_heads(ckv, p["wuk"])
         v = _proj_heads(ckv, p["wuv"])
         k = torch.cat([k_nope, k_rope[..., None, :].expand(
-            k_rope.shape[:-1] + (cfg.n_heads, rdim))], dim=-1)
+            k_nope.shape[:-1] + (rdim,))], dim=-1)
         out = attend_causal(torch.cat([q_nope, q_rope], dim=-1), k, v)
         if cache is None:
-            return _merge_heads(out, p["wo"])
+            return comm.sum_model(tp, _merge_heads(out, p["wo"]))
         new_cache = {"ckv": _write(cache["ckv"], ckv, 0),
                      "kr": _write(cache["kr"], k_rope, 0)}
         return _merge_heads(out, p["wo"]), new_cache

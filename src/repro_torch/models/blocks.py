@@ -23,11 +23,11 @@ leading dense layers and its MTP block), the hybrid family's
 
 Every block carries its leaves' sharding specs (``BlockDef.specs``, the
 JAX block's, at the ``model_shards`` it is built for): they lay out the
-FSDP masters (``build.master_specs``).  ``dense_block`` runs
-tensor-parallel in train mode when ``Ctx.tp`` is set
-(``models.layers``, ``models.attention``); the other blocks run at a
-model axis of 1 only (their tensor-parallel forwards are ROADMAP item
-17f).
+FSDP masters (``build.master_specs``).  ``dense_block``, ``moe_block``
+and ``mla_dense_block`` run tensor-parallel in train mode when
+``Ctx.tp`` is set (``models.layers``, ``models.attention``,
+``models.moe``); the recurrent mixers' blocks run at a model axis of 1
+only (their tensor-parallel forwards are ROADMAP item 17f).
 
 Not ported yet: the caches' sharding specs (ROADMAP item 17d).
 """
@@ -165,16 +165,16 @@ def moe_block(cfg: LMConfig, model_shards: int = 0, *,
         prefill = ctx.mode == "prefill"
         if use_mla:
             a = attn.mla_attn(p["attn"], h, ctx.positions, cfg, cache=cache,
-                              pos=ctx.pos, prefill=prefill)
+                              pos=ctx.pos, prefill=prefill, tp=ctx.tp)
         else:
             a = attn.gqa_attn(p["attn"], h, ctx.positions, cfg,
                               theta=cfg.rope_theta, cache=cache, pos=ctx.pos,
-                              prefill=prefill)
+                              prefill=prefill, tp=ctx.tp)
         if cache is not None:
             a, new_cache = a
         x = x + a
         y, aux = moe_mod.moe_block(p["moe"], layers.rms_norm(
-            p["n2"], x, cfg.norm_eps), cfg)
+            p["n2"], x, cfg.norm_eps), cfg, tp=ctx.tp)
         return (x + y, aux) if cache is None else (x + y, new_cache)
 
     def cache_init(b, max_len):
@@ -203,12 +203,14 @@ def mla_dense_block(cfg: LMConfig, d_ff: int, model_shards: int = 0,
     def apply(p, x, ctx: Ctx, cache=None):
         h = layers.rms_norm(p["n1"], x, cfg.norm_eps)
         a = attn.mla_attn(p["attn"], h, ctx.positions, cfg, cache=cache,
-                          pos=ctx.pos, prefill=ctx.mode == "prefill")
+                          pos=ctx.pos, prefill=ctx.mode == "prefill",
+                          tp=ctx.tp)
         if cache is not None:
             a, new_cache = a
         x = x + a
         x = x + layers.mlp(p["mlp"], layers.rms_norm(p["n2"], x,
-                                                     cfg.norm_eps), cfg.act)
+                                                     cfg.norm_eps), cfg.act,
+                           tp=ctx.tp)
         return (x, no_aux(x)) if cache is None else (x, new_cache)
 
     def cache_init(b, max_len):

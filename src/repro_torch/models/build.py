@@ -55,18 +55,23 @@ replicated regime does, where its bf16 weights fit
 zamba2's gradients are not finite where its SSD scan overflows, as the
 reference's are (ROADMAP queue 3); the sign sends NaN to -1.
 
-Over a model axis above 1 (``topo.model_shards``) the dense family
-trains tensor-parallel: ``compute_specs`` gives each leaf's spec (the
-JAX function's, leaf for leaf), the bundle carries them, and the loss
-runs on a rank's blocks (``Ctx.tp``): the vocab-parallel embedding,
-the blocks' split heads and MLP columns, the column-parallel tied
-unembedding and the vocab-parallel cross-entropy (``models.layers``).
+Over a model axis above 1 (``topo.model_shards``) the dense, vlm and
+moe families train tensor-parallel, in both regimes:
+``compute_specs`` gives each leaf's spec (the JAX function's, leaf for
+leaf), the bundle carries them, and the loss runs on a rank's blocks
+(``Ctx.tp``): the vocab-parallel embedding, the blocks' split heads
+(GQA's and MLA's), MLP columns and experts, the column-parallel
+unembedding and the vocab-parallel cross-entropy (``models.layers``,
+``models.attention``, ``models.moe``) -- deepseek-v3's MTP head's
+rolled-token embedding, logits and cross-entropy included.  A vlm's
+patches cross the model group as they are: every rank holds them
+whole.
 
 Not ported yet (each raises ``NotImplementedError``): the ``"gather"``
 serve layout of the FSDP configs above the budget (item 17d:
 ``ServeGatherPlan``), ``cache_specs`` and serving over a model axis
-(17d), and the other families' tensor-parallel forwards and specs
-(item 17f).
+(17d), and the ssm, hybrid and encdec/audio families' tensor-parallel
+forwards and specs (item 17f).
 """
 from __future__ import annotations
 
@@ -94,7 +99,7 @@ SERVE_RESIDENT_BUDGET = 12e9   # bf16 bytes on the card below which an
                                # FSDP config's weights serve resident
 
 
-TP_FAMILIES = ("dense",)        # families with a tensor-parallel forward
+TP_FAMILIES = ("dense", "vlm", "moe")  # with a tensor-parallel forward
 
 
 def _refuse_tp(cfg: LMConfig, model_shards: int) -> None:
@@ -102,7 +107,8 @@ def _refuse_tp(cfg: LMConfig, model_shards: int) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family over a model axis of "
             f"{model_shards} (its tensor-parallel forward and its *_specs) "
-            "is ROADMAP item 17f; the dense family runs tensor-parallel")
+            "is ROADMAP item 17f; the dense, vlm and moe families run "
+            "tensor-parallel")
 
 
 def make_archdef(cfg: LMConfig, model_shards: int = 0) -> ArchDef:
@@ -117,8 +123,9 @@ def make_archdef(cfg: LMConfig, model_shards: int = 0) -> ArchDef:
     last); xlstm's periods of ``m_per_s`` mLSTM blocks and one sLSTM
     block (a remainder of mLSTM blocks after the last); whisper's
     bidirectional encoder and causal decoder with cross-attention.
-    ``model_shards`` sizes the dense blocks' specs (the heads split
-    where they divide it); another family raises above 1 (item 17f)."""
+    ``model_shards`` sizes the blocks' specs (the heads and experts
+    split where they divide it); the ssm, hybrid and encdec/audio
+    families raise above 1 (item 17f)."""
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
     _refuse_tp(cfg, model_shards)
@@ -198,8 +205,8 @@ def compute_specs(arch: ArchDef, model_shards: int = 0) -> PyTree:
     the vocabulary divides the axis, each stack its block's specs behind
     a replicated layer dim, whisper's encoder stacks and adapter, the
     head's norm (and an untied ``out``'s vocab columns), deepseek-v3's
-    ``mtp``.  Every family has them at a model axis of 1; above 1 only
-    the dense family (another raises, item 17f)."""
+    ``mtp``.  Every family has them at a model axis of 1; above 1 the
+    dense, vlm and moe families (another raises, item 17f)."""
     cfg = arch.cfg
     _refuse_tp(cfg, model_shards)
     prepend = functools.partial(pytree.tree_map,
@@ -351,7 +358,10 @@ def _losses(arch: ArchDef, head, embed_p, mtp, x, aux, tokens, mtp_apply,
     ``mtp_loss_weight`` times its cross-entropy on ``roll(tokens, -2)``
     (the last two positions masked): ``mtp_apply(p, h)`` runs the block
     on its input h, the projection of the normed x and the normed
-    embeddings of ``roll(tokens, -1)``."""
+    embeddings of ``roll(tokens, -1)``.  ``tp``: a vocab-sharded model
+    axis (both heads' lookups, logits and cross-entropies vocab-
+    parallel); the replicated ``proj`` gets its whole gradient, since the
+    MTP block marks its own input."""
     cfg = arch.cfg
     targets, mask = _targets_and_mask(tokens)
     losses = layers.softmax_xent(_logits(cfg, head, embed_p, x, tp),
@@ -359,7 +369,7 @@ def _losses(arch: ArchDef, head, embed_p, mtp, x, aux, tokens, mtp_apply,
     if arch.mtp_block is None:
         return losses
     e2 = layers.embed(embed_p, torch.roll(tokens, -1, dims=-1),
-                      cfg.embed_scale)
+                      cfg.embed_scale, tp)
     h = layers.linear(torch.cat(
         [layers.rms_norm(mtp["n_x"], x, cfg.norm_eps),
          layers.rms_norm(mtp["n_e"], e2, cfg.norm_eps)], dim=-1),
@@ -369,8 +379,8 @@ def _losses(arch: ArchDef, head, embed_p, mtp, x, aux, tokens, mtp_apply,
                        device=tokens.device)
     mask2[..., -2:] = 0.0
     return losses + cfg.mtp_loss_weight * layers.softmax_xent(
-        _logits(cfg, head, embed_p, h), torch.roll(tokens, -2, dims=-1),
-        mask2)
+        _logits(cfg, head, embed_p, h, tp), torch.roll(tokens, -2, dims=-1),
+        mask2, tp)
 
 
 def make_loss(arch: ArchDef, remat: bool = True,
@@ -382,8 +392,8 @@ def make_loss(arch: ArchDef, remat: bool = True,
     frontend_dim] (cast to the embedding's dtype, through the adapter and
     the encoder segments); a vlm puts ``batch["patches"]`` first.  Over
     a model axis above 1 (``topo``) params are a rank's blocks (the
-    dense family's tensor-parallel forward); every model rank returns
-    the same losses."""
+    tensor-parallel forward); every model rank returns the same
+    losses."""
     cfg = arch.cfg
     plan = ReplicatedPlan(cfg, remat)
     tp = topo if topo is not None and topo.model_shards > 1 else None
@@ -441,8 +451,8 @@ def make_loss_master(arch: ArchDef, topo: Topology | None = None,
     the head (the logits and MTP's) and the ``mtp`` subtree, each once.
     The losses are the replicated loss's, the layers' aux [P, D]
     included.  Over a model axis above 1 (``topo``) the lifted copies
-    are the rank's model blocks and the dense family's forward runs
-    tensor-parallel, as :func:`make_loss`'s."""
+    are the rank's model blocks and the forward runs tensor-parallel,
+    as :func:`make_loss`'s."""
     cfg = arch.cfg
     if arch.enc_segments:
         raise NotImplementedError(
@@ -619,11 +629,12 @@ class BuiltModel:
 def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
     """The model's entry points; an FSDP config (``param_mode="fsdp"``)
     gets ``loss=None`` and a ``loss_master`` (:func:`make_loss_master`).
-    The bundle carries the dense family's compute specs at ``topo``'s
-    model axis and every family's master specs (:func:`master_specs` at
-    ``topo``'s global D: the replicated regime's masters are laid out as
-    computed, an FSDP config's data-sharded as in the JAX
-    ``build_master_specs``); over a model axis above 1 the loss is
+    The bundle carries the compute specs at ``topo``'s model axis (of
+    the families in ``TP_FAMILIES``) and every family's master specs
+    (:func:`master_specs` at ``topo``'s global D: the replicated
+    regime's masters are laid out as computed, an FSDP config's
+    data-sharded as in the JAX ``build_master_specs``); over a model
+    axis above 1 the loss is
     tensor-parallel and serving raises (item 17d)."""
     m = topo.model_shards
     arch = make_archdef(cfg, m)

@@ -133,12 +133,18 @@ def mlp(p: dict, x: torch.Tensor, act: str = "swiglu",
         tp=None) -> torch.Tensor:
     """The MLP; with ``tp`` the rank's ff columns of ``up``/``gate`` and
     rows of ``down``, the product summed over the model group."""
-    x = comm.copy_to_model(tp, x)
+    return comm.sum_model(tp, mlp_part(p, comm.copy_to_model(tp, x), act))
+
+
+def mlp_part(p: dict, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+    """The MLP's product on the ff columns ``p`` holds, unsummed: with a
+    rank's blocks, its share of the row-parallel ``down`` product (x
+    already marked ``comm.copy_to_model``)."""
     if act == "swiglu":
         h = F.silu(linear(x, p["gate"])) * linear(x, p["up"])
     else:
         h = F.gelu(linear(x, p["up"]), approximate="tanh")
-    return comm.sum_model(tp, linear(h, p["down"]))
+    return linear(h, p["down"])
 
 
 def init_embed(gen, vocab: int, d: int, device) -> dict:

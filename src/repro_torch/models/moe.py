@@ -1,8 +1,8 @@
 """Mixture-of-Experts block: GShard-style capacity routing, two dispatch
 forms.
 
-The JAX package's ``models/moe.py`` (its ``moe_specs``, the expert
-sharding, are not ported: item 17d).  Activations are ``[*lead, b, t, d]``
+The JAX package's ``models/moe.py``, its expert sharding
+(``moe_specs``) included.  Activations are ``[*lead, b, t, d]``
 and parameters ``[*lead, *leaf]``, as in ``layers``; each replica's
 ``n = b*t`` tokens split into ``g = max(1, n // group_tokens)`` groups of
 their own (the replica dims are never folded into the groups), and the
@@ -30,6 +30,22 @@ where ``torch.gather``'s backward is a nondeterministic ``scatter_add``
 slots bit for bit; the experts' SwiGLU and the combine product follow
 in the compute dtype.  Shared experts (deepseek) and the dense residual
 MLP (arctic) add their SwiGLU outputs.
+
+Expert parallelism (``moe_block``'s ``tp``: a model axis above 1 that
+divides the expert count): the tokens are the same on every model rank,
+so no all-to-all moves them -- JAX's GSPMD inserts one only because it
+shards the tokens.  Every rank routes all of them with the replicated
+router (the same combine, dispatch and aux loss on each), takes the
+[E/M, C] slots of its own experts ``[r*E/M, (r+1)*E/M)`` in either
+dispatch form, runs its experts and its share of the combine, and the
+share, with the shared experts' and the dense MLP's column-parallel
+shares, is summed over the model group once.  The tokens entering the
+rank's experts and MLPs are marked ``comm.copy_to_model``, and so is
+the combine before the rank takes its experts' slice, so that the
+router's gate gradient is summed over the group; the router and its
+logits are not marked: the aux loss is whole on every rank, and so is
+its gradient.  Experts that do not divide the axis (spec None) run
+whole on every rank, unsummed.
 """
 from __future__ import annotations
 
@@ -38,6 +54,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import comm
 from repro_torch.models import layers
 
 F32 = torch.float32
@@ -125,25 +142,43 @@ def _gather_slots(xg: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
     return F.embedding(idx + offs, pad.reshape(n_groups * (s_len + 1), d))
 
 
-def moe_block(p, x: torch.Tensor, cfg):
-    """x [*lead, b, t, d] -> (y [*lead, b, t, d], the aux loss [*lead])."""
+def moe_block(p, x: torch.Tensor, cfg, tp=None):
+    """x [*lead, b, t, d] -> (y [*lead, b, t, d], the aux loss [*lead]);
+    with ``tp`` p holds the rank's blocks (the module docstring)."""
     e = cfg.moe
     b, t, d = x.shape[-3:]
     n = b * t
     g = max(1, n // e.group_tokens)
     xg = x.reshape(x.shape[:-3] + (g, n // g, d))
     comb, disp, aux, _ = _route(p, xg, e)
-    if e.dispatch == "einsum":
-        xe = torch.einsum("...gsd,...gsec->...gecd", xg, disp.to(x.dtype))
+    xm = comm.copy_to_model(tp, x)
+    split = tp is not None and e.n_experts % tp.model_shards == 0
+    if split:          # the rank's experts' slots
+        e_loc = p["w_gate"].shape[-3]
+        lo = tp.model_rank * e_loc
+        xd = xm.reshape(xg.shape)
+        disp = disp[..., lo:lo + e_loc, :]
+        comb = comm.copy_to_model(tp, comb)[..., lo:lo + e_loc, :]
     else:
-        xe = _gather_slots(xg, disp)
+        xd = xg
+    if e.dispatch == "einsum":
+        xe = torch.einsum("...gsd,...gsec->...gecd", xd, disp.to(x.dtype))
+    else:
+        xe = _gather_slots(xd, disp)
     h = (F.silu(torch.einsum("...gecd,...edf->...gecf", xe, p["w_gate"]))
          * torch.einsum("...gecd,...edf->...gecf", xe, p["w_up"]))
     ye = torch.einsum("...gecf,...efd->...gecd", h, p["w_down"])
     y = torch.einsum("...gecd,...gsec->...gsd", ye, comb.to(x.dtype))
     y = y.reshape(x.shape)
-    if e.n_shared:
-        y = y + layers.mlp(p["shared"], x)
-    if e.dense_residual_ff:
-        y = y + layers.mlp(p["dense"], x)
-    return y, aux
+    # the experts' share and the MLPs' shares, summed over the model
+    # group once; experts whole on every rank are added after the sum
+    whole = tp is not None and not split
+    part = None if whole else y
+    for name, on in (("shared", e.n_shared), ("dense", e.dense_residual_ff)):
+        if on:
+            share = layers.mlp_part(p[name], xm)
+            part = share if part is None else part + share
+    if part is None:
+        return y, aux
+    part = comm.sum_model(tp, part)
+    return (y + part if whole else part), aux

@@ -14,7 +14,8 @@ The job:
     ``[P, *leaf]``;
   * ``cells`` -- name -> :func:`run_cell` spec: a train step in the FSDP
     or the replicated regime, over injected gradients
-    (``injected_grads.make_fsdp_bundle``) or a small LM config, from
+    (``injected_grads.make_fsdp_bundle``) or a small LM config (a
+    ``TINY`` one or an arch's smoke config, :func:`config`), from
     global numpy parameters and batches; the final edge models gathered
     back, every step's loss, the traffic, and each master and
     correction leaf's shape on the rank;
@@ -177,13 +178,22 @@ def _algo(spec: dict) -> hier.AlgoConfig:
         master_dtype=torch.float32, delta_dtype=dt)
 
 
+def config(kind: str) -> LMConfig:
+    """A tiny config of ``TINY``, or the port's smoke config of the arch
+    ``kind`` names."""
+    if kind in TINY:
+        return TINY[kind]
+    from repro_torch import configs
+    return configs.get_smoke(kind)
+
+
 def _bundle(topo: Topology, spec: dict):
     """(bundle, master specs or None, compute specs or None) of a cell."""
     if spec["kind"] == "injected":
         mspecs = spec.get("mspecs")
         return (injected_grads.make_fsdp_bundle(mspecs) if spec["fsdp"]
                 else injected_grads.make_bundle()), mspecs, None
-    cfg = dataclasses.replace(TINY[spec["kind"]], param_mode=(
+    cfg = dataclasses.replace(config(spec["kind"]), param_mode=(
         "fsdp" if spec["fsdp"] else "replicated"))
     b = build.build_model(cfg, topo).bundle
     return b, b.master_specs if spec["fsdp"] else None, b.specs

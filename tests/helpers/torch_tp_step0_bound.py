@@ -1,21 +1,25 @@
-"""How far gemma3-1b's tensor-parallel gradients fall from one process's,
-sound and with a model collective dropped: the readings behind the limit
-that ``chip_smoke.py``'s ``tp`` phase puts on step 0's gradients
-(``TP_STEP0_REL``).
+"""How far the tensor-parallel gradients fall from one process's, sound
+and with a model collective dropped: the readings behind the limit that
+``chip_smoke.py``'s ``tp`` phase puts on step 0's gradients
+(``TP_STEP0_REL``) and behind the dtype it takes them in
+(``TP_MOE_STEP0_DTYPE``).
 
-gemma3-1b's smoke config (seed-0 parameters, seed-0 tokens [2, 2, 2,
-16]) on a 1 x 1 x 2 gloo mesh of CPU ranks, each rank the whole P=2 x
-D=2 block (``torch_tp_worker.run_mesh``), in float32 and in bfloat16:
-every gradient leaf gathered over the model group against the
-one-process port's, as the ``tp`` phase measures it -- the largest
-``max|a - b| / max|b|`` over the leaves -- and the share of coordinates
-that differ, for the sound port and for each of ``sum_model`` and
-``copy_to_model`` replaced by the identity in the ranks.  Prints one
-JSON object.  Run it as
+The smoke configs of gemma3-1b, deepseek-v3 (also with every expert
+chosen and none dropped: top-k 8 of 8, capacity factor 2, so no
+routing decision can flip) and internvl2 (seed-0 parameters, seed-0
+tokens [2, 2, 2, 16], internvl2's patches) on a 1 x 1 x 2 gloo mesh of
+CPU ranks, each rank the whole P=2 x D=2 block
+(``torch_tp_worker.run_mesh``), in float32 and in bfloat16: every
+gradient leaf gathered over the model group against the one-process
+port's, as the ``tp`` phase measures it -- the largest ``max|a - b| /
+max|b|`` over the leaves -- and the share of coordinates that differ,
+for the sound port and for each of ``sum_model`` and ``copy_to_model``
+replaced by the identity in the ranks.  Prints one JSON object, a key
+a config.  Run it as
 
     PYTHONPATH=src python tests/helpers/torch_tp_step0_bound.py
 
-(about a minute on a few CPU cores).  Imports torch, numpy and the port.
+(a few minutes on a few CPU cores).  Imports torch, numpy and the port.
 """
 from __future__ import annotations
 
@@ -52,25 +56,41 @@ def reading(got: list, want: list) -> dict:
     return {"max_rel_diff": worst, "differing_share": differ / n}
 
 
+CONFIGS = {      # name -> (arch, overridden fields)
+    "gemma3_1b": ("gemma3_1b", {}),
+    "deepseek_v3_671b": ("deepseek_v3_671b", {}),
+    "deepseek_v3_671b, every expert": (
+        "deepseek_v3_671b", {"moe": {"top_k": 8, "capacity_factor": 2.0}}),
+    "internvl2_76b": ("internvl2_76b", {}),
+}
+
+
 def main() -> None:
     torch.set_num_threads(1)
-    cfg = configs.get_smoke("gemma3_1b")
-    built = build.build_model(cfg, Topology(1, 1, "cpu"))
-    params = params_to_numpy(built.init_params(
-        torch.Generator().manual_seed(0)))
-    tokens = np.random.default_rng(0).integers(
-        0, cfg.vocab, (2, 2, 2, 16)).astype(np.int64)
     out = {}
-    for dtype in ("float32", "bfloat16"):
-        spec = {"arch": "gemma3_1b", "params": params, "tokens": tokens,
-                "dtype": dtype}
-        want = pytree.tree_flatten(W.dense_grads(
-            Topology(2, 2, "cpu"), spec)["grads"])[0]
-        for name, dropped in DROPPED.items():
-            got = W.run_mesh(1, 1, 2, (2, 2), {"dense": {"lm": spec},
-                                               "identity": dropped})
-            out[f"{dtype}/{name}"] = reading(
-                pytree.tree_flatten(got["dense"]["lm"]["grads"])[0], want)
+    for key, (arch, over) in CONFIGS.items():
+        cfg = W.smoke_config(configs, arch, over)
+        built = build.build_model(cfg, Topology(1, 1, "cpu"))
+        params = params_to_numpy(built.init_params(
+            torch.Generator().manual_seed(0)))
+        rng = np.random.default_rng(0)
+        base = {"arch": arch, "overrides": over, "params": params,
+                "tokens": rng.integers(0, cfg.vocab, (2, 2, 2, 16))
+                .astype(np.int64)}
+        if cfg.n_patches:
+            base["patches"] = (0.02 * rng.standard_normal(
+                (2, 2, 2, cfg.n_patches, cfg.d_model))).astype(np.float32)
+        out[key] = {}
+        for dtype in ("float32", "bfloat16"):
+            spec = dict(base, dtype=dtype)
+            want = pytree.tree_flatten(W.dense_grads(
+                Topology(2, 2, "cpu"), spec)["grads"])[0]
+            for name, dropped in DROPPED.items():
+                got = W.run_mesh(1, 1, 2, (2, 2), {"dense": {"lm": spec},
+                                                   "identity": dropped})
+                out[key][f"{dtype}/{name}"] = reading(
+                    pytree.tree_flatten(got["dense"]["lm"]["grads"])[0],
+                    want)
     print(json.dumps(out))
 
 

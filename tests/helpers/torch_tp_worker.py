@@ -24,8 +24,9 @@ The job:
   * ``transport`` -- one fused vote-update on the sharded layout of a
     toy tree (``votes.fused_sign_vote_update`` on the rank's bucket),
     the global multi-bucket buffer gathered back;
-  * ``dense`` -- name -> :func:`dense_grads` spec: a dense LM smoke
-    config's loss and per-device gradients on each rank's blocks;
+  * ``dense`` -- name -> :func:`dense_grads` spec: an LM smoke config's
+    (any tensor-parallel family's, fields overridden) loss and per-device
+    gradients on each rank's blocks;
   * ``lm`` -- ``launch.train.run_training`` of a smoke config;
   * ``production`` -- ``launch.mesh.make_topology`` on this world, for
     each ``multi_pod`` value listed (the error it raises);
@@ -294,21 +295,37 @@ def transport(topo: Topology, inp: dict) -> dict:
             "bucket_words": layout.bucket_words}
 
 
-# -- the dense family --------------------------------------------------------------
+# -- the tensor-parallel families ------------------------------------------
+
+def smoke_config(configs, arch: str, overrides: dict | None = None):
+    """``configs.get_smoke(arch)`` with ``overrides``' fields replaced (a
+    ``"moe"`` or ``"mla"`` entry: a dict of that sub-config's fields);
+    ``configs`` is either package's registry."""
+    import dataclasses
+
+    cfg = configs.get_smoke(arch)
+    kw = dict(overrides or {})
+    for sub in ("moe", "mla"):
+        if sub in kw:
+            kw[sub] = dataclasses.replace(getattr(cfg, sub), **kw[sub])
+    return dataclasses.replace(cfg, **kw)
+
 
 def dense_grads(topo: Topology, spec: dict) -> dict:
     """A smoke config's per-device gradients at ``spec["params"]`` (numpy,
     one replica) on the rank's [P_loc, D_loc] block of ``spec["tokens"]``
-    ([P, D, b, L]): copies of the rank's blocks in ``spec["dtype"]``
-    (float32 unless it names another torch dtype) through the
-    bundle's loss (tensor-parallel over the model axis); the [P, D]
-    losses and every gradient leaf gathered over every axis, the tails
-    dropped, and whether the copies' gradients agree across the model
-    group."""
+    ([P, D, b, L]; a vlm's ``spec["patches"]`` [P, D, b, n_patches, d]
+    too): copies of the rank's blocks in ``spec["dtype"]`` (float32
+    unless it names another torch dtype) through the bundle's loss
+    (tensor-parallel over the model axis) of ``spec["arch"]``'s smoke
+    config with ``spec["overrides"]`` (:func:`smoke_config`); the [P,
+    D] losses and every gradient leaf gathered over every axis, the
+    tails dropped, and whether the copies' gradients agree across the
+    model group."""
     from repro_torch import configs
     from repro_torch.models import build
 
-    cfg = configs.get_smoke(spec["arch"])
+    cfg = smoke_config(configs, spec["arch"], spec.get("overrides"))
     built = build.build_model(cfg, topo)
     full = params_from_numpy(spec["params"])
     layout = shardflat.param_layout(topo, built.bundle.specs, full)
@@ -318,10 +335,12 @@ def dense_grads(topo: Topology, spec: dict) -> dict:
     dtype = getattr(torch, spec.get("dtype", "float32"))
     copies = [x.expand(shape + tuple(x.shape)).to(dtype).contiguous()
               .requires_grad_(True) for x in leaves]
-    tokens = torch.from_numpy(topo.block(spec["tokens"]))
+    batch = {"tokens": torch.from_numpy(topo.block(spec["tokens"]))}
+    if "patches" in spec:
+        batch["patches"] = torch.from_numpy(topo.block(spec["patches"]))
     tree = shardflat.logical(topo, layout, pytree.tree_unflatten(td, copies),
                              2)
-    losses = built.bundle.loss(tree, {"tokens": tokens})
+    losses = built.bundle.loss(tree, batch)
     grads = torch.autograd.grad(losses.sum(), copies)
     agree = True
     if layout.shards > 1:

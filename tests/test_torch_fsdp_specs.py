@@ -5,8 +5,9 @@ JAX ``build_master_specs``' full specs leaf for leaf for all ten
 configs at (D, M) = (2, 1), (2, 2) and the production grid's (16, 16):
 the JAX function reads only D and M from its topology, so it gets a
 stand-in and ``jax.eval_shape``'s shapes, not 512 forced devices.  At a
-model axis above 1 the non-dense families raise, naming item 17f (their
-tensor-parallel forwards); the per-layer specs ``engine.FsdpPlan`` hands
+model axis above 1 the ssm, hybrid and encdec families raise, naming
+item 17f (their tensor-parallel forwards); the per-layer specs
+``engine.FsdpPlan`` hands
 the lift equal JAX's second result.  ``hier.state_blocks`` indexes an
 FSDP slot by its rank's block of the data-sharded dim, JAX's order of
 ``("model", "data")`` included; ``fsdpify_leaf`` follows JAX's on the

@@ -9,9 +9,12 @@ padded blocks) and gemma3-1b's smoke tree at M = 2 and 4; the
 multi-bucket ``flatten_tree`` / ``pack_tree`` / ``unflatten_tree``,
 ``pad_tree`` / ``unpad_tree`` and ``bucket_trees`` must be bitwise
 JAX's; ``build.compute_specs`` must equal JAX's ``compute_specs(
-make_archdef(cfg, M), M)`` leaf for leaf; a rank's bucket
-(``core.shardflat``) is its slice of the global buffer.  Then the
-production grids, the refusals of ROADMAP items 17c-17f, and a
+make_archdef(cfg, M), M)`` leaf for leaf, and a rank's bucket
+(``convert.local_params``) must be its slice of JAX's global buffer
+(its block of the experts), for the smoke trees of gemma3-1b,
+deepseek-v3, arctic and internvl2 at M = 2 and 4.  Then the production
+grids, the refusals of ROADMAP items 17d-17f (the FSDP regime over a
+model axis builds for the dense, moe and vlm families), and a
 one-process topology that touches no process group at any model axis.
 """
 import dataclasses
@@ -33,7 +36,7 @@ from repro_torch.core import comm, flatbuf, hier, pytree, shardflat
 from repro_torch.core.topology import ProcessMesh, Topology
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import mesh, train
-from repro_torch.models import build
+from repro_torch.models import attention, build
 
 TOY_SPECS = {"w": (None, "model"), "b": (None,), "w2": ("model", None)}
 JTOY_SPECS = {"w": jax.sharding.PartitionSpec(None, "model"),
@@ -52,11 +55,10 @@ def as_spec(p) -> tuple | None:
     return None if p is None else tuple(p)
 
 
-def gemma_tree(m: int):
-    """gemma3-1b smoke's parameters (numpy, two edges' [2, *leaf]) and
-    both packages' specs."""
-    cfg, jcfg = configs.get_smoke("gemma3_1b"), jconfigs.get_smoke(
-        "gemma3_1b")
+def gemma_tree(m: int, arch: str = "gemma3_1b"):
+    """An arch's smoke parameters (gemma3-1b's by default; numpy, two
+    edges' [2, *leaf]) and both packages' specs."""
+    cfg, jcfg = configs.get_smoke(arch), jconfigs.get_smoke(arch)
     params = pytree.tree_map(
         lambda x: np.stack([x.numpy(), -x.numpy()]),
         build.build_model(cfg, Topology(1, 1, "cpu")).init_params(
@@ -64,6 +66,15 @@ def gemma_tree(m: int):
     specs = build.compute_specs(build.make_archdef(cfg, m), m)
     jspecs = jbuild.compute_specs(jbuild.make_archdef(jcfg, m), m)
     return params, specs, jspecs
+
+
+# the tensor-parallel families' smoke trees (gemma3-1b's cases keep
+# their ids, the model axis alone)
+TP_ARCHS = ("gemma3_1b", "deepseek_v3_671b", "arctic_480b",
+            "internvl2_76b")
+ARCH_M = [(arch, m) for arch in TP_ARCHS for m in (2, 4)]
+ARCH_M_IDS = [str(m) if arch == "gemma3_1b" else f"{arch}-{m}"
+              for arch, m in ARCH_M]
 
 
 def cases():
@@ -185,9 +196,9 @@ def test_pad_unpad_and_buckets_are_jax_and_a_rank_holds_its_slice(hid, m):
                     local[k].shape[ax] - s.local_extent(m, r)).any()
 
 
-@pytest.mark.parametrize("m", [2, 4])
-def test_compute_specs_equal_jax(m):
-    _, specs, jspecs = gemma_tree(m)
+@pytest.mark.parametrize("arch,m", ARCH_M, ids=ARCH_M_IDS)
+def test_compute_specs_equal_jax(arch, m):
+    _, specs, jspecs = gemma_tree(m, arch)
     mine = pytree.tree_flatten(specs)
     theirs, jtd = jax.tree_util.tree_flatten(
         jspecs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
@@ -256,17 +267,15 @@ def fake_mesh(model: int = 2) -> ProcessMesh:
 
 def test_refusals_name_their_part_of_item_17(tmp_path):
     topo = Topology(2, 2, "cpu", mesh=fake_mesh())
-    # the FSDP regime over a model axis (item 17c) builds for the dense
-    # family; the moe and vlm families raise, naming 17f
-    fsdp_gemma = build.build_model(dataclasses.replace(
-        configs.get_smoke("gemma3_1b"), param_mode="fsdp"), topo)
-    init_fn, step = hier.make_hier_step(topo, hier.AlgoConfig(),
-                                        fsdp_gemma.bundle)
-    assert callable(init_fn) and callable(step)
-    for arch in ("deepseek_v3_671b", "internvl2_76b"):
-        with pytest.raises(NotImplementedError, match="item 17f"):
-            build.build_model(dataclasses.replace(
-                configs.get_smoke(arch), param_mode="fsdp"), topo)
+    # the FSDP regime over a model axis (item 17c) builds for the dense,
+    # moe and vlm families (item 17f, part one)
+    for arch in ("gemma3_1b", "deepseek_v3_671b", "internvl2_76b"):
+        fsdp = build.build_model(dataclasses.replace(
+            configs.get_smoke(arch), param_mode="fsdp"), topo)
+        init_fn, step = hier.make_hier_step(topo, hier.AlgoConfig(),
+                                            fsdp.bundle)
+        assert callable(init_fn) and callable(step)
+        assert fsdp.bundle.loss_master is not None and fsdp.bundle.specs
     gemma = build.build_model(configs.get_smoke("gemma3_1b"), topo)
     with pytest.raises(NotImplementedError, match="item 17d"):
         gemma.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
@@ -277,8 +286,11 @@ def test_refusals_name_their_part_of_item_17(tmp_path):
         train.run_training(configs.get_smoke("gemma3_1b"), topo,
                            hier.AlgoConfig(), train.RunCfg(
                                steps=1, ckpt_dir=str(tmp_path)))
-    for arch in ("xlstm_350m", "whisper_base", "zamba2_2p7b",
-                 "deepseek_v3_671b", "internvl2_76b"):
+    with pytest.raises(NotImplementedError, match="item 17d"):
+        attention.mla_attn({}, torch.zeros((1, 2, 4)), torch.arange(2),
+                           configs.get_smoke("deepseek_v3_671b"),
+                           cache={}, tp=topo)
+    for arch in ("xlstm_350m", "whisper_base", "zamba2_2p7b"):
         cfg = configs.get_smoke(arch)
         with pytest.raises(NotImplementedError, match="item 17f"):
             build.make_archdef(cfg, 2)
@@ -322,13 +334,14 @@ def test_one_process_topology_touches_no_group_at_any_model_axis(
     assert not torch.distributed.is_initialized()
 
 
-@pytest.mark.parametrize("m", [2, 4])
-def test_a_rank_takes_its_bucket_of_jax_parameters(m):
+@pytest.mark.parametrize("arch,m", ARCH_M, ids=ARCH_M_IDS)
+def test_a_rank_takes_its_bucket_of_jax_parameters(arch, m):
     """``convert.local_params``: a JAX tree (numpy) -> the rank's blocks
-    and its bucket, bitwise bucket ``model_rank`` of JAX's buffer."""
+    and its bucket, bitwise bucket ``model_rank`` of JAX's buffer; a
+    split expert leaf's block is the rank's experts."""
     from repro_torch import convert
 
-    params, specs, jspecs = gemma_tree(m)
+    params, specs, jspecs = gemma_tree(m, arch)
     jlay = jflat.make_layout(jax.tree.map(jnp.asarray, params),
                              batch_dims=1, sharding=jflat.ModelSharding(
                                  m, "model", jspecs))
@@ -344,3 +357,9 @@ def test_a_rank_takes_its_bucket_of_jax_parameters(m):
         assert lay.shards == m and bucket.shape == (2, bp)
         np.testing.assert_array_equal(bucket.numpy(),
                                       jbuf[:, r * bp:(r + 1) * bp])
+        if "moe" in params["stacks"]:
+            w = params["stacks"]["moe"]["moe"]["w_up"]   # [2, L, E, d, f]
+            e = w.shape[2] // m
+            np.testing.assert_array_equal(
+                local["stacks"]["moe"]["moe"]["w_up"].numpy(),
+                w[:, :, r * e:(r + 1) * e])
