@@ -106,8 +106,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      tokens a device, and whisper-base (6 + 6
      layers, 97,206,784 parameters, batch 4 x 448 tokens and 1500 x 80
      frames a device).  One step's per-voter gradients twice (bitwise),
-     6 steps of ``run_training`` on fused/flat (exactly 6 ``sign_pack``
-     and 6 ``vote_update`` launches; the last step under torch.profiler:
+     4 steps of ``run_training`` on fused/flat (``FAM_STEPS``: exactly 4
+     ``sign_pack`` and 4 ``vote_update`` launches; step 2, round 1's last
+     local step, under torch.profiler:
      the kernels' device time beside their byte bounds, the device's
      busy time, the top device ops), the same on ag_packed/tree (bitwise
      the same edge models, no launch), the mean loss of round 2 below
@@ -145,8 +146,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``FlatState`` (a training run's master, both edges equal) and
      served as bfloat16 from edge 0 through
      ``specs.serve_params_from_flat``; 8 requests from
-     ``serve_request_batch``: gemma 2048-token prompts, max_len 2176,
-     128 decode steps (its 22 local layers on the rolled window cache,
+     ``serve_request_batch``: gemma 2048-token prompts, max_len 2112,
+     64 decode steps (its 22 local layers on the rolled window cache,
      the 4 global ones on the offset cache); xlstm 1024-token prompts,
      64 steps; whisper 1500 x 80 frames and 4-token prompts, 64 steps,
      max_len 448.  Each twice: every logit finite, the generated tokens
@@ -249,20 +250,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      coordinates (seeded bf16 directions, an f32 master) through
      ``votes.fused_sign_vote_update``: each edge row's sha256 that of
      the one-process [2, 2] result, and the words' gather timed.  Then
-     gemma3-1b as in ``lm`` (6 layers, 1 x 1152, DC, fused/flat) at P=2
-     x D=2, 6 steps of ``run_training`` over the ranks: step 0's
+     gemma3-1b as in ``lm`` (cut to a local and a global layer, 1 x 1152,
+     DC, fused/flat) at P=2 x D=2, ``MESH_LM_STEPS`` (3: round 1) steps
+     of ``run_training`` over the ranks: step 0's
      per-device gradients of each [1, 1] block against the one-process
      [2, 2] run (the differing count; each rank's own gradients' sha256
      that of the block computed here), the final masters' differing
      count against the one-process run (bitwise required where the
-     gradients are), every loss finite, round 2's mean below step 0's,
-     6 + 6 launches a rank, each rank's local and prologue step ms,
+     gradients are), every loss finite, the local steps' mean below
+     step 0's, 3 + 3 launches a rank, each rank's local and prologue
+     step ms,
      bytes gathered and peak beside ``reckon_mesh_peak``.  JSON lines
      ``{"mesh": "one-process references" | "reckoned rank peak" |
      "before the ranks" | "toy" | "transport" | "lm" | "phase"}``; the
      kernels line gains ``mesh_launches_per_rank``.
- 15. ``tp``: the model axis across processes (``core.shardflat``, the
-     dense, vlm and moe families tensor-parallel) on the one card: 8
+ 15. ``tp``: the model axis across processes (``core.shardflat``, every
+     family tensor-parallel) on the one card: 8
      ranks, 2 pods x 2 data x 2 model, over gloo, each a [1, 1] block of
      P=2 x D=2 and one model shard, started as ``chip_smoke.py
      --tp-rank`` processes.  The
@@ -276,15 +279,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (cut to a local and a global layer, M=2), each rank on its bucket:
      its logical block's sha256 that of the one-process result, the word
      bytes it sent ``4 * bucket_words``.  gemma3-1b (that cut, ``lm``'s
-     algorithm) 6 steps of
+     algorithm) ``MESH_LM_STEPS`` (3) steps of
      ``run_training`` tensor-parallel over the ranks: step 0's
      gradients gathered over model against the model=1 run of the same
      block (the differing count, the largest difference over the leaf's
      largest |value|), the copies bitwise across model ranks at every
-     step (an all-gathered sha256), round 2's mean below step 0's, 6 + 6
-     launches a rank, local and prologue step ms, the bytes sent on each
-     group, the peak beside ``reckon_mesh_peak`` at the bucket.  Then
-     the moe and vlm families (item 17f, part one) at their published
+     step (an all-gathered sha256), the local steps' mean below step
+     0's, 3 + 3 launches a rank, local and prologue step ms, the bytes
+     sent on each group, the peak beside ``reckon_mesh_peak`` at the
+     bucket.  Then the ssm, hybrid and encdec families (item 17f, part
+     two; ``tp_fam_*``) at their published widths: xlstm-350m cut to one
+     7:1 period (8 blocks, 1 x 1152 tokens), zamba2-2.7b cut to one
+     period (6 Mamba2 blocks and the shared one, 1 x 1152, every
+     ``a_log`` lowered by 5 so that the SSD scan does not overflow) and
+     whisper-base whole (4 x 448 tokens, 1500 frames), each rank drawing
+     the seed-0 tree on the card: step 0's gradients of the first [1, 1]
+     block against the model=1 run under ``TP_STEP0_REL`` (xlstm and
+     zamba2 in float32), copies bitwise on both model ranks; the
+     replicated regime's prologue and a local step (``lm``'s algorithm):
+     step 1's loss below step 0's, 2 + 2 launches a rank, the copies
+     bitwise after each step, the model group's bytes those of
+     ``reckon_tp_model_bytes`` to the byte, the other groups' bytes,
+     the step ms and the peak.  Then the moe and vlm families (item 17f,
+     part one) at their published
      widths: deepseek-v3 (1 dense MLA + 1 MoE layer, 16 of 256 routed
      experts and the shared one, MTP, 16160 words) and internvl2 (1
      layer, 16032 words, 256 patches), their seed-0 trees drawn once
@@ -293,7 +310,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the replicated loss on the first [1, 1] block, tensor-parallel and
      gathered over model, against the model=1 run of the block under
      ``TP_STEP0_REL`` (deepseek in float32: its top-k routing flips on
-     bf16's reordered sums), copies bitwise on both model ranks; then 4
+     bf16's reordered sums), copies bitwise on both model ranks; then 2
      steps of ``run_training`` in the FSDP regime (``moe_algo`` at
      ``MOE_MU``, 1 x 512 tokens a device, the prologue and a local
      step): step 1's loss below step 0's,
@@ -303,7 +320,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      beside ``reckon_fsdp_mesh_bytes`` and ``reckon_tp_model_bytes``,
      the step ms, the peak beside ``reckon_fsdp_mesh_peak``.  JSON
      lines ``{"tp": ...}``; the kernels line gains
-     ``tp_launches_per_rank`` and ``tp_moe_launches_per_rank``.
+     ``tp_launches_per_rank``, ``tp_fam_launches_per_rank`` and
+     ``tp_moe_launches_per_rank``.
      ``--phase tp`` runs phase 2's kernel checks and this phase alone.
  16. ``fsdp_mesh``: the FSDP regime across processes (``core.device_axis``
      over a mesh: each rank a shard of every master and correction), run
@@ -321,8 +339,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      width cut to 2 layers (a local and a global one) over the 4 ranks
      (2 pods x 2 data, a [1, 1] block each), DC, mu 1e-3, rho 0.2,
      T_E=3, bf16 compute, f32
-     master, bf16 delta, fused/tree, 4 steps of ``run_training``: step
-     3's loss (round 2's first) below step 0's, one ``sign_pack`` and one
+     master, bf16 delta, fused/tree, 2 steps of ``run_training`` (the
+     prologue and a local step): step 1's loss below step 0's, one
+     ``sign_pack`` and one
      ``vote_update`` a leaf and layer a step in every rank, each rank's
      master and correction bytes beside the one-process pod row's, each
      group's bytes a local and a prologue step beside
@@ -410,7 +429,14 @@ def require(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; every line but the ``kernels`` and ``ok`` lines
+    carries ``at_s``, the seconds since the script started."""
+    if not {"kernels", "ok"} & set(obj):
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1845,6 +1871,12 @@ FAMILIES = (("xlstm_350m", 1, 1152),     # (arch, batch, tokens) a device
             ("whisper_base", 4, 448))    # whisper's text context
 FAM_XLSTM_LAYERS = 8     # xlstm cut to one 7:1 period: one sLSTM block,
                          # whose host-bound loop a position sets its step
+FAM_STEPS = 4            # round 1 and round 2's prologue: xlstm's steps
+                         # take 2-7 s, the phase's most; round 2's mean
+                         # loss is checked, as whisper's step 2 spikes
+                         # (15.3 after 11.3 and 9.2)
+FAM_PROFILED = 2         # round 1's last local step (a profiled prologue
+                         # step's trace, twice the launches, took minutes)
 
 
 def ssd_entries(cfg, seq: int) -> int:
@@ -1904,11 +1936,12 @@ def phase_families(torch) -> dict:
     whisper-base whole (6 + 6
     layers, batch 4 x 448 tokens and 1500 x 80 frames a device), each at
     P=2 x D=3 in the lm phase's algorithm (DC, bf16 compute, f32 master,
-    T_E=3, 6 steps, random weights from seed 0): one step's per-voter
-    gradients twice (bitwise), 6 steps of ``run_training`` on fused/flat
-    (6 sign_pack and 6 vote_update launches; the last step profiled),
-    the same on ag_packed/tree (bitwise the same edge models), the loss
-    of round 2 below step 0's, the peak beside its reckoning.  Returns
+    T_E=3, random weights from seed 0): one step's per-voter gradients
+    twice (bitwise), ``FAM_STEPS`` steps of ``run_training`` on
+    fused/flat (as many sign_pack and vote_update launches; step
+    ``FAM_PROFILED``, a local step, profiled), the same on ag_packed/tree
+    (bitwise the same edge models), the loss of round 2 below step 0's,
+    the peak beside its reckoning.  Returns
     each model's fused/flat launches."""
     from repro_torch import configs
     from repro_torch.data import synthetic
@@ -1936,7 +1969,7 @@ def phase_families(torch) -> dict:
               "config_param_count": cfg.param_count(), "cut": cut,
               "batch": batch, "seq": seq, "reckoned": reckoned})
         tag = f"[families] {arch}"
-        run = RunCfg(steps=LM_STEPS, batch_per_device=batch, seq_len=seq,
+        run = RunCfg(steps=FAM_STEPS, batch_per_device=batch, seq_len=seq,
                      log_every=1, seed=0)
         first = synthetic.make_stream(synthetic.LMStreamCfg(
             vocab=cfg.vocab, seq_len=seq, batch_per_device=batch, pods=LM_P,
@@ -1952,8 +1985,8 @@ def phase_families(torch) -> dict:
         require(differ == 0, f"{arch}: the per-voter gradients are not "
                 "deterministic on the card")
         fused = lm_train(torch, f"{tag} fused/flat", cfg, topo, algo, run,
-                         params, profile=LM_STEPS - 1)
-        want = {"sign_pack": LM_STEPS, "vote_update": LM_STEPS,
+                         params, profile=FAM_PROFILED)
+        want = {"sign_pack": FAM_STEPS, "vote_update": FAM_STEPS,
                 "ternary_quant": 0}
         require(fused["launches"] == want, f"{arch} fused/flat launches "
                 f"{fused['launches']}, want {want}")
@@ -1981,11 +2014,12 @@ def phase_families(torch) -> dict:
         vu_bytes = vote_update_bytes(shape, True, LM_P * LM_D)
         host = [h["ms"] for h in fused["history"]]
         emit({"families": "step", "arch": cfg.name,
-              "ms_per_step_round2_fused_flat": statistics.mean(
-                  host[LM_TE:-1]),
-              "ms_profiled_step": host[-1],
-              "ms_per_step_round2_ag_packed_tree": statistics.mean(
-                  h["ms"] for h in tree["history"][LM_TE:]),
+              "ms_per_local_step_fused_flat": statistics.mean(
+                  ms for s, ms in enumerate(host[:LM_TE])
+                  if s and s != FAM_PROFILED),
+              "ms_profiled_step": host[FAM_PROFILED],
+              "ms_per_local_step_ag_packed_tree": statistics.mean(
+                  h["ms"] for h in tree["history"][1:LM_TE]),
               "data_ms_per_step": statistics.mean(
                   h["data_ms"] for h in fused["history"]),
               "losses": losses, "round2_mean_loss": round2,
@@ -2429,7 +2463,7 @@ def phase_fault_tolerant(torch, lm: dict, card: str) -> dict:
     return {"launches": launches, "oracle": oracle_launches, "tally_lm": row}
 
 
-SERVES = (("gemma3_1b", 2048, 128, 2176),     # (arch, prompt, decode
+SERVES = (("gemma3_1b", 2048, 64, 2112),      # (arch, prompt, decode
           ("xlstm_350m", 1024, 64, 1088),    # steps, max_len)
           ("whisper_base", 4, 64, 448))      # whisper's text context
 SERVE_B, SERVE_P = 8, 2          # requests; edges of the flat master
@@ -3752,7 +3786,13 @@ def phase_hybrid(torch, card: str) -> dict:
 MESH_GRID = (2, 2)               # pods x data ranks, a [1, 1] block each
 MESH_P, MESH_D = 2, 2            # the global hierarchy over them
 MESH_STEPS, MESH_TE = 6, 3
+MESH_LM_STEPS = 3                # gemma3-1b over the ranks (mesh, tp):
+                                 # round 1, its prologue and two local
+                                 # steps -- a gloo prologue costs 25-40
+                                 # local steps, so no second one
 MESH_JOIN_S = 600                # the ranks' join limit
+SHM = "/dev/shm"                 # where the ranks' shared slots go
+SHM_NEED_PER_RANK = 256 << 20    # 3 slots of 64 MiB a rank, and room
 MESH_TOY = {"w": (16, 64), "b": (33,), "w2": (64, 33)}   # the parity toy
 MESH_CELLS = {       # name -> (AlgoConfig fields, K clients or None)
     "dc fused/flat": (dict(method="dc_hier_signsgd"), None),
@@ -3899,7 +3939,7 @@ def mesh_lm_setup(torch, topo):
     cfg, _, algo = lm_setup(torch, two_layer_cut())
     built = build.build_model(cfg, topo)
     params = built.init_params(torch.Generator(device="cuda").manual_seed(0))
-    run = RunCfg(steps=MESH_STEPS, batch_per_device=1, seq_len=LM_SEQ,
+    run = RunCfg(steps=MESH_LM_STEPS, batch_per_device=1, seq_len=LM_SEQ,
                  log_every=1, seed=0)
     return cfg, built, params, algo, run
 
@@ -3921,7 +3961,7 @@ def row_digests(torch, buf) -> list:
 
 def mesh_lm_rank(torch, topo, tmp: str) -> dict:
     """The rank's part of the LM run: its step-0 gradients' digest, then
-    ``run_training`` over the mesh (6 steps, DC fused/flat) with the
+    ``run_training`` over the mesh (MESH_LM_STEPS, DC fused/flat) with the
     kernels' counters and ``comm.traffic`` set to 0 just before it: its
     losses, step times, launches and peak; the ranks of data column 0
     write their edge's final master row to ``tmp/lm_row{q}.npy``."""
@@ -3997,6 +4037,28 @@ def reckon_mesh_peak(n: int, p_loc: int = 1, d_loc: int = 1,
             **{f"{k}_gb": v / 1e9 for k, v in terms.items()}}
 
 
+def rank_topology(mesh, grid: tuple):
+    """A rank's topology on ``grid`` over gloo on the card, its
+    all-gathers and all-to-alls through the host memory the ranks share
+    (the directory :func:`mesh_spawn` hands them)."""
+    import os
+
+    return mesh.make_host_topology(
+        *grid, backend="gloo", device="cuda",
+        shared_dir=os.environ["CHIP_SMOKE_SHARED_DIR"])
+
+
+def exchange_info(topo) -> dict:
+    """Where the rank's shared slots live and, per group, whether the
+    driver took them page-locked."""
+    import os
+
+    d = os.environ["CHIP_SMOKE_SHARED_DIR"]
+    return {"dir": "shm" if d.startswith(SHM) else "tmp",
+            "pinned": {name: ex.pinned
+                       for name, ex in topo.mesh.exchange.items()}}
+
+
 def mesh_rank_main(tmp: str, rank: int) -> None:
     """One rank of the ``mesh`` phase (``chip_smoke.py --mesh-rank RANK
     DIR``): gloo over ``DIR/rdv``, a 2 x 2 grid on the one card, the
@@ -4023,10 +4085,10 @@ def mesh_rank_main(tmp: str, rank: int) -> None:
     dist.init_process_group("gloo", init_method=f"file://{d / 'rdv'}",
                             rank=rank, world_size=MESH_GRID[0] * MESH_GRID[1],
                             timeout=mesh.TIMEOUT)
-    topo = mesh.make_host_topology(*MESH_GRID, backend="gloo",
-                                   device="cuda")
+    topo = rank_topology(mesh, MESH_GRID)
     res = {"rank": rank, "coords": (topo.mesh.pod_rank, topo.mesh.data_rank),
-           "init_s": time.perf_counter() - t0}
+           "init_s": time.perf_counter() - t0,
+           "exchange": exchange_info(topo)}
     if "mesh" in job["parts"]:
         mesh_rank_work(torch, topo, job, tmp, res)
     if "fsdp" in job["parts"]:
@@ -4083,12 +4145,34 @@ def mesh_spawn(torch, tmp: str, world: int = MESH_GRID[0] * MESH_GRID[1],
     and their work there is gloo's copies), run ``meanwhile()`` here if
     given, and wait for them at most ``limit`` seconds; a rank that fails
     or outlives it, or a failing ``meanwhile``, fails the phase, every
-    rank killed first.  Returns the ranks' results."""
+    rank killed first.  The ranks build their meshes with shared host
+    memory (``make_host_topology(shared_dir=...)``, ``rank_topology``)
+    in a fresh directory under ``SHM`` where it has room, else in
+    ``tmp``; the directory under ``SHM`` is removed after them.  Returns
+    the ranks' results."""
+    import os
+
+    import shutil
+    import tempfile
+
+    shared = tmp
+    if (os.path.isdir(SHM)
+            and shutil.disk_usage(SHM).free >= SHM_NEED_PER_RANK * world):
+        shared = tempfile.mkdtemp(prefix="chip_smoke_", dir=SHM)
+    try:
+        return _mesh_spawn(torch, tmp, world, flag, limit, meanwhile, shared)
+    finally:
+        if shared != tmp:
+            shutil.rmtree(shared, ignore_errors=True)
+
+
+def _mesh_spawn(torch, tmp, world, flag, limit, meanwhile, shared) -> list:
     import os
     import pickle
 
     env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               CHIP_SMOKE_SHARED_DIR=shared)
     logs = [open(pathlib.Path(tmp) / f"rank{r}.log", "w+")
             for r in range(world)]
     procs = [subprocess.Popen(
@@ -4163,8 +4247,9 @@ def phase_mesh(torch, card: str, fsdp: bool = False) -> dict:
     one-process references run here first (and are freed), then the
     ranks: the parity toy's cells bitwise the one-process run with the
     four kernels counted in every rank; one fused vote-update at the
-    LM's size bitwise; gemma3-1b (6 layers, full width) 6 steps of
-    ``run_training`` over the ranks, its step-0 gradients and its
+    LM's size bitwise; gemma3-1b (2 layers, full width)
+    ``MESH_LM_STEPS`` steps of ``run_training`` over the ranks, its
+    step-0 gradients and its
     trajectory against the one-process run.  With ``fsdp`` the ranks
     then run their part of the FSDP regime across processes
     (:func:`fsdp_lift_rank`, :func:`fsdp_mesh_lm_rank`), whose results
@@ -4315,7 +4400,7 @@ def phase_mesh(torch, card: str, fsdp: bool = False) -> dict:
                 "[1, 1] block's computed in one process")
     traj_same = all(t["differing"] == 0 for t in traj.values())
     losses = lm[0]["losses"]
-    round2 = statistics.mean(losses[MESH_TE:2 * MESH_TE])
+    local_mean = statistics.mean(losses[1:])
     local = [[ms for s, ms in enumerate(x["ms"]) if s % MESH_TE]
              for x in lm]
     prologue = [[ms for s, ms in enumerate(x["ms"]) if s % MESH_TE == 0]
@@ -4329,7 +4414,7 @@ def phase_mesh(torch, card: str, fsdp: bool = False) -> dict:
           "trajectory_differing_by_edge": traj,
           "master_coordinates_per_edge": n_pad,
           "losses": losses, "one_process_losses": lm_ref["losses"],
-          "round2_mean_loss": round2,
+          "local_steps_mean_loss": local_mean,
           "local_step_ms_per_rank": [statistics.mean(x) for x in local],
           "prologue_step_ms_per_rank": [statistics.mean(x)
                                         for x in prologue],
@@ -4347,18 +4432,19 @@ def phase_mesh(torch, card: str, fsdp: bool = False) -> dict:
     for x in lm:
         require(all(map(math.isfinite, x["losses"])), "non-finite loss")
         require(x["losses"] == losses, "the ranks' losses differ")
-        require(x["launches"] == {"sign_pack": MESH_STEPS,
-                                  "vote_update": MESH_STEPS,
+        require(x["launches"] == {"sign_pack": MESH_LM_STEPS,
+                                  "vote_update": MESH_LM_STEPS,
                                   "tally_acc": 0, "ternary_quant": 0},
                 f"mesh lm launches {x['launches']}")
-    require(round2 < losses[0], f"mesh lm: the loss did not fall: step 0 "
-            f"{losses[0]}, round 2 mean {round2}")
+    require(local_mean < losses[0], f"mesh lm: the loss did not fall: step "
+            f"0 {losses[0]}, the local steps' mean {local_mean}")
     if grads_same:
         require(traj_same,
                 "mesh lm: the step-0 gradients are bitwise but the "
                 "trajectory is not")
     emit({"mesh": "phase", "wall_s": time.perf_counter() - t_phase,
-          "ranks_s": ranks_s, "rank_init_s": [r["init_s"] for r in ranks]})
+          "ranks_s": ranks_s, "rank_init_s": [r["init_s"] for r in ranks],
+          "exchange": [r["exchange"] for r in ranks]})
     return {"toy": toy_launches, "lm": [x["launches"] for x in lm],
             "ranks": ranks}
 
@@ -4594,7 +4680,7 @@ def tp_lm_rank(torch, topo) -> dict:
     block tensor-parallel, gathered over the model group, against the
     model=1 run of the same block (model rank 0 takes the latter; the
     differing count and the largest difference over the leaf's largest
-    |value|); then ``run_training`` over the ranks (6 steps, DC
+    |value|); then ``run_training`` over the ranks (``MESH_LM_STEPS``, DC
     fused/flat) with the counters and ``comm.traffic`` set to 0 just
     before it: its losses, step times, launches, the bytes sent on each
     group at each step, the copies' digest agreement at each step and
@@ -4631,7 +4717,7 @@ def tp_lm_rank(torch, topo) -> dict:
         del g_one, plain
     del g_tp, tokens
     torch.cuda.empty_cache()
-    run = RunCfg(steps=MESH_STEPS, batch_per_device=1, seq_len=LM_SEQ,
+    run = RunCfg(steps=MESH_LM_STEPS, batch_per_device=1, seq_len=LM_SEQ,
                  log_every=1, seed=0)
     counters = kernel_counters()
     for kern in counters:
@@ -4696,16 +4782,21 @@ def tp_rank_main(tmp: str, rank: int) -> None:
     dist.init_process_group("gloo", init_method=f"file://{d / 'rdv'}",
                             rank=rank, world_size=math.prod(TP_GRID),
                             timeout=mesh.TIMEOUT)
-    topo = mesh.make_host_topology(*TP_GRID, backend="gloo", device="cuda")
+    topo = rank_topology(mesh, TP_GRID)
     m = topo.mesh
     res = {"rank": rank, "coords": (m.pod_rank, m.data_rank, m.model_rank),
-           "init_s": time.perf_counter() - t0}
+           "init_s": time.perf_counter() - t0,
+           "exchange": exchange_info(topo)}
     if "tp" in job["parts"]:
         tp_rank_work(torch, topo, res)
     if "fsdp" in job["parts"]:
         t1 = time.perf_counter()
         res["fsdp_tp"] = fsdp_tp_rank(torch, topo)
         res["fsdp_tp_s"] = time.perf_counter() - t1
+    if "fam" in job["parts"]:
+        t1 = time.perf_counter()
+        res["fam_tp"] = tp_fam_rank(torch, topo)
+        res["fam_tp_s"] = time.perf_counter() - t1
     if "moe" in job["parts"]:
         res["moe_tp"] = tp_moe_rank(torch, topo, job["trees"])
     with open(d / f"rank{rank}.tmp", "wb") as f:
@@ -4806,7 +4897,7 @@ def tp_references(torch) -> dict:
             "n_params": n_params, "reckoned": reckoned}
 
 
-def phase_tp(torch, card: str, parts: tuple = ("tp", "moe")) -> dict:
+def phase_tp(torch, card: str, parts: tuple = ("tp", "fam", "moe")) -> dict:
     """The model axis across processes on the one card: 8 ranks (2 pods
     x 2 data x 2 model) over gloo, each a [1, 1] block of P=2 x D=2 and
     one model shard.  The one-process references run here first and
@@ -4815,12 +4906,16 @@ def phase_tp(torch, card: str, parts: tuple = ("tp", "moe")) -> dict:
     row-parallel) on logical coordinates against the one-process run
     with the four kernels counted in every rank; one fused vote-update
     on gemma3-1b's sharded layout, each rank's bucket bitwise the one
-    process's block; gemma3-1b (2 layers, full width) 6 steps of
-    ``run_training`` tensor-parallel over the ranks (:func:`tp_report`);
-    ``"fsdp"`` -- gemma3-1b in the FSDP regime against the replicated
-    one (:func:`fsdp_tp_rank`, checked by ``fsdp_mesh_report``);
+    process's block; gemma3-1b (2 layers, full width) ``MESH_LM_STEPS``
+    steps of ``run_training`` tensor-parallel over the ranks
+    (:func:`tp_report`); ``"fsdp"`` -- gemma3-1b in the FSDP regime
+    against the replicated one (:func:`fsdp_tp_rank`, checked by
+    ``fsdp_mesh_report``); ``"fam"`` -- xlstm-350m, zamba2-2.7b and
+    whisper-base at their published widths, tensor-parallel: step 0's
+    gradients against one process and the replicated regime's prologue
+    and a local step (:func:`tp_fam_rank`, :func:`tp_fam_report`);
     ``"moe"`` -- deepseek-v3 and internvl2 at their published widths,
-    tensor-parallel: step 0's gradients against one process and 4 steps
+    tensor-parallel: step 0's gradients against one process and 2 steps
     in the FSDP regime (:func:`tp_moe_rank`, :func:`tp_moe_report`),
     their seed-0 trees written once to git-ignored ``build/`` files
     that every rank maps.  Returns the per-rank launches of each part
@@ -4863,9 +4958,13 @@ def phase_tp(torch, card: str, parts: tuple = ("tp", "moe")) -> dict:
         out.update(tp_report(torch, card, ranks, refs))
     if "moe" in parts:
         out["moe"] = tp_moe_report(torch, card, ranks)
+    if "fam" in parts:
+        out["fam"] = tp_fam_report(torch, card, ranks)
+        emit({"tp": "fam part", "rank_s": [r["fam_tp_s"] for r in ranks]})
     emit({"tp": "phase", "parts": list(parts),
           "wall_s": time.perf_counter() - t_phase, "ranks_s": ranks_s,
-          "rank_init_s": [r["init_s"] for r in ranks]})
+          "rank_init_s": [r["init_s"] for r in ranks],
+          "exchange": [r["exchange"] for r in ranks]})
     return out
 
 
@@ -4942,7 +5041,7 @@ def tp_report(torch, card: str, ranks: list, refs: dict) -> dict:
                 f"rank {r['rank']}: sent {r['transport']['sent']}")
     lm = [r["lm"] for r in ranks]
     losses = lm[0]["losses"]
-    round2 = statistics.mean(losses[MESH_TE:2 * MESH_TE])
+    local_mean = statistics.mean(losses[1:])
     local = [[ms for s, ms in enumerate(x["ms"]) if s % MESH_TE] for x in lm]
     prologue = [[ms for s, ms in enumerate(x["ms"]) if s % MESH_TE == 0]
                 for x in lm]
@@ -4974,7 +5073,7 @@ def tp_report(torch, card: str, ranks: list, refs: dict) -> dict:
           "step0_copies_agree": all(x["step0_copies_agree"] for x in lm),
           "copies_agree_every_step": [all(x["copies_agree"][s] for x in lm)
                                       for s in range(len(losses))],
-          "losses": losses, "round2_mean_loss": round2,
+          "losses": losses, "local_steps_mean_loss": local_mean,
           "local_step_ms_per_rank": [statistics.mean(x) for x in local],
           "prologue_step_ms_per_rank": [statistics.mean(x)
                                         for x in prologue],
@@ -4992,12 +5091,12 @@ def tp_report(torch, card: str, ranks: list, refs: dict) -> dict:
         require(x["losses"] == losses, "the ranks' losses differ")
         require(all(x["copies_agree"]) and x["step0_copies_agree"],
                 "tp lm: a copy leaf differs across the model group")
-        require(x["launches"] == {"sign_pack": MESH_STEPS,
-                                  "vote_update": MESH_STEPS,
+        require(x["launches"] == {"sign_pack": MESH_LM_STEPS,
+                                  "vote_update": MESH_LM_STEPS,
                                   "tally_acc": 0, "ternary_quant": 0},
                 f"tp lm launches {x['launches']}")
-    require(round2 < losses[0], f"tp lm: the loss did not fall: step 0 "
-            f"{losses[0]}, round 2 mean {round2}")
+    require(local_mean < losses[0], f"tp lm: the loss did not fall: step 0 "
+            f"{losses[0]}, the local steps' mean {local_mean}")
     for x in step0:
         require(x["step0_max_rel_diff"] <= TP_STEP0_REL,
                 f"tp lm: step 0's gradients {x['step0_max_rel_diff']} of a "
@@ -5009,8 +5108,10 @@ def tp_report(torch, card: str, ranks: list, refs: dict) -> dict:
 
 # -- the FSDP regime across processes (ROADMAP item 17c) ------------------------
 
-FSDP_MESH_STEPS = 4              # gemma3-12b over the mesh ranks: step 3
-                                 # is round 2's first (T_E = LM_TE = 3)
+FSDP_MESH_STEPS = 2              # gemma3-12b over the mesh ranks: the
+                                 # prologue and a local step (a gloo
+                                 # prologue costs 3.8 local steps); step
+                                 # 1's loss below step 0's
 FSDP_MESH_MASK = ((1.0, 0.0), (0.0, 0.0))   # the lift check: pod 0's
                                  # device 1 dropped, pod 1's quorum empty
 FSDP_MESH_SHARES = ((0.25, 0.75), (0.5, 0.5))
@@ -5328,19 +5429,23 @@ def tp_moe_host_params(torch, built, d: pathlib.Path):
         for i in range(len(leaves))])
 
 
-def tp_moe_batch(torch, topo, cfg) -> dict:
-    """Step 0's batch of the run's stream (seed 0, 1 x MOE_SEQ tokens a
-    device, a vlm's patches), the rank's block, on the card."""
+def tp_batch(torch, topo, cfg, batch: int = 1,
+                 seq: int = MOE_SEQ) -> dict:
+    """Step 0's batch of the run's stream (seed 0, ``batch`` x ``seq``
+    tokens a device, a vlm's patches, whisper's frames), the rank's
+    block, on the card."""
     from repro_torch.data import synthetic
 
-    batch = synthetic.make_stream(synthetic.LMStreamCfg(
-        vocab=cfg.vocab, seq_len=MOE_SEQ, batch_per_device=1, pods=TP_P,
+    first = synthetic.make_stream(synthetic.LMStreamCfg(
+        vocab=cfg.vocab, seq_len=seq, batch_per_device=batch, pods=TP_P,
         devices_per_pod=TP_D, seed=0, n_patches=cfg.n_patches,
-        d_model=cfg.d_model))(0)
-    return {k: v.to(topo.device) for k, v in topo.block(batch).items()}
+        d_model=cfg.d_model,
+        frames=cfg.encoder_frames if cfg.encoder_layers else 0,
+        frontend_dim=cfg.frontend_dim))(0)
+    return {k: v.to(topo.device) for k, v in topo.block(first).items()}
 
 
-def tp_moe_copies(torch, host, dtype, layout=None, rank: int = 0) -> list:
+def tp_copies(torch, host, dtype, layout=None, rank: int = 0) -> list:
     """Fresh [1, 1] copies in ``dtype`` on the card of model rank
     ``rank``'s blocks of the mapped tree ``host`` (``layout`` sharded;
     the whole leaves without one), each block cut from the map, so only
@@ -5356,7 +5461,7 @@ def tp_moe_copies(torch, host, dtype, layout=None, rank: int = 0) -> list:
     return out
 
 
-def tp_moe_step0(torch, topo, cfg, host, batch, dtype) -> dict:
+def tp_step0(torch, topo, cfg, host, batch, dtype) -> dict:
     """Step 0's gradients of ``cfg`` in ``dtype`` through the
     replicated-regime loss on the first [1, 1] block (pod 0, device 0;
     the other ranks wait, so the card holds that block's runs alone):
@@ -5382,7 +5487,7 @@ def tp_moe_step0(torch, topo, cfg, host, batch, dtype) -> dict:
     res = {}
     if (m.pod_rank, m.data_rank) == (0, 0):
         t0 = time.perf_counter()
-        copies = tp_moe_copies(torch, host, dtype, layout, topo.model_rank)
+        copies = tp_copies(torch, host, dtype, layout, topo.model_rank)
         tree = shardflat.logical(topo, layout, pytree.tree_unflatten(
             td, copies), 2)
         losses = built.bundle.loss(tree, batch)
@@ -5395,21 +5500,22 @@ def tp_moe_step0(torch, topo, cfg, host, batch, dtype) -> dict:
         for slot, g in zip(layout.slots, grads):
             if slot.shard_dim is None:
                 got = comm.gather_model(topo, g, 0)
-                agree &= all(torch.equal(got[:1], got[i:i + 1])
+                agree &= all(torch.equal(got[:1].view(bits),
+                                         got[i:i + 1].view(bits))
                              for i in range(1, got.shape[0]))
         res["copies_agree"] = bool(agree)
         t1 = time.perf_counter()
         one = None
         if m.model_rank == 0:
             plain = build.build_model(rcfg, Topology(1, 1, "cuda"))
-            whole = tp_moe_copies(torch, host, dtype)
+            whole = tp_copies(torch, host, dtype)
             ones = plain.bundle.loss(pytree.tree_unflatten(td, whole),
                                      batch)
             one = torch.autograd.grad(ones.sum(), whole)
             res["losses_one_process"] = ones.detach().float() \
                 .flatten().tolist()
             del whole, ones
-        differ, worst, n = 0, 0.0, 0
+        differ, worst, n, nans, nan_moved = 0, 0.0, 0, 0, 0
         for i, (slot, g) in enumerate(zip(layout.slots, grads)):
             if slot.shard_dim is not None:
                 ax = 2 + slot.shard_dim
@@ -5418,14 +5524,19 @@ def tp_moe_step0(torch, topo, cfg, host, batch, dtype) -> dict:
             if one is not None:
                 b = one[i]
                 differ += int((g.view(bits) != b.view(bits)).sum())
-                scale = float(b.float().abs().max())
-                worst = max(worst, float((g.float() - b.float()).abs()
-                                         .max()) / max(scale, 1e-30))
+                # a NaN (zamba2's SSD overflow, ROADMAP queue 3) is held
+                # by position; the finite values by their difference
+                nans += int(b.isnan().sum())
+                nan_moved += int((g.isnan() != b.isnan()).sum())
+                scale = float(torch.nan_to_num(b.float().abs()).max())
+                worst = max(worst, float(torch.nan_to_num(
+                    (g.float() - b.float()).abs()).max()) / max(scale, 1e-30))
                 n += b.numel()
             del g
         if one is not None:
             res.update(step0_differing=differ, step0_max_rel_diff=worst,
-                       step0_coordinates=n,
+                       step0_coordinates=n, step0_nan=nans,
+                       step0_nan_moved=nan_moved,
                        one_process_s=time.perf_counter() - t1)
         del one, grads
         torch.cuda.empty_cache()
@@ -5483,7 +5594,7 @@ def tp_moe_fsdp(torch, topo, cfg, host) -> dict:
 
 def tp_moe_rank(torch, topo, trees: str) -> dict:
     """The rank's ``moe`` part: for each :func:`tp_moe_cells` config,
-    :func:`tp_moe_step0` then :func:`tp_moe_fsdp`, from the tree the
+    :func:`tp_step0` then :func:`tp_moe_fsdp`, from the tree the
     parent writes under ``trees`` while the ranks run their earlier
     parts (waited for here, at most ``TP_JOIN_S``)."""
     from repro_torch.models import build
@@ -5498,8 +5609,8 @@ def tp_moe_rank(torch, topo, trees: str) -> dict:
         t0 = time.perf_counter()
         host = tp_moe_host_params(torch, build.build_model(cfg, topo),
                                   pathlib.Path(trees) / name)
-        res = {"step0": tp_moe_step0(
-            torch, topo, cfg, host, tp_moe_batch(torch, topo, cfg),
+        res = {"step0": tp_step0(
+            torch, topo, cfg, host, tp_batch(torch, topo, cfg),
             getattr(torch, TP_MOE_STEP0_DTYPE[name]))}
         res["step0"]["s"] = time.perf_counter() - t0
         t1 = time.perf_counter()
@@ -5508,6 +5619,50 @@ def tp_moe_rank(torch, topo, trees: str) -> dict:
         del host
         out[name] = res
     return out
+
+
+def tp_step0_report(card: str, cfg, per_rank: list, dtype: str,
+                    part: str, extra: dict) -> None:
+    """The step-0 check of a part's config from each rank's
+    :func:`tp_step0` result: the first block's two model ranks'
+    copy leaves' gradients bitwise the same, their losses the same and
+    finite, and each leaf within ``TP_STEP0_REL`` of the model=1 run's
+    (a JSON line ``{"tp": "PART step 0"}``)."""
+    step0 = [x for x in per_rank if "copies_agree" in x]  # the first pair
+    checked = [x for x in step0 if "step0_differing" in x]
+    emit({"tp": f"{part} step 0", "arch": cfg.name, "card": card,
+          "n_layers": cfg.n_layers, "grid": list(TP_GRID),
+          "block": [0, 0], "dtype": dtype,
+          "step0_differing": [x["step0_differing"] for x in checked],
+          "step0_coordinates": [x["step0_coordinates"] for x in checked],
+          "step0_max_rel_diff": [x["step0_max_rel_diff"] for x in checked],
+          "step0_nan": [x["step0_nan"] for x in checked],
+          "step0_nan_moved": [x["step0_nan_moved"] for x in checked],
+          "limit": TP_STEP0_REL,
+          "copies_agree": [x["copies_agree"] for x in step0],
+          "losses_model_ranks": [x["losses"] for x in step0],
+          "losses_one_process": [x["losses_one_process"] for x in checked],
+          "grads_s_per_model_rank": [x["grads_s"] for x in step0],
+          "one_process_s": [x["one_process_s"] for x in checked],
+          "rank_s": [x["s"] for x in per_rank], **extra})
+    require(len(step0) == TP_M and len(checked) == 1,
+            f"tp {part} {cfg.name}: the first block's step-0 check is "
+            "missing")
+    for x in step0:
+        require(x["copies_agree"], f"tp {part} {cfg.name}: a copy leaf's "
+                "step-0 gradient differs across the model group")
+        require(x["losses"] == step0[0]["losses"]
+                and all(map(math.isfinite, x["losses"])),
+                f"tp {part} {cfg.name}: the model ranks' step-0 losses "
+                f"{[y['losses'] for y in step0]}")
+    for x in checked:
+        require(x["step0_nan_moved"] == 0, f"tp {part} {cfg.name}: "
+                f"{x['step0_nan_moved']} NaN gradients where the model=1 "
+                "run's are not, or the reverse")
+        require(x["step0_max_rel_diff"] <= TP_STEP0_REL,
+                f"tp {part} {cfg.name}: step 0's gradients "
+                f"{x['step0_max_rel_diff']} of a leaf's scale from the "
+                f"model=1 run's (limit {TP_STEP0_REL})")
 
 
 def tp_moe_report(torch, card: str, ranks: list) -> dict:
@@ -5529,42 +5684,11 @@ def tp_moe_report(torch, card: str, ranks: list) -> dict:
 
     launches = {}
     for name, cfg in tp_moe_cells().items():
-        times = [r["moe_tp"][name]["step0"]["s"] for r in ranks]
-        step0 = [x for x in (r["moe_tp"][name]["step0"] for r in ranks)
-                 if "copies_agree" in x]          # the first block's pair
-        checked = [x for x in step0 if "step0_differing" in x]
-        emit({"tp": "moe step 0", "arch": cfg.name, "card": card,
-              "n_layers": cfg.n_layers, "grid": list(TP_GRID),
-              "block": [0, 0], "dtype": TP_MOE_STEP0_DTYPE[name],
-              "step0_differing": [x["step0_differing"] for x in checked],
-              "step0_coordinates": [x["step0_coordinates"]
-                                    for x in checked],
-              "step0_max_rel_diff": [x["step0_max_rel_diff"]
-                                     for x in checked],
-              "limit": TP_STEP0_REL,
-              "copies_agree": [x["copies_agree"] for x in step0],
-              "losses_model_ranks": [x["losses"] for x in step0],
-              "losses_one_process": [x["losses_one_process"]
-                                     for x in checked],
-              "grads_s_per_model_rank": [x["grads_s"] for x in step0],
-              "one_process_s": [x["one_process_s"] for x in checked],
-              "rank_s": times,
-              "trees_wait_s_per_rank": [r["moe_tp"]["wait_s"]
-                                        for r in ranks]})
-        require(len(step0) == TP_M and len(checked) == 1,
-                f"tp moe {name}: the first block's step-0 check is missing")
-        for x in step0:
-            require(x["copies_agree"], f"tp moe {name}: a copy leaf's "
-                    "step-0 gradient differs across the model group")
-            require(x["losses"] == step0[0]["losses"]
-                    and all(map(math.isfinite, x["losses"])),
-                    f"tp moe {name}: the model ranks' step-0 losses "
-                    f"{[y['losses'] for y in step0]}")
-        for x in checked:
-            require(x["step0_max_rel_diff"] <= TP_STEP0_REL,
-                    f"tp moe {name}: step 0's gradients "
-                    f"{x['step0_max_rel_diff']} of a leaf's scale from the "
-                    f"model=1 run's (limit {TP_STEP0_REL})")
+        tp_step0_report(card, cfg, [r["moe_tp"][name]["step0"]
+                                    for r in ranks],
+                        TP_MOE_STEP0_DTYPE[name], "moe", {
+                            "trees_wait_s_per_rank": [r["moe_tp"]["wait_s"]
+                                                      for r in ranks]})
 
         lm = [r["moe_tp"][name]["fsdp"] for r in ranks]
         built = build.build_model(cfg, Topology(TP_P, TP_D, "cpu"))
@@ -5624,6 +5748,227 @@ def tp_moe_report(torch, card: str, ranks: list) -> dict:
         require(losses[-1] < losses[0], f"tp moe {name}: step "
                 f"{TP_MOE_STEPS - 1}'s loss {losses[-1]} is not below "
                 f"step 0's {losses[0]}")
+        launches[name] = [x["launches"] for x in lm]
+    return launches
+
+
+# -- the ssm, hybrid and encdec families over the model axis (item 17f,
+# part two) ---------------------------------------------------------------
+
+TP_FAM_STEPS = 2                 # the replicated regime's prologue and a
+                                 # local step over the ranks
+# step 0's gradients against model=1: bf16 as for gemma3-1b where it
+# holds, float32 for the recurrent mixers, whose gradients move far
+# more than a rounding: their smoke configs on the CPU read 0.84 (xlstm)
+# and 0.58 (zamba2) of a leaf's scale sound in bf16, against 0.024 for
+# whisper, and 1.0e-5 and 2.0e-5 in float32, 1.05 and more with a
+# model collective dropped (tests/helpers/torch_tp_step0_bound.py)
+TP_FAM_STEP0_DTYPE = {"xlstm-350m": "float32", "zamba2-2.7b": "float32",
+                      "whisper-base": "bfloat16"}
+TP_FAM_MU = {"xlstm-350m": 1e-3, "zamba2-2.7b": MOE_MU,
+             "whisper-base": 1e-3}
+# the fam part's step size: the families and hybrid phases' 1e-3, but
+# zamba2's at MOE_MU -- at 1e-3 its loss rose after the prologue's step
+# (10.8566 -> 10.8708 on the H100, PERF.md section 6), as a sign step of 1e-3
+# does on random weights at published widths (ROADMAP queue 3), which
+# is why the moe phase trains at MOE_MU
+TP_FAM_CALM = 5.0                # zamba2's a_log lowered by this: the SSD
+                                 # scan's overflow (ROADMAP queue 3) would
+                                 # make every gradient but the head's NaN.
+                                 # A chunk of 256 sums up to 256 decays
+                                 # dt * 16 e^-k (dt about 0.8): k = 3, the
+                                 # CPU tests' at chunk 16, still passes
+                                 # exp's 88 here, k = 5 stays near 23
+
+
+def tp_fam_cells() -> dict:
+    """name -> (config, rows, tokens a device) of the configs the tp ranks
+    train tensor-parallel in the replicated regime, at their published
+    widths: xlstm-350m cut to one 7:1 period (``FAM_XLSTM_LAYERS``: d
+    1024, d_in 2048, 4 heads, vocab 50304), zamba2-2.7b cut to one period
+    (6 Mamba2 blocks and the shared block: d 2560, d_in 5120, 80 SSM and
+    32 attention heads, vocab 32000) and whisper-base whole (6 + 6
+    layers, 1500 frames, vocab 51865 whole); the ``families`` and
+    ``hybrid`` phases' tokens a device."""
+    from repro_torch import configs
+
+    xlstm = dataclasses.replace(configs.get_config("xlstm_350m"),
+                                n_layers=FAM_XLSTM_LAYERS)
+    zamba2 = configs.get_config("zamba2_2p7b")
+    zamba2 = dataclasses.replace(zamba2, n_layers=zamba2.ssm.attn_every)
+    tokens = {arch: (b, t) for arch, b, t in FAMILIES}
+    return {"xlstm-350m": (xlstm, *tokens["xlstm_350m"]),
+            "zamba2-2.7b": (zamba2, 1, LM_SEQ),
+            "whisper-base": (configs.get_config("whisper_base"),
+                             *tokens["whisper_base"])}
+
+
+def tp_fam_params(torch, built, cfg):
+    """The seed-0 tree, drawn on the card as ``run_training`` draws it and
+    moved to the host a leaf at a time (the step-0 copies and
+    ``init_fn`` move only the rank's blocks back: eight ranks' whole
+    trees and training states do not fit the card together); zamba2's
+    every ``a_log`` lowered by ``TP_FAM_CALM``."""
+    from repro_torch.core import pytree
+
+    leaves, td = pytree.tree_flatten(built.init_params(
+        torch.Generator(device="cuda").manual_seed(0)))
+    for i in range(len(leaves)):
+        leaves[i] = leaves[i].cpu()
+    params = pytree.tree_unflatten(td, leaves)
+    torch.cuda.empty_cache()
+    if cfg.family == "hybrid":
+        params["stacks"]["mamba"]["mamba"]["a_log"] -= TP_FAM_CALM
+    return params
+
+
+def tp_fam_train(torch, topo, cfg, built, params, batch: int, seq: int,
+                 mu: float) -> dict:
+    """``run_training`` of ``cfg`` in the replicated regime over the
+    ranks for TP_FAM_STEPS steps (the lm phase's algorithm: DC, rho 0.2,
+    T_E=3, bf16 compute and delta, f32 master, fused, flat; ``mu``) from
+    ``params`` (``init_fn`` cuts the rank's blocks), with the kernels'
+    counters and ``comm.traffic`` at 0 just before it: its losses, step
+    times, launches, each group's bytes at each step, whether every copy
+    leaf of the master and corrections was bitwise the same on both
+    model ranks after each step, and its peak above what it held."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm, shardflat
+    from repro_torch.launch.train import RunCfg, run_training
+
+    _, _, algo = lm_setup(torch, mu=mu)
+    run = RunCfg(steps=TP_FAM_STEPS, batch_per_device=batch, seq_len=seq,
+                 log_every=1, seed=0)
+    layout = shardflat.param_layout(topo, built.bundle.specs, params)
+    per_step, agree = [], []
+
+    def on_state(step, state):
+        per_step.append(comm.group_bytes())
+        digest = torch.tensor(list(copies_digest(torch, state, layout)),
+                              dtype=torch.uint8, device="cuda")
+        parts = [torch.empty_like(digest) for _ in range(TP_M)]
+        dist.all_gather(parts, digest, group=topo.mesh.model_group)
+        agree.append(all(torch.equal(parts[0], x) for x in parts[1:]))
+
+    zero_launches()
+    comm.reset_traffic()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, history = run_training(cfg, topo, algo, run, params=params,
+                                  log=lambda line: None, on_state=on_state)
+    torch.cuda.synchronize()
+    res = {"losses": [h["loss"] for h in history],
+           "ms": [h["ms"] for h in history],
+           "data_ms": [h["data_ms"] for h in history],
+           "launches": counted_launches(),
+           "bytes_per_step": [per_step[0]] + [
+               {g: {k: b[g][k] - a[g][k] for k in b[g]} for g in b}
+               for a, b in zip(per_step, per_step[1:])],
+           "copies_agree": agree,
+           "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+           "held_gb": before / 1e9, "bucket_pad": layout.bucket_pad}
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_fam_rank(torch, topo) -> dict:
+    """The rank's ``fam`` part: for each :func:`tp_fam_cells` config, step
+    0's gradients on the first block (:func:`tp_step0`, in
+    ``TP_FAM_STEP0_DTYPE``) and :func:`tp_fam_train`, from the seed-0
+    tree each rank draws (:func:`tp_fam_params`)."""
+    from repro_torch.models import build
+
+    out = {}
+    for name, (cfg, batch, seq) in tp_fam_cells().items():
+        t0 = time.perf_counter()
+        built = build.build_model(cfg, topo)
+        params = tp_fam_params(torch, built, cfg)
+        res = {"step0": tp_step0(
+            torch, topo, cfg, params, tp_batch(torch, topo, cfg, batch,
+                                                   seq),
+            getattr(torch, TP_FAM_STEP0_DTYPE[name]))}
+        res["step0"]["s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        res["train"] = tp_fam_train(torch, topo, cfg, built, params, batch,
+                                    seq, TP_FAM_MU[name])
+        res["train"]["s"] = time.perf_counter() - t1
+        del params
+        torch.cuda.empty_cache()
+        out[name] = res
+    return out
+
+
+def tp_fam_report(torch, card: str, ranks: list) -> dict:
+    """The ``fam`` part's checks, from the ranks' results, for each
+    config: step 0 (:func:`tp_step0_report`); the replicated run --
+    finite losses, the same on every rank, step 1's below step 0's, one
+    ``sign_pack`` and one ``vote_update`` a step in every rank and no
+    other kernel, every copy leaf bitwise the same on both model ranks
+    after each step, and the model group's bytes a prologue and a local
+    step those :func:`reckon_tp_model_bytes` reckons (the replicated
+    regime, bf16 activations); the data and pod groups' bytes, the step
+    times and the peak beside them.  Returns each config's per-rank
+    launches."""
+    from repro_torch.core.topology import Topology
+    from repro_torch.models import build
+
+    launches = {}
+    for name, (cfg, batch, seq) in tp_fam_cells().items():
+        tp_step0_report(card, cfg, [r["fam_tp"][name]["step0"]
+                                    for r in ranks],
+                        TP_FAM_STEP0_DTYPE[name], "fam",
+                        {"a_log_lowered_by": TP_FAM_CALM
+                         if cfg.family == "hybrid" else 0.0})
+        lm = [r["fam_tp"][name]["train"] for r in ranks]
+        built = build.build_model(cfg, Topology(TP_P, TP_D, "cpu"))
+        model = reckon_tp_model_bytes(cfg, built.arch, batch, seq, TP_M,
+                                      fsdp=False)
+        losses = lm[0]["losses"]
+        sent = [{g: {"local_step": x["bytes_per_step"][1][g]["sent"],
+                     "prologue_step": x["bytes_per_step"][0][g]["sent"]}
+                 for g in ("data", "pod", "model")} for x in lm]
+        emit({"tp": "fam train", "arch": cfg.name, "card": card,
+              "family": cfg.family, "n_layers": cfg.n_layers,
+              "encoder_layers": cfg.encoder_layers,
+              "count": build.param_count(built.abstract_params()),
+              "grid": list(TP_GRID), "P": TP_P, "D": TP_D, "M": TP_M,
+              "batch": batch, "seq": seq, "steps": TP_FAM_STEPS,
+              "mu": TP_FAM_MU[name], "a_log_lowered_by": TP_FAM_CALM
+              if cfg.family == "hybrid" else 0.0,
+              "losses": losses, "last_loss": losses[-1],
+              "launches_per_rank": [x["launches"] for x in lm],
+              "copies_agree_every_step": [
+                  all(x["copies_agree"][s] for x in lm)
+                  for s in range(len(losses))],
+              "bucket_pad": lm[0]["bucket_pad"],
+              "bytes_sent_per_rank": sent,
+              "model_bytes_reckoned": model,
+              "prologue_step_ms_per_rank": [x["ms"][0] for x in lm],
+              "local_step_ms_per_rank": [x["ms"][1] for x in lm],
+              "data_ms_per_rank": [statistics.mean(x["data_ms"])
+                                   for x in lm],
+              "peak_gb_per_rank": [x["peak_gb"] for x in lm],
+              "held_gb_per_rank": [x["held_gb"] for x in lm],
+              "rank_s": [x["s"] for x in lm]})
+        want = {"sign_pack": TP_FAM_STEPS, "vote_update": TP_FAM_STEPS,
+                "tally_acc": 0, "ternary_quant": 0}
+        for x, b in zip(lm, sent):
+            require(all(map(math.isfinite, x["losses"])),
+                    f"tp fam {name}: non-finite loss")
+            require(x["losses"] == losses, f"tp fam {name}: the ranks' "
+                    "losses differ")
+            require(x["launches"] == want, f"tp fam {name}: launches "
+                    f"{x['launches']}, want {want}")
+            require(all(x["copies_agree"]), f"tp fam {name}: a copy leaf "
+                    "differs across the model group")
+            require(b["model"] == model, f"tp fam {name}: the model group's "
+                    f"bytes {b['model']}, reckoned {model}")
+        require(losses[-1] < losses[0], f"tp fam {name}: step "
+                f"{TP_FAM_STEPS - 1}'s loss {losses[-1]} is not below step "
+                f"0's {losses[0]}")
         launches[name] = [x["launches"] for x in lm]
     return launches
 
@@ -5701,36 +6046,60 @@ def reckon_fsdp_mesh_bytes(built, data: int, pods: int,
 
 
 def reckon_tp_model_bytes(cfg, arch, batch: int, seq: int, model: int,
-                          elt: int = 2, lead: int = 1) -> dict:
+                          elt: int = 2, lead: int = 1,
+                          fsdp: bool = True) -> dict:
     """The bytes one rank sends on the model group in a local and in a
     prologue step (the anchor pass runs the loss a second time) of the
-    FSDP regime's tensor-parallel loss over ``model`` ranks, with
-    ``lead`` replicas a rank, ``batch`` rows of ``seq`` tokens (and a
-    vlm's patches) and activations of ``elt`` bytes, reckoned from the
-    config alone.  A sum counts the tensor it is handed
-    (``comm.traffic``: a bf16 sum as bf16).  With A the [rows,
-    positions, d_model] activations: forward, the vocab-parallel lookup
-    (A, tokens only), each split attention's and FFN's row-parallel sum
-    (A; an MoE layer's experts and MLPs in one) and each
-    cross-entropy's max, sum of exponentials and gold logit (f32 a
-    position); each layer's recompute again sums its attention's but
-    not its FFN's (the checkpoint stops once the last tensor its
-    backward saved is back, and nothing after the FFN's sum is saved);
-    backward, each ``copy_to_model``'s gradient: a split GQA's input
-    (and its whole kv heads, repeated, where they do not split), MLA's
-    query latent, kv latent and rope key, an MLP's input (A), an MoE
-    layer's input and its f32 combine [g, S, E, C] where the experts
-    split, and each head's input (A).  deepseek-v3's MTP runs its
-    lookup, its block (not recomputed) and its head once more on the
-    tokens."""
-    from repro_torch.models import build, moe
+    tensor-parallel loss over ``model`` ranks, in the FSDP regime (or the
+    replicated one, ``fsdp`` False: a tied block is recomputed there),
+    with ``lead`` replicas a rank, ``batch`` rows of ``seq`` tokens (and a
+    vlm's patches, whisper's frames) and activations of ``elt`` bytes,
+    reckoned from the config alone.  A sum counts the tensor it is handed
+    (``comm.traffic``: a bf16 sum as bf16), a gather the rank's block, its
+    reduce-scatter backward the whole gradient.  With A the [rows,
+    positions, d_model] activations, each block's forward sums, the part
+    of them its recompute runs again and its backward's sums:
+
+      * the vocab-parallel lookup (A, tokens only) and each
+        cross-entropy's max, sum of exponentials and gold logit (f32 a
+        position), each head's input marked (A) -- none where the
+        vocabulary does not divide;
+      * attention (GQA, MLA, whisper's bidirectional encoder and its
+        cross-attention): the row-parallel sum (A), recomputed; backward
+        the marked input (A; and the whole kv heads, repeated, where they
+        do not split; MLA's query latent, kv latent and rope key; the
+        cross keys' and values' encoder output, frames x d_model); an FFN
+        (an MLP or an MoE layer's experts and MLPs in one): the sum (A),
+        not recomputed (the checkpoint stops once the last tensor its
+        backward saved is back, and nothing after the FFN's sum is saved),
+        backward the marked input (A; an MoE's f32 combine [g, S, E, C]
+        where the experts split);
+      * Mamba2: the split norm's sum of squares (f32 a position) and
+        ``out``'s sum (A), the first recomputed; backward the marked input
+        (A), ``in_b``/``in_c`` and the norm's sum; with the heads whole,
+        the conv output's gather (A d_in/d/M, recomputed, its
+        reduce-scatter A d_in/d) and ``in_dt``, ``dt_bias``, ``a_log``,
+        ``d_skip`` marked;
+      * the mLSTM: the conv output's gather and the norm's sum, both
+        recomputed, and ``down``'s sum; backward ``up``'s output (A 2
+        d_in/d), the gather's reduce-scatter and the norm's sum; with the
+        heads whole, q, k and v gathered as one (and their reduce-scatter)
+        and ``wi``, ``wf``, ``fb`` marked;
+      * the sLSTM (not recomputed): its heads' gather (A/M), backward the
+        whole gates (4A).
+
+    deepseek-v3's MTP runs its lookup, its block (not recomputed) and its
+    head once more on the tokens; under FSDP a tied block (zamba2's shared
+    attention) is applied without the recompute."""
+    from repro_torch.models import build, layers, moe
 
     d, m = cfg.d_model, model
     tok = lead * batch * seq
     pos = lead * batch * (seq + cfg.n_patches)
+    heads_split = cfg.n_heads % m == 0
 
     def attn(npos):
-        if cfg.n_heads % m:
+        if not heads_split:
             return 0, 0
         if cfg.mla is not None:
             r = cfg.mla
@@ -5759,18 +6128,82 @@ def reckon_tp_model_bytes(cfg, arch, batch: int, seq: int, model: int,
                 s_len, e) * 4
         return npos * d * elt, bwd
 
-    xent = 3 * tok * 4
-    fwd, bwd = tok * d * elt + xent, tok * d * elt   # lookup; head input
-    for block, n in build.occurrence_counts(arch.segments).items():
-        a, b = attn(pos)
-        f, g = ffn(block, pos)
-        fwd += n * (2 * a + f)
-        bwd += n * (b + g)
+    def mamba(npos):
+        s = cfg.ssm
+        d_in = s.expand * d
+        h = d_in // 64
+        if d_in % m:
+            return 0, 0, 0
+        act = npos * d * elt
+        norm = npos * 4
+        fwd, rec = norm + act, norm
+        bwd = act + 2 * lead * d * s.n_groups * s.d_state * elt + norm
+        if h % m:
+            gather = npos * d_in // m * elt
+            fwd += gather
+            rec += gather
+            bwd += npos * d_in * elt + lead * (d * h + 3 * h) * elt
+        return fwd, rec, bwd
+
+    def mlstm(npos):
+        d_in = int(cfg.xlstm.proj_factor * d)
+        h = cfg.n_heads
+        if d_in % m:
+            return 0, 0, 0
+        gather = npos * d_in // m * elt
+        norm = npos * 4
+        fwd = rec = gather + norm
+        fwd += npos * d * elt
+        bwd = npos * 2 * d_in * elt + npos * d_in * elt + norm
+        if h % m:
+            fwd += 3 * gather
+            rec += 3 * gather
+            bwd += 3 * npos * d_in * elt + lead * (2 * d_in * h + h) * elt
+        return fwd, rec, bwd
+
+    def slstm(npos):
+        if cfg.n_heads % m:
+            return 0, 0, 0
+        return npos * d // m * elt, 0, npos * 4 * d * elt
+
+    frames = lead * batch * cfg.encoder_frames
+
+    def block_bytes(name, npos):
+        """(forward, recomputed, backward) bytes of one occurrence."""
+        if name == "mamba":
+            return mamba(npos)
+        if name == "mlstm":
+            return mlstm(npos)
+        if name == "slstm":
+            return slstm(npos)
+        a, b = attn(npos)
+        f, g = ffn(name, npos)
+        if name == "dec" and heads_split:      # the cross-attention
+            a, b = 2 * a, b + npos * d * elt + (
+                frames * d * elt if cfg.n_kv_heads % m == 0
+                else 2 * frames * cfg.n_heads * cfg.hd * elt)
+        return a + f, a, b + g
+
+    vocab = layers.vocab_sharded(cfg.vocab, m)
+    xent = 3 * tok * 4 if vocab else 0
+    look = tok * d * elt if vocab else 0
+    fwd, bwd = look + xent, look                      # lookup; head input
+    tied = {name for seg in arch.segments for name in seg.tied}
+    runs = [(n, arch.blocks[name], name, pos) for name, n in
+            build.occurrence_counts(arch.segments).items()]
+    if arch.enc_segments:
+        runs += [(n, arch.enc_blocks[name], name, frames) for name, n in
+                 build.occurrence_counts(arch.enc_segments).items()]
+    for n, bd, name, npos in runs:
+        f, r, b = block_bytes(name, npos)
+        again = cfg.remat and bd.remat and not (fsdp and name in tied)
+        fwd += n * (f + (r if again else 0))
+        bwd += n * b
     if arch.mtp_block is not None:
         a, b = attn(tok)
         f, g = ffn("mlp", tok)
-        fwd += tok * d * elt + xent + a + f
-        bwd += b + g + tok * d * elt
+        fwd += look + xent + a + f
+        bwd += b + g + look
     return {"local_step": fwd + bwd, "prologue_step": 2 * (fwd + bwd)}
 
 
@@ -5843,7 +6276,7 @@ def fsdp_mesh_report(torch, card: str, mesh_ranks: list,
     slices, fused and wmean, every rank launching one sign_pack and one
     vote_update a fused lift; (2) gemma3-1b FSDP over the 8 tp ranks
     bitwise the replicated regime over them (0 differing); (3)
-    gemma3-12b over the 4 mesh ranks: the loss of round 2's first step
+    gemma3-12b over the 4 mesh ranks: step 1's loss (after the prologue)
     below step 0's, one sign_pack and one vote_update a leaf and layer a
     step in every rank, each group's bytes a local and a prologue step
     beside the reckoning, the state's bytes beside half the one-process
@@ -5913,7 +6346,7 @@ def fsdp_mesh_report(torch, card: str, mesh_ranks: list,
           "n_layers": cfg.n_layers, "count": n, "grid": list(MESH_GRID),
           "P": MESH_P, "D": MESH_D, "seq": FSDP_SEQ,
           "steps": FSDP_MESH_STEPS, "losses": losses,
-          "round2_first_loss": losses[LM_TE],
+          "last_loss": losses[-1],
           "held_bytes_per_rank": [x["held_bytes"] for x in lm],
           "one_process_bytes_a_pod_row": one_process,
           "launches_per_rank": [x["launches"] for x in lm],
@@ -5944,8 +6377,8 @@ def fsdp_mesh_report(torch, card: str, mesh_ranks: list,
                 f"{x['launches']}, want {want}")
         require(x["held_bytes"]["params"] < one_process["params"],
                 "gemma3-12b fsdp mesh: a rank holds its whole master")
-    require(losses[LM_TE] < losses[0], f"gemma3-12b fsdp mesh: round 2's "
-            f"first loss {losses[LM_TE]} is not below step 0's "
+    require(losses[-1] < losses[0], f"gemma3-12b fsdp mesh: step "
+            f"{len(losses) - 1}'s loss {losses[-1]} is not below step 0's "
             f"{losses[0]}")
     emit({"fsdp_mesh": "report", "wall_s": time.perf_counter() - t0})
     return {"lift": [{k: sum(x["launches"][k] for x in rows)
@@ -6053,9 +6486,13 @@ def main() -> None:
         return
     timer = Timer(torch)
     main_rows = phase_kernels(torch, timer)
+    emit({"done": "kernels"})
     phase_edges(torch, timer)
+    emit({"done": "edges"})
     main_rows["tally_acc"] = phase_tally(torch, timer)
+    emit({"done": "tally"})
     main_rows["ternary_quant"] = phase_ternary(torch, timer)
+    emit({"done": "ternary"})
     if sys.argv[1:] == ["--phase", "hybrid"]:
         hybrid = phase_hybrid(torch, card)
         paths = dict.fromkeys(SOURCES, "hybrid, zamba2 fused/flat (6 "
@@ -6069,7 +6506,7 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "mesh"]:
         mesh = phase_mesh(torch, card)
         paths = dict.fromkeys(SOURCES, "mesh, the parity toy's cells and "
-                              "gemma3-1b (6 steps) in rank 0 of 2 x 2")
+                              "gemma3-1b (3 steps) in rank 0 of 2 x 2")
         kernels = kernel_rows(main_rows, mesh_rank0_launches(mesh), paths,
                               lambda name: mesh_extra(mesh, name))
         finish(torch, kernels)
@@ -6077,7 +6514,7 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "tp"]:
         tp = phase_tp(torch, card)
         paths = dict.fromkeys(SOURCES, "tp, the parity toy's cells and "
-                              "gemma3-1b (6 steps, 2 layers) in rank 0 of "
+                              "gemma3-1b (3 steps, 2 layers) in rank 0 of "
                               "2 x 2 x 2")
         kernels = kernel_rows(main_rows, mesh_rank0_launches(tp), paths,
                               lambda name: tp_extra(tp, name))
@@ -6085,7 +6522,7 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--phase", "fsdp_mesh"]:
         fm = phase_fsdp_mesh(torch, card)
-        paths = dict.fromkeys(SOURCES, "fsdp_mesh, gemma3-12b FSDP (4 steps, "
+        paths = dict.fromkeys(SOURCES, "fsdp_mesh, gemma3-12b FSDP (2 steps, "
                               "2 layers) in rank 0 of 2 x 2")
         kernels = kernel_rows(main_rows, fm["lm"][0], paths,
                               lambda name: fsdp_mesh_extra(fm, name))
@@ -6094,11 +6531,15 @@ def main() -> None:
     fused, plain, launches = phase_slice(torch)
     print(f"[slice] ms/step fused/flat {fused['ms_per_step']} "
           f"ag_packed/tree {plain['ms_per_step']}", flush=True)
+    emit({"done": "slice"})
     runs = phase_clients(torch)
     launches["tally_acc"] = runs["stream fused/flat"]["launches"]["tally_acc"]
+    emit({"done": "clients"})
     phase_many_voters(torch)
     phase_quantize(torch)
+    emit({"done": "voters, quantize"})
     methods = phase_methods(torch, fused["ms_per_step"][-1])
+    emit({"done": "methods"})
     launches["ternary_quant"] = (
         methods["hier_local_qsgd"]["launches"]["ternary_quant"])
     lm_launches = phase_lm(torch)
@@ -6109,7 +6550,7 @@ def main() -> None:
     moe_launches = phase_moe(torch, card)
     hybrid = phase_hybrid(torch, card)
     mesh = phase_mesh(torch, card, fsdp=True)
-    tp = phase_tp(torch, card, parts=("tp", "fsdp", "moe"))
+    tp = phase_tp(torch, card, parts=("tp", "fsdp", "fam", "moe"))
     fm = fsdp_mesh_report(torch, card, mesh.pop("ranks"), tp.pop("ranks"))
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
@@ -6154,13 +6595,15 @@ def mesh_extra(mesh: dict, name: str) -> dict:
 def tp_extra(tp: dict, name: str) -> dict:
     """The kernels line's ``tp_launches_per_rank``: per rank, the toy's
     cells' and the LM run's launches of ``name`` in the ``tp`` phase;
-    and ``tp_moe_launches_per_rank``: per config, each rank's launches
-    of ``name`` in its FSDP run over the model axis."""
+    ``tp_moe_launches_per_rank`` and ``tp_fam_launches_per_rank``: per
+    config, each rank's launches of ``name`` in its run over the model
+    axis (the moe part's FSDP, the fam part's replicated)."""
     return {"tp_launches_per_rank": mesh_extra(tp, name)[
         "mesh_launches_per_rank"],
-        "tp_moe_launches_per_rank": {
+        **{f"tp_{part}_launches_per_rank": {
             arch: [x[name] for x in per_rank]
-            for arch, per_rank in tp["moe"].items()}}
+            for arch, per_rank in tp[part].items()}
+           for part in ("moe", "fam") if part in tp}}
 
 
 def kernel_rows(main_rows: dict, launches: dict, paths: dict,

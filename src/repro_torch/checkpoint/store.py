@@ -12,9 +12,12 @@ Layout per checkpoint:
 
 Atomicity: everything is written into a tmp dir and os.rename'd into
 place (POSIX-atomic), LATEST updated last; a crash mid-write can never
-corrupt an existing checkpoint.  ``restore_latest`` verifies CRCs (read
-in chunks, so a checkpoint of many GB is never one ``bytes`` object) and
-falls back to the previous checkpoint if the newest is damaged.
+corrupt an existing checkpoint.  ``restore_latest`` verifies CRCs and
+falls back to the previous checkpoint if the newest is damaged.  A
+restore reads ``arrays.npz`` once, into one host buffer, checks its
+CRC there (a chunk at a time) and takes each stored member as a view
+of that buffer (``_Members``): one pass over the file where the CRC's
+read and ``np.load``'s chunked, CRC-checked member reads made three.
 
 Keys are the JAX package's leaf paths: a dict key as it is, a list index
 as its number, a NamedTuple field as ``.field``, joined by ``/`` -- a
@@ -51,11 +54,14 @@ form.  Anything else raises naming the offending leaf and field.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import pathlib
 import shutil
+import struct
 import warnings
+import zipfile
 import zlib
 from typing import Any, Callable
 
@@ -266,6 +272,33 @@ def crc32_file(path: pathlib.Path) -> int:
     return crc
 
 
+class _CrcWriter:
+    """A file being written that keeps the CRC of the bytes written and
+    cannot seek: ``zipfile`` then puts each member's sizes and CRC after
+    its data (a data descriptor, which ``np.load`` and every zip reader
+    take) instead of going back to its header, so the bytes written, in
+    order, are the file and their CRC the file's -- ``np.savez``'s
+    archive, without reading the file back for the CRC."""
+
+    def __init__(self, f):
+        self._f, self._pos, self.crc = f, 0, 0
+
+    def write(self, b) -> int:
+        n = self._f.write(b)
+        self.crc = zlib.crc32(b, self.crc)
+        self._pos += n
+        return n
+
+    def tell(self) -> int:
+        return self._pos
+
+    def seek(self, *args):
+        raise io.UnsupportedOperation("the checkpoint is written in order")
+
+    def flush(self) -> None:
+        self._f.flush()
+
+
 def save(ckpt_dir: str | pathlib.Path, step: int, tree: PyTree,
          keep: int = 3) -> pathlib.Path:
     ckpt_dir = pathlib.Path(ckpt_dir)
@@ -276,11 +309,16 @@ def save(ckpt_dir: str | pathlib.Path, step: int, tree: PyTree,
         shutil.rmtree(tmp)
     tmp.mkdir()
     arrays, flat_meta, seeds = _flatten(tree)
-    npz_path = tmp / "arrays.npz"
-    np.savez(npz_path, **arrays)
+    with open(tmp / "arrays.npz", "wb") as f:
+        out = _CrcWriter(f)
+        with zipfile.ZipFile(out, mode="w", compression=zipfile.ZIP_STORED,
+                             allowZip64=True) as z:
+            for key, arr in arrays.items():
+                with z.open(key + ".npy", "w", force_zip64=True) as fid:
+                    np.lib.format.write_array(fid, arr, allow_pickle=False)
     manifest = {
         "step": step,
-        "crc32": crc32_file(npz_path),
+        "crc32": out.crc,
         "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
                    for k, v in arrays.items()},
     }
@@ -311,12 +349,75 @@ def available_steps(ckpt_dir: str | pathlib.Path) -> list[int]:
         "step_*") if p.is_dir() and ".tmp" not in p.name)
 
 
-def _verify(path: pathlib.Path) -> bool:
+class _Members:
+    """The arrays of an ``arrays.npz`` read into one host buffer, as
+    ``np.load``'s ``NpzFile`` gives them (``files``, ``in``, ``[key]``):
+    a stored member (this store and ``np.savez`` write no other) is a
+    view of the buffer, others go through ``zipfile``.  A view whose
+    data does not start on its dtype's alignment -- the zip's headers
+    decide that -- is flagged unaligned; :func:`_tensor` moves it as
+    bytes."""
+
+    def __init__(self, path: pathlib.Path, buf: np.ndarray):
+        self._buf, self._path = buf, path
+        with zipfile.ZipFile(path) as z:
+            infos = z.infolist()
+        self._infos = {i.filename.removesuffix(".npy"): i for i in infos}
+        self.files = list(self._infos)
+
+    def __contains__(self, key) -> bool:
+        return key in self._infos
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        info = self._infos[key]
+        if info.compress_type == zipfile.ZIP_STORED:
+            arr = self._view(info)
+            if arr is not None:
+                return arr
+        with zipfile.ZipFile(self._path) as z, z.open(info) as f:
+            return np.lib.format.read_array(f)
+
+    def _view(self, info: zipfile.ZipInfo) -> np.ndarray | None:
+        off = info.header_offset
+        name_len, extra_len = struct.unpack(
+            "<HH", self._buf[off + 26:off + 30].tobytes())
+        start = off + 30 + name_len + extra_len
+        end = start + info.file_size
+        head = io.BytesIO(self._buf[start:min(start + (1 << 16), end)]
+                          .tobytes())
+        version = np.lib.format.read_magic(head)
+        read = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}.get(version)
+        if read is None:
+            return None
+        shape, fortran, dtype = read(head)
+        if dtype.hasobject:
+            return None
+        count = int(np.prod(shape, dtype=np.int64))
+        data = start + head.tell()
+        if data + count * dtype.itemsize > end:
+            raise IOError(f"{self._path}: member {info.filename!r} is "
+                          "shorter than its header says")
+        arr = np.frombuffer(self._buf, dtype=dtype, count=count, offset=data)
+        return arr.reshape(shape, order="F" if fortran else "C")
+
+
+def _read_verified(path: pathlib.Path):
+    """``(manifest, members)`` of the checkpoint at ``path`` when its
+    ``arrays.npz`` has the manifest's CRC, else None: the file read once
+    into host memory and its CRC taken there, ``CRC_CHUNK`` at a time
+    (the same value as :func:`crc32_file`'s)."""
     try:
         manifest = json.loads((path / "manifest.json").read_text())
-        return crc32_file(path / "arrays.npz") == manifest["crc32"]
-    except Exception:
-        return False
+        buf = np.fromfile(path / "arrays.npz", dtype=np.uint8)
+    except (OSError, ValueError):
+        return None
+    crc, view = 0, memoryview(buf)
+    for i in range(0, len(view), CRC_CHUNK):
+        crc = zlib.crc32(view[i:i + CRC_CHUNK], crc)
+    if crc != manifest.get("crc32"):
+        return None
+    return manifest, _Members(path / "arrays.npz", buf)
 
 
 def _expand_flat_buf(buf: np.ndarray, meta: dict) -> dict:
@@ -435,6 +536,14 @@ def _tensor(arr: np.ndarray, like: torch.Tensor, key: str) -> torch.Tensor:
     if tuple(arr.shape) != tuple(like.shape):
         raise IOError(f"leaf {key!r} has shape {tuple(arr.shape)}, target "
                       f"expects {tuple(like.shape)}")
+    if not arr.flags.aligned:      # a view of the read buffer
+        if like.device.type == "cpu":
+            arr = arr.copy()
+        else:                      # its bytes cross, the card aligns them
+            raw = torch.from_numpy(arr.reshape(-1).view(np.uint8))
+            kind = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+            return raw.to(like.device).view(kind).reshape(arr.shape).to(
+                dtype=like.dtype)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     return t.to(device=like.device, dtype=like.dtype)
 
@@ -457,32 +566,31 @@ def _put(arr, leaf, key: str, manifest: dict, where: pathlib.Path):
     return np.asarray(arr)
 
 
-def _restore_verified(path: pathlib.Path, like: PyTree) -> PyTree:
-    manifest = json.loads((path / "manifest.json").read_text())
+def _restore_verified(path: pathlib.Path, like: PyTree, manifest: dict,
+                      data: _Members) -> PyTree:
     flat_meta = manifest.get("flat_state", {})
     keyed = [(SEP.join(p), leaf) for p, leaf in _items_with_path(like)]
-    with np.load(path / "arrays.npz") as data:
-        expanded = _slice_flat(data, manifest, dict(keyed))
-        new = {}
-        for key, leaf in keyed:
-            if _is_flat(leaf):
-                if key in flat_meta:              # flat -> flat
-                    mismatch = _slot_mismatch(flat_meta[key], leaf)
-                    if mismatch is None:
-                        arr = data[key]
-                        _check_batch(arr.shape, leaf, key)
-                    else:                         # different flat layout:
-                        arr = _convert_flat(      # go through the tree form
-                            data[key], flat_meta[key], key, leaf, mismatch)
-                else:                             # tree ckpt -> flat run
-                    arr = _assemble_flat(data, key, leaf)
-                new[key] = leaf.replace(_tensor(arr, leaf.buf, key))
-            elif key in data.files and key not in flat_meta:
-                new[key] = _put(data[key], leaf, key, manifest, path)
-            elif key in expanded:                 # flat ckpt -> tree run
-                new[key] = _put(expanded[key], leaf, key, manifest, path)
-            else:
-                raise IOError(f"checkpoint is missing leaf {key!r}")
+    expanded = _slice_flat(data, manifest, dict(keyed))
+    new = {}
+    for key, leaf in keyed:
+        if _is_flat(leaf):
+            if key in flat_meta:              # flat -> flat
+                mismatch = _slot_mismatch(flat_meta[key], leaf)
+                if mismatch is None:
+                    arr = data[key]
+                    _check_batch(arr.shape, leaf, key)
+                else:                         # different flat layout:
+                    arr = _convert_flat(      # go through the tree form
+                        data[key], flat_meta[key], key, leaf, mismatch)
+            else:                             # tree ckpt -> flat run
+                arr = _assemble_flat(data, key, leaf)
+            new[key] = leaf.replace(_tensor(arr, leaf.buf, key))
+        elif key in data.files and key not in flat_meta:
+            new[key] = _put(data[key], leaf, key, manifest, path)
+        elif key in expanded:                 # flat ckpt -> tree run
+            new[key] = _put(expanded[key], leaf, key, manifest, path)
+        else:
+            raise IOError(f"checkpoint is missing leaf {key!r}")
     return _map(like, lambda key, _leaf: new[key])
 
 
@@ -499,9 +607,10 @@ def restore(ckpt_dir: str | pathlib.Path, step: int,
     agree; a genuine structure mismatch raises naming the offending leaf
     and field."""
     path = pathlib.Path(ckpt_dir) / f"step_{step:010d}"
-    if not _verify(path):
+    got = _read_verified(path)
+    if got is None:
         raise IOError(f"checkpoint {path} failed integrity check")
-    return _restore_verified(path, like)
+    return _restore_verified(path, like, *got)
 
 
 def restore_latest(ckpt_dir: str | pathlib.Path, like: PyTree
@@ -509,6 +618,7 @@ def restore_latest(ckpt_dir: str | pathlib.Path, like: PyTree
     """Newest intact checkpoint (skipping corrupted ones), or None."""
     for step in reversed(available_steps(ckpt_dir)):
         path = pathlib.Path(ckpt_dir) / f"step_{step:010d}"
-        if _verify(path):
-            return step, _restore_verified(path, like)
+        got = _read_verified(path)
+        if got is not None:
+            return step, _restore_verified(path, like, *got)
     return None

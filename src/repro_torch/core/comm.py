@@ -32,7 +32,15 @@ all-gather of the sign words in ``votes.py``): explicit
     a column-parallel product, and on a replicated leaf or activation
     that the rank's own shards use); :func:`max_model`, the
     vocab-parallel loss's max (no gradient); :func:`gather_model` --
-    the model blocks of a tensor along one dim, for state and tests.
+    the model blocks of a tensor along one dim, for state and tests;
+    :func:`all_gather_model` -- the same gather with a gradient, its
+    backward chosen by the caller: the rank's own slice of the incoming
+    gradient (``"slice"``: what follows the gather runs identically on
+    every rank, so each holds the whole gradient already) or a
+    reduce-scatter (``"sum"``: what follows reads the gathered tensor
+    for the rank's own share of the output, so the ranks' gradients are
+    partial -- an all-reduce, counted as ``reduce_scatter_model``, then
+    the slice).
     A model sum is one all-reduce, in float32 for a narrower float
     (rounded back once).  Its order of addition is the algorithm's, not
     the one-process order, but every model rank gets the same bits:
@@ -52,7 +60,12 @@ each way instead).
 The float means call these a chunk of coordinates at a time
 (``votes.per_chunk``), so what they gather lives one chunk at a time.
 On a gloo group a CUDA tensor goes to the collective as it is: gloo
-copies it through host memory.
+copies it through host memory.  Where the mesh has shared host memory
+(``ProcessMesh.exchange``: ranks on one host,
+``launch.mesh.make_host_topology(shared_dir=...)``), the all-gathers
+and the all-to-all go through it instead (``core.host_exchange``, the
+same bits) and the sums stay the backend's; :data:`traffic` counts the
+same bytes either way.
 """
 from __future__ import annotations
 
@@ -63,12 +76,13 @@ from repro_torch.core.topology import Topology
 
 OPS = ("gather_devices", "gather_pods", "sum_devices", "gather_shards",
        "scatter_shards", "sum_model", "copy_to_model", "max_model",
-       "gather_model")
+       "gather_model", "all_gather_model", "reduce_scatter_model")
 GROUPS = {"data": ("gather_devices", "sum_devices", "gather_shards",
                    "scatter_shards"),
           "pod": ("gather_pods",),
           "model": ("sum_model", "copy_to_model", "max_model",
-                    "gather_model")}
+                    "gather_model", "all_gather_model",
+                    "reduce_scatter_model")}
 traffic: dict = {}
 
 
@@ -100,8 +114,19 @@ def _count(op: str, x: torch.Tensor, peers: int) -> None:
     rec["received"] += nbytes * peers
 
 
-def _gather(group, n: int, x: torch.Tensor, dim: int) -> torch.Tensor:
+def _gather(m, axis: str, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` of ``axis``'s group (``"data"``, ``"pod"`` or
+    ``"model"``) concatenated along ``dim``, in group order: through the
+    mesh's shared host memory where it has it, else the backend's
+    all-gather."""
+    group = getattr(m, f"{axis}_group")
+    n = m.pods if axis == "pod" else getattr(m, axis)
     x = x.contiguous()
+    ex = (m.exchange or {}).get(axis)
+    if ex is not None:
+        out = ex.all_gather(x)
+        return (out.view((n * x.shape[0],) + tuple(x.shape[1:])) if dim == 0
+                else torch.cat(out.unbind(0), dim=dim))
     if dim == 0:        # the parts land in the result itself: no copy
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
         dist.all_gather(list(out.chunk(n)), x, group=group)
@@ -119,7 +144,7 @@ def gather_devices(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:
     if m is None or m.data == 1:
         return x
     _count("gather_devices", x, m.data - 1)
-    return _gather(m.data_group, m.data, x, 1)
+    return _gather(m, "data", x, 1)
 
 
 def gather_pods(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:
@@ -129,7 +154,7 @@ def gather_pods(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:
     if m is None or m.pods == 1:
         return x
     _count("gather_pods", x, m.pods - 1)
-    return _gather(m.pod_group, m.pods, x, 0)
+    return _gather(m, "pod", x, 0)
 
 
 def sum_devices(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:
@@ -156,7 +181,7 @@ def gather_shards(topo: Topology | None, x: torch.Tensor,
     if m is None or m.data == 1:
         return x
     _count("gather_shards", x, m.data - 1)
-    return _gather(m.data_group, m.data, x.detach(), dim)
+    return _gather(m, "data", x.detach(), dim)
 
 
 def scatter_shards(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:
@@ -174,8 +199,12 @@ def scatter_shards(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:
     rec["calls"] += 1
     rec["sent"] += part * (m.data - 1)
     rec["received"] += part * (m.data - 1)
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=m.data_group)
+    ex = (m.exchange or {}).get("data")
+    if ex is not None:
+        out = ex.all_to_all(x)
+    else:
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=m.data_group)
     return out.transpose(0, 1).reshape((x.shape[1], -1) + x.shape[3:])
 
 
@@ -255,4 +284,35 @@ def gather_model(topo: Topology | None, x: torch.Tensor,
     if m is None:
         return x
     _count("gather_model", x, m.model - 1)
-    return _gather(m.model_group, m.model, x.detach(), dim)
+    return _gather(m, "model", x.detach(), dim)
+
+
+class _AllGatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m, dim, grad):
+        ctx.m, ctx.dim, ctx.grad, ctx.n = m, dim, grad, x.shape[dim]
+        _count("all_gather_model", x, m.model - 1)
+        return _gather(m, "model", x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "sum":
+            g = _sum_over_model(ctx.m, "reduce_scatter_model", g)
+        return (g.narrow(ctx.dim, ctx.m.model_rank * ctx.n, ctx.n),
+                None, None, None)
+
+
+def all_gather_model(topo: Topology | None, x: torch.Tensor, dim: int,
+                     grad: str) -> torch.Tensor:
+    """The model ranks' blocks of ``x`` concatenated along ``dim`` (in
+    model order), with a gradient: ``grad="slice"`` hands the rank its
+    own block of the incoming gradient (what follows runs identically on
+    every rank), ``grad="sum"`` sums the incoming gradient over the model
+    group first (what follows is the rank's own share: a reduce-scatter).
+    Choosing wrong scales the gradient by the group's size or its
+    inverse."""
+    if grad not in ("slice", "sum"):
+        raise ValueError(f"grad must be 'slice' or 'sum', not {grad!r}")
+    m = _model(topo)
+    return x if m is None else _AllGatherModel.apply(x, m, dim % x.dim(),
+                                                     grad)

@@ -58,7 +58,12 @@ class ProcessMesh:
     data order; ``pod_group``: the ranks of its data column and model
     shard, in pod order; ``model_group``: the ranks of its (pod, data)
     cell, in model order (``torch.distributed`` process groups, or None
-    on an axis of size 1); ``backend``: ``"gloo"`` or ``"nccl"``."""
+    on an axis of size 1); ``backend``: ``"gloo"`` or ``"nccl"``;
+    ``exchange``: where the ranks share a host and the caller asked for
+    it, ``{"data" | "pod" | "model": core.host_exchange.HostExchange}``
+    for this rank's groups, which ``core.comm``'s all-gathers and
+    all-to-alls then go through instead of the backend (None: the
+    backend carries them)."""
     pods: int
     data: int
     pod_rank: int
@@ -69,6 +74,7 @@ class ProcessMesh:
     model: int = 1
     model_rank: int = 0
     model_group: Any = None
+    exchange: Any = None
 
     @property
     def size(self) -> int:

@@ -84,8 +84,8 @@ def host_grid(world: int, pods: int, devices_per_pod: int) -> tuple:
 
 
 def make_host_topology(pods: int, data: int, model: int = 1, *,
-                       backend: str, device, block: tuple = (1, 1)
-                       ) -> Topology:
+                       backend: str, device, block: tuple = (1, 1),
+                       shared_dir=None) -> Topology:
     """The topology of this rank on a ``pods x data x model`` process
     grid: P = pods * block[0] edges, D = data * block[1] devices an
     edge, the rank ``(a*data + b)*model + m`` holding a block of
@@ -95,7 +95,12 @@ def make_host_topology(pods: int, data: int, model: int = 1, *,
     builds the ``pods * model`` data groups, the ``data * model`` pod
     groups and, with ``model > 1``, the ``pods * data`` model groups,
     every group with a 60 s timeout.  ``backend`` is explicit
-    (``"gloo"`` or ``"nccl"``); ``device`` is this rank's device."""
+    (``"gloo"`` or ``"nccl"``); ``device`` is this rank's device.
+    ``shared_dir``, for ranks that share one host, is a directory all of
+    them see (``/dev/shm`` or one under it): the ranks' all-gathers and
+    all-to-alls then go through memory they share
+    (``core.host_exchange``), not through the backend; the directory is
+    left as it was found."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (choose from "
                          f"{', '.join(BACKENDS)})")
@@ -114,24 +119,34 @@ def make_host_topology(pods: int, data: int, model: int = 1, *,
     def at(a, b, m):
         return (a * data + b) * model + m
 
-    def groups(members):
-        """Create every group (every rank, one order); keep this rank's."""
-        mine = None
-        for ranks in members:
+    mine = {}
+
+    def groups(name, members):
+        """Create every group (every rank, one order); keep this rank's,
+        with its ranks and a tag naming it among the run's groups."""
+        for i, ranks in enumerate(members):
             g = dist.new_group(ranks, timeout=TIMEOUT, backend=backend)
             if rank in ranks:
-                mine = g
-        return mine
+                mine[name] = (g, ranks, f"{name}{i}")
+        return mine[name][0]
 
-    data_group = groups([[at(a, b, m) for b in range(data)]
-                         for a in range(pods) for m in range(model)])
-    pod_group = groups([[at(a, b, m) for a in range(pods)]
-                        for b in range(data) for m in range(model)])
-    model_group = (groups([[at(a, b, m) for m in range(model)]
-                           for a in range(pods) for b in range(data)])
+    data_group = groups("data", [[at(a, b, m) for b in range(data)]
+                                 for a in range(pods) for m in range(model)])
+    pod_group = groups("pod", [[at(a, b, m) for a in range(pods)]
+                               for b in range(data) for m in range(model)])
+    model_group = (groups("model", [[at(a, b, m) for m in range(model)]
+                                    for a in range(pods)
+                                    for b in range(data)])
                    if model > 1 else None)
+    exchange = None
+    if shared_dir is not None:
+        from repro_torch.core.host_exchange import open_exchanges
+        exchange = open_exchanges(
+            {name: g for name, g in mine.items() if len(g[1]) > 1},
+            shared_dir, device)
     mesh = ProcessMesh(pods=pods, data=data, pod_rank=pod_rank,
                        data_rank=data_rank, pod_group=pod_group,
                        data_group=data_group, backend=backend, model=model,
-                       model_rank=model_rank, model_group=model_group)
+                       model_rank=model_rank, model_group=model_group,
+                       exchange=exchange)
     return Topology(pods * block[0], data * block[1], device, mesh=mesh)

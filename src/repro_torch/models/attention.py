@@ -43,7 +43,11 @@ head count that does not divide (gemma3-1b's single head) keeps
 formed whole, then marked ``copy_to_model`` so that their gradient --
 each rank's heads' part -- is summed, and every rank's copy of those
 leaves gets the whole gradient; ``qn``, read by the rank's heads only,
-is marked the same way.  ``mla_attn``'s train mode runs
+is marked the same way.  whisper's ``bidir_attn`` and its
+cross-attention (``cross_kv``, ``cross_attn``) take the rank's heads
+the same way; the encoder's output, whole on every rank, reaches the
+rank's cross keys and values through ``copy_to_model``.
+``mla_attn``'s train mode runs
 tensor-parallel the same way (``mla_specs``): ``wuq``, ``wuk`` and
 ``wuv`` column-parallel over the heads, ``wo`` row-parallel and summed;
 the replicated ``wdq``/``qn``, ``wdkv``/``kvn`` and ``wkr`` form the
@@ -188,15 +192,38 @@ def _merge_heads(out, wo):
                          wo.reshape(wo.shape[:-3] + (-1, wo.shape[-1])))
 
 
+def _tp_heads(cfg, tp):
+    """``tp`` where the query heads divide the model axis, else None:
+    every rank runs the heads whole."""
+    return tp if tp is not None and cfg.n_heads % tp.model_shards == 0 \
+        else None
+
+
+def _kv_split(cfg, tp) -> bool:
+    return tp is not None and cfg.n_kv_heads % tp.model_shards == 0
+
+
+def _rank_kv(k, v, cfg, tp):
+    """Keys and values repeated to the query heads, with ``tp`` the
+    rank's share: where the kv heads do not split they were formed
+    whole, so they are marked ``copy_to_model`` (each rank's heads'
+    part of their gradient is summed) and cut to the rank's heads."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _repeat_kv(k, rep), _repeat_kv(v, rep)
+    if tp is not None and not _kv_split(cfg, tp):
+        h_loc = cfg.n_heads // tp.model_shards
+        lo = tp.model_rank * h_loc
+        k = comm.copy_to_model(tp, k)[..., lo:lo + h_loc, :]
+        v = comm.copy_to_model(tp, v)[..., lo:lo + h_loc, :]
+    return k, v
+
+
 def _gqa_train_tp(p, x, positions, cfg, theta, window, mask_extra, tp):
     """Train-mode GQA on a rank's heads (``gqa_attn``'s ``tp``)."""
-    m = tp.model_shards
-    split_q = cfg.n_heads % m == 0
-    split_kv = cfg.n_kv_heads % m == 0
-    if not split_q:             # nothing splits: every rank the whole
+    if _tp_heads(cfg, tp) is None:   # nothing splits: every rank the whole
         return gqa_attn(p, x, positions, cfg, theta=theta, window=window,
                         mask_extra=mask_extra)
-    h_loc = cfg.n_heads // m
+    split_kv = _kv_split(cfg, tp)
     xq = comm.copy_to_model(tp, x)
     q = _proj_heads(xq, p["wq"])
     k = _proj_heads(xq if split_kv else x, p["wk"])
@@ -209,12 +236,7 @@ def _gqa_train_tp(p, x, positions, cfg, theta, window, mask_extra, tp):
                             cfg.norm_eps)
     q = layers.rope(q, positions, theta)
     k = layers.rope(k, positions, theta)
-    rep = cfg.n_heads // cfg.n_kv_heads
-    k, v = _repeat_kv(k, rep), _repeat_kv(v, rep)
-    if not split_kv:            # whole kv heads: the rank's heads' share
-        lo = tp.model_rank * h_loc
-        k = comm.copy_to_model(tp, k)[..., lo:lo + h_loc, :]
-        v = comm.copy_to_model(tp, v)[..., lo:lo + h_loc, :]
+    k, v = _rank_kv(k, v, cfg, tp)
     out = attend_causal(q, k, v, window, mask_extra)
     return comm.sum_model(tp, _merge_heads(out, p["wo"]))
 
@@ -304,15 +326,18 @@ def gqa_cache_init(cfg, b: int, max_len: int) -> dict:
     return {"k": shape, "v": shape}
 
 
-def bidir_attn(p, x, cfg):
+def bidir_attn(p, x, cfg, tp=None):
     """Bidirectional self-attention (whisper's encoder): no mask, no
-    rope, no qk-norm; x [*, b, t, d] -> [*, b, t, d]."""
-    rep = cfg.n_heads // cfg.n_kv_heads
-    q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
-    out = _attend(q, _repeat_kv(k, rep), _repeat_kv(v, rep), None)
-    return _merge_heads(out, p["wo"])
+    rope, no qk-norm; x [*, b, t, d] -> [*, b, t, d].  ``tp``: the
+    rank's heads, as ``gqa_attn``'s train mode takes them."""
+    tp = _tp_heads(cfg, tp)
+    xq = comm.copy_to_model(tp, x)
+    xkv = xq if _kv_split(cfg, tp) else x
+    q = _proj_heads(xq, p["wq"])
+    k, v = _rank_kv(_proj_heads(xkv, p["wk"]), _proj_heads(xkv, p["wv"]),
+                    cfg, tp)
+    out = _attend(q, k, v, None)
+    return comm.sum_model(tp, _merge_heads(out, p["wo"]))
 
 
 def init_cross(gen, cfg, device) -> dict:
@@ -326,21 +351,28 @@ def init_cross(gen, cfg, device) -> dict:
     }
 
 
-def cross_kv(p, enc_out, cfg) -> dict:
+def cross_kv(p, enc_out, cfg, tp=None) -> dict:
     """The encoder's keys and values, enc_out [*, b, f, d] -> [*, b, f,
-    hkv, hd] each."""
-    return {"k": _proj_heads(enc_out, p["wk"]),
-            "v": _proj_heads(enc_out, p["wv"])}
+    hkv, hd] each; with ``tp`` and split kv heads the rank's, from the
+    encoder output marked ``copy_to_model`` (every rank holds it whole),
+    else whole (``cross_attn`` then takes the rank's share)."""
+    src = (comm.copy_to_model(tp, enc_out)
+           if _kv_split(cfg, _tp_heads(cfg, tp)) else enc_out)
+    return {"k": _proj_heads(src, p["wk"]),
+            "v": _proj_heads(src, p["wv"])}
 
 
-def cross_attn(p, x, enc_kv, cfg):
+def cross_attn(p, x, enc_kv, cfg, tp=None):
     """The decoder's queries x [*, b, t, d] over every encoder frame (no
-    mask, no rope) -> [*, b, t, d]."""
-    rep = cfg.n_heads // cfg.n_kv_heads
-    q = _proj_heads(x, p["wq"])
-    out = _attend(q, _repeat_kv(enc_kv["k"].to(q.dtype), rep),
-                  _repeat_kv(enc_kv["v"].to(q.dtype), rep), None)
-    return _merge_heads(out, p["wo"])
+    mask, no rope) -> [*, b, t, d]; ``tp``: the rank's heads
+    (``cross_kv``'s with the same ``tp``), ``wo`` row-parallel and
+    summed."""
+    tp = _tp_heads(cfg, tp)
+    q = _proj_heads(comm.copy_to_model(tp, x), p["wq"])
+    k, v = _rank_kv(enc_kv["k"].to(q.dtype), enc_kv["v"].to(q.dtype), cfg,
+                    tp)
+    out = _attend(q, k, v, None)
+    return comm.sum_model(tp, _merge_heads(out, p["wo"]))
 
 
 # -- MLA (deepseek-v3) --------------------------------------------------------

@@ -23,11 +23,11 @@ leading dense layers and its MTP block), the hybrid family's
 
 Every block carries its leaves' sharding specs (``BlockDef.specs``, the
 JAX block's, at the ``model_shards`` it is built for): they lay out the
-FSDP masters (``build.master_specs``).  ``dense_block``, ``moe_block``
-and ``mla_dense_block`` run tensor-parallel in train mode when
-``Ctx.tp`` is set (``models.layers``, ``models.attention``,
-``models.moe``); the recurrent mixers' blocks run at a model axis of 1
-only (their tensor-parallel forwards are ROADMAP item 17f).
+FSDP masters (``build.master_specs``).  Every block runs
+tensor-parallel in train mode when ``Ctx.tp`` is set
+(``models.layers``, ``models.attention``, ``models.moe``,
+``models.ssm``): whisper's encoder and cross-attention too, the
+encoder's output whole on every rank.
 
 Not ported yet: the caches' sharding specs (ROADMAP item 17d).
 """
@@ -113,13 +113,13 @@ def dense_block(cfg: LMConfig, model_shards: int = 0, *, window: int = 0,
                 a, new_cache["self"] = a
             x = x + a
         else:
-            x = x + attn.bidir_attn(p["attn"], h, cfg)
+            x = x + attn.bidir_attn(p["attn"], h, cfg, tp=ctx.tp)
         if cross:
             hx = layers.rms_norm(p["nx"], x, cfg.norm_eps)
-            ekv = (attn.cross_kv(p["xattn"], ctx.enc_out, cfg)
+            ekv = (attn.cross_kv(p["xattn"], ctx.enc_out, cfg, tp=ctx.tp)
                    if ctx.enc_out is not None
                    else {"k": cache["ek"], "v": cache["ev"]})
-            x = x + attn.cross_attn(p["xattn"], hx, ekv, cfg)
+            x = x + attn.cross_attn(p["xattn"], hx, ekv, cfg, tp=ctx.tp)
             if cache is not None:
                 new_cache["ek"] = ekv["k"].to(cache["ek"].dtype)
                 new_cache["ev"] = ekv["v"].to(cache["ev"].dtype)
@@ -235,7 +235,7 @@ def _mixer_block(cfg: LMConfig, name: str, init_mixer, mixer, state_init,
     def apply(p, x, ctx: Ctx, cache=None):
         h = layers.rms_norm(p["n1"], x, cfg.norm_eps)
         if cache is None:
-            x = x + mixer(p[name], h, cfg)
+            x = x + mixer(p[name], h, cfg, tp=ctx.tp)
             return x, no_aux(x)
         y, new_cache = mixer(p[name], h, cfg, state=cache)
         return x + y, new_cache

@@ -55,23 +55,25 @@ replicated regime does, where its bf16 weights fit
 zamba2's gradients are not finite where its SSD scan overflows, as the
 reference's are (ROADMAP queue 3); the sign sends NaN to -1.
 
-Over a model axis above 1 (``topo.model_shards``) the dense, vlm and
-moe families train tensor-parallel, in both regimes:
-``compute_specs`` gives each leaf's spec (the JAX function's, leaf for
-leaf), the bundle carries them, and the loss runs on a rank's blocks
-(``Ctx.tp``): the vocab-parallel embedding, the blocks' split heads
-(GQA's and MLA's), MLP columns and experts, the column-parallel
-unembedding and the vocab-parallel cross-entropy (``models.layers``,
-``models.attention``, ``models.moe``) -- deepseek-v3's MTP head's
+Over a model axis above 1 (``topo.model_shards``) every family trains
+tensor-parallel, in each regime it runs (an encoder-decoder in the
+replicated one only): ``compute_specs`` gives each leaf's spec (the
+JAX function's, leaf for leaf), the bundle carries them, and the loss
+runs on a rank's blocks (``Ctx.tp``): the vocab-parallel embedding,
+the blocks' split heads (GQA's, MLA's, the recurrent mixers'), inner
+dims, MLP columns and experts, the column-parallel unembedding and the
+vocab-parallel cross-entropy (``models.layers``, ``models.attention``,
+``models.moe``, ``models.ssm``) -- deepseek-v3's MTP head's
 rolled-token embedding, logits and cross-entropy included.  A vlm's
-patches cross the model group as they are: every rank holds them
-whole.
+patches cross the model group as they are, and so do whisper's frames
+through the replicated adapter: every rank holds them whole, and the
+encoder's output too.  A vocabulary that does not divide the axis
+(whisper's 51865) keeps the embedding, head and cross-entropy whole.
 
 Not ported yet (each raises ``NotImplementedError``): the ``"gather"``
 serve layout of the FSDP configs above the budget (item 17d:
 ``ServeGatherPlan``), ``cache_specs`` and serving over a model axis
-(17d), and the ssm, hybrid and encdec/audio families' tensor-parallel
-forwards and specs (item 17f).
+(17d).
 """
 from __future__ import annotations
 
@@ -99,18 +101,6 @@ SERVE_RESIDENT_BUDGET = 12e9   # bf16 bytes on the card below which an
                                # FSDP config's weights serve resident
 
 
-TP_FAMILIES = ("dense", "vlm", "moe")  # with a tensor-parallel forward
-
-
-def _refuse_tp(cfg: LMConfig, model_shards: int) -> None:
-    if model_shards > 1 and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family over a model axis of "
-            f"{model_shards} (its tensor-parallel forward and its *_specs) "
-            "is ROADMAP item 17f; the dense, vlm and moe families run "
-            "tensor-parallel")
-
-
 def make_archdef(cfg: LMConfig, model_shards: int = 0) -> ArchDef:
     """The block schedule: dense stacks (a vlm's too), gemma3-style
     local:global periods (local blocks with the sliding window and
@@ -123,12 +113,10 @@ def make_archdef(cfg: LMConfig, model_shards: int = 0) -> ArchDef:
     last); xlstm's periods of ``m_per_s`` mLSTM blocks and one sLSTM
     block (a remainder of mLSTM blocks after the last); whisper's
     bidirectional encoder and causal decoder with cross-attention.
-    ``model_shards`` sizes the blocks' specs (the heads and experts
-    split where they divide it); the ssm, hybrid and encdec/audio
-    families raise above 1 (item 17f)."""
+    ``model_shards`` sizes the blocks' specs (the heads, inner dims and
+    experts split where they divide it)."""
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
-    _refuse_tp(cfg, model_shards)
     if cfg.family == "moe":
         use_mla = cfg.mla is not None
         blocks = {"moe": B.moe_block(cfg, model_shards, use_mla=use_mla)}
@@ -205,10 +193,8 @@ def compute_specs(arch: ArchDef, model_shards: int = 0) -> PyTree:
     the vocabulary divides the axis, each stack its block's specs behind
     a replicated layer dim, whisper's encoder stacks and adapter, the
     head's norm (and an untied ``out``'s vocab columns), deepseek-v3's
-    ``mtp``.  Every family has them at a model axis of 1; above 1 the
-    dense, vlm and moe families (another raises, item 17f)."""
+    ``mtp``, for every family at any model axis."""
     cfg = arch.cfg
-    _refuse_tp(cfg, model_shards)
     prepend = functools.partial(pytree.tree_map,
                                 lambda sp: (None,) + tuple(sp))
     specs: dict = {"embed": layers.embed_specs(cfg.vocab, model_shards)}
@@ -397,8 +383,6 @@ def make_loss(arch: ArchDef, remat: bool = True,
     cfg = arch.cfg
     plan = ReplicatedPlan(cfg, remat)
     tp = topo if topo is not None and topo.model_shards > 1 else None
-    if tp is not None:
-        _refuse_tp(cfg, tp.model_shards)
     tp_vocab = tp if tp is not None and layers.vocab_sharded(
         cfg.vocab, tp.model_shards) else None
 
@@ -411,7 +395,8 @@ def make_loss(arch: ArchDef, remat: bool = True,
             frames = batch["frames"].to(x.dtype)
             ex = layers.linear(frames, params["adapter"]["w"].to(x.dtype))
             ectx = Ctx(cfg, positions=torch.arange(frames.shape[-2],
-                                                   device=frames.device))
+                                                   device=frames.device),
+                       tp=tp)
             enc_out, enc_aux = engine.run_segments(
                 plan, arch, arch.enc_segments, params["enc_stacks"], ex,
                 ectx, lead=lead)
@@ -459,8 +444,6 @@ def make_loss_master(arch: ArchDef, topo: Topology | None = None,
             f"{cfg.name}: an encoder-decoder trains in the replicated "
             "regime (as in the JAX package)")
     tp = topo if topo is not None and topo.model_shards > 1 else None
-    if tp is not None:
-        _refuse_tp(cfg, tp.model_shards)
     tp_vocab = tp if tp is not None and layers.vocab_sharded(
         cfg.vocab, tp.model_shards) else None
     ms = mspecs or {}
@@ -629,8 +612,8 @@ class BuiltModel:
 def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
     """The model's entry points; an FSDP config (``param_mode="fsdp"``)
     gets ``loss=None`` and a ``loss_master`` (:func:`make_loss_master`).
-    The bundle carries the compute specs at ``topo``'s model axis (of
-    the families in ``TP_FAMILIES``) and every family's master specs
+    The bundle carries the compute specs at ``topo``'s model axis and
+    the master specs
     (:func:`master_specs` at ``topo``'s global D: the replicated
     regime's masters are laid out as computed, an FSDP config's
     data-sharded as in the JAX ``build_master_specs``); over a model
@@ -652,7 +635,7 @@ def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
             loss_master=(make_loss_master(arch, topo, mspecs) if fsdp
                          else None),
             param_mode=cfg.param_mode,
-            specs=cspecs if cfg.family in TP_FAMILIES else None,
+            specs=cspecs,
             master_specs=mspecs),
         init_params=lambda generator: init_params(arch, generator),
         abstract_params=lambda: init_params(arch, None, "meta"),

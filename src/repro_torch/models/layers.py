@@ -98,6 +98,24 @@ def rms_norm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     return (y * (1.0 + bcast(g, x).to(F32))).to(x.dtype)
 
 
+def rms_norm_split(g: torch.Tensor, x: torch.Tensor, eps: float, tp=None):
+    """:func:`rms_norm` over a last dim that the model group splits in
+    even blocks (with ``tp``): x and g are the rank's blocks.  The mean
+    of squares is the rank's sum of squares, summed over the group and
+    divided by the whole dim, in float32; a norm over the rank's
+    block alone would run and compute another model.  The sum is whole
+    on every rank but scales the rank's block only, so it is marked
+    ``comm.copy_to_model``: its gradient, each rank's share, is summed
+    back.  Without ``tp`` it is :func:`rms_norm`."""
+    if tp is None:
+        return rms_norm(g, x, eps)
+    x32 = x.to(F32)
+    ss = comm.copy_to_model(tp, comm.sum_model(
+        tp, torch.sum(x32 * x32, dim=-1, keepdim=True)))
+    y = x32 * torch.rsqrt(ss / (x.shape[-1] * tp.model_shards) + eps)
+    return (y * (1.0 + bcast(g, x).to(F32))).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """Rotary embedding of x [..., t, h, hd] (hd even) at positions [t]
     (int), in float32, back in x's dtype."""

@@ -34,6 +34,17 @@ So are the SSD scan's non-finite gradients (ROADMAP queue 3): the scan
 forms ``exp(seg_i - seg_j)`` over the whole chunk and masks the upper
 triangle after the ``exp``; where that overflows, autograd's ``0 *
 inf`` gives NaN, as ``where``'s VJP does in JAX.
+
+Tensor parallelism (each block's ``tp``, train mode): a rank holds the
+blocks the ``*_specs`` give it -- the JAX specs, unchanged -- and the
+forward adapts to them with the model group's collectives
+(``core.comm``): ``copy_to_model`` on what every rank holds whole but
+reads for its own share, ``sum_model`` after a row-parallel product,
+``all_gather_model`` where a rank's block must be read whole (its
+backward a reduce-scatter where each rank then computes its own share,
+the rank's slice where every rank computes the same), and
+``layers.rms_norm_split`` for a norm over a split inner dim.  Each
+function's docstring says which it takes where.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import comm
 from repro_torch.models import layers
 from repro_torch.models.layers import F32, bcast, he_init, linear, scalar
 
@@ -116,7 +128,33 @@ def init_mamba2(gen, cfg, device) -> dict:
     }
 
 
-def mamba2_block(p, x, cfg, state=None):
+def _tp_layout(tp, d_in: int, heads: int):
+    """A mixer's split over a model axis: (``tp``, or None where the
+    inner dim ``d_in`` does not divide the axis -- every spec is then
+    None and the mixer runs whole on every rank --; whether the heads
+    stay whole while ``d_in`` splits, the mixed layout the specs allow
+    where ``heads`` does not divide the axis)."""
+    if tp is None or d_in % tp.model_shards:
+        return None, False
+    return tp, heads % tp.model_shards != 0
+
+
+def _own(tp, n: int):
+    """The rank's block of a last dim of ``n`` features (the identity
+    without ``tp``)."""
+    if tp is None:
+        return lambda a: a
+    loc = n // tp.model_shards
+    return lambda a: a[..., tp.model_rank * loc:(tp.model_rank + 1) * loc]
+
+
+def _marked(tp, on: bool):
+    """``comm.copy_to_model`` where ``on`` (a replicated leaf the rank
+    reads for its own share of the output), else the identity."""
+    return (lambda a: comm.copy_to_model(tp, a)) if on else (lambda a: a)
+
+
+def mamba2_block(p, x, cfg, state=None, tp=None):
     """The Mamba2 mixer: x [*lead, b, t, d] -> [*lead, b, t, d] (the z, x,
     B, C and dt projections, the causal conv on x, the SSD, the D skip,
     the SiLU gate, the norm and the out-projection), 64-wide heads, B and
@@ -126,27 +164,52 @@ def mamba2_block(p, x, cfg, state=None):
     With a ``state`` (``mamba2_state_init``'s keys) it returns (y,
     new_state): for t > 1 the chunked scan from zeros and its final
     state (float32 [*, b, H, 64, d_state]), else the float32 recurrence
-    from ``state["ssm"]``; the conv state comes back in x's dtype."""
+    from ``state["ssm"]``; the conv state comes back in x's dtype.
+
+    ``tp`` (train mode; ``mamba2_specs``' blocks): ``in_x``, ``in_z``,
+    ``in_dt`` and the conv column-parallel on the marked input, the conv
+    local to the rank's channels; ``in_b``/``in_c`` replicated and
+    marked (B and C formed whole, repeated to H heads, cut to the
+    rank's); the scan, the skip and the gate on the rank's heads; the
+    norm over the split ``d_in`` (``layers.rms_norm_split``); ``out``
+    row-parallel and summed.  Where the heads do not divide the axis but
+    ``d_in`` does (``in_dt``, ``dt_bias``, ``a_log``, ``d_skip`` whole)
+    the conv's output is gathered to whole heads (a reduce-scatter
+    backward: each rank reads the scan for its own channels), the scan
+    runs every head, those four leaves are marked, and the rank keeps its
+    ``d_in`` channels."""
     s = cfg.ssm
     d = x.shape[-1]
     d_in = s.expand * d
     heads = d_in // 64
     lead_bt = x.shape[:-1]
-    z = linear(x, p["in_z"])
-    xc = linear(x, p["in_x"])
+    tp, whole_heads = _tp_layout(tp, d_in, heads)
+    own = _own(tp, d_in)
+    xm = comm.copy_to_model(tp, x)
+    z = linear(xm, p["in_z"])
+    xc = linear(xm, p["in_x"])
     if state is None:
         xc = causal_conv(xc, p["conv"])
     else:
         xc, new_conv = causal_conv(xc, p["conv"], state["conv"])
-    xh = xc.reshape(lead_bt + (heads, 64))
-    bm = linear(x, p["in_b"]).reshape(lead_bt + (s.n_groups, s.d_state))
-    cm = linear(x, p["in_c"]).reshape(lead_bt + (s.n_groups, s.d_state))
+    h_loc, h0 = heads, 0
+    if whole_heads:
+        xc = comm.all_gather_model(tp, xc, -1, "sum")
+    elif tp is not None:
+        h_loc = heads // tp.model_shards
+        h0 = tp.model_rank * h_loc
+    xh = xc.reshape(lead_bt + (h_loc, 64))
+    bm, cm = (linear(xm, comm.copy_to_model(tp, p[k])).reshape(
+        lead_bt + (s.n_groups, s.d_state)) for k in ("in_b", "in_c"))
     bm = torch.repeat_interleave(bm, heads // s.n_groups, dim=-2)
     cm = torch.repeat_interleave(cm, heads // s.n_groups, dim=-2)
-    dt = linear(x, p["in_dt"]).to(F32)
-    dt = dt + bcast(p["dt_bias"], dt)
+    if h_loc < heads:
+        bm, cm = bm[..., h0:h0 + h_loc, :], cm[..., h0:h0 + h_loc, :]
+    hp = _marked(tp, whole_heads)
+    dt = linear(xm, hp(p["in_dt"])).to(F32)
+    dt = dt + bcast(hp(p["dt_bias"]), dt)
     dt = torch.logaddexp(dt, torch.zeros_like(dt))            # softplus
-    a = -torch.exp(p["a_log"])                                # [*lead, H]
+    a = -torch.exp(hp(p["a_log"]))                            # [*lead, H]
     decay = dt * bcast(a, dt)                                 # log-decay
     if state is None or x.shape[-2] > 1:
         y, final = ssd_chunked(xh, bm, cm, dt, decay, s.chunk)
@@ -155,10 +218,13 @@ def mamba2_block(p, x, cfg, state=None):
     else:
         y, st = mamba2_step(xh, bm, cm, dt, decay, state["ssm"])
         new_state = {"ssm": st, "conv": new_conv}
-    y = y + xh * bcast(p["d_skip"].to(x.dtype), dt)[..., None]
-    y = y.reshape(lead_bt + (d_in,)) * F.silu(z)
-    y = layers.rms_norm(p["norm"], y, cfg.norm_eps)
-    y = linear(y, p["out"])
+    y = y + xh * bcast(hp(p["d_skip"]).to(x.dtype), dt)[..., None]
+    y = y.reshape(lead_bt + (h_loc * 64,))
+    if whole_heads:
+        y = own(y)
+    y = y * F.silu(z)
+    y = layers.rms_norm_split(p["norm"], y, cfg.norm_eps, tp)
+    y = comm.sum_model(tp, linear(y, p["out"]))
     if state is None:
         return y
     return y, new_state
@@ -268,41 +334,66 @@ def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (heads, x.shape[-1] // heads))
 
 
-def mlstm_block(p, x, cfg, state=None):
+def mlstm_block(p, x, cfg, state=None, tp=None):
     """The mLSTM mixer: x [*lead, b, t, d] -> [*lead, b, t, d]
     (up-projection, causal conv, q/k/v and the scalar gates, the
     parallel form, the norm, the SiLU gate and the down-projection).
     With a ``state`` (``mlstm_state_init``'s keys) it returns (y,
     new_state): for t > 1 the parallel form and ``mlstm_final_state``,
     else ``mlstm_step`` from the state; C, n and m come back float32,
-    the conv state in x's dtype."""
+    the conv state in x's dtype.
+
+    ``tp`` (train mode; ``mlstm_specs``' blocks): ``up`` is replicated,
+    so u and z are whole on every rank and marked; the conv runs on the
+    rank's ``d_in`` channels and its output is gathered whole for
+    ``wq``/``wk``/``wi``/``wf``, which read all its rows (a
+    reduce-scatter backward); q, k and v are the rank's columns, its
+    heads where they divide the axis.  Where they do not (xlstm's 4
+    heads at 16), q, k and v are gathered too (reduce-scatter backward),
+    every head runs with ``wi``/``wf``/``fb`` whole and marked, and the
+    rank keeps its ``d_in`` slice; then the norm over the split ``d_in``,
+    the gate on the rank's z and ``down`` row-parallel, summed."""
     d = x.shape[-1]
     d_in = int(cfg.xlstm.proj_factor * d)
     heads = cfg.n_heads
     hd = d_in // heads
-    up = linear(x, p["up"])
+    tp, whole_heads = _tp_layout(tp, d_in, heads)
+    own = _own(tp, d_in)
+    up = comm.copy_to_model(tp, linear(x, p["up"]))
     u, z = up[..., :d_in], up[..., d_in:]
     if state is None:
-        uc = causal_conv(u, p["conv"])
+        uc = causal_conv(own(u), p["conv"])
     else:
         uc, conv = causal_conv(u, p["conv"], state["conv"])
-    q = _heads(linear(uc, p["wq"]), heads)
-    k = _heads(linear(uc, p["wk"]), heads)
+    uc = comm.all_gather_model(tp, uc, -1, "sum")
+    q, k, v = (linear(uc, p["wq"]), linear(uc, p["wk"]),
+               linear(u, p["wv"]))
+    h_loc = heads
+    if whole_heads:
+        q, k, v = comm.all_gather_model(tp, torch.stack([q, k, v]), -1,
+                                        "sum").unbind(0)
+    elif tp is not None:
+        h_loc = heads // tp.model_shards
+    q = _heads(q, h_loc)
+    k = _heads(k, h_loc)
     k = k / scalar(k, math.sqrt(hd))
-    v = _heads(linear(u, p["wv"]), heads)
-    i_pre = linear(uc, p["wi"]).to(F32)                       # [*, b, t, H]
-    f_pre = linear(uc, p["wf"]).to(F32)
-    f_pre = f_pre + bcast(p["fb"], f_pre)
+    v = _heads(v, h_loc)
+    hp = _marked(tp, whole_heads)
+    i_pre = linear(uc, hp(p["wi"])).to(F32)                   # [*, b, t, H]
+    f_pre = linear(uc, hp(p["wf"])).to(F32)
+    f_pre = f_pre + bcast(hp(p["fb"]), f_pre)
     if state is None or x.shape[-2] > 1:
         y = mlstm_parallel(q, k, v, i_pre, f_pre)
         if state is not None:
             new_state = mlstm_final_state(k, v, i_pre, f_pre)
     else:
         y, new_state = mlstm_step(q, k, v, i_pre, f_pre, state)
-    y = y.reshape(y.shape[:-2] + (d_in,))
-    y = layers.rms_norm(p["norm"], y, cfg.norm_eps)
-    y = y * F.silu(z)
-    y = linear(y, p["down"])
+    y = y.reshape(y.shape[:-2] + (h_loc * hd,))
+    if whole_heads:
+        y = own(y)
+    y = layers.rms_norm_split(p["norm"], y, cfg.norm_eps, tp)
+    y = y * F.silu(own(z))
+    y = comm.sum_model(tp, linear(y, p["down"]))
     if state is None:
         return y
     return y, {**new_state, "conv": conv}
@@ -394,26 +485,41 @@ def init_slstm(gen, cfg, device) -> dict:
     }
 
 
-def slstm_block(p, x, cfg, state=None):
+def slstm_block(p, x, cfg, state=None, tp=None):
     """The sLSTM recurrence and its gated FFN: x [*lead, b, t, d] ->
     [*lead, b, t, d].  One step a position, in order (the JAX package's
     ``lax.scan``); the carry (c, n, h, m) in float32 from c = h = m = 0,
     n = 1, or from a ``state`` (``slstm_state_init``'s keys, cast to
-    float32), and then (y, the final carry)."""
+    float32), and then (y, the final carry).
+
+    ``tp`` (train mode; ``slstm_specs``' blocks): ``wx`` is replicated,
+    so the gates are formed whole and marked, and each rank runs the
+    recurrence of its own heads (``wr``, ``fb``) with no collective in
+    the position loop; the heads' outputs are then gathered whole for
+    the norm and the gated FFN, whose replicated leaves every rank
+    applies alike (so the gather's backward takes the rank's slice, and
+    their gradients come out whole and equal on every rank).  Heads
+    that do not divide the axis run whole on every rank."""
     d = x.shape[-1]
     heads = cfg.n_heads
     hd = d // heads
-    xg = linear(x, p["wx"])
-    xg = xg.reshape(xg.shape[:-1] + (heads, 4 * hd)).to(F32)  # [.., t, H, 4hd]
+    if tp is not None and heads % tp.model_shards:
+        tp = None
+    h_loc = heads if tp is None else heads // tp.model_shards
+    xg = comm.copy_to_model(tp, linear(x, p["wx"]))
+    xg = xg.reshape(xg.shape[:-1] + (heads, 4 * hd))
+    if tp is not None:
+        xg = xg[..., tp.model_rank * h_loc:(tp.model_rank + 1) * h_loc, :]
+    xg = xg.to(F32)                                         # [.., t, H, 4hd]
     # the loop's operands laid out once: wr [*lead, 1, H, hd, 4hd] for a
     # batched [1, hd] @ [hd, 4hd] product a head; the gates' per-head
     # scalars kept as [..., H, 1] so they broadcast over hd unsqueezed
     wr = p["wr"].to(F32).unsqueeze(-4)
     fb = p["fb"].to(F32)
     fb = fb.reshape(fb.shape[:-1] + (1,) * (xg.dim() - 2 - fb.dim())
-                    + (heads, 1))
+                    + (h_loc, 1))
     if state is None:
-        carry_shape = xg.shape[:-3] + (heads,)                # [*lead, b, H]
+        carry_shape = xg.shape[:-3] + (h_loc,)                # [*lead, b, H]
         c = torch.zeros(carry_shape + (hd,), dtype=F32, device=x.device)
         h = torch.zeros_like(c)
         n = torch.ones_like(c)
@@ -437,7 +543,8 @@ def slstm_block(p, x, cfg, state=None):
         h = torch.sigmoid(oh) * (c / torch.maximum(n, one))
         hs.append(h)
     y = torch.stack(hs, dim=-3)                             # [*, b, t, H, hd]
-    y = y.reshape(y.shape[:-2] + (d,)).to(x.dtype)
+    y = y.reshape(y.shape[:-2] + (h_loc * hd,)).to(x.dtype)
+    y = comm.all_gather_model(tp, y, -1, "slice")
     y = layers.rms_norm(p["norm"], y, cfg.norm_eps)
     ff = int(4 * d / 3)
     uv = linear(y, p["up"])

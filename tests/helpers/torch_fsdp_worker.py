@@ -15,7 +15,8 @@ The job:
   * ``cells`` -- name -> :func:`run_cell` spec: a train step in the FSDP
     or the replicated regime, over injected gradients
     (``injected_grads.make_fsdp_bundle``) or a small LM config (a
-    ``TINY`` one or an arch's smoke config, :func:`config`), from
+    ``TINY`` one or an arch's smoke config, :func:`config`, with the
+    spec's ``overrides`` replaced, ``torch_tp_worker.smoke_config``), from
     global numpy parameters and batches; the final edge models gathered
     back, every step's loss, the traffic, and each master and
     correction leaf's shape on the rank;
@@ -193,7 +194,11 @@ def _bundle(topo: Topology, spec: dict):
         mspecs = spec.get("mspecs")
         return (injected_grads.make_fsdp_bundle(mspecs) if spec["fsdp"]
                 else injected_grads.make_bundle()), mspecs, None
-    cfg = dataclasses.replace(config(spec["kind"]), param_mode=(
+    from repro_torch import configs
+
+    cfg = (TW.smoke_config(configs, spec["kind"], spec["overrides"])
+           if spec.get("overrides") else config(spec["kind"]))
+    cfg = dataclasses.replace(cfg, param_mode=(
         "fsdp" if spec["fsdp"] else "replicated"))
     b = build.build_model(cfg, topo).bundle
     return b, b.master_specs if spec["fsdp"] else None, b.specs

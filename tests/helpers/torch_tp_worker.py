@@ -42,6 +42,7 @@ from __future__ import annotations
 import os
 import pathlib
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -130,8 +131,12 @@ def _rank_main(tmp: str, rank: int) -> None:
     dist.init_process_group("gloo", init_method=f"file://{d / 'rdv'}",
                             rank=rank, world_size=pods * data * model,
                             timeout=mesh.TIMEOUT)
-    topo = mesh.make_host_topology(pods, data, model, backend="gloo",
-                                   device="cpu", block=job["block"])
+    if "piece" in job:
+        from repro_torch.core import host_exchange
+        host_exchange.PIECE = job["piece"]
+    topo = mesh.make_host_topology(
+        pods, data, model, backend="gloo", device="cpu", block=job["block"],
+        shared_dir=d if job.get("shared") else None)
     for name in job.get("identity", ()):
         setattr(comm, name, lambda topo, x: x)
     m = topo.mesh
@@ -142,6 +147,10 @@ def _rank_main(tmp: str, rank: int) -> None:
         res["cells"][name] = run_cell(topo, spec)
     if "transport" in job:
         res["transport"] = transport(topo, job["transport"])
+    if "exchange" in job:
+        res["exchange"] = exchange_checks(topo, job["exchange"])
+        res["left"] = sorted(p.name for p in d.iterdir() if re.fullmatch(
+            r"(data|pod|model)\d+\.\d+", p.name))
     res["dense"] = {name: dense_grads(topo, spec)
                     for name, spec in job.get("dense", {}).items()}
     if "lm" in job:
@@ -159,6 +168,65 @@ def _rank_main(tmp: str, rank: int) -> None:
         os.replace(d / "results.tmp", d / "results.pkl")
     dist.barrier()
     dist.destroy_process_group()
+
+
+def exchange_checks(topo: Topology, seed: int) -> dict:
+    """Each all-gather and the all-to-all of ``core.comm`` through the
+    mesh's shared host memory (``topo``'s) against the backend's on the
+    same ranks (a second mesh without it): per case, whether the results
+    have the same bits and ``comm.traffic`` the same counts (gathered to
+    rank 0 as a bool each rank)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    m = topo.mesh
+    plain = mesh.make_host_topology(
+        m.pods, m.data, m.model, backend="gloo", device="cpu",
+        block=(topo.local_pods, topo.local_devices))
+    gen = torch.Generator().manual_seed(seed + m.rank)
+    x = torch.randn((2, 3, 5, 7), generator=gen)      # 840 B: 1 piece
+    big = torch.randn((1, 2, 1500), generator=gen)    # pieces and halves
+    parts = torch.randn((m.data, 1, 2, 700), generator=gen)
+    w = torch.randn((2, 3 * m.model, 5, 7), generator=gen)
+
+    def with_grad(t, grad):
+        y = x.clone().requires_grad_(True)
+        z = comm.all_gather_model(t, y, 1, grad)
+        (g,) = torch.autograd.grad((z * w).sum(), y)
+        return torch.cat([z.detach().flatten(), g.flatten()])
+
+    cases = {
+        "gather_devices": lambda t: comm.gather_devices(t, big),
+        "gather_pods": lambda t: comm.gather_pods(t, x),
+        "gather_pods bf16": lambda t: comm.gather_pods(t, big.bfloat16()),
+        "gather_pods bool": lambda t: comm.gather_pods(t, big > 0),
+        "gather_shards dim 2": lambda t: comm.gather_shards(t, x, 2),
+        "gather_shards int32": lambda t: comm.gather_shards(
+            t, (big * 1e3).to(torch.int32), 0),
+        "scatter_shards": lambda t: comm.scatter_shards(t, parts),
+        "scatter_shards int8": lambda t: comm.scatter_shards(
+            t, (parts * 50).to(torch.int8)),
+        "gather_model dim 3": lambda t: comm.gather_model(t, x, 3),
+        "all_gather_model slice": lambda t: with_grad(t, "slice"),
+        "all_gather_model sum": lambda t: with_grad(t, "sum"),
+    }
+    out = {}
+    for name, fn in cases.items():
+        comm.reset_traffic()
+        want = fn(plain)
+        counted = copy.deepcopy(comm.traffic)
+        comm.reset_traffic()
+        got = fn(topo)
+        ok = torch.tensor([
+            got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got, want), comm.traffic == counted])
+        every = [torch.empty_like(ok) for _ in range(m.size)]
+        dist.all_gather(every, ok)
+        out[name] = torch.stack(every).tolist()
+    return out
 
 
 # -- the toy's bundles ------------------------------------------------------------
@@ -315,6 +383,7 @@ def dense_grads(topo: Topology, spec: dict) -> dict:
     """A smoke config's per-device gradients at ``spec["params"]`` (numpy,
     one replica) on the rank's [P_loc, D_loc] block of ``spec["tokens"]``
     ([P, D, b, L]; a vlm's ``spec["patches"]`` [P, D, b, n_patches, d]
+    or whisper's ``spec["frames"]`` [P, D, b, frames, frontend_dim]
     too): copies of the rank's blocks in ``spec["dtype"]`` (float32
     unless it names another torch dtype) through the bundle's loss
     (tensor-parallel over the model axis) of ``spec["arch"]``'s smoke
@@ -336,8 +405,9 @@ def dense_grads(topo: Topology, spec: dict) -> dict:
     copies = [x.expand(shape + tuple(x.shape)).to(dtype).contiguous()
               .requires_grad_(True) for x in leaves]
     batch = {"tokens": torch.from_numpy(topo.block(spec["tokens"]))}
-    if "patches" in spec:
-        batch["patches"] = torch.from_numpy(topo.block(spec["patches"]))
+    for extra in ("patches", "frames"):
+        if extra in spec:
+            batch[extra] = torch.from_numpy(topo.block(spec[extra]))
     tree = shardflat.logical(topo, layout, pytree.tree_unflatten(td, copies),
                              2)
     losses = built.bundle.loss(tree, batch)

@@ -47,6 +47,17 @@ from test_torch_ref_fed import (MU, MU_SGD, RHO, assert_trees,  # noqa: E402
                                 injected, port_cc, run_port_oracle, toy)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors: the suite runs
+    several pytest workers on the machine's cores, and PyTorch's thread
+    pool in each of them would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def events(inj):
     return [(e.step, e.kind, e.pod, e.dev, e.client) for e in inj.events]
 

@@ -47,6 +47,17 @@ from test_torch_hier import toy_loss  # noqa: E402
 AsyncSaver = async_ckpt.AsyncSaver
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors: the suite runs
+    several pytest workers on the machine's cores, and PyTorch's thread
+    pool in each of them would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree(seed=0):
     g = torch.Generator().manual_seed(seed)
     return {

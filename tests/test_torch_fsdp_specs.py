@@ -4,10 +4,9 @@
 JAX ``build_master_specs``' full specs leaf for leaf for all ten
 configs at (D, M) = (2, 1), (2, 2) and the production grid's (16, 16):
 the JAX function reads only D and M from its topology, so it gets a
-stand-in and ``jax.eval_shape``'s shapes, not 512 forced devices.  At a
-model axis above 1 the ssm, hybrid and encdec families raise, naming
-item 17f (their tensor-parallel forwards); the per-layer specs
-``engine.FsdpPlan`` hands
+stand-in and ``jax.eval_shape``'s shapes, not 512 forced devices --
+every family at every grid, each having its tensor-parallel forward;
+the per-layer specs ``engine.FsdpPlan`` hands
 the lift equal JAX's second result.  ``hier.state_blocks`` indexes an
 FSDP slot by its rank's block of the data-sharded dim, JAX's order of
 ``("model", "data")`` included; ``fsdpify_leaf`` follows JAX's on the
@@ -73,10 +72,6 @@ def keys(tree, prefix="") -> list:
 @pytest.mark.parametrize("name", configs.ARCH_NAMES)
 def test_master_specs_equal_jax(name, d, m):
     cfg = configs.get_config(name)
-    if m > 1 and cfg.family not in build.TP_FAMILIES:
-        with pytest.raises(NotImplementedError, match="item 17f"):
-            build.make_archdef(cfg, m)
-        return
     arch = build.make_archdef(cfg, m)
     cspecs = build.compute_specs(arch, m)
     fsdp = cfg.param_mode == "fsdp"

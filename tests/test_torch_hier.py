@@ -52,6 +52,17 @@ RHO, MU = 0.2, 5e-3
 NP_DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors: the suite runs
+    several pytest workers on the machine's cores, and PyTorch's thread
+    pool in each of them would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def toy_shapes():
     return {"w": (16, 64), "b": (33,), "w2": (64, 33)}
 

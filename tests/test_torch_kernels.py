@@ -45,6 +45,17 @@ RHO, MU = 0.2, 5e-3
 NP_DTYPES = {torch.float32: np.float32, torch.bfloat16: ml_dtypes.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors: the suite runs
+    several pytest workers on the machine's cores, and PyTorch's thread
+    pool in each of them would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_inputs(dtype, seed=0, cancel=False):
     """u [P, D, N] and delta [P, N] with special values; ``cancel`` sets
     u = -(rho*delta) exactly (in f32) on pod 1's first 256 coordinates."""

@@ -41,6 +41,17 @@ from test_torch_hier import mlp_problem, toy_loss  # noqa: E402
 MU, MU_SGD, RHO = 5e-3, 0.05, 0.2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors: the suite runs
+    several pytest workers on the machine's cores, and PyTorch's thread
+    pool in each of them would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def run_port(problem, bundle, transport, layout, ew=None, dw=None,
              anchors=True, uniforms=None, **kw):
     """The port's trajectory on a problem dict (numpy xs/ys [S, P, D,

@@ -29,6 +29,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors: the suite runs
+    several pytest workers on the machine's cores, and PyTorch's thread
+    pool in each of them would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("kw", [
     {}, {"iid": True}, {"alpha_client": 0.3},
     {"edge_assign": "random"}, {"edge_assign": "clustered"}],

@@ -51,6 +51,17 @@ H_SHAPES = {"w": (16, 64), "b": (33,), "w2": (64, 33)}   # the parity toy's
 H_SHAPES_SORTED = [H_SHAPES[k] for k in sorted(H_SHAPES)]  # leaf order
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors: the suite runs
+    several pytest workers on the machine's cores, and PyTorch's thread
+    pool in each of them would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_cc(cc) -> ClientConfig:
     """The JAX package's ClientConfig as the port's (same fields)."""
     return ClientConfig(**dataclasses.asdict(cc))

@@ -15,6 +15,17 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import signs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors: the suite runs
+    several pytest workers on the machine's cores, and PyTorch's thread
+    pool in each of them would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def as_i32(words) -> np.ndarray:
     return np.asarray(words).view(np.int32)
 

@@ -12,9 +12,11 @@ JAX's; ``build.compute_specs`` must equal JAX's ``compute_specs(
 make_archdef(cfg, M), M)`` leaf for leaf, and a rank's bucket
 (``convert.local_params``) must be its slice of JAX's global buffer
 (its block of the experts), for the smoke trees of gemma3-1b,
-deepseek-v3, arctic and internvl2 at M = 2 and 4.  Then the production
-grids, the refusals of ROADMAP items 17d-17f (the FSDP regime over a
-model axis builds for the dense, moe and vlm families), and a
+deepseek-v3, arctic, internvl2, xlstm, zamba2 and whisper at M = 2 and
+4.  Then the production grids, the refusals of ROADMAP items 17d and 17e
+(every family builds over a model axis, the ssm, hybrid and encdec ones
+at the production grid's 16 too; the FSDP regime over a model axis
+builds for every family that runs it), and a
 one-process topology that touches no process group at any model axis.
 """
 import dataclasses
@@ -44,6 +46,17 @@ JTOY_SPECS = {"w": jax.sharding.PartitionSpec(None, "model"),
               "w2": jax.sharding.PartitionSpec("model", None)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors: the suite runs
+    several pytest workers on the machine's cores, and PyTorch's thread
+    pool in each of them would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def toy(hid: int, seed: int = 0, lead=(2,)) -> dict:
     rng = np.random.default_rng(seed)
     return {"w": rng.standard_normal(lead + (16, hid)).astype(np.float32),
@@ -71,7 +84,7 @@ def gemma_tree(m: int, arch: str = "gemma3_1b"):
 # the tensor-parallel families' smoke trees (gemma3-1b's cases keep
 # their ids, the model axis alone)
 TP_ARCHS = ("gemma3_1b", "deepseek_v3_671b", "arctic_480b",
-            "internvl2_76b")
+            "internvl2_76b", "xlstm_350m", "zamba2_2p7b", "whisper_base")
 ARCH_M = [(arch, m) for arch in TP_ARCHS for m in (2, 4)]
 ARCH_M_IDS = [str(m) if arch == "gemma3_1b" else f"{arch}-{m}"
               for arch, m in ARCH_M]
@@ -290,14 +303,29 @@ def test_refusals_name_their_part_of_item_17(tmp_path):
         attention.mla_attn({}, torch.zeros((1, 2, 4)), torch.arange(2),
                            configs.get_smoke("deepseek_v3_671b"),
                            cache={}, tp=topo)
+    # every family trains over a model axis (item 17f): the ssm, hybrid
+    # and encdec/audio families build at M = 2, 4 and the production
+    # grid's 16, as published, and none of them serves there (17d)
     for arch in ("xlstm_350m", "whisper_base", "zamba2_2p7b"):
-        cfg = configs.get_smoke(arch)
-        with pytest.raises(NotImplementedError, match="item 17f"):
-            build.make_archdef(cfg, 2)
-        with pytest.raises(NotImplementedError, match="item 17f"):
-            build.build_model(cfg, topo)
-        assert build.build_model(cfg, Topology(1, 1, "cpu")).bundle.specs \
-            is None
+        for m in (2, 4, 16):
+            cfg = configs.get_config(arch)
+            built = build.build_model(cfg, Topology(2, 2, "cpu",
+                                                    mesh=fake_mesh(m)))
+            assert built.bundle.specs == build.compute_specs(
+                build.make_archdef(cfg, m), m)
+            init_fn, step = hier.make_hier_step(
+                Topology(2, 2, "cpu", mesh=fake_mesh(m)), hier.AlgoConfig(),
+                built.bundle)
+            assert callable(init_fn) and callable(step)
+        with pytest.raises(NotImplementedError, match="item 17d"):
+            built.prefill({}, {"tokens": torch.zeros((1, 2),
+                                                     dtype=torch.long)}, 4)
+    zamba2 = build.build_model(dataclasses.replace(
+        configs.get_smoke("zamba2_2p7b"), param_mode="fsdp"), topo)
+    assert zamba2.bundle.loss_master is not None
+    with pytest.raises(NotImplementedError, match="replicated regime"):
+        build.build_model(dataclasses.replace(
+            configs.get_smoke("whisper_base"), param_mode="fsdp"), topo)
 
 
 def test_one_process_topology_touches_no_group_at_any_model_axis(
