@@ -318,10 +318,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      step in every rank, each rank's master its model block's data
      shard to the byte, each group's bytes a local and a prologue step
      beside ``reckon_fsdp_mesh_bytes`` and ``reckon_tp_model_bytes``,
-     the step ms, the peak beside ``reckon_fsdp_mesh_peak``.  JSON
-     lines ``{"tp": ...}``; the kernels line gains
-     ``tp_launches_per_rank``, ``tp_fam_launches_per_rank`` and
-     ``tp_moe_launches_per_rank``.
+     the step ms, the peak beside ``reckon_fsdp_mesh_peak``.  Between
+     the two (after the ssm, hybrid and encdec configs, before the moe
+     and vlm ones), serving over the model axis (item 17d, part one;
+     ``tp_serve*``): xlstm-350m, zamba2-2.7b and whisper-base from the
+     masters they trained (edge 0 on every pod: views of pod 0's
+     bucket, and of the row pod 1 receives), then gemma3-1b whole (26
+     layers, ``max_len`` past its 512 window), deepseek-v3 and
+     internvl2 from the mapped trees, each over the 8 ranks: 8 requests
+     of 48 tokens, 2 a batch rank, and 4 decode steps.  Model rank 0 of
+     the first batch rank serves the batch alone in float32, and the
+     rows gathered from the ranks lie within ``TP_SERVE_PREFILL_REL`` (prefill) and
+     ``TP_SERVE_DECODE_REL`` (the steps, on the teacher's tokens) of its
+     logits, the greedy tokens equal; every rank's cache bytes are
+     ``build.cache_bytes``' and each group's bytes a rank sends in the
+     prefill and a step ``reckon_tp_serve_bytes``', to the byte; then
+     the same in bfloat16, timed; no kernel launched.  JSON lines
+     ``{"tp": ...}``; the kernels line gains ``tp_launches_per_rank``,
+     ``tp_fam_launches_per_rank``, ``tp_moe_launches_per_rank`` and
+     ``tp_serve_launches_per_rank``.
      ``--phase tp`` runs phase 2's kernel checks and this phase alone.
  16. ``fsdp_mesh``: the FSDP regime across processes (``core.device_axis``
      over a mesh: each rank a shard of every master and correction), run
@@ -4795,8 +4810,11 @@ def tp_rank_main(tmp: str, rank: int) -> None:
         res["fsdp_tp_s"] = time.perf_counter() - t1
     if "fam" in job["parts"]:
         t1 = time.perf_counter()
-        res["fam_tp"] = tp_fam_rank(torch, topo)
+        res["fam_tp"], masters = tp_fam_rank(torch, topo)
         res["fam_tp_s"] = time.perf_counter() - t1
+    if "serve" in job["parts"]:
+        res["serve_tp"] = tp_serve_rank(torch, topo, job["trees"], masters)
+    masters = None
     if "moe" in job["parts"]:
         res["moe_tp"] = tp_moe_rank(torch, topo, job["trees"])
     with open(d / f"rank{rank}.tmp", "wb") as f:
@@ -4897,7 +4915,8 @@ def tp_references(torch) -> dict:
             "n_params": n_params, "reckoned": reckoned}
 
 
-def phase_tp(torch, card: str, parts: tuple = ("tp", "fam", "moe")) -> dict:
+def phase_tp(torch, card: str,
+             parts: tuple = ("tp", "fam", "moe", "serve")) -> dict:
     """The model axis across processes on the one card: 8 ranks (2 pods
     x 2 data x 2 model) over gloo, each a [1, 1] block of P=2 x D=2 and
     one model shard.  The one-process references run here first and
@@ -4918,27 +4937,39 @@ def phase_tp(torch, card: str, parts: tuple = ("tp", "fam", "moe")) -> dict:
     tensor-parallel: step 0's gradients against one process and 2 steps
     in the FSDP regime (:func:`tp_moe_rank`, :func:`tp_moe_report`),
     their seed-0 trees written once to git-ignored ``build/`` files
-    that every rank maps.  Returns the per-rank launches of each part
-    and the ranks' results (``"ranks"``)."""
+    that every rank maps; ``"serve"`` (with ``"fam"``; run after it and
+    before ``"moe"``) -- serving over the model axis (item 17d, part
+    one): xlstm-350m, zamba2-2.7b and whisper-base from the masters the
+    fam part trained, gemma3-1b whole, deepseek-v3 and internvl2 from
+    such trees, each held against one process's serve
+    (:func:`tp_serve_rank`, :func:`tp_serve_report`).  Returns the per-rank
+    launches of each part and the ranks' results (``"ranks"``)."""
     import gc
     import pickle
     import shutil
     import tempfile
 
+    require("serve" not in parts or "fam" in parts,
+            "the tp phase's serve part serves the masters its fam part "
+            "trains")
     t_phase = time.perf_counter()
     refs = tp_references(torch) if "tp" in parts else None
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     (ROOT / "build").mkdir(exist_ok=True)
-    trees = pathlib.Path(tempfile.mkdtemp(prefix="tp_moe_params_",
+    trees = pathlib.Path(tempfile.mkdtemp(prefix="tp_params_",
                                           dir=ROOT / "build"))
+
+    cells = {**(tp_moe_cells() if {"moe", "serve"} & set(parts) else {}),
+             **({"gemma3-1b": tp_serve_cells()["gemma3-1b"]}
+                if "serve" in parts else {})}
 
     def write_trees():
         # while the ranks run their earlier parts; they wait for "ready"
-        written = tp_moe_write_params(torch, trees)
+        written = tp_write_params(torch, trees, cells)
         (trees / "ready").touch()
-        emit({"tp": "moe parameters written", "card": card, **written})
+        emit({"tp": "parameters written", "card": card, **written})
 
     try:
         emit({"tp": "before the ranks",
@@ -4947,8 +4978,7 @@ def phase_tp(torch, card: str, parts: tuple = ("tp", "fam", "moe")) -> dict:
         with open(pathlib.Path(tmp) / "job.pkl", "wb") as f:
             pickle.dump({"parts": tuple(parts), "trees": str(trees)}, f)
         t1 = time.perf_counter()
-        ranks = tp_spawn(torch, tmp, write_trees if "moe" in parts
-                         else None)
+        ranks = tp_spawn(torch, tmp, write_trees if cells else None)
         ranks_s = time.perf_counter() - t1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4961,6 +4991,11 @@ def phase_tp(torch, card: str, parts: tuple = ("tp", "fam", "moe")) -> dict:
     if "fam" in parts:
         out["fam"] = tp_fam_report(torch, card, ranks)
         emit({"tp": "fam part", "rank_s": [r["fam_tp_s"] for r in ranks]})
+    if "serve" in parts:
+        tp_serve_report(torch, card, ranks)
+        out["serve"] = {name: [r["serve_tp"][name]["launches"]
+                               for r in ranks]
+                        for name in tp_serve_cells()}
     emit({"tp": "phase", "parts": list(parts),
           "wall_s": time.perf_counter() - t_phase, "ranks_s": ranks_s,
           "rank_init_s": [r["init_s"] for r in ranks],
@@ -5384,10 +5419,11 @@ def tp_moe_cells() -> dict:
                                              n_layers=TP_INTERNVL2_LAYERS)}
 
 
-def tp_moe_write_params(torch, root: pathlib.Path) -> dict:
-    """Each :func:`tp_moe_cells` config's seed-0 parameters, drawn once
-    on the card as ``run_training`` draws them (``init_params`` on a
-    CUDA generator), written to ``root/NAME/I.npy`` a leaf at a time in
+def tp_write_params(torch, root: pathlib.Path, cells: dict) -> dict:
+    """Each config's seed-0 parameters (``cells``: name -> config; the
+    moe part's and the serve part's), drawn once on the card as
+    ``run_training`` draws them (``init_params`` on a CUDA
+    generator), written to ``root/NAME/I.npy`` a leaf at a time in
     pytree order: the 8 ranks map the same files, so no rank holds a
     whole tree on the card.  Returns each config's seconds and bytes."""
     import numpy as np
@@ -5397,7 +5433,7 @@ def tp_moe_write_params(torch, root: pathlib.Path) -> dict:
     from repro_torch.models import build
 
     out = {}
-    for name, cfg in tp_moe_cells().items():
+    for name, cfg in cells.items():
         t0 = time.perf_counter()
         leaves = pytree.tree_flatten(build.build_model(
             cfg, Topology(1, 1, "cuda")).init_params(
@@ -5415,10 +5451,21 @@ def tp_moe_write_params(torch, root: pathlib.Path) -> dict:
     return out
 
 
-def tp_moe_host_params(torch, built, d: pathlib.Path):
-    """The tree :func:`tp_moe_write_params` wrote to ``d``, as host
-    tensors over copy-on-write maps of its files (nothing is read until
-    a leaf moves)."""
+def tp_wait_trees(trees: str) -> float:
+    """Wait, at most ``TP_JOIN_S``, for the parent's trees under
+    ``trees`` (:func:`tp_write_params`); the seconds waited."""
+    t0 = time.perf_counter()
+    while not (pathlib.Path(trees) / "ready").exists():
+        if time.perf_counter() - t0 > TP_JOIN_S:
+            raise RuntimeError(f"no parameters under {trees}")
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def tp_host_params(torch, built, d: pathlib.Path):
+    """The tree :func:`tp_write_params` wrote to ``d``, as host tensors
+    over copy-on-write maps of its files (nothing is read until a leaf
+    moves)."""
     import numpy as np
 
     from repro_torch.core import pytree
@@ -5596,18 +5643,13 @@ def tp_moe_rank(torch, topo, trees: str) -> dict:
     """The rank's ``moe`` part: for each :func:`tp_moe_cells` config,
     :func:`tp_step0` then :func:`tp_moe_fsdp`, from the tree the
     parent writes under ``trees`` while the ranks run their earlier
-    parts (waited for here, at most ``TP_JOIN_S``)."""
+    parts (:func:`tp_wait_trees`)."""
     from repro_torch.models import build
 
-    t0 = time.perf_counter()
-    while not (pathlib.Path(trees) / "ready").exists():
-        if time.perf_counter() - t0 > TP_JOIN_S:
-            raise RuntimeError(f"no parameters under {trees}")
-        time.sleep(0.5)
-    out = {"wait_s": time.perf_counter() - t0}
+    out = {"wait_s": tp_wait_trees(trees)}
     for name, cfg in tp_moe_cells().items():
         t0 = time.perf_counter()
-        host = tp_moe_host_params(torch, build.build_model(cfg, topo),
+        host = tp_host_params(torch, build.build_model(cfg, topo),
                                   pathlib.Path(trees) / name)
         res = {"step0": tp_step0(
             torch, topo, cfg, host, tp_batch(torch, topo, cfg),
@@ -5831,7 +5873,9 @@ def tp_fam_train(torch, topo, cfg, built, params, batch: int, seq: int,
     counters and ``comm.traffic`` at 0 just before it: its losses, step
     times, launches, each group's bytes at each step, whether every copy
     leaf of the master and corrections was bitwise the same on both
-    model ranks after each step, and its peak above what it held."""
+    model ranks after each step, and its peak above what it held; and the
+    trained flat master (the rank's bucket), the rest of the state
+    freed."""
     import torch.distributed as dist
 
     from repro_torch.core import comm, shardflat
@@ -5869,19 +5913,22 @@ def tp_fam_train(torch, topo, cfg, built, params, batch: int, seq: int,
            "copies_agree": agree,
            "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
            "held_gb": before / 1e9, "bucket_pad": layout.bucket_pad}
+    master = state.params
     del state
     torch.cuda.empty_cache()
-    return res
+    return res, master
 
 
-def tp_fam_rank(torch, topo) -> dict:
+def tp_fam_rank(torch, topo) -> tuple:
     """The rank's ``fam`` part: for each :func:`tp_fam_cells` config, step
     0's gradients on the first block (:func:`tp_step0`, in
     ``TP_FAM_STEP0_DTYPE``) and :func:`tp_fam_train`, from the seed-0
-    tree each rank draws (:func:`tp_fam_params`)."""
+    tree each rank draws (:func:`tp_fam_params`).  Returns the results
+    and each config's trained master (the rank's flat bucket), which
+    the serve part serves as it is left."""
     from repro_torch.models import build
 
-    out = {}
+    out, masters = {}, {}
     for name, (cfg, batch, seq) in tp_fam_cells().items():
         t0 = time.perf_counter()
         built = build.build_model(cfg, topo)
@@ -5892,13 +5939,14 @@ def tp_fam_rank(torch, topo) -> dict:
             getattr(torch, TP_FAM_STEP0_DTYPE[name]))}
         res["step0"]["s"] = time.perf_counter() - t0
         t1 = time.perf_counter()
-        res["train"] = tp_fam_train(torch, topo, cfg, built, params, batch,
-                                    seq, TP_FAM_MU[name])
+        res["train"], master = tp_fam_train(torch, topo, cfg, built, params,
+                                            batch, seq, TP_FAM_MU[name])
         res["train"]["s"] = time.perf_counter() - t1
         del params
+        masters[name] = master
         torch.cuda.empty_cache()
         out[name] = res
-    return out
+    return out, masters
 
 
 def tp_fam_report(torch, card: str, ranks: list) -> dict:
@@ -5971,6 +6019,470 @@ def tp_fam_report(torch, card: str, ranks: list) -> dict:
                 f"0's {losses[0]}")
         launches[name] = [x["launches"] for x in lm]
     return launches
+
+
+# -- serving over the model axis (item 17d, part one) ---------------------------
+
+TP_SERVE_B = 8                   # requests: 2 a batch rank of 2 x 2
+TP_SERVE_PROMPT = 48             # prompt tokens a request
+TP_SERVE_STEPS = 4               # decode steps, teacher-forced
+TP_SERVE_MAX_LEN = {"gemma3-1b": 640}   # past gemma's window of 512: its
+                                        # local caches are the rolled ones
+                                        # (the rest: patches, prompt, steps)
+# the one-process serve's logits against the sharded ranks', of its
+# largest |logit| (float32 compute; a decode step reads the bfloat16
+# cache, where one rounding that differs moves the logits by up to about
+# 2^-8 of the largest).  On the H100 (PERF.md) the sound runs read at
+# most 1.2e-5 at prefill and 1.1e-3 at a step; planted faults -- a rank
+# routing its MoE rows alone, the split norm's sum replaced by M times
+# the rank's own, one layer's attention sum replaced by M times the
+# rank's share -- read 0.25 and more at prefill and 0.13 and more at a
+# step.  Each limit lies between the two, about 8x above the sound
+# runs' largest
+TP_SERVE_PREFILL_REL = 1e-4
+TP_SERVE_DECODE_REL = 2.0 ** -7
+
+
+def tp_serve_cells() -> dict:
+    """name -> config of the serve part, at published widths: gemma3-1b
+    whole (26 layers, one kv head, vocabulary 262144), deepseek-v3 and
+    internvl2 at the ``moe`` part's cuts (:func:`tp_moe_cells`), and
+    xlstm-350m, zamba2-2.7b and whisper-base at the ``fam`` part's
+    (:func:`tp_fam_cells`)."""
+    from repro_torch import configs
+
+    return {"gemma3-1b": configs.get_config("gemma3_1b"),
+            **tp_moe_cells(),
+            **{name: cell[0] for name, cell in tp_fam_cells().items()}}
+
+
+def tp_serve_requests(torch, cfg, name: str) -> dict:
+    """The part's TP_SERVE_B requests of ``cfg`` on the host
+    (``synthetic.serve_request_batch``: tokens, whisper's frames, a
+    vlm's patches), the same on every rank."""
+    from repro_torch.data import synthetic
+
+    scfg = synthetic.LMStreamCfg(
+        vocab=cfg.vocab, seq_len=TP_SERVE_PROMPT, batch_per_device=1,
+        pods=1, devices_per_pod=1, n_patches=cfg.n_patches,
+        d_model=cfg.d_model,
+        frames=cfg.encoder_frames if cfg.encoder_layers else 0,
+        frontend_dim=cfg.frontend_dim)
+    return synthetic.serve_request_batch(scfg, TP_SERVE_B, TP_SERVE_PROMPT,
+                                         seed=sum(map(ord, name)))
+
+
+def tp_serve_rows(topo, tree: dict, device) -> dict:
+    """The rank's rows of a global batch (its batch rank's block), on
+    ``device``."""
+    from repro_torch.models import moe
+
+    nb, r = moe.batch_ranks(topo)
+    out = {}
+    for k, v in tree.items():
+        rows = v.shape[0] // nb
+        out[k] = v[r * rows:(r + 1) * rows].to(device)
+    return out
+
+
+def host_blocks(torch, topo, built, host, dtype):
+    """The rank's logical blocks of the mapped host tree ``host`` at
+    ``built``'s model axis, in ``dtype`` on the rank's device, each block
+    cut from the map and moved alone."""
+    from repro_torch.core import flatbuf, pytree, shardflat
+
+    layout = shardflat.param_layout(topo, built.bundle.specs, host)
+    leaves, td = pytree.tree_flatten(host)
+    out = []
+    for i, x in enumerate(leaves):
+        if layout.shards > 1:
+            x = flatbuf.slot_block(layout.slots[i], x, topo.model_rank,
+                                   layout.shards)
+        out.append(x.to(device=topo.device, dtype=dtype))
+    return shardflat.logical(topo, layout, pytree.tree_unflatten(td, out))
+
+
+def tp_serve(torch, topo, name: str, cfg, params, whole):
+    """Serve ``cfg`` over the ranks: TP_SERVE_B requests, 2 a batch rank,
+    TP_SERVE_PROMPT tokens, TP_SERVE_STEPS decode steps.  ``params``:
+    the rank's float32 parameter blocks on its device; ``whole()``: the
+    whole tree on model rank 0 of the first batch rank (None on its
+    other model ranks; called on that model group, which it may gather
+    over).
+
+      1. the reference: model rank 0 of the first batch rank serves the
+         whole batch alone (``Topology(1, 1)``) in float32 -- prefill
+         and greedy decode steps, its logits kept; its greedy tokens are
+         the teacher's, summed to every rank;
+      2. every rank, float32: prefill its rows and decode them on the
+         teacher's tokens, the rows of every batch rank gathered; the
+         reference rank holds them against its own logits (the largest
+         difference of the largest |logit|; the greedy tokens where the
+         gap between the two largest exceeds twice it); every rank's
+         cache bytes after each call against ``build.cache_bytes``;
+      3. every rank, bfloat16 weights (``params`` cast on the device, a
+         leaf at a time): a prefill to warm, then a timed prefill and
+         the decode steps, each
+         between synchronisations and barriers, with the bytes the rank
+         sends on each group (``comm.group_bytes``) in the prefill and
+         in each step, and the cache bytes.
+
+    The kernels' counters are zeroed first and read last: serving
+    launches none.  Runs on the rank's device (the card; the CPU in
+    ``tests/test_torch_tp_serve.py``'s rehearsal)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm, pytree
+    from repro_torch.core.topology import Topology
+    from repro_torch.models import build
+
+    dev = topo.device
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    t_start = time.perf_counter()
+    zero_launches()
+    m = topo.mesh
+    built = build.build_model(cfg, topo)
+    req = tp_serve_requests(torch, cfg, name)
+    max_len = TP_SERVE_MAX_LEN.get(
+        name, cfg.n_patches + TP_SERVE_PROMPT + TP_SERVE_STEPS)
+    res = {"max_len": max_len}
+    ref = None
+    teacher = torch.zeros((TP_SERVE_B, TP_SERVE_STEPS), dtype=torch.long)
+    if m.pod_rank == 0 and m.data_rank == 0:
+        tree = whole()
+        if m.model_rank == 0:
+            t0 = time.perf_counter()
+            plain = build.build_model(cfg, Topology(1, 1, dev))
+            batch = {k: v.to(dev) for k, v in req.items()}
+            logits, cache = plain.prefill(tree, batch, max_len)
+            ref = [logits[:, -1].float()]
+            toks = []
+            for _ in range(TP_SERVE_STEPS):
+                tok = torch.argmax(logits[:, -1:], dim=-1)
+                toks.append(tok)
+                logits, cache = plain.decode_step(tree, cache, tok)
+                ref.append(logits[:, -1].float())
+            synchronize(torch, dev)
+            res["reference_s"] = time.perf_counter() - t0
+            teacher = torch.cat(toks, dim=1).cpu()
+            del cache, logits, plain, batch
+        del tree
+        free()
+    dist.all_reduce(teacher)            # the reference's tokens
+    batch = tp_serve_rows(topo, req, dev)
+    steps = tp_serve_rows(topo, {"t": teacher}, dev)["t"]
+
+    # float32: against the reference
+    reckoned = build.cache_bytes(built.arch, TP_SERVE_B, max_len, topo,
+                                 torch.float32)
+    logits, cache = built.prefill(params, batch, max_len)
+    got, held = [logits], [cache_bytes_of(cache)]
+    for s in range(TP_SERVE_STEPS):
+        logits, cache = built.decode_step(params, cache, steps[:, s:s + 1])
+        got.append(logits)
+        held.append(cache_bytes_of(cache))
+    rows = [comm.gather_batch(topo, x[:, -1]).flatten(0, 1).float()
+            for x in got]
+    res.update(f32_cache_bytes=held, f32_cache_reckoned=reckoned,
+               finite=all(bool(torch.isfinite(x).all()) for x in rows))
+    if ref is not None:
+        rel, skipped, agree = [], 0, True
+        for g, w in zip(rows, ref):
+            err = float((g - w).abs().max())
+            rel.append(err / float(w.abs().max()))
+            top2 = torch.topk(w, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+            agree &= bool(torch.equal(g.argmax(-1)[clear],
+                                      w.argmax(-1)[clear]))
+            skipped += int((~clear).sum())
+        res.update(rel_err=rel, greedy_agree=agree, greedy_skipped=skipped,
+                   greedy_positions=len(rows) * TP_SERVE_B)
+    del cache, logits, got, rows, ref
+    free()
+
+    # bfloat16 weights: timed, with each group's bytes
+    leaves, td = pytree.tree_flatten(params)
+    del params
+    for i, x in enumerate(leaves):      # the float32 block freed as cast
+        leaves[i] = x.to(torch.bfloat16) if x.dtype.is_floating_point else x
+    params = pytree.tree_unflatten(td, leaves)
+    del leaves
+    free()
+    built.prefill(params, batch, max_len)          # warm
+    dist.barrier()
+    synchronize(torch, dev)
+    comm.reset_traffic()
+    t0 = time.perf_counter()
+    logits, cache = built.prefill(params, batch, max_len)
+    synchronize(torch, dev)
+    res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    res["prefill_bytes"] = comm.group_bytes()
+    decode_ms, step_bytes, finite = [], [], bool(torch.isfinite(
+        logits).all())
+    for s in range(TP_SERVE_STEPS):
+        dist.barrier()
+        synchronize(torch, dev)
+        comm.reset_traffic()
+        t0 = time.perf_counter()
+        logits, cache = built.decode_step(params, cache, steps[:, s:s + 1])
+        synchronize(torch, dev)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        step_bytes.append(comm.group_bytes())
+        finite &= bool(torch.isfinite(logits).all())
+    res.update(decode_ms=decode_ms, decode_bytes=step_bytes,
+               bf16_finite=finite, bf16_cache_bytes=cache_bytes_of(cache),
+               bf16_cache_reckoned=build.cache_bytes(
+                   built.arch, TP_SERVE_B, max_len, topo, torch.bfloat16),
+               launches=counted_launches())
+    del params, cache, logits
+    free()
+    res["s"] = time.perf_counter() - t_start
+    return res
+
+
+def cache_bytes_of(cache) -> int:
+    return sum(a.numel() * a.element_size()
+               for _, a in pytree_items(cache["stacks"]))
+
+
+def tp_serve_host(torch, topo, name: str, cfg, host) -> dict:
+    """:func:`tp_serve` of a config whose seed-0 tree the ranks map
+    (``host``): the float32 blocks cut from the map, the reference's
+    whole tree moved to the card."""
+    from repro_torch.core import pytree
+    from repro_torch.models import build
+
+    built = build.build_model(cfg, topo)
+    return tp_serve(
+        torch, topo, name, cfg,
+        host_blocks(torch, topo, built, host, torch.float32),
+        lambda: (pytree.tree_map(lambda x: x.to(topo.device, torch.float32),
+                                 host) if topo.model_rank == 0 else None))
+
+
+def tp_serve_state(torch, topo, name: str, cfg, fs) -> dict:
+    """:func:`tp_serve` of the flat master ``fs`` a training run left on
+    the rank (its ``[P_loc, bucket_pad]`` bucket), taken mid-round:
+    every pod serves edge 0 (``specs.serve_params_from_flat``), pod 0's
+    ranks as views of their bucket, the other pod's as views of the row
+    they receive -- one buffer a rank, checked by storage; the
+    reference gathers the views over the model group."""
+    from repro_torch.core import shardflat
+    from repro_torch.launch import specs
+    from repro_torch.models import build
+
+    built = build.build_model(cfg, topo)
+    layout = shardflat.param_layout(topo, built.bundle.specs,
+                                    built.abstract_params())
+    bucket = fs.buf.untyped_storage().data_ptr()
+    views = specs.serve_params_from_flat(built, fs)
+    ptrs = {v.untyped_storage().data_ptr() for _, v in pytree_items(views)}
+    zero_copy = len(ptrs) == 1 and (topo.mesh.pod_rank > 0
+                                    or ptrs == {bucket})
+    res = tp_serve(torch, topo, name, cfg, views,
+                   lambda: shardflat.gather(topo, layout, views))
+    res["views_zero_copy"] = zero_copy
+    return res
+
+
+def tp_serve_rank(torch, topo, trees: str, masters: dict) -> dict:
+    """The rank's serve part, for each :func:`tp_serve_cells` config:
+    the ``fam`` part's trained ``masters`` (popped: each freed once
+    served), then the rest from the trees the parent writes under
+    ``trees`` (:func:`tp_wait_trees`)."""
+    from repro_torch.models import build
+
+    cells = tp_serve_cells()
+    out = {name: tp_serve_state(torch, topo, name, cells[name],
+                                masters.pop(name))
+           for name in list(masters)}
+    out["wait_s"] = tp_wait_trees(trees)
+    for name, cfg in cells.items():
+        if name not in out:
+            host = tp_host_params(torch, build.build_model(cfg, topo),
+                                  pathlib.Path(trees) / name)
+            out[name] = tp_serve_host(torch, topo, name, cfg, host)
+    return out
+
+
+def reckon_tp_serve_bytes(cfg, arch, rows: int, seq: int, model: int,
+                          data: int, pods: int, elt: int = 2,
+                          prefill: bool = True) -> dict:
+    """The bytes one rank sends on each group in a prefill of ``seq``
+    tokens of its ``rows`` requests (with a vlm's patches and whisper's
+    encoder over its frames) or in a decode step (``prefill`` False, one
+    token), over ``model`` ranks and ``data`` x ``pods`` batch ranks,
+    activations of ``elt`` bytes; reckoned from the config alone.  A sum
+    counts the tensor it is handed, a gather the rank's block
+    (``comm.traffic``).  With A the [rows, positions, d_model]
+    activations: the vocab-parallel lookup (A, tokens) and the head's
+    gather of the last position's vocab block (rows x V/M) where the
+    vocabulary divides; each attention's row-parallel sum (A; whisper's
+    decoder a second for its cross-attention) where the heads divide;
+    each FFN's sum (A: an MLP, or an MoE layer's experts and MLPs in
+    one); Mamba2's split norm (f32 a position) and ``out``'s sum, with
+    the heads whole the conv output's gather (A d_in/d/M); the mLSTM's
+    conv gather, norm and ``down``'s sum (with the heads whole q, k and
+    v gathered too); the sLSTM's heads' gather (A/M); and where a
+    routing group of the call straddles the batch ranks, the MoE's top-k
+    expert ids [positions, k] int32, gathered over the data group and
+    then, [data, positions, k], over the pod group."""
+    from repro_torch.models import build, layers
+
+    d, m = cfg.d_model, model
+    heads_split = cfg.n_heads % m == 0
+    t = seq + cfg.n_patches if prefill else 1
+    npos = rows * t
+    model_b, data_b, pod_b = 0, 0, 0
+
+    def mixer(name, n):
+        if name == "mamba":
+            s = cfg.ssm
+            d_in = s.expand * d
+            if d_in % m:
+                return 0
+            gather = n * d_in // m * elt if (d_in // 64) % m else 0
+            return n * 4 + n * d * elt + gather
+        if name == "mlstm":
+            d_in = int(cfg.xlstm.proj_factor * d)
+            if d_in % m:
+                return 0
+            gather = n * d_in // m * elt
+            qkv = 3 * gather if cfg.n_heads % m else 0
+            return gather + qkv + n * 4 + n * d * elt
+        if name == "slstm":
+            return n * d // m * elt if heads_split else 0
+        attn = n * d * elt if heads_split else 0
+        if name == "dec":
+            attn *= 2
+        ffn = n * d * elt
+        if name == "moe":
+            e = cfg.moe
+            if not (e.n_experts % m == 0 or e.n_shared
+                    or e.dense_residual_ff):
+                ffn = 0
+        return attn + ffn
+
+    vocab = layers.vocab_sharded(cfg.vocab, m)
+    if vocab:
+        model_b += rows * (seq if prefill else 1) * d * elt
+        model_b += rows * (cfg.vocab // m) * elt
+    for name, n in build.occurrence_counts(arch.segments).items():
+        model_b += n * mixer(name, npos)
+        if name == "moe":
+            total = npos * data * pods
+            s_len = total // max(1, total // cfg.moe.group_tokens)
+            if npos % s_len:        # the groups straddle the batch ranks
+                ids = npos * cfg.moe.top_k * 4
+                data_b += n * ids if data > 1 else 0
+                pod_b += n * data * ids if pods > 1 else 0
+    if prefill and arch.enc_segments:
+        frames = rows * cfg.encoder_frames
+        for name, n in build.occurrence_counts(arch.enc_segments).items():
+            model_b += n * mixer(name, frames)
+    return {"model": model_b, "data": data_b, "pod": pod_b}
+
+
+def tp_serve_report(torch, card: str, ranks: list,
+                    cells: dict | None = None) -> None:
+    """The serve part's checks, from the ranks' results, for each
+    config: the reference ranks' logits within TP_SERVE_PREFILL_REL
+    (prefill) and TP_SERVE_DECODE_REL (each step) of the one-process
+    serve's and the greedy tokens equal; every rank's cache bytes the
+    reckoning's after every call; every logit finite; no kernel
+    launched; a trained state's views one buffer a rank (on pod 0 its
+    bucket); and
+    beside them the timed bfloat16 run -- prefill and decode ms, tokens
+    a second, each group's bytes a rank sends in the prefill and a
+    decode step beside :func:`reckon_tp_serve_bytes`.  A JSON line
+    ``{"tp": "serve", ...}`` a config and ``{"tp": "serve part"}``.
+    ``cells``: the configs served (:func:`tp_serve_cells` by default)."""
+    from repro_torch.core.topology import Topology
+    from repro_torch.models import build
+
+    part_s = [0.0] * len(ranks)
+    for name, cfg in (cells or tp_serve_cells()).items():
+        per = [r["serve_tp"][name] for r in ranks]
+        for i, x in enumerate(per):
+            part_s[i] += x["s"]
+        refs = [x for x in per if "rel_err" in x]
+        arch = build.make_archdef(cfg, TP_M)
+        rows = TP_SERVE_B // (TP_P * TP_D)
+        want = {k: reckon_tp_serve_bytes(cfg, arch, rows, TP_SERVE_PROMPT,
+                                         TP_M, TP_D, TP_P, 2, prefill=k)
+                for k in (True, False)}
+        sent = lambda b: {g: b[g]["sent"] for g in ("model", "data", "pod")}
+        decode_s = [sum(x["decode_ms"]) / 1e3 for x in per]
+        emit({"tp": "serve", "arch": cfg.name, "card": card,
+              "n_layers": cfg.n_layers, "count": build.param_count(
+                  build.build_model(cfg, Topology(1, 1, "cpu"))
+                  .abstract_params()),
+              "grid": list(TP_GRID), "requests": TP_SERVE_B,
+              "rows_a_rank": rows, "prompt": TP_SERVE_PROMPT,
+              "n_patches": cfg.n_patches, "steps": TP_SERVE_STEPS,
+              "max_len": per[0]["max_len"],
+              "f32_rel_err_per_reference": [x["rel_err"] for x in refs],
+              "limits": [TP_SERVE_PREFILL_REL, TP_SERVE_DECODE_REL],
+              "greedy_agree": [x["greedy_agree"] for x in refs],
+              "greedy_skipped": sum(x["greedy_skipped"] for x in refs),
+              "greedy_positions": sum(x["greedy_positions"] for x in refs),
+              "reference_s": [x["reference_s"] for x in refs],
+              "f32_cache_bytes_per_rank": [x["f32_cache_bytes"][-1]
+                                           for x in per],
+              "f32_cache_reckoned": per[0]["f32_cache_reckoned"],
+              "bf16_cache_bytes_per_rank": [x["bf16_cache_bytes"]
+                                            for x in per],
+              "bf16_cache_reckoned": per[0]["bf16_cache_reckoned"],
+              "bf16_prefill_ms_per_rank": [x["prefill_ms"] for x in per],
+              "bf16_decode_ms_per_rank": [x["decode_ms"] for x in per],
+              "bf16_tokens_per_s": TP_SERVE_B * TP_SERVE_STEPS
+              / max(decode_s),
+              "prefill_bytes_sent_rank0": sent(per[0]["prefill_bytes"]),
+              "decode_bytes_sent_rank0": [sent(b) for b in
+                                          per[0]["decode_bytes"]],
+              "bytes_reckoned": {"prefill": want[True],
+                                 "decode_step": want[False]},
+              "views_zero_copy": [x.get("views_zero_copy") for x in per],
+              "launches_per_rank": [x["launches"] for x in per],
+              "rank_s": [x["s"] for x in per]})
+        require(len(refs) == 1, f"tp serve {name}: {len(refs)} references")
+        for x in refs:
+            require(x["rel_err"][0] <= TP_SERVE_PREFILL_REL,
+                    f"tp serve {name}: prefill logits {x['rel_err'][0]} "
+                    "of the largest from one process's")
+            require(max(x["rel_err"][1:]) <= TP_SERVE_DECODE_REL,
+                    f"tp serve {name}: decode logits {x['rel_err'][1:]} "
+                    "of the largest from one process's")
+            require(x["greedy_agree"], f"tp serve {name}: a greedy token "
+                    "differs from one process's")
+        for r, x in zip(ranks, per):
+            require(x["finite"] and x["bf16_finite"],
+                    f"tp serve {name}: rank {r['rank']}: a logit not finite")
+            require(x["f32_cache_bytes"] == [x["f32_cache_reckoned"]]
+                    * (TP_SERVE_STEPS + 1)
+                    and x["bf16_cache_bytes"] == x["bf16_cache_reckoned"],
+                    f"tp serve {name}: rank {r['rank']}'s cache bytes "
+                    f"{x['f32_cache_bytes']}, {x['bf16_cache_bytes']}; "
+                    f"reckoned {x['f32_cache_reckoned']}, "
+                    f"{x['bf16_cache_reckoned']}")
+            require(not any(x["launches"].values()), f"tp serve {name}: "
+                    f"rank {r['rank']} launched {x['launches']}")
+            require(x.get("views_zero_copy", True), f"tp serve {name}: "
+                    "the served views are not one buffer (pod 0: the "
+                    "bucket)")
+            require(sent(x["prefill_bytes"]) == want[True]
+                    and all(sent(b) == want[False]
+                            for b in x["decode_bytes"]),
+                    f"tp serve {name}: rank {r['rank']} sent "
+                    f"{sent(x['prefill_bytes'])} in the prefill, "
+                    f"{[sent(b) for b in x['decode_bytes']]} a step; "
+                    f"reckoned {want}")
+    emit({"tp": "serve part", "card": card, "rank_s": part_s,
+          "limit_s": 60.0})
 
 
 def block_numel(shape, spec, model: int) -> int:
@@ -6550,7 +7062,7 @@ def main() -> None:
     moe_launches = phase_moe(torch, card)
     hybrid = phase_hybrid(torch, card)
     mesh = phase_mesh(torch, card, fsdp=True)
-    tp = phase_tp(torch, card, parts=("tp", "fsdp", "fam", "moe"))
+    tp = phase_tp(torch, card, parts=("tp", "fsdp", "fam", "moe", "serve"))
     fm = fsdp_mesh_report(torch, card, mesh.pop("ranks"), tp.pop("ranks"))
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
@@ -6597,13 +7109,14 @@ def tp_extra(tp: dict, name: str) -> dict:
     cells' and the LM run's launches of ``name`` in the ``tp`` phase;
     ``tp_moe_launches_per_rank`` and ``tp_fam_launches_per_rank``: per
     config, each rank's launches of ``name`` in its run over the model
-    axis (the moe part's FSDP, the fam part's replicated)."""
+    axis (the moe part's FSDP, the fam part's replicated);
+    ``tp_serve_launches_per_rank``: the serve part's, each config's."""
     return {"tp_launches_per_rank": mesh_extra(tp, name)[
         "mesh_launches_per_rank"],
         **{f"tp_{part}_launches_per_rank": {
             arch: [x[name] for x in per_rank]
             for arch, per_rank in tp[part].items()}
-           for part in ("moe", "fam") if part in tp}}
+           for part in ("moe", "fam", "serve") if part in tp}}
 
 
 def kernel_rows(main_rows: dict, launches: dict, paths: dict,

@@ -40,7 +40,15 @@ all-gather of the sign words in ``votes.py``): explicit
     reduce-scatter (``"sum"``: what follows reads the gathered tensor
     for the rank's own share of the output, so the ranks' gradients are
     partial -- an all-reduce, counted as ``reduce_scatter_model``, then
-    the slice).
+    the slice);
+  * serving's (``launch.specs``, ``models.moe``): :func:`broadcast_pods`
+    -- pod rank 0's tensor on every rank of the pod group (edge 0's
+    bucket row, served by every pod); :func:`gather_batch` -- every
+    batch rank's tensor (the pod and data ranks, over which the request
+    rows are split) in batch order, pod-major (the MoE's top-k expert
+    ids), an all-gather over the data group then one over the pod
+    group, counted as ``gather_batch_data`` and ``gather_batch_pod``:
+    the mesh has no batch group of its own, and these two compose it.
     A model sum is one all-reduce, in float32 for a narrower float
     (rounded back once).  Its order of addition is the algorithm's, not
     the one-process order, but every model rank gets the same bits:
@@ -76,10 +84,11 @@ from repro_torch.core.topology import Topology
 
 OPS = ("gather_devices", "gather_pods", "sum_devices", "gather_shards",
        "scatter_shards", "sum_model", "copy_to_model", "max_model",
-       "gather_model", "all_gather_model", "reduce_scatter_model")
+       "gather_model", "all_gather_model", "reduce_scatter_model",
+       "gather_batch_data", "gather_batch_pod", "broadcast_pods")
 GROUPS = {"data": ("gather_devices", "sum_devices", "gather_shards",
-                   "scatter_shards"),
-          "pod": ("gather_pods",),
+                   "scatter_shards", "gather_batch_data"),
+          "pod": ("gather_pods", "gather_batch_pod", "broadcast_pods"),
           "model": ("sum_model", "copy_to_model", "max_model",
                     "gather_model", "all_gather_model",
                     "reduce_scatter_model")}
@@ -155,6 +164,46 @@ def gather_pods(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:
         return x
     _count("gather_pods", x, m.pods - 1)
     return _gather(m, "pod", x, 0)
+
+
+def broadcast_pods(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:
+    """Pod rank 0's ``x`` on every rank of the pod group: ``x`` itself on
+    pod rank 0, a new tensor elsewhere (the backend's broadcast; no
+    gradient).  Pod rank 0 counts the bytes as sent to each peer, the
+    others as received."""
+    m = _mesh(topo)
+    if m is None or m.pods == 1:
+        return x
+    rec = traffic["broadcast_pods"]
+    nbytes = x.numel() * x.element_size()
+    rec["calls"] += 1
+    if m.pod_rank == 0:
+        y = x.detach().contiguous()
+        rec["sent"] += nbytes * (m.pods - 1)
+    else:
+        y = torch.empty_like(x, memory_format=torch.contiguous_format)
+        rec["received"] += nbytes
+    dist.broadcast(y, src=m.data_rank * m.model + m.model_rank,
+                   group=m.pod_group)
+    return y
+
+
+def gather_batch(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:
+    """Every batch rank's ``x`` stacked on a new dim 0, ``[pods * data,
+    *x.shape]``, pod-major (the data group's all-gather, then the pod
+    group's); ``x[None]`` without a mesh.  Serving's, with no
+    gradient."""
+    m = _mesh(topo)
+    y = x[None]
+    if m is None:
+        return y
+    if m.data > 1:
+        _count("gather_batch_data", y, m.data - 1)
+        y = _gather(m, "data", y, 0)
+    if m.pods > 1:
+        _count("gather_batch_pod", y, m.pods - 1)
+        y = _gather(m, "pod", y, 0)
+    return y
 
 
 def sum_devices(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,8 @@ the cache.
 
 Sharding specs (``gqa_specs``, ``_heads_spec``): the heads axis of
 ``wq``/``wo`` (and of ``wk``/``wv``) splits over the model axis where
-the head count divides it.  ``gqa_attn``'s train mode runs tensor-
-parallel with ``tp`` (``models.layers``): a rank projects its own query
+the head count divides it.  ``gqa_attn`` runs tensor-parallel with
+``tp`` (``models.layers``): a rank projects its own query
 heads (column-parallel, the input marked ``comm.copy_to_model``), and
 ``wo`` is row-parallel, the product summed over the model group.  A kv
 head count that does not divide (gemma3-1b's single head) keeps
@@ -47,7 +47,7 @@ is marked the same way.  whisper's ``bidir_attn`` and its
 cross-attention (``cross_kv``, ``cross_attn``) take the rank's heads
 the same way; the encoder's output, whole on every rank, reaches the
 rank's cross keys and values through ``copy_to_model``.
-``mla_attn``'s train mode runs
+``mla_attn`` runs
 tensor-parallel the same way (``mla_specs``): ``wuq``, ``wuk`` and
 ``wuv`` column-parallel over the heads, ``wo`` row-parallel and summed;
 the replicated ``wdq``/``qn``, ``wdkv``/``kvn`` and ``wkr`` form the
@@ -55,7 +55,15 @@ query latent, the kv latent and the shared rope key whole, each marked
 ``copy_to_model`` before the rank's heads read it.  Heads that do not
 divide the axis run whole on every rank, for both mixers.
 
-Not ported yet: the caches' sharding specs (item 17d).
+Serving runs the same split (``tp`` with a cache): the caches' specs
+(``gqa_cache_specs``, ``mla_cache_specs``, the JAX functions' tuples)
+give a rank its block -- the batch rows of its pod and data ranks, and
+GQA's kv heads where they divide the model axis, else all of them,
+formed whole as in training and cut to the rank's heads after the
+cache; MLA's latent ``ckv`` and rope key ``kr`` are whole on every
+model rank, and the rank's heads take their absorbed ``wuk`` and
+``wuv`` columns over it.  ``wo``'s row-parallel product is summed over
+the model group at prefill and at every decode step.
 """
 from __future__ import annotations
 
@@ -218,36 +226,6 @@ def _rank_kv(k, v, cfg, tp):
     return k, v
 
 
-def _gqa_train_tp(p, x, positions, cfg, theta, window, mask_extra, tp):
-    """Train-mode GQA on a rank's heads (``gqa_attn``'s ``tp``)."""
-    if _tp_heads(cfg, tp) is None:   # nothing splits: every rank the whole
-        return gqa_attn(p, x, positions, cfg, theta=theta, window=window,
-                        mask_extra=mask_extra)
-    split_kv = _kv_split(cfg, tp)
-    xq = comm.copy_to_model(tp, x)
-    q = _proj_heads(xq, p["wq"])
-    k = _proj_heads(xq if split_kv else x, p["wk"])
-    v = _proj_heads(xq if split_kv else x, p["wv"])
-    if cfg.qk_norm:
-        q = layers.rms_norm(comm.copy_to_model(tp, p["qn"]), q,
-                            cfg.norm_eps)
-        k = layers.rms_norm(p["kn"] if not split_kv
-                            else comm.copy_to_model(tp, p["kn"]), k,
-                            cfg.norm_eps)
-    q = layers.rope(q, positions, theta)
-    k = layers.rope(k, positions, theta)
-    k, v = _rank_kv(k, v, cfg, tp)
-    out = attend_causal(q, k, v, window, mask_extra)
-    return comm.sum_model(tp, _merge_heads(out, p["wo"]))
-
-
-def _refuse_cache(cache) -> None:
-    if cache is not None:
-        raise NotImplementedError(
-            "serving over a model axis (the caches' specs): ROADMAP item "
-            "17d")
-
-
 def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
              mask_extra=None, cache=None, pos: int = 0,
              prefill: bool = False, tp=None):
@@ -267,26 +245,28 @@ def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
     > pos - window`` with a window), the same mask for each of the t
     queries, as the JAX package's is.  An offset write past the cache's
     end raises ``ValueError`` (the JAX package's ``dynamic_update_slice``
-    would clamp it into the last slots).  ``tp`` (train mode): the
-    rank's heads, see the module docstring."""
-    if tp is not None:
-        _refuse_cache(cache)
-        return _gqa_train_tp(p, x, positions, cfg, theta, window,
-                             mask_extra, tp)
-    rep = cfg.n_heads // cfg.n_kv_heads
-    q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
+    would clamp it into the last slots).  ``tp``: the rank's heads, see
+    the module docstring; with a cache, the rank's block of it
+    (``gqa_cache_specs``: its kv heads, or all of them where they do not
+    split)."""
+    tp = _tp_heads(cfg, tp)
+    split_kv = _kv_split(cfg, tp)
+    xq = comm.copy_to_model(tp, x)
+    xkv = xq if split_kv else x
+    q = _proj_heads(xq, p["wq"])
+    k = _proj_heads(xkv, p["wk"])
+    v = _proj_heads(xkv, p["wv"])
     if cfg.qk_norm:
-        q = layers.rms_norm(p["qn"], q, cfg.norm_eps)
-        k = layers.rms_norm(p["kn"], k, cfg.norm_eps)
+        q = layers.rms_norm(comm.copy_to_model(tp, p["qn"]), q,
+                            cfg.norm_eps)
+        k = layers.rms_norm(comm.copy_to_model(tp, p["kn"]) if split_kv
+                            else p["kn"], k, cfg.norm_eps)
     q = layers.rope(q, positions, theta)
     k = layers.rope(k, positions, theta)
     if cache is None or prefill:
-        out = attend_causal(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
-                            window, mask_extra)
+        out = attend_causal(q, *_rank_kv(k, v, cfg, tp), window, mask_extra)
         if cache is None:
-            return _merge_heads(out, p["wo"])
+            return comm.sum_model(tp, _merge_heads(out, p["wo"]))
     ck, cv = cache["k"], cache["v"]
     kc, vc = k.to(ck.dtype), v.to(cv.dtype)
     t, length = x.shape[-2], ck.shape[-3]
@@ -298,7 +278,7 @@ def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
         ck = torch.cat([ck[..., t:, :, :], kc], dim=-3)
         cv = torch.cat([cv[..., t:, :, :], vc], dim=-3)
         valid = torch.arange(window, device=x.device) >= window - 1 - pos
-        out = _attend(q, _repeat_kv(ck, rep), _repeat_kv(cv, rep),
+        out = _attend(q, *_rank_kv(ck, cv, cfg, tp),
                       valid.expand(t, window))
     else:
         at = 0 if prefill else pos
@@ -315,15 +295,25 @@ def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
             valid = kj <= pos
             if window:
                 valid &= kj > pos - window
-            out = _attend(q, _repeat_kv(ck, rep), _repeat_kv(cv, rep),
+            out = _attend(q, *_rank_kv(ck, cv, cfg, tp),
                           valid.expand(t, length))
-    return _merge_heads(out, p["wo"]), {"k": ck, "v": cv}
+    return comm.sum_model(tp, _merge_heads(out, p["wo"])), {"k": ck, "v": cv}
 
 
 def gqa_cache_init(cfg, b: int, max_len: int) -> dict:
     """The shapes of one layer's k and v cache."""
     shape = (b, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": shape, "v": shape}
+
+
+def gqa_cache_specs(cfg, model_shards: int, batch_axes,
+                    len_axis=None) -> dict:
+    """The k and v cache's spec (the JAX ``gqa_cache_specs``): the batch
+    over ``batch_axes``, the length over ``len_axis`` (the length-sharded
+    layout), the kv heads over the model axis where they divide it."""
+    hks = _heads_spec(cfg.n_kv_heads, model_shards)
+    return {"k": (batch_axes, len_axis, hks, None),
+            "v": (batch_axes, len_axis, hks, None)}
 
 
 def bidir_attn(p, x, cfg, tp=None):
@@ -416,12 +406,11 @@ def mla_attn(p, x, positions, cfg, *, cache=None, pos: int = 0,
     ``mla_cache_init``), (out, new_cache): ``prefill`` attends causally
     over the fresh tokens and writes their latents from slot 0, decode
     writes t tokens at ``pos`` (a host int) and attends over the cache
-    through the absorbed keys, masking ``kj <= pos``.  ``tp`` (train
-    mode): the rank's heads, see the module docstring."""
-    if tp is not None:
-        _refuse_cache(cache)
-        if cfg.n_heads % tp.model_shards:   # the heads whole on every rank
-            tp = None
+    through the absorbed keys, masking ``kj <= pos``.  ``tp``: the
+    rank's heads, see the module docstring; the latent cache is whole on
+    every rank (``mla_cache_specs``)."""
+    if tp is not None and cfg.n_heads % tp.model_shards:
+        tp = None                           # the heads whole on every rank
     m = cfg.mla
     nope, rdim = m.qk_nope_head_dim, m.qk_rope_head_dim
     ql = comm.copy_to_model(tp, layers.rms_norm(
@@ -444,7 +433,7 @@ def mla_attn(p, x, positions, cfg, *, cache=None, pos: int = 0,
             return comm.sum_model(tp, _merge_heads(out, p["wo"]))
         new_cache = {"ckv": _write(cache["ckv"], ckv, 0),
                      "kr": _write(cache["kr"], k_rope, 0)}
-        return _merge_heads(out, p["wo"]), new_cache
+        return comm.sum_model(tp, _merge_heads(out, p["wo"])), new_cache
     cc = _write(cache["ckv"], ckv, pos)
     cr = _write(cache["kr"], k_rope, pos)
     q_abs = torch.einsum("bthk,rhk->bthr", q_nope, p["wuk"])
@@ -457,7 +446,8 @@ def mla_attn(p, x, positions, cfg, *, cache=None, pos: int = 0,
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     o_lat = torch.einsum("bhts,bsr->bthr", w, cc.to(x.dtype))
     out = torch.einsum("bthr,rhk->bthk", o_lat, p["wuv"])
-    return _merge_heads(out, p["wo"]), {"ckv": cc, "kr": cr}
+    return (comm.sum_model(tp, _merge_heads(out, p["wo"])),
+            {"ckv": cc, "kr": cr})
 
 
 def mla_cache_init(cfg, b: int, max_len: int) -> dict:
@@ -465,3 +455,11 @@ def mla_cache_init(cfg, b: int, max_len: int) -> dict:
     m = cfg.mla
     return {"ckv": (b, max_len, m.kv_lora_rank),
             "kr": (b, max_len, m.qk_rope_head_dim)}
+
+
+def mla_cache_specs(cfg, model_shards: int, batch_axes,
+                    len_axis=None) -> dict:
+    """The latent cache's spec (the JAX ``mla_cache_specs``): split by
+    the batch (and a length axis) only, whole on every model rank."""
+    return {"ckv": (batch_axes, len_axis, None),
+            "kr": (batch_axes, len_axis, None)}

@@ -20,16 +20,22 @@ leading dense layers and its MTP block), the hybrid family's
                                              the aux loss is not kept)
     cache_init(b, max_len)                -> the shapes of one layer's
                                              decode cache
+    cache_specs(batch_ax, len_ax)         -> its spec tree (the JAX
+                                             block's)
 
 Every block carries its leaves' sharding specs (``BlockDef.specs``, the
 JAX block's, at the ``model_shards`` it is built for): they lay out the
 FSDP masters (``build.master_specs``).  Every block runs
-tensor-parallel in train mode when ``Ctx.tp`` is set
-(``models.layers``, ``models.attention``, ``models.moe``,
-``models.ssm``): whisper's encoder and cross-attention too, the
-encoder's output whole on every rank.
-
-Not ported yet: the caches' sharding specs (ROADMAP item 17d).
+tensor-parallel when ``Ctx.tp`` is set (``models.layers``,
+``models.attention``, ``models.moe``, ``models.ssm``): whisper's
+encoder and cross-attention too, the encoder's output whole on every
+rank; in train mode and when serving, where a rank's cache is the block
+its ``cache_specs`` give it -- the JAX block's spec tuples, the window
+rule ``la = None if window else len_ax`` and the cross keys ``ek``/``ev``
+by kv heads included.  ``Ctx.batch``, when serving over a process mesh,
+is the topology whose pod and data ranks split the request rows: the
+MoE routes by the whole call's groups across them
+(``models.moe.moe_block``).
 """
 from __future__ import annotations
 
@@ -55,7 +61,10 @@ class Ctx:
                                              # [*lead, b, f, d]; None at
                                              # decode (the cache has it)
     tp: object | None = None                 # the topology of a model
-                                             # axis above 1 (train mode)
+                                             # axis above 1
+    batch: object | None = None              # serving over a mesh: the
+                                             # topology whose pod and
+                                             # data ranks split the rows
 
 
 @dataclasses.dataclass
@@ -68,6 +77,7 @@ class BlockDef:
                                    # backward (see slstm_block)
     cache_init: Callable | None = None   # (b, max_len) -> shapes
     specs: dict | None = None      # the leaves' model-axis specs
+    cache_specs: Callable | None = None  # (batch_ax, len_ax) -> specs
 
 
 def no_aux(x: torch.Tensor) -> torch.Tensor:
@@ -136,6 +146,14 @@ def dense_block(cfg: LMConfig, model_shards: int = 0, *, window: int = 0,
                                  cfg.hd)
         return c
 
+    def cache_specs(batch_ax, len_ax):
+        la = None if window else len_ax
+        c = {"self": attn.gqa_cache_specs(cfg, model_shards, batch_ax, la)}
+        if cross:
+            hks = attn._heads_spec(cfg.n_kv_heads, model_shards)
+            c["ek"] = c["ev"] = (batch_ax, None, hks, None)
+        return c
+
     specs = {"n1": (None,), "n2": (None,),
              "attn": attn.gqa_specs(cfg, model_shards),
              "mlp": layers.mlp_specs(cfg.act)}
@@ -143,7 +161,8 @@ def dense_block(cfg: LMConfig, model_shards: int = 0, *, window: int = 0,
         specs["nx"] = (None,)
         specs["xattn"] = {k: attn.gqa_specs(cfg, model_shards)[k]
                           for k in ("wq", "wk", "wv", "wo")}
-    return BlockDef(name, init, apply, cache_init=cache_init, specs=specs)
+    return BlockDef(name, init, apply, cache_init=cache_init, specs=specs,
+                    cache_specs=cache_specs)
 
 
 def moe_block(cfg: LMConfig, model_shards: int = 0, *,
@@ -174,18 +193,23 @@ def moe_block(cfg: LMConfig, model_shards: int = 0, *,
             a, new_cache = a
         x = x + a
         y, aux = moe_mod.moe_block(p["moe"], layers.rms_norm(
-            p["n2"], x, cfg.norm_eps), cfg, tp=ctx.tp)
+            p["n2"], x, cfg.norm_eps), cfg, tp=ctx.tp, batch=ctx.batch)
         return (x + y, aux) if cache is None else (x + y, new_cache)
 
     def cache_init(b, max_len):
         return (attn.mla_cache_init(cfg, b, max_len) if use_mla
                 else attn.gqa_cache_init(cfg, b, max_len))
 
+    def cache_specs(batch_ax, len_ax):
+        return (attn.mla_cache_specs if use_mla else attn.gqa_cache_specs)(
+            cfg, model_shards, batch_ax, len_ax)
+
     specs = {"n1": (None,), "n2": (None,),
              "attn": (attn.mla_specs(cfg, model_shards) if use_mla
                       else attn.gqa_specs(cfg, model_shards)),
              "moe": moe_mod.moe_specs(cfg, model_shards)}
-    return BlockDef(name, init, apply, cache_init=cache_init, specs=specs)
+    return BlockDef(name, init, apply, cache_init=cache_init, specs=specs,
+                    cache_specs=cache_specs)
 
 
 def mla_dense_block(cfg: LMConfig, d_ff: int, model_shards: int = 0,
@@ -216,17 +240,23 @@ def mla_dense_block(cfg: LMConfig, d_ff: int, model_shards: int = 0,
     def cache_init(b, max_len):
         return attn.mla_cache_init(cfg, b, max_len)
 
+    def cache_specs(batch_ax, len_ax):
+        return attn.mla_cache_specs(cfg, model_shards, batch_ax, len_ax)
+
     specs = {"n1": (None,), "n2": (None,),
              "attn": attn.mla_specs(cfg, model_shards),
              "mlp": layers.mlp_specs(cfg.act)}
-    return BlockDef(name, init, apply, cache_init=cache_init, specs=specs)
+    return BlockDef(name, init, apply, cache_init=cache_init, specs=specs,
+                    cache_specs=cache_specs)
 
 
 def _mixer_block(cfg: LMConfig, name: str, init_mixer, mixer, state_init,
-                 specs: dict, remat: bool = True) -> BlockDef:
+                 specs: dict, state_specs, model_shards: int,
+                 remat: bool = True) -> BlockDef:
     """A recurrent mixer behind an RMS norm and a residual add (its
     parameters under ``name``, beside the norm ``n1``); its cache is the
-    mixer's recurrent state."""
+    mixer's recurrent state, laid out by ``state_specs(cfg,
+    model_shards, batch_ax)`` (no length axis)."""
 
     def init(gen, device):
         return {"n1": layers.init_rms(cfg.d_model, device),
@@ -237,26 +267,31 @@ def _mixer_block(cfg: LMConfig, name: str, init_mixer, mixer, state_init,
         if cache is None:
             x = x + mixer(p[name], h, cfg, tp=ctx.tp)
             return x, no_aux(x)
-        y, new_cache = mixer(p[name], h, cfg, state=cache)
+        y, new_cache = mixer(p[name], h, cfg, state=cache, tp=ctx.tp)
         return x + y, new_cache
 
     def cache_init(b, max_len):
         return state_init(cfg, b)
 
+    def cache_specs(batch_ax, len_ax):
+        return state_specs(cfg, model_shards, batch_ax)
+
     return BlockDef(name, init, apply, remat, cache_init,
-                    {"n1": (None,), name: specs})
+                    {"n1": (None,), name: specs}, cache_specs)
 
 
 def mamba_block(cfg: LMConfig, model_shards: int = 0) -> BlockDef:
     return _mixer_block(cfg, "mamba", ssm.init_mamba2, ssm.mamba2_block,
                         ssm.mamba2_state_init,
-                        ssm.mamba2_specs(cfg, model_shards))
+                        ssm.mamba2_specs(cfg, model_shards),
+                        ssm.mamba2_state_specs, model_shards)
 
 
 def mlstm_block(cfg: LMConfig, model_shards: int = 0) -> BlockDef:
     return _mixer_block(cfg, "mlstm", ssm.init_mlstm, ssm.mlstm_block,
                         ssm.mlstm_state_init,
-                        ssm.mlstm_specs(cfg, model_shards))
+                        ssm.mlstm_specs(cfg, model_shards),
+                        ssm.mlstm_state_specs, model_shards)
 
 
 def slstm_block(cfg: LMConfig, model_shards: int = 0) -> BlockDef:
@@ -266,4 +301,5 @@ def slstm_block(cfg: LMConfig, model_shards: int = 0) -> BlockDef:
     position.  The values are the same either way."""
     return _mixer_block(cfg, "slstm", ssm.init_slstm, ssm.slstm_block,
                         ssm.slstm_state_init,
-                        ssm.slstm_specs(cfg, model_shards), remat=False)
+                        ssm.slstm_specs(cfg, model_shards),
+                        ssm.slstm_state_specs, model_shards, remat=False)

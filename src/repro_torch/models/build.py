@@ -70,10 +70,24 @@ through the replicated adapter: every rank holds them whole, and the
 encoder's output too.  A vocabulary that does not divide the axis
 (whisper's 51865) keeps the embedding, head and cross-entropy whole.
 
-Not ported yet (each raises ``NotImplementedError``): the ``"gather"``
-serve layout of the FSDP configs above the budget (item 17d:
-``ServeGatherPlan``), ``cache_specs`` and serving over a model axis
-(17d).
+Serving over a process mesh (``topo`` with a mesh; the ``"resident"``
+layout, the weights in the compute layout) is the JAX package's one
+logical serve laid out by its specs: each rank serves its rows of the
+request batch -- the batch split over the pod and data ranks,
+``SERVE_BATCH_AXES`` -- with its blocks of the parameters (``Ctx.tp``:
+the heads, inner dims and experts over the model group, as training
+splits them), and its cache is its block of the global one
+(:func:`cache_specs`, :func:`make_cache` with ``b`` the global batch;
+:func:`cache_bytes` reckons it).  The MoE routes by the whole call's
+groups across the batch ranks (``models.moe``); the head's vocab blocks
+are gathered over the model group, so a rank returns the whole [b_loc,
+1, V] logits of its rows; whisper's encoder and a vlm's patches run as
+in training.
+
+Not ported yet (each raises ``NotImplementedError`` naming item 17d,
+part two): the ``"gather"`` serve layout of the FSDP configs above the
+budget (``ServeGatherPlan``) and a cache sharded by length
+(``len_axis``, long_500k's layout).
 """
 from __future__ import annotations
 
@@ -88,6 +102,7 @@ from repro_torch.core import comm, device_axis, hier, pytree
 from repro_torch.core.topology import Topology
 from repro_torch.models import blocks as B
 from repro_torch.models import engine, layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.blocks import Ctx
 from repro_torch.models.config import LMConfig
 from repro_torch.models.engine import ArchDef, ReplicatedPlan, Segment
@@ -481,69 +496,175 @@ def occurrence_counts(segments) -> dict[str, int]:
     return occ
 
 
-def make_cache(arch: ArchDef, b: int, max_len: int,
-               device: str | torch.device | None = None) -> dict:
-    """bfloat16 zeros of each block's ``cache_init`` slice shapes,
-    stacked over its occurrences (a tied block has a slice for each),
-    and ``pos`` 0.  Every leaf is zero, the sLSTM's ``n`` too, where
-    training starts it at ones: the JAX package's ``make_cache`` does
-    the same (ROADMAP queue 3)."""
-    stacks = {}
+SERVE_BATCH_AXES = ("pod", "data")   # the request rows over a mesh: the
+                                     # JAX ``batch_axes``, pod-major
+
+
+def axis_sizes(topo: Topology | None) -> dict:
+    """Each mesh axis' size (every one 1 without a mesh)."""
+    m = None if topo is None else topo.mesh
+    if m is None:
+        return {"pod": 1, "data": 1, "model": 1}
+    return {"pod": m.pods, "data": m.data, "model": m.model}
+
+
+def block_shape(shape: tuple, spec: tuple, sizes: dict) -> tuple:
+    """A leaf's block on one rank: each dim divided by the sizes of the
+    axes its spec entry names (None, an axis, or a tuple of axes); a dim
+    they do not divide raises ``ValueError``."""
+    out = []
+    for i, n in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        names = entry if isinstance(entry, tuple) else (entry,)
+        div = math.prod(sizes[a] for a in names if a is not None)
+        if n % div:
+            raise ValueError(f"dim {i} of {tuple(shape)} ({n}) does not "
+                             f"split over {entry} ({div} ranks)")
+        out.append(n // div)
+    return tuple(out)
+
+
+def _cache_leaves(arch: ArchDef, b: int, max_len: int,
+                  topo: Topology | None, len_axis=None) -> dict:
+    """Each block's cache slice shapes at this rank: {block: tree of
+    (n_occurrences, *block shape)}."""
+    sizes = axis_sizes(topo)
+    specs = cache_specs(arch, SERVE_BATCH_AXES, len_axis)["stacks"]
+    out = {}
     for name, n in occurrence_counts(arch.segments).items():
         bd = arch.blocks[name]
         if bd.cache_init is None:
             continue
-        stacks[name] = pytree.tree_map(
-            lambda shape: torch.zeros((n,) + shape, dtype=torch.bfloat16,
-                                      device=device),
-            bd.cache_init(b, max_len))
+        out[name] = pytree.tree_map(
+            lambda shape, sp: (n,) + block_shape(shape, sp[1:], sizes),
+            bd.cache_init(b, max_len), specs[name])
+    return out
+
+
+def _refuse_len_axis(arch: ArchDef, len_axis) -> None:
+    if len_axis is None:
+        return
+    for sp in pytree.tree_flatten(cache_specs(arch, None, len_axis))[0]:
+        if len_axis in sp:
+            raise NotImplementedError(
+                f"{arch.cfg.name}: a cache sharded by length over "
+                f"{len_axis!r} (long_500k's layout): ROADMAP item 17d, part "
+                "two")
+
+
+def make_cache(arch: ArchDef, b: int, max_len: int,
+               device: str | torch.device | None = None,
+               topo: Topology | None = None, len_axis=None) -> dict:
+    """bfloat16 zeros of each block's ``cache_init`` slice shapes,
+    stacked over its occurrences (a tied block has a slice for each),
+    and ``pos`` 0.  Every leaf is zero, the sLSTM's n too, where
+    training starts it at ones: the JAX package's ``make_cache`` does
+    the same (ROADMAP queue 3).  Over a mesh (``topo``) ``b`` is the
+    global batch and the cache is this rank's block of it
+    (:func:`cache_specs` over ``SERVE_BATCH_AXES``): its batch rows, and
+    its heads or inner-dim slice where a spec names the model axis;
+    ``len_axis``, the length-sharded layout, raises (item 17d, part
+    two)."""
+    _refuse_len_axis(arch, len_axis)
+    stacks = {name: pytree.tree_map(
+        lambda shape: torch.zeros(shape, dtype=torch.bfloat16,
+                                  device=device), tree)
+        for name, tree in _cache_leaves(arch, b, max_len, topo).items()}
     return {"stacks": stacks, "pos": 0}
 
 
-def cache_specs(arch: ArchDef):
-    raise NotImplementedError(
-        "cache_specs (the caches' sharding, with the gather serve "
-        "layout): ROADMAP item 17d")
+STATE_LEAVES = frozenset({"ssm", "C", "n", "m", "c", "h"})   # float32 once
+                                                        # served
+
+
+def cache_bytes(arch: ArchDef, b: int, max_len: int,
+                topo: Topology | None = None,
+                compute_dtype: torch.dtype | None = None) -> int:
+    """The bytes of a rank's cache, reckoned from the specs: as
+    :func:`make_cache` allocates it (bfloat16) without a
+    ``compute_dtype``; with one, as prefill and decode return it --
+    the recurrent states (``STATE_LEAVES``) float32, the conv states in
+    the compute dtype, the attention caches bfloat16."""
+    def nbytes(key, shape):
+        if compute_dtype is None:
+            size = 2
+        elif key in STATE_LEAVES:
+            size = 4
+        elif key == "conv":
+            size = torch.empty((), dtype=compute_dtype).element_size()
+        else:
+            size = 2
+        return size * math.prod(shape)
+
+    def walk(tree):
+        return sum(walk(v) if isinstance(v, dict) else nbytes(k, v)
+                   for k, v in tree.items())
+    return walk(_cache_leaves(arch, b, max_len, topo))
+
+
+def cache_specs(arch: ArchDef, batch_ax, len_axis=None) -> dict:
+    """The cache's spec tree (the JAX ``cache_specs``, tuple for tuple):
+    each block's ``cache_specs(batch_ax, len_axis)`` behind a ``None``
+    for its occurrences, and ``pos`` replicated, ``()``."""
+    stacks = {}
+    for name in occurrence_counts(arch.segments):
+        bd = arch.blocks[name]
+        if bd.cache_specs is None:
+            continue
+        stacks[name] = pytree.tree_map(lambda sp: (None,) + tuple(sp),
+                                       bd.cache_specs(batch_ax, len_axis))
+    return {"stacks": stacks, "pos": ()}
 
 
 class ServeGatherPlan(ReplicatedPlan):
     """The serving plan for FSDP-stored parameters (a per-layer
-    all-gather): ROADMAP item 17d."""
+    all-gather): ROADMAP item 17d, part two."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "ServeGatherPlan (serving FSDP-stored parameters): ROADMAP "
-            "item 17d")
+            "item 17d, part two")
 
 
-def serve_layout(cfg: LMConfig, n_params: int) -> str:
-    """The reference's rule: ``"resident"`` (the weights served as they
-    are) for the replicated regime and for an FSDP config whose bf16
-    weights, ``2 * n_params`` bytes on the one card, fit
-    ``SERVE_RESIDENT_BUDGET``; ``"gather"`` (FSDP-stored weights gathered
-    a layer at a time, ROADMAP item 17d) otherwise."""
+def serve_layout(cfg: LMConfig, topo: Topology, n_params: int) -> str:
+    """The reference's rule: ``"resident"`` (the weights served in the
+    compute layout) for the replicated regime and for an FSDP config
+    whose bf16 weights on a card, ``2 * n_params`` bytes over the model
+    axis' shards, fit ``SERVE_RESIDENT_BUDGET``; ``"gather"``
+    (FSDP-stored weights gathered a layer at a time, ROADMAP item 17d,
+    part two) otherwise."""
     if cfg.param_mode != "fsdp":
         return "resident"
-    return "resident" if 2.0 * n_params <= SERVE_RESIDENT_BUDGET else "gather"
+    per_card = 2.0 * n_params / max(topo.model_shards, 1)
+    return "resident" if per_card <= SERVE_RESIDENT_BUDGET else "gather"
 
 
-def make_serve_fns(arch: ArchDef, layout: str = "resident"):
+def make_serve_fns(arch: ArchDef, topo: Topology | None = None,
+                   layout: str = "resident"):
     """(prefill, decode_step) as the module docstring gives them; the
-    ``"gather"`` layout raises (ROADMAP item 17d)."""
+    ``"gather"`` layout raises (ROADMAP item 17d, part two).  Over a
+    mesh (``topo``) each rank serves its rows of the batch with its
+    blocks of the parameters (the module docstring)."""
     cfg = arch.cfg
     plan = ReplicatedPlan(cfg, remat=False)
+    tp = topo if topo is not None and topo.model_shards > 1 else None
+    tp_vocab = tp if tp is not None and layers.vocab_sharded(
+        cfg.vocab, tp.model_shards) else None
+    batch_topo = topo if topo is not None and topo.mesh is not None else None
+    n_batch = moe_mod.batch_ranks(batch_topo)[0]
 
     def check_layout():
-        if layout == "tp":
-            raise NotImplementedError(
-                f"serving {cfg.name} over a model axis above 1 (the "
-                "caches' specs and the sharded serve layouts): ROADMAP "
-                "item 17d")
         if layout != "resident":
             raise NotImplementedError(
                 f"serving {cfg.name} in the {layout!r} layout (FSDP-stored "
                 "weights gathered a layer at a time, the gather serve "
-                "layout): ROADMAP item 17d")
+                "layout): ROADMAP item 17d, part two")
+
+    def logits_of(params, x):
+        """The head's logits [b, 1, V] of x [b, 1, d], the vocab blocks
+        gathered over the model group."""
+        return comm.gather_model(tp_vocab, _logits(
+            cfg, params["head"], params["embed"], x, tp_vocab), -1)
 
     def prefill(params, batch, max_len: int):
         """The whole prompt: (the last position's logits [b, 1, V], the
@@ -553,28 +674,29 @@ def make_serve_fns(arch: ArchDef, layout: str = "resident"):
         tokens = batch["tokens"]
         b = tokens.shape[0]
         with torch.no_grad():
-            x = layers.embed(params["embed"], tokens, cfg.embed_scale)
+            x = layers.embed(params["embed"], tokens, cfg.embed_scale,
+                             tp_vocab)
             enc_out = None
             if arch.enc_segments:
                 frames = batch["frames"].to(x.dtype)
                 ex = layers.linear(frames,
                                    params["adapter"]["w"].to(x.dtype))
                 ectx = Ctx(cfg, "train", positions=torch.arange(
-                    frames.shape[-2], device=frames.device))
+                    frames.shape[-2], device=frames.device), tp=tp)
                 enc_out, _ = engine.run_segments(
                     plan, arch, arch.enc_segments, params["enc_stacks"],
                     ex, ectx)
             x, _ = _patches_first(cfg, x, batch)
             t = x.shape[-2]
-            cache = make_cache(arch, b, max_len, tokens.device)
+            cache = make_cache(arch, b * n_batch, max_len, tokens.device,
+                               batch_topo)
             ctx = Ctx(cfg, "prefill",
                       positions=torch.arange(t, device=tokens.device),
-                      pos=0, enc_out=enc_out)
+                      pos=0, enc_out=enc_out, tp=tp, batch=batch_topo)
             x, stacks = engine.run_segments(
                 plan, arch, arch.segments, params["stacks"], x, ctx,
                 caches=cache["stacks"])
-            logits = _logits(cfg, params["head"], params["embed"],
-                             x[..., -1:, :])
+            logits = logits_of(params, x[..., -1:, :])
         return logits, {"stacks": stacks, "pos": t}
 
     def decode_step(params, cache, tokens):
@@ -583,13 +705,14 @@ def make_serve_fns(arch: ArchDef, layout: str = "resident"):
         check_layout()
         pos, t = cache["pos"], tokens.shape[-1]
         with torch.no_grad():
-            x = layers.embed(params["embed"], tokens, cfg.embed_scale)
+            x = layers.embed(params["embed"], tokens, cfg.embed_scale,
+                             tp_vocab)
             ctx = Ctx(cfg, "decode", positions=pos + torch.arange(
-                t, device=tokens.device), pos=pos)
+                t, device=tokens.device), pos=pos, tp=tp, batch=batch_topo)
             x, stacks = engine.run_segments(
                 plan, arch, arch.segments, params["stacks"], x, ctx,
                 caches=cache["stacks"])
-            logits = _logits(cfg, params["head"], params["embed"], x)
+            logits = logits_of(params, x)
         return logits, {"stacks": stacks, "pos": pos + t}
 
     return prefill, decode_step
@@ -605,8 +728,9 @@ class BuiltModel:
     abstract_params: Callable      # () -> the same tree on the meta device
     prefill: Callable              # (params, batch, max_len) -> logits, cache
     decode_step: Callable          # (params, cache, tokens) -> logits, cache
-    make_cache: Callable           # (b, max_len, device) -> cache
-    serve_layout: str = "resident"  # or "gather" (item 17d)
+    make_cache: Callable           # (b, max_len, device) -> the rank's cache
+    cache_specs: Callable          # (batch_ax, len_axis=None) -> specs
+    serve_layout: str = "resident"  # or "gather" (item 17d, part two)
 
 
 def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
@@ -617,13 +741,12 @@ def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
     (:func:`master_specs` at ``topo``'s global D: the replicated
     regime's masters are laid out as computed, an FSDP config's
     data-sharded as in the JAX ``build_master_specs``); over a model
-    axis above 1 the loss is
-    tensor-parallel and serving raises (item 17d)."""
+    axis above 1 the loss and serving are tensor-parallel."""
     m = topo.model_shards
     arch = make_archdef(cfg, m)
     abstract = init_params(arch, None, "meta")
-    layout = serve_layout(cfg, param_count(abstract))
-    prefill, decode_step = make_serve_fns(arch, layout if m == 1 else "tp")
+    layout = serve_layout(cfg, topo, param_count(abstract))
+    prefill, decode_step = make_serve_fns(arch, topo, layout)
     fsdp = cfg.param_mode == "fsdp"
     cspecs = compute_specs(arch, m)
     mspecs = master_specs(arch, cspecs, abstract, topo.devices_per_pod, m,
@@ -640,7 +763,9 @@ def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
         init_params=lambda generator: init_params(arch, generator),
         abstract_params=lambda: init_params(arch, None, "meta"),
         prefill=prefill, decode_step=decode_step,
-        make_cache=functools.partial(make_cache, arch), serve_layout=layout)
+        make_cache=functools.partial(make_cache, arch, topo=topo),
+        cache_specs=functools.partial(cache_specs, arch),
+        serve_layout=layout)
 
 
 def param_count(params: PyTree) -> int:

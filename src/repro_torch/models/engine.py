@@ -34,7 +34,7 @@ the paper's per-coordinate semantics.  A tied block's cache has a slice
 per occurrence, on its own cursor.
 
 Not ported yet: the serving plan that gathers FSDP shards (ROADMAP item
-17).
+17d, part two).
 """
 from __future__ import annotations
 

@@ -46,6 +46,21 @@ router's gate gradient is summed over the group; the router and its
 logits are not marked: the aux loss is whole on every rank, and so is
 its gradient.  Experts that do not divide the axis (spec None) run
 whole on every rank, unsummed.
+
+Serving over a process mesh (``moe_block``'s ``batch``): the request
+rows are split over the pod and data ranks, but the groups are the
+whole call's, as in the reference's one logical program -- ``g =
+max(1, N // group_tokens)`` groups of ``S = N / g`` of the call's ``N``
+tokens in batch order, the capacity from ``S``.  A rank whose tokens
+are whole groups routes them alone, with no exchange.  Where a group
+straddles batch ranks (a decode step: deepseek-v3's 128 requests are
+one group), every batch rank's top-k expert ids ``[n, k]`` cross one
+all-gather over the data group and one over the pod group
+(``comm.gather_batch``, batch order: pod-major, then data), the
+queue positions are :func:`_route`'s cumsum over the whole groups the
+rank's tokens touch, and the rank routes its own rows at their places
+in those groups (zeros elsewhere).  Routing each rank's rows alone
+would shrink ``S``, and with it the capacity and the drops, silently.
 """
 from __future__ import annotations
 
@@ -99,20 +114,32 @@ def capacity(group: int, e) -> int:
     return max(1, int(group * e.top_k / e.n_experts * e.capacity_factor))
 
 
-def _route(p, xg: torch.Tensor, e):
-    """xg [*lead, G, S, d] -> (combine, dispatch [*lead, G, S, E, C]
-    float32, the aux loss [*lead], C)."""
-    s_len = xg.shape[-2]
-    cap = capacity(s_len, e)
+def _gates(p, xg: torch.Tensor, e):
+    """The router on xg [*lead, G, S, d]: (probs [*, G, S, E], the
+    renormalised top-k gates [*, G, S, k], their experts [*, G, S, k],
+    and those as one-hots sel [*, G, S, k, E] float32)."""
     logits = layers.linear(xg, p["router"]).to(F32)            # [*, G, S, E]
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[..., :e.top_k], idx[..., :e.top_k]
     gate_vals = gate_vals / torch.clamp_min(
         torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
-    sel = F.one_hot(gate_idx, e.n_experts).to(F32)             # [*, G,S,k,E]
-    flat = sel.reshape(sel.shape[:-3] + (s_len * e.top_k, e.n_experts))
-    pos_in_e = torch.cumsum(flat, dim=-2).reshape(sel.shape) - 1.0
+    return (probs, gate_vals, gate_idx,
+            F.one_hot(gate_idx, e.n_experts).to(F32))
+
+
+def _queue(sel, e):
+    """Each (token, choice) pair's place in its expert's queue, from sel
+    [*, G, S, k, E]: a float32 cumsum over the group's S*k pairs in
+    choice order."""
+    flat = sel.reshape(sel.shape[:-3] + (-1, e.n_experts))
+    return torch.cumsum(flat, dim=-2).reshape(sel.shape) - 1.0
+
+
+def _slots(sel, gate_vals, pos_in_e, cap: int):
+    """(combine, dispatch [*, G, S, E, cap] float32): the pairs whose
+    queue position ``pos_in_e`` is below ``cap`` kept, each at slot
+    ``pos_in_e``."""
     keep = sel * (pos_in_e < cap)
     # at most one kept choice a (token, expert): sums over k are exact
     kept = keep.sum(dim=-2)                                    # [*, G,S,E]
@@ -120,10 +147,61 @@ def _route(p, xg: torch.Tensor, e):
     slot = F.one_hot(pos.long(), cap).to(F32)                  # [*,G,S,E,C]
     disp = kept[..., None] * slot
     comb = (keep * gate_vals[..., None]).sum(dim=-2)[..., None] * slot
+    return comb, disp
+
+
+def _aux(sel, probs, e) -> torch.Tensor:
     f_e = torch.mean(sel.sum(dim=-2), dim=(-3, -2))            # [*, E]
     p_e = torch.mean(probs, dim=(-3, -2))
-    aux = e.n_experts * torch.sum(f_e * p_e, dim=-1) * e.aux_loss_coef
-    return comb, disp, aux, cap
+    return e.n_experts * torch.sum(f_e * p_e, dim=-1) * e.aux_loss_coef
+
+
+def _route(p, xg: torch.Tensor, e):
+    """xg [*lead, G, S, d] -> (combine, dispatch [*lead, G, S, E, C]
+    float32, the aux loss [*lead], C)."""
+    cap = capacity(xg.shape[-2], e)
+    probs, gate_vals, _, sel = _gates(p, xg, e)                # [*, G,S,k,E]
+    comb, disp = _slots(sel, gate_vals, _queue(sel, e), cap)
+    return comb, disp, _aux(sel, probs, e), cap
+
+
+def batch_ranks(batch) -> tuple[int, int]:
+    """(the number of batch ranks, this rank's place among them) of a
+    serving topology: its pod and data ranks, pod-major (the JAX
+    ``batch_axes``' order); (1, 0) without a mesh."""
+    m = None if batch is None else batch.mesh
+    if m is None:
+        return 1, 0
+    return m.pods * m.data, m.pod_rank * m.data + m.data_rank
+
+
+def _spread(v: torch.Tensor, at: int, rows: int) -> torch.Tensor:
+    """v [n, ...] at rows ``[at, at + n)`` of ``rows`` rows, zeros
+    elsewhere."""
+    return F.pad(v, (0, 0) * (v.dim() - 1) + (at, rows - at - v.shape[0]))
+
+
+def _route_across(p, x: torch.Tensor, e, batch, s_len: int, at: int,
+                  w: int):
+    """The rank's n tokens x [n, d] -- global tokens ``[r*n, (r+1)*n)``
+    of the call, r its batch rank, ``at`` rows into the first of the
+    ``w`` groups of ``s_len`` tokens they touch -- routed by those
+    groups: every batch rank's top-k experts gathered
+    (``comm.gather_batch``), the queue positions the whole groups'
+    (:func:`_queue`), the rank's pairs kept at their rows.  Returns
+    (combine, dispatch [w, s_len, E, cap], the rank's aux loss)."""
+    n = x.shape[0]
+    _, r = batch_ranks(batch)
+    probs, gate_vals, idx, sel = _gates(p, x[None], e)         # [1, n, ...]
+    first = r * n - at                          # the groups' first token
+    every = comm.gather_batch(batch, idx[0].to(torch.int32)).flatten(0, 1)
+    ids = every[first:first + w * s_len].long()
+    pos_in_e = _queue(F.one_hot(ids, e.n_experts).to(F32).reshape(
+        w, s_len, e.top_k, e.n_experts), e)
+    grouped = [_spread(v[0], at, w * s_len).reshape((w, s_len) + v.shape[2:])
+               for v in (sel, gate_vals)]
+    comb, disp = _slots(*grouped, pos_in_e, capacity(s_len, e))
+    return comb, disp, _aux(sel, probs, e)
 
 
 def _gather_slots(xg: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
@@ -142,21 +220,42 @@ def _gather_slots(xg: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
     return F.embedding(idx + offs, pad.reshape(n_groups * (s_len + 1), d))
 
 
-def moe_block(p, x: torch.Tensor, cfg, tp=None):
+def moe_block(p, x: torch.Tensor, cfg, tp=None, batch=None):
     """x [*lead, b, t, d] -> (y [*lead, b, t, d], the aux loss [*lead]);
-    with ``tp`` p holds the rank's blocks (the module docstring)."""
+    with ``tp`` p holds the rank's blocks (the module docstring).
+    ``batch`` (serving over a mesh, no lead dims): the topology whose
+    pod and data ranks split the call's rows; the groups are the whole
+    call's (the module docstring), and the aux loss, which serving does
+    not keep, is the rank's rows'."""
     e = cfg.moe
     b, t, d = x.shape[-3:]
     n = b * t
-    g = max(1, n // e.group_tokens)
-    xg = x.reshape(x.shape[:-3] + (g, n // g, d))
-    comb, disp, aux, _ = _route(p, xg, e)
+    nb, r = batch_ranks(batch)
+    g = max(1, n * nb // e.group_tokens)
+    if (n * nb) % g:
+        raise ValueError(f"{n * nb} tokens do not split into {g} groups")
+    s_len = n * nb // g
+    at = r * n % s_len            # the rank's first row in its first group
+    w = -(-(at + n) // s_len)     # the groups its tokens touch
+    alone = not at and n % s_len == 0     # they are whole groups
+
+    def group(v):                 # [*lead, b, t, d] -> [*lead, w, S, d]
+        if alone:
+            return v.reshape(v.shape[:-3] + (w, s_len, d))
+        return _spread(v.reshape(n, d), at, w * s_len).reshape(w, s_len, d)
+
+    xg = group(x)
+    if alone:
+        comb, disp, aux, _ = _route(p, xg, e)
+    else:
+        comb, disp, aux = _route_across(p, x.reshape(n, d), e, batch, s_len,
+                                        at, w)
     xm = comm.copy_to_model(tp, x)
     split = tp is not None and e.n_experts % tp.model_shards == 0
     if split:          # the rank's experts' slots
         e_loc = p["w_gate"].shape[-3]
         lo = tp.model_rank * e_loc
-        xd = xm.reshape(xg.shape)
+        xd = group(xm)
         disp = disp[..., lo:lo + e_loc, :]
         comb = comm.copy_to_model(tp, comb)[..., lo:lo + e_loc, :]
     else:
@@ -169,7 +268,7 @@ def moe_block(p, x: torch.Tensor, cfg, tp=None):
          * torch.einsum("...gecd,...edf->...gecf", xe, p["w_up"]))
     ye = torch.einsum("...gecf,...efd->...gecd", h, p["w_down"])
     y = torch.einsum("...gecd,...gsec->...gsd", ye, comb.to(x.dtype))
-    y = y.reshape(x.shape)
+    y = (y if alone else y.reshape(-1, d)[at:at + n]).reshape(x.shape)
     # the experts' share and the MLPs' shares, summed over the model
     # group once; experts whole on every rank are added after the sum
     whole = tp is not None and not split

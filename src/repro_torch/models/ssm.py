@@ -35,16 +35,21 @@ forms ``exp(seg_i - seg_j)`` over the whole chunk and masks the upper
 triangle after the ``exp``; where that overflows, autograd's ``0 *
 inf`` gives NaN, as ``where``'s VJP does in JAX.
 
-Tensor parallelism (each block's ``tp``, train mode): a rank holds the
-blocks the ``*_specs`` give it -- the JAX specs, unchanged -- and the
-forward adapts to them with the model group's collectives
-(``core.comm``): ``copy_to_model`` on what every rank holds whole but
-reads for its own share, ``sum_model`` after a row-parallel product,
+Tensor parallelism (each block's ``tp``, with or without a state): a
+rank holds the blocks the ``*_specs`` give it -- the JAX specs,
+unchanged -- and the forward adapts to them with the model group's
+collectives (``core.comm``): ``copy_to_model`` on what every rank holds
+whole but reads for its own share, ``sum_model`` after a row-parallel product,
 ``all_gather_model`` where a rank's block must be read whole (its
 backward a reduce-scatter where each rank then computes its own share,
 the rank's slice where every rank computes the same), and
 ``layers.rms_norm_split`` for a norm over a split inner dim.  Each
-function's docstring says which it takes where.
+function's docstring says which it takes where.  With a state (serving)
+the same split holds: a rank carries the state of its heads and the
+conv state of its ``d_in`` channels (``*_state_specs``); where the heads
+do not divide the axis but ``d_in`` does, the heads' states are whole on
+every rank, as the scan runs every head there, and only the conv state
+is split.
 """
 from __future__ import annotations
 
@@ -166,7 +171,7 @@ def mamba2_block(p, x, cfg, state=None, tp=None):
     state (float32 [*, b, H, 64, d_state]), else the float32 recurrence
     from ``state["ssm"]``; the conv state comes back in x's dtype.
 
-    ``tp`` (train mode; ``mamba2_specs``' blocks): ``in_x``, ``in_z``,
+    ``tp`` (``mamba2_specs``' blocks): ``in_x``, ``in_z``,
     ``in_dt`` and the conv column-parallel on the marked input, the conv
     local to the rank's channels; ``in_b``/``in_c`` replicated and
     marked (B and C formed whole, repeated to H heads, cut to the
@@ -310,6 +315,16 @@ def mamba2_state_init(cfg, b: int) -> dict:
             "conv": (b, s.d_conv - 1, d_in)}
 
 
+def mamba2_state_specs(cfg, model_shards: int, batch_axes) -> dict:
+    """The Mamba2 state's spec (the JAX ``mamba2_state_specs``): the
+    heads of ``ssm`` and the conv state's ``d_in`` over the model axis,
+    each where it divides it."""
+    d_in = cfg.ssm.expand * cfg.d_model
+    return {"ssm": (batch_axes, _dims_spec(d_in // 64, model_shards), None,
+                    None),
+            "conv": (batch_axes, None, _dims_spec(d_in, model_shards))}
+
+
 def init_mlstm(gen, cfg, device) -> dict:
     xc = cfg.xlstm
     d = cfg.d_model
@@ -343,7 +358,7 @@ def mlstm_block(p, x, cfg, state=None, tp=None):
     else ``mlstm_step`` from the state; C, n and m come back float32,
     the conv state in x's dtype.
 
-    ``tp`` (train mode; ``mlstm_specs``' blocks): ``up`` is replicated,
+    ``tp`` (``mlstm_specs``' blocks): ``up`` is replicated,
     so u and z are whole on every rank and marked; the conv runs on the
     rank's ``d_in`` channels and its output is gathered whole for
     ``wq``/``wk``/``wi``/``wf``, which read all its rows (a
@@ -364,7 +379,7 @@ def mlstm_block(p, x, cfg, state=None, tp=None):
     if state is None:
         uc = causal_conv(own(u), p["conv"])
     else:
-        uc, conv = causal_conv(u, p["conv"], state["conv"])
+        uc, conv = causal_conv(own(u), p["conv"], state["conv"])
     uc = comm.all_gather_model(tp, uc, -1, "sum")
     q, k, v = (linear(uc, p["wq"]), linear(uc, p["wk"]),
                linear(u, p["wv"]))
@@ -470,6 +485,16 @@ def mlstm_state_init(cfg, b: int) -> dict:
             "conv": (b, cfg.xlstm.conv_kernel - 1, d_in)}
 
 
+def mlstm_state_specs(cfg, model_shards: int, batch_axes) -> dict:
+    """The mLSTM state's spec (the JAX ``mlstm_state_specs``): C, n and
+    m by heads, the conv state by ``d_in``, each where it divides the
+    model axis."""
+    hs = _dims_spec(cfg.n_heads, model_shards)
+    ds = _dims_spec(int(cfg.xlstm.proj_factor * cfg.d_model), model_shards)
+    return {"C": (batch_axes, hs, None, None), "n": (batch_axes, hs, None),
+            "m": (batch_axes, hs), "conv": (batch_axes, None, ds)}
+
+
 def init_slstm(gen, cfg, device) -> dict:
     d = cfg.d_model
     heads = cfg.n_heads
@@ -492,7 +517,7 @@ def slstm_block(p, x, cfg, state=None, tp=None):
     n = 1, or from a ``state`` (``slstm_state_init``'s keys, cast to
     float32), and then (y, the final carry).
 
-    ``tp`` (train mode; ``slstm_specs``' blocks): ``wx`` is replicated,
+    ``tp`` (``slstm_specs``' blocks): ``wx`` is replicated,
     so the gates are formed whole and marked, and each rank runs the
     recurrence of its own heads (``wr``, ``fb``) with no collective in
     the position loop; the heads' outputs are then gathered whole for
@@ -559,3 +584,11 @@ def slstm_state_init(cfg, b: int) -> dict:
     heads = cfg.n_heads
     shape = (b, heads, cfg.d_model // heads)
     return {"c": shape, "n": shape, "h": shape, "m": (b, heads)}
+
+
+def slstm_state_specs(cfg, model_shards: int, batch_axes) -> dict:
+    """The sLSTM state's spec (the JAX ``slstm_state_specs``): by heads
+    where they divide the model axis."""
+    hs = _dims_spec(cfg.n_heads, model_shards)
+    return {"c": (batch_axes, hs, None), "n": (batch_axes, hs, None),
+            "h": (batch_axes, hs, None), "m": (batch_axes, hs)}

@@ -361,10 +361,11 @@ def test_unported_parts_of_fsdp_raise_with_their_item():
     layout, which stays item 17; the vlm and moe pieces of the FSDP loss
     (patches, MTP) build."""
     cfg = smoke12()[1]
-    assert build.serve_layout(cfg, 6 * 10**9) == "resident"
-    assert build.serve_layout(cfg, 6 * 10**9 + 1) == "gather"
+    one = Topology(1, 1, "cpu")
+    assert build.serve_layout(cfg, one, 6 * 10**9) == "resident"
+    assert build.serve_layout(cfg, one, 6 * 10**9 + 1) == "gather"
     assert build.serve_layout(dataclasses.replace(
-        cfg, param_mode="replicated"), 10**12) == "resident"
+        cfg, param_mode="replicated"), one, 10**12) == "resident"
     full = build.build_model(configs.get_config("gemma3_12b"),
                              Topology(1, 1, "cpu"))
     assert full.serve_layout == "gather"

@@ -481,7 +481,8 @@ def test_serve_layout_is_the_reference_rule(name):
             built = build.build_model(cfg, CPU)
             n = build.param_count(built.abstract_params())
             want = jbuild.serve_layout(jcfg, single_device_topology(), n)
-            assert build.serve_layout(cfg, n) == want == built.serve_layout
+            assert build.serve_layout(cfg, CPU, n) == want \
+                == built.serve_layout
             if want == "gather":
                 with pytest.raises(NotImplementedError, match="item 17"):
                     built.prefill({}, {"tokens": torch.zeros(

@@ -366,23 +366,30 @@ def test_serving_the_flat_state_a_training_run_leaves():
 
 def test_unported_serving_raises():
     """The gather layout (an FSDP config whose bf16 weights pass the
-    budget: gemma3-12b whole) and the caches' specs stay item 17."""
+    budget: gemma3-12b whole), ``ServeGatherPlan`` and a cache sharded
+    by length stay item 17d, part two; the caches' specs are JAX's."""
     gemma12 = build.build_model(configs.get_config("gemma3_12b"), CPU)
     n = build.param_count(gemma12.abstract_params())
-    assert build.serve_layout(gemma12.cfg, n) == "gather" \
+    assert build.serve_layout(gemma12.cfg, CPU, n) == "gather" \
         == gemma12.serve_layout
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 17d"):
         gemma12.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
                         4)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 17d"):
         gemma12.decode_step({}, {"stacks": {}, "pos": 0},
                             torch.zeros((1, 1), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build.cache_specs(gemma12.arch)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    from repro.models import build as jbuild
+    jarch = jbuild.make_archdef(jconfigs.get_config("gemma3_12b"), 1)
+    want = jax.tree.map(tuple, jbuild.cache_specs(jarch, "data", "data"),
+                        is_leaf=lambda v: isinstance(v, jax.sharding
+                                                     .PartitionSpec))
+    assert build.cache_specs(gemma12.arch, "data", "data") == want
+    with pytest.raises(NotImplementedError, match="item 17d"):
+        gemma12.make_cache(2, 8, len_axis="data")
+    with pytest.raises(NotImplementedError, match="item 17d"):
         build.ServeGatherPlan(gemma12.cfg, CPU)
     cfg1 = configs.get_config("gemma3_1b")
-    assert build.serve_layout(cfg1, 10**12) == "resident"
+    assert build.serve_layout(cfg1, CPU, 10**12) == "resident"
 
 
 def test_serve_request_batch():

@@ -278,6 +278,14 @@ def fake_mesh(model: int = 2) -> ProcessMesh:
                        model=model, model_rank=0)
 
 
+def jax_cache_specs(arch: str, m: int, batch_ax, smoke: bool = False):
+    """JAX's ``build.cache_specs`` of a config at M = m, as tuples."""
+    get = jconfigs.get_smoke if smoke else jconfigs.get_config
+    return jax.tree.map(tuple, jbuild.cache_specs(
+        jbuild.make_archdef(get(arch), m), batch_ax),
+        is_leaf=lambda v: isinstance(v, jax.sharding.PartitionSpec))
+
+
 def test_refusals_name_their_part_of_item_17(tmp_path):
     topo = Topology(2, 2, "cpu", mesh=fake_mesh())
     # the FSDP regime over a model axis (item 17c) builds for the dense,
@@ -289,23 +297,31 @@ def test_refusals_name_their_part_of_item_17(tmp_path):
                                             fsdp.bundle)
         assert callable(init_fn) and callable(step)
         assert fsdp.bundle.loss_master is not None and fsdp.bundle.specs
+    # serving over a model axis (item 17d, part one): gemma3 serves
+    # resident, its caches laid out by JAX's specs (the single kv head
+    # whole on every model rank); a cache sharded by length is part two
     gemma = build.build_model(configs.get_smoke("gemma3_1b"), topo)
+    assert gemma.serve_layout == "resident"
+    assert gemma.cache_specs("data") == jax_cache_specs("gemma3_1b", 2,
+                                                         "data", smoke=True)
+    assert gemma.cache_specs("data")["stacks"]["global"]["self"]["k"] == (
+        None, "data", None, None, None)
     with pytest.raises(NotImplementedError, match="item 17d"):
-        gemma.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
-                      4)
-    with pytest.raises(NotImplementedError, match="item 17d"):
-        build.cache_specs(gemma.arch)
+        gemma.make_cache(2, 8, len_axis="data")
     with pytest.raises(NotImplementedError, match="item 17e"):
         train.run_training(configs.get_smoke("gemma3_1b"), topo,
                            hier.AlgoConfig(), train.RunCfg(
                                steps=1, ckpt_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="item 17d"):
-        attention.mla_attn({}, torch.zeros((1, 2, 4)), torch.arange(2),
-                           configs.get_smoke("deepseek_v3_671b"),
-                           cache={}, tp=topo)
+    # MLA serves its heads over the model axis from a latent cache whole
+    # on every model rank
+    dcfg = configs.get_smoke("deepseek_v3_671b")
+    assert attention.mla_cache_specs(dcfg, 2, "data") == {
+        "ckv": ("data", None, None), "kr": ("data", None, None)}
+    assert build.cache_specs(build.make_archdef(dcfg, 2), "data") == \
+        jax_cache_specs("deepseek_v3_671b", 2, "data", smoke=True)
     # every family trains over a model axis (item 17f): the ssm, hybrid
     # and encdec/audio families build at M = 2, 4 and the production
-    # grid's 16, as published, and none of them serves there (17d)
+    # grid's 16, as published, and serve there with JAX's cache specs
     for arch in ("xlstm_350m", "whisper_base", "zamba2_2p7b"):
         for m in (2, 4, 16):
             cfg = configs.get_config(arch)
@@ -317,9 +333,9 @@ def test_refusals_name_their_part_of_item_17(tmp_path):
                 Topology(2, 2, "cpu", mesh=fake_mesh(m)), hier.AlgoConfig(),
                 built.bundle)
             assert callable(init_fn) and callable(step)
-        with pytest.raises(NotImplementedError, match="item 17d"):
-            built.prefill({}, {"tokens": torch.zeros((1, 2),
-                                                     dtype=torch.long)}, 4)
+            assert built.serve_layout == "resident"
+            assert built.cache_specs(("pod", "data")) == jax_cache_specs(
+                arch, m, ("pod", "data"))
     zamba2 = build.build_model(dataclasses.replace(
         configs.get_smoke("zamba2_2p7b"), param_mode="fsdp"), topo)
     assert zamba2.bundle.loss_master is not None
