@@ -102,7 +102,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8. ``families``: the ssm and encdec families whole, each as ``lm``
      runs gemma3-1b (P=2 x D=3, bf16 compute, f32 master, DC, T_E=3,
      random weights from seed 0): xlstm-350m cut to 8 blocks (one 7:1
-     period; its host-bound sLSTM loop runs once a step), batch 1 x 1152
+     period; its host-bound sLSTM loop runs once a step), batch 1 x 576
      tokens a device, and whisper-base (6 + 6
      layers, 97,206,784 parameters, batch 4 x 448 tokens and 1500 x 80
      frames a device).  One step's per-voter gradients twice (bitwise),
@@ -289,7 +289,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      sent on each group, the peak beside ``reckon_mesh_peak`` at the
      bucket.  Then the ssm, hybrid and encdec families (item 17f, part
      two; ``tp_fam_*``) at their published widths: xlstm-350m cut to one
-     7:1 period (8 blocks, 1 x 1152 tokens), zamba2-2.7b cut to one
+     7:1 period (8 blocks, 1 x 576 tokens), zamba2-2.7b cut to one
      period (6 Mamba2 blocks and the shared one, 1 x 1152, every
      ``a_log`` lowered by 5 so that the SSD scan does not overflow) and
      whisper-base whole (4 x 448 tokens, 1500 frames), each rank drawing
@@ -333,11 +333,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      logits, the greedy tokens equal; every rank's cache bytes are
      ``build.cache_bytes``' and each group's bytes a rank sends in the
      prefill and a step ``reckon_tp_serve_bytes``', to the byte; then
-     the same in bfloat16, timed; no kernel launched.  JSON lines
+     the same in bfloat16, timed; no kernel launched.  After the moe and
+     vlm configs, serving from the data ranks' shards (item 17d, part
+     two; ``tp_shards*``): deepseek-v3 and internvl2 from the FSDP
+     shards their run left, in the gather layout, as above (every
+     layer's shards gathered over the data group at every call, the
+     data group's bytes a call ``reckon_serve_gather_bytes``' to the
+     byte; the reference the one-process serve of edge 0's gathered
+     masters); then one request of 48 tokens and 4 steps, replicated
+     over the batch ranks, on a cache split by length over the data
+     ranks: gemma3-1b whole at long_500k's 524288 (each rank's cache
+     ``build.cache_bytes``', about 1.23 GB) and gemma3-1b and
+     zamba2-2.7b (one period) at 100 (steps 3-4 on data rank 1), each
+     against one process on the whole cache in float32 (the steps under
+     ``TP_SHARDS_DECODE_REL``), then in bfloat16, timed, the split
+     attention's combines ``reckon_combine_bytes``'.  JSON lines
      ``{"tp": ...}``; the kernels line gains ``tp_launches_per_rank``,
-     ``tp_fam_launches_per_rank``, ``tp_moe_launches_per_rank`` and
-     ``tp_serve_launches_per_rank``.
-     ``--phase tp`` runs phase 2's kernel checks and this phase alone.
+     ``tp_fam_launches_per_rank``, ``tp_moe_launches_per_rank``,
+     ``tp_serve_launches_per_rank`` and ``tp_shards_launches_per_rank``.
+     ``--phase tp`` runs phase 2's kernel checks and this phase alone;
+     ``--phase shards`` the kernel checks, the moe part and the shards
+     part.
  16. ``fsdp_mesh``: the FSDP regime across processes (``core.device_axis``
      over a mesh: each rank a shard of every master and correction), run
      by the ``mesh`` phase's 4 ranks and the ``tp`` phase's 8 after
@@ -1882,8 +1898,11 @@ def phase_lm(torch) -> dict:
     return {"dc": dc_launches, "qsgd": qsgd_launches, "peak_gb": peaks}
 
 
-FAMILIES = (("xlstm_350m", 1, 1152),     # (arch, batch, tokens) a device
-            ("whisper_base", 4, 448))    # whisper's text context
+FAMILIES = (("xlstm_350m", 1, 576),      # (arch, batch, tokens) a device:
+            ("whisper_base", 4, 448))    # xlstm's sLSTM loop runs a position
+                                         # at a time, the script's largest
+                                         # cost at 1152 (half the lm
+                                         # phase's); whisper's text context
 FAM_XLSTM_LAYERS = 8     # xlstm cut to one 7:1 period: one sLSTM block,
                          # whose host-bound loop a position sets its step
 FAM_STEPS = 4            # round 1 and round 2's prologue: xlstm's steps
@@ -1947,7 +1966,7 @@ def reckon_peak(cfg, n: int, batch: int, seq: int, p: int = LM_P,
 
 def phase_families(torch) -> dict:
     """The ssm and encdec families on the card: xlstm-350m (cut to
-    ``FAM_XLSTM_LAYERS`` blocks, batch 1 x 1152 tokens a device) and
+    ``FAM_XLSTM_LAYERS`` blocks, batch 1 x 576 tokens a device) and
     whisper-base whole (6 + 6
     layers, batch 4 x 448 tokens and 1500 x 80 frames a device), each at
     P=2 x D=3 in the lm phase's algorithm (DC, bf16 compute, f32 master,
@@ -4808,15 +4827,19 @@ def tp_rank_main(tmp: str, rank: int) -> None:
         t1 = time.perf_counter()
         res["fsdp_tp"] = fsdp_tp_rank(torch, topo)
         res["fsdp_tp_s"] = time.perf_counter() - t1
+    masters = {}
     if "fam" in job["parts"]:
         t1 = time.perf_counter()
         res["fam_tp"], masters = tp_fam_rank(torch, topo)
         res["fam_tp_s"] = time.perf_counter() - t1
     if "serve" in job["parts"]:
         res["serve_tp"] = tp_serve_rank(torch, topo, job["trees"], masters)
-    masters = None
+    masters = {}
     if "moe" in job["parts"]:
-        res["moe_tp"] = tp_moe_rank(torch, topo, job["trees"])
+        res["moe_tp"], masters = tp_moe_rank(torch, topo, job["trees"])
+    if "shards" in job["parts"]:
+        res["shards_tp"] = tp_shards_rank(torch, topo, job["trees"], masters)
+    del masters
     with open(d / f"rank{rank}.tmp", "wb") as f:
         pickle.dump(res, f)
     os.replace(d / f"rank{rank}.tmp", d / f"rank{rank}.pkl")
@@ -4916,7 +4939,7 @@ def tp_references(torch) -> dict:
 
 
 def phase_tp(torch, card: str,
-             parts: tuple = ("tp", "fam", "moe", "serve")) -> dict:
+             parts: tuple = ("tp", "fam", "moe", "serve", "shards")) -> dict:
     """The model axis across processes on the one card: 8 ranks (2 pods
     x 2 data x 2 model) over gloo, each a [1, 1] block of P=2 x D=2 and
     one model shard.  The one-process references run here first and
@@ -4942,8 +4965,16 @@ def phase_tp(torch, card: str,
     one): xlstm-350m, zamba2-2.7b and whisper-base from the masters the
     fam part trained, gemma3-1b whole, deepseek-v3 and internvl2 from
     such trees, each held against one process's serve
-    (:func:`tp_serve_rank`, :func:`tp_serve_report`).  Returns the per-rank
-    launches of each part and the ranks' results (``"ranks"``)."""
+    (:func:`tp_serve_rank`, :func:`tp_serve_report`); ``"shards"`` (with
+    ``"moe"``) -- serving from the data ranks' shards (item 17d, part
+    two): deepseek-v3 and internvl2 in the gather layout from the FSDP
+    state the moe part leaves, and one request on a cache split by
+    length over the data ranks (gemma3-1b at long_500k's 524288, and
+    gemma3-1b and zamba2-2.7b across a block boundary), each held against
+    one process's serve (:func:`tp_shards_gather`,
+    :func:`tp_shards_len`, :func:`tp_shards_report`).  Returns the
+    per-rank launches of each part and the ranks' results
+    (``"ranks"``)."""
     import gc
     import pickle
     import shutil
@@ -4951,6 +4982,9 @@ def phase_tp(torch, card: str,
 
     require("serve" not in parts or "fam" in parts,
             "the tp phase's serve part serves the masters its fam part "
+            "trains")
+    require("shards" not in parts or "moe" in parts,
+            "the tp phase's shards part serves the FSDP state its moe part "
             "trains")
     t_phase = time.perf_counter()
     refs = tp_references(torch) if "tp" in parts else None
@@ -4963,7 +4997,9 @@ def phase_tp(torch, card: str,
 
     cells = {**(tp_moe_cells() if {"moe", "serve"} & set(parts) else {}),
              **({"gemma3-1b": tp_serve_cells()["gemma3-1b"]}
-                if "serve" in parts else {})}
+                if {"serve", "shards"} & set(parts) else {}),
+             **({"zamba2-2.7b": tp_fam_cells()["zamba2-2.7b"][0]}
+                if "shards" in parts else {})}
 
     def write_trees():
         # while the ranks run their earlier parts; they wait for "ready"
@@ -4996,6 +5032,8 @@ def phase_tp(torch, card: str,
         out["serve"] = {name: [r["serve_tp"][name]["launches"]
                                for r in ranks]
                         for name in tp_serve_cells()}
+    if "shards" in parts:
+        out["shards"] = tp_shards_report(torch, card, ranks)
     emit({"tp": "phase", "parts": list(parts),
           "wall_s": time.perf_counter() - t_phase, "ranks_s": ranks_s,
           "rank_init_s": [r["init_s"] for r in ranks],
@@ -5599,7 +5637,8 @@ def tp_moe_fsdp(torch, topo, cfg, host) -> dict:
     a leaf at a time), with the kernels' counters and ``comm.traffic``
     at 0 just before it: its losses, step times, launches, each group's
     bytes at each step, the bytes of its master and corrections, and its
-    peak above what it held."""
+    peak above what it held; and the trained masters (the rank's
+    ``[P_loc, *shard]`` FSDP shards), the rest of the state freed."""
     from repro_torch.core import comm, pytree
     from repro_torch.launch.train import RunCfg, run_training
 
@@ -5634,19 +5673,21 @@ def tp_moe_fsdp(torch, topo, cfg, host) -> dict:
            "held_bytes": held,
            "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
            "held_gb": before / 1e9}
+    masters = state.params
     del state
     torch.cuda.empty_cache()
-    return res
+    return res, masters
 
 
-def tp_moe_rank(torch, topo, trees: str) -> dict:
+def tp_moe_rank(torch, topo, trees: str) -> tuple:
     """The rank's ``moe`` part: for each :func:`tp_moe_cells` config,
     :func:`tp_step0` then :func:`tp_moe_fsdp`, from the tree the
     parent writes under ``trees`` while the ranks run their earlier
-    parts (:func:`tp_wait_trees`)."""
+    parts (:func:`tp_wait_trees`).  Returns (its results, each config's
+    trained FSDP masters)."""
     from repro_torch.models import build
 
-    out = {"wait_s": tp_wait_trees(trees)}
+    out, masters = {"wait_s": tp_wait_trees(trees)}, {}
     for name, cfg in tp_moe_cells().items():
         t0 = time.perf_counter()
         host = tp_host_params(torch, build.build_model(cfg, topo),
@@ -5656,11 +5697,12 @@ def tp_moe_rank(torch, topo, trees: str) -> dict:
             getattr(torch, TP_MOE_STEP0_DTYPE[name]))}
         res["step0"]["s"] = time.perf_counter() - t0
         t1 = time.perf_counter()
-        res["fsdp"] = tp_moe_fsdp(torch, topo, cfg, host)
+        res["fsdp"], masters[name] = tp_moe_fsdp(torch, topo, cfg, host)
         res["fsdp"]["s"] = time.perf_counter() - t1
         del host
+        torch.cuda.empty_cache()
         out[name] = res
-    return out
+    return out, masters
 
 
 def tp_step0_report(card: str, cfg, per_rank: list, dtype: str,
@@ -6102,13 +6144,14 @@ def host_blocks(torch, topo, built, host, dtype):
     return shardflat.logical(topo, layout, pytree.tree_unflatten(td, out))
 
 
-def tp_serve(torch, topo, name: str, cfg, params, whole):
-    """Serve ``cfg`` over the ranks: TP_SERVE_B requests, 2 a batch rank,
-    TP_SERVE_PROMPT tokens, TP_SERVE_STEPS decode steps.  ``params``:
-    the rank's float32 parameter blocks on its device; ``whole()``: the
-    whole tree on model rank 0 of the first batch rank (None on its
-    other model ranks; called on that model group, which it may gather
-    over).
+def tp_serve(torch, topo, name: str, cfg, params, whole,
+             layout: str = "resident", warm: bool = True):
+    """Serve ``cfg`` over the ranks in ``layout``: TP_SERVE_B requests, 2
+    a batch rank, TP_SERVE_PROMPT tokens, TP_SERVE_STEPS decode steps.
+    ``params``: the rank's float32 parameter blocks on its device (in
+    the gather layout, its FSDP shards); ``whole()``: the whole tree on
+    model rank 0 of the first batch rank (None on every other rank;
+    called on every rank of pod 0, which it may gather over).
 
       1. the reference: model rank 0 of the first batch rank serves the
          whole batch alone (``Topology(1, 1)``) in float32 -- prefill
@@ -6121,8 +6164,8 @@ def tp_serve(torch, topo, name: str, cfg, params, whole):
          gap between the two largest exceeds twice it); every rank's
          cache bytes after each call against ``build.cache_bytes``;
       3. every rank, bfloat16 weights (``params`` cast on the device, a
-         leaf at a time): a prefill to warm, then a timed prefill and
-         the decode steps, each
+         leaf at a time): a prefill to warm (with ``warm``), then a timed
+         prefill and the decode steps, each
          between synchronisations and barriers, with the bytes the rank
          sends on each group (``comm.group_bytes``) in the prefill and
          in each step, and the cache bytes.
@@ -6145,16 +6188,16 @@ def tp_serve(torch, topo, name: str, cfg, params, whole):
     t_start = time.perf_counter()
     zero_launches()
     m = topo.mesh
-    built = build.build_model(cfg, topo)
+    built = build.build_model(cfg, topo, layout=layout)
     req = tp_serve_requests(torch, cfg, name)
     max_len = TP_SERVE_MAX_LEN.get(
         name, cfg.n_patches + TP_SERVE_PROMPT + TP_SERVE_STEPS)
     res = {"max_len": max_len}
     ref = None
     teacher = torch.zeros((TP_SERVE_B, TP_SERVE_STEPS), dtype=torch.long)
-    if m.pod_rank == 0 and m.data_rank == 0:
+    if m.pod_rank == 0:
         tree = whole()
-        if m.model_rank == 0:
+        if m.data_rank == 0 and m.model_rank == 0:
             t0 = time.perf_counter()
             plain = build.build_model(cfg, Topology(1, 1, dev))
             batch = {k: v.to(dev) for k, v in req.items()}
@@ -6212,7 +6255,8 @@ def tp_serve(torch, topo, name: str, cfg, params, whole):
     params = pytree.tree_unflatten(td, leaves)
     del leaves
     free()
-    built.prefill(params, batch, max_len)          # warm
+    if warm:
+        built.prefill(params, batch, max_len)
     dist.barrier()
     synchronize(torch, dev)
     comm.reset_traffic()
@@ -6257,11 +6301,12 @@ def tp_serve_host(torch, topo, name: str, cfg, host) -> dict:
     from repro_torch.models import build
 
     built = build.build_model(cfg, topo)
+    first = topo.mesh.data_rank == 0 and topo.model_rank == 0
     return tp_serve(
         torch, topo, name, cfg,
         host_blocks(torch, topo, built, host, torch.float32),
         lambda: (pytree.tree_map(lambda x: x.to(topo.device, torch.float32),
-                                 host) if topo.model_rank == 0 else None))
+                                 host) if first else None))
 
 
 def tp_serve_state(torch, topo, name: str, cfg, fs) -> dict:
@@ -6284,7 +6329,8 @@ def tp_serve_state(torch, topo, name: str, cfg, fs) -> dict:
     zero_copy = len(ptrs) == 1 and (topo.mesh.pod_rank > 0
                                     or ptrs == {bucket})
     res = tp_serve(torch, topo, name, cfg, views,
-                   lambda: shardflat.gather(topo, layout, views))
+                   lambda: (shardflat.gather(topo, layout, views)
+                            if topo.mesh.data_rank == 0 else None))
     res["views_zero_copy"] = zero_copy
     return res
 
@@ -6483,6 +6529,421 @@ def tp_serve_report(torch, card: str, ranks: list,
                     f"reckoned {want}")
     emit({"tp": "serve part", "card": card, "rank_s": part_s,
           "limit_s": 60.0})
+
+
+# -- serving from the data ranks' shards (item 17d, part two) -----------------
+
+TP_SHARDS_LONG = 524288          # long_500k's max_len: one request, its
+                                 # cache's length split over the data ranks
+TP_SHARDS_STRADDLE = 100         # data rank 0 holds positions 0-49: the
+                                 # prompt's 48 and steps 1-2 there, steps
+                                 # 3-4 written and read on data rank 1
+TP_SHARDS_DECODE_REL = 2.0 ** -8  # the length cases' float32 steps: their
+                                 # combine keeps float32 weights where the
+                                 # reference rounds them to bf16
+
+
+def tp_shards_cells() -> dict:
+    """name -> (config, max_len) of the length part: gemma3-1b whole at
+    long_500k's length, and gemma3-1b and zamba2-2.7b (the ``fam`` part's
+    period) at ``TP_SHARDS_STRADDLE``; each one request of
+    ``TP_SERVE_PROMPT`` tokens and ``TP_SERVE_STEPS`` steps."""
+    from repro_torch import configs
+
+    gemma = configs.get_config("gemma3_1b")
+    return {"gemma3-1b long": (gemma, TP_SHARDS_LONG),
+            "gemma3-1b straddle": (gemma, TP_SHARDS_STRADDLE),
+            "zamba2-2.7b straddle": (tp_fam_cells()["zamba2-2.7b"][0],
+                                     TP_SHARDS_STRADDLE)}
+
+
+def tp_shards_gather(torch, topo, name: str, cfg, masters) -> dict:
+    """:func:`tp_serve` in the gather layout from the FSDP ``masters`` a
+    training run left on the rank (``[P_loc, *shard]``): every pod serves
+    edge 0's shards (``specs.serve_params_from_tree``; pod 1's received),
+    each layer gathered over the data group at every call; the
+    reference's whole tree assembled on pod 0, each leaf's shards
+    gathered over the data group and data rank 0's blocks over the model
+    group, kept on model rank 0 alone."""
+    from repro_torch.core import comm, device_axis, pytree, shardflat
+    from repro_torch.launch import specs
+    from repro_torch.models import build
+
+    built = build.build_model(cfg, topo, layout="gather")
+    shards = specs.serve_params_from_tree(masters, None, built)
+    m = topo.mesh
+
+    def whole():
+        layout = shardflat.param_layout(topo, built.bundle.specs,
+                                        built.abstract_params())
+        leaves, td = pytree.tree_flatten(shards)
+        out = []
+        for x, sp, slot in zip(leaves, pytree.flatten_up_to(
+                td, built.bundle.master_specs), layout.slots):
+            dim = device_axis.data_dim(sp)
+            if dim is not None:
+                x = comm.gather_shards(topo, x, dim)
+            if m.data_rank == 0 and layout.shards > 1 \
+                    and slot.shard_dim is not None:
+                x = comm.gather_model(topo, x, slot.shard_dim)
+            out.append(x if m.data_rank == 0 and m.model_rank == 0
+                       else None)
+        return (pytree.tree_unflatten(td, out)
+                if m.data_rank == 0 and m.model_rank == 0 else None)
+
+    return tp_serve(torch, topo, name, cfg, shards, whole, layout="gather",
+                    warm=False)
+
+
+def tp_shards_len(torch, topo, name: str, cfg, max_len: int, host) -> dict:
+    """One request (the first of :func:`tp_serve_requests`) replicated over
+    the batch ranks, served with its cache's length split over the data
+    ranks (``len_axis="data"``) from the rank's blocks of the mapped
+    seed-0 tree ``host`` (zamba2's ``a_log`` lowered by ``TP_FAM_CALM``,
+    as the ``fam`` part trains it): model rank 0 of the first batch rank
+    serves it alone on the whole cache in float32 first and its greedy
+    tokens are the teacher's; then every rank prefills and decodes them
+    between synchronisations and barriers, with float32 weights and then
+    with bfloat16 ones (the float32 blocks cast on the device) -- the
+    largest difference from the reference's logits over its largest
+    |logit|, each call's cache bytes beside ``build.cache_bytes``, each
+    group's bytes a rank sends, the ms of each call -- with the kernels'
+    counters zeroed first."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm, pytree
+    from repro_torch.core.topology import Topology
+    from repro_torch.models import build
+
+    dev = topo.device
+    t_start = time.perf_counter()
+    zero_launches()
+    m = topo.mesh
+    built = build.build_model(cfg, topo)
+    req = {k: v[:1] for k, v in tp_serve_requests(torch, cfg, name).items()}
+    calm = cfg.family == "hybrid"
+    res = {"max_len": max_len}
+    ref = None
+    teacher = torch.zeros((1, TP_SERVE_STEPS), dtype=torch.long)
+    if (m.pod_rank, m.data_rank, m.model_rank) == (0, 0, 0):
+        t0 = time.perf_counter()
+        tree = pytree.tree_map(lambda x: x.to(dev, torch.float32), host)
+        if calm:
+            calm_a_log(tree)
+        plain = build.build_model(cfg, Topology(1, 1, dev))
+        logits, cache = plain.prefill(tree, {k: v.to(dev) for k, v in
+                                             req.items()}, max_len)
+        ref, toks = [logits[:, -1].float()], []
+        for _ in range(TP_SERVE_STEPS):
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            toks.append(tok)
+            logits, cache = plain.decode_step(tree, cache, tok)
+            ref.append(logits[:, -1].float())
+        synchronize(torch, dev)
+        res["reference_s"] = time.perf_counter() - t0
+        teacher = torch.cat(toks, dim=1).cpu()
+        del tree, plain, cache, logits
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.all_reduce(teacher)
+    params = host_blocks(torch, topo, built, host, torch.float32)
+    if calm:
+        calm_a_log(params)
+    prefill, decode = build.make_serve_fns(built.arch, topo, "resident",
+                                           rows="replicated",
+                                           len_axis="data")
+    batch = {k: v.to(dev) for k, v in req.items()}
+    steps = teacher.to(dev)
+
+    def serve(params, dtype) -> dict:
+        got, held, ms, sent = [], [], [], []
+        for s in range(TP_SERVE_STEPS + 1):
+            dist.barrier()
+            synchronize(torch, dev)
+            comm.reset_traffic()
+            t0 = time.perf_counter()
+            if s == 0:
+                logits, cache = prefill(params, batch, max_len)
+            else:
+                logits, cache = decode(params, cache, steps[:, s - 1:s])
+            synchronize(torch, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            sent.append({g: b["sent"] for g, b in comm.group_bytes().items()})
+            got.append(logits[:, -1].float())
+            held.append(cache_bytes_of(cache))
+        out = {"ms": ms, "bytes_sent": sent, "cache_bytes": held,
+               "cache_reckoned": build.cache_bytes(
+                   built.arch, 1, max_len, topo, dtype, len_axis="data"),
+               "finite": all(bool(torch.isfinite(x).all()) for x in got)}
+        if ref is not None:
+            out["rel_err"] = [float((g - w).abs().max()) / float(w.abs().max())
+                              for g, w in zip(got, ref)]
+        del cache, logits, got
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    res["f32"] = serve(params, torch.float32)
+    leaves, td = pytree.tree_flatten(params)
+    del params
+    for i, x in enumerate(leaves):      # the float32 block freed as cast
+        leaves[i] = x.to(torch.bfloat16) if x.dtype.is_floating_point else x
+    params = pytree.tree_unflatten(td, leaves)
+    del leaves
+    res["bf16"] = serve(params, torch.bfloat16)
+    del params, ref
+    res["whole_cache_bytes"] = build.cache_bytes(built.arch, 1, max_len,
+                                                 None, torch.float32)
+    res["launches"] = counted_launches()
+    res["s"] = time.perf_counter() - t_start
+    return res
+
+
+def calm_a_log(tree) -> None:
+    """zamba2's every ``a_log`` lowered by ``TP_FAM_CALM`` (a new tensor:
+    the tree may hold views of a map)."""
+    mamba = tree["stacks"]["mamba"]["mamba"]
+    mamba["a_log"] = mamba["a_log"] - TP_FAM_CALM
+
+
+def tp_shards_rank(torch, topo, trees: str, masters: dict) -> dict:
+    """The rank's shards part: the ``moe`` part's trained FSDP
+    ``masters`` served in the gather layout (:func:`tp_shards_gather`;
+    popped: each freed once served), then the length part for each
+    :func:`tp_shards_cells` config from the trees the parent writes
+    under ``trees``."""
+    from repro_torch.models import build
+
+    cells = tp_moe_cells()
+    out = {name: tp_shards_gather(torch, topo, name, cells[name],
+                                  masters.pop(name))
+           for name in list(masters)}
+    out["wait_s"] = tp_wait_trees(trees)
+    for name, (cfg, max_len) in tp_shards_cells().items():
+        host = tp_host_params(torch, build.build_model(cfg, topo),
+                              pathlib.Path(trees) / name.split()[0])
+        out[name] = tp_shards_len(torch, topo, name, cfg, max_len, host)
+        del host
+    return out
+
+
+def reckon_serve_gather_bytes(cfg, devices: int, data: int, model: int,
+                              elt: int) -> int:
+    """The bytes a rank sends over the data group in one call of the
+    gather layout (``comm.traffic``'s ``gather_serve``): its shard of
+    every leaf the FSDP master specs split over the data axis, at the
+    global D ``devices`` and model axis ``model`` -- the embedding, the
+    head and every layer once a call (a tied block once), not MTP's --,
+    in ``elt`` bytes; it receives ``data - 1`` times that, its compute
+    blocks less its shard."""
+    from repro_torch.core import device_axis, pytree
+    from repro_torch.models import build
+
+    arch = build.make_archdef(cfg, model)
+    abstract = build.init_params(arch, None, "meta")
+    mspecs = build.serve_master_specs(arch, devices, model)
+    sizes = {"pod": 1, "data": data, "model": model}
+    total = 0
+    for name, tree in abstract.items():
+        if name == "mtp":
+            continue
+        leaves, td = pytree.tree_flatten(tree)
+        for a, sp in zip(leaves, pytree.flatten_up_to(td, mspecs[name])):
+            if device_axis.data_dim(sp) is not None:
+                total += math.prod(build.block_shape(tuple(a.shape), sp,
+                                                     sizes)) * elt
+    return total
+
+
+def reckon_combine_bytes(cfg, arch, t: int, model: int, rows: int = 1) -> int:
+    """The bytes a rank sends over the data group in a decode step of
+    ``t`` tokens on a cache split by length (``comm.traffic``'s
+    ``combine_data``): for each occurrence of a block whose cache spec
+    splits the length, the rank's heads' row max, sum and weighted
+    values, float32: ``rows x heads x t x (2 + e)`` with e the head dim
+    (GQA) or the latent rank (MLA), the heads split where they divide
+    the model axis."""
+    from repro_torch.models import build
+
+    specs = build.cache_specs(arch, None, "data")["stacks"]
+    heads = cfg.n_heads // model if cfg.n_heads % model == 0 else cfg.n_heads
+    total = 0
+    for name, n in build.occurrence_counts(arch.segments).items():
+        sp = specs.get(name)
+        leaf = sp["self"] if sp is not None and "self" in sp else sp
+        if leaf is None or "data" not in next(iter(leaf.values())):
+            continue
+        e = cfg.mla.kv_lora_rank if "ckv" in leaf else cfg.hd
+        total += n * rows * heads * t * (2 + e) * 4
+    return total
+
+
+def tp_shards_report(torch, card: str, ranks: list, gather_cells=None,
+                     len_cells=None) -> dict:
+    """The shards part's checks, from the ranks' results.  The gather
+    layout (deepseek-v3 and internvl2 from the ``moe`` part's FSDP
+    state): the reference rank's float32 logits within
+    TP_SERVE_PREFILL_REL (prefill) and TP_SERVE_DECODE_REL (each step)
+    of the one-process serve of edge 0's gathered masters, the greedy
+    tokens equal, every logit finite, every rank's cache bytes the
+    reckoning's, no kernel launched, and each group's bytes a rank sends
+    in the bfloat16 prefill and each step those the resident layout
+    sends (:func:`reckon_tp_serve_bytes`) plus, over the data group, its
+    shards of every layer (:func:`reckon_serve_gather_bytes`; it
+    receives its compute blocks less its shard).  The length part: the
+    reference rank's float32 logits within TP_SERVE_PREFILL_REL
+    (prefill) and TP_SHARDS_DECODE_REL (each step), the bfloat16 ones'
+    distance from them recorded; with each dtype's weights every logit
+    finite, each call's cache bytes ``build.cache_bytes``'s with the
+    length split (below the whole cache's), and each group's bytes a
+    rank sends at prefill and each step the resident reckoning's (one
+    row) plus, over the data group at a step, the split attention's
+    combines (:func:`reckon_combine_bytes`); no kernel launched.  A JSON line
+    ``{"tp": "shards", ...}`` a config and ``{"tp": "shards part"}``.
+    ``gather_cells``, ``len_cells``: the configs served
+    (:func:`tp_moe_cells`, :func:`tp_shards_cells` by default).  Returns
+    each config's per-rank launches."""
+    from repro_torch.core.topology import Topology
+    from repro_torch.models import build
+
+    launches, part_s = {}, [0.0] * len(ranks)
+    for name, cfg in (gather_cells or tp_moe_cells()).items():
+        per = [r["shards_tp"][name] for r in ranks]
+        for i, x in enumerate(per):
+            part_s[i] += x["s"]
+        refs = [x for x in per if "rel_err" in x]
+        arch = build.make_archdef(cfg, TP_M)
+        rows = TP_SERVE_B // (TP_P * TP_D)
+        shards = reckon_serve_gather_bytes(cfg, TP_D, TP_D, TP_M, 2)
+        want = {}
+        for k in (True, False):
+            want[k] = reckon_tp_serve_bytes(cfg, arch, rows, TP_SERVE_PROMPT,
+                                            TP_M, TP_D, TP_P, 2, prefill=k)
+            want[k]["data"] += shards
+        sent = lambda b: {g: b[g]["sent"] for g in ("model", "data", "pod")}
+        received = [b["data"]["received"] for b in per[0]["decode_bytes"]]
+        decode_s = [sum(x["decode_ms"]) / 1e3 for x in per]
+        emit({"tp": "shards", "layout": "gather", "arch": cfg.name,
+              "card": card, "n_layers": cfg.n_layers,
+              "count": build.param_count(build.build_model(
+                  cfg, Topology(1, 1, "cpu")).abstract_params()),
+              "grid": list(TP_GRID), "requests": TP_SERVE_B,
+              "rows_a_rank": rows, "prompt": TP_SERVE_PROMPT,
+              "steps": TP_SERVE_STEPS, "max_len": per[0]["max_len"],
+              "f32_rel_err_per_reference": [x["rel_err"] for x in refs],
+              "limits": [TP_SERVE_PREFILL_REL, TP_SERVE_DECODE_REL],
+              "greedy_agree": [x["greedy_agree"] for x in refs],
+              "greedy_skipped": sum(x["greedy_skipped"] for x in refs),
+              "reference_s": [x["reference_s"] for x in refs],
+              "f32_cache_bytes_per_rank": [x["f32_cache_bytes"][-1]
+                                           for x in per],
+              "f32_cache_reckoned": per[0]["f32_cache_reckoned"],
+              "bf16_prefill_ms_per_rank": [x["prefill_ms"] for x in per],
+              "bf16_decode_ms_per_rank": [x["decode_ms"] for x in per],
+              "bf16_tokens_per_s": TP_SERVE_B * TP_SERVE_STEPS
+              / max(decode_s),
+              "prefill_bytes_sent_rank0": sent(per[0]["prefill_bytes"]),
+              "decode_bytes_sent_rank0": [sent(b) for b in
+                                          per[0]["decode_bytes"]],
+              "decode_data_bytes_received_rank0": received,
+              "bytes_reckoned": {"prefill": want[True],
+                                 "decode_step": want[False],
+                                 "shards_a_call": shards},
+              "launches_per_rank": [x["launches"] for x in per],
+              "rank_s": [x["s"] for x in per]})
+        require(len(refs) == 1, f"tp shards {name}: {len(refs)} references")
+        for x in refs:
+            require(x["rel_err"][0] <= TP_SERVE_PREFILL_REL,
+                    f"tp shards {name}: prefill logits {x['rel_err'][0]} "
+                    "of the largest from one process's")
+            require(max(x["rel_err"][1:]) <= TP_SERVE_DECODE_REL,
+                    f"tp shards {name}: decode logits {x['rel_err'][1:]} "
+                    "of the largest from one process's")
+            require(x["greedy_agree"], f"tp shards {name}: a greedy token "
+                    "differs from one process's")
+        for r, x in zip(ranks, per):
+            require(x["finite"] and x["bf16_finite"],
+                    f"tp shards {name}: rank {r['rank']}: a logit not "
+                    "finite")
+            require(x["f32_cache_bytes"] == [x["f32_cache_reckoned"]]
+                    * (TP_SERVE_STEPS + 1), f"tp shards {name}: rank "
+                    f"{r['rank']}'s cache bytes {x['f32_cache_bytes']}, "
+                    f"reckoned {x['f32_cache_reckoned']}")
+            require(not any(x["launches"].values()), f"tp shards {name}: "
+                    f"rank {r['rank']} launched {x['launches']}")
+            require(sent(x["prefill_bytes"]) == want[True]
+                    and all(sent(b) == want[False]
+                            for b in x["decode_bytes"])
+                    and all(b["data"]["received"] == (TP_D - 1)
+                            * b["data"]["sent"] for b in x["decode_bytes"]),
+                    f"tp shards {name}: rank {r['rank']} sent "
+                    f"{sent(x['prefill_bytes'])} in the prefill, "
+                    f"{[sent(b) for b in x['decode_bytes']]} a step; "
+                    f"reckoned {want}")
+        launches[name] = [x["launches"] for x in per]
+    for name, (cfg, max_len) in (len_cells or tp_shards_cells()).items():
+        per = [r["shards_tp"][name] for r in ranks]
+        for i, x in enumerate(per):
+            part_s[i] += x["s"]
+        refs = [x for x in per if "reference_s" in x]
+        arch = build.make_archdef(cfg, TP_M)
+        want = {dt: [{g: b + (reckon_combine_bytes(cfg, arch, 1, TP_M)
+                              if g == "data" and s else 0)
+                      for g, b in reckon_tp_serve_bytes(
+                          cfg, arch, 1, TP_SERVE_PROMPT, TP_M, 1, 1, elt,
+                          prefill=s == 0).items()}
+                     for s in range(TP_SERVE_STEPS + 1)]
+                for dt, elt in (("f32", 4), ("bf16", 2))}
+        emit({"tp": "shards", "layout": "len_axis data", "arch": cfg.name,
+              "case": name, "card": card, "n_layers": cfg.n_layers,
+              "grid": list(TP_GRID), "requests": 1,
+              "prompt": TP_SERVE_PROMPT, "steps": TP_SERVE_STEPS,
+              "max_len": max_len,
+              "f32_rel_err_per_reference": [x["f32"]["rel_err"]
+                                            for x in refs],
+              "limits": [TP_SERVE_PREFILL_REL, TP_SHARDS_DECODE_REL],
+              "bf16_rel_err_per_reference": [x["bf16"]["rel_err"]
+                                             for x in refs],
+              "reference_s": [x["reference_s"] for x in refs],
+              "cache_bytes_per_rank": [x["f32"]["cache_bytes"][-1]
+                                       for x in per],
+              "cache_reckoned": per[0]["f32"]["cache_reckoned"],
+              "whole_cache_bytes": per[0]["whole_cache_bytes"],
+              "f32_ms_per_rank": [x["f32"]["ms"] for x in per],
+              "bf16_ms_per_rank": [x["bf16"]["ms"] for x in per],
+              "bytes_sent_rank0": {dt: per[0][dt]["bytes_sent"]
+                                   for dt in want},
+              "bytes_reckoned": want,
+              "launches_per_rank": [x["launches"] for x in per],
+              "rank_s": [x["s"] for x in per]})
+        require(len(refs) == 1, f"tp shards {name}: {len(refs)} references")
+        for x in refs:
+            err = x["f32"]["rel_err"]
+            require(err[0] <= TP_SERVE_PREFILL_REL
+                    and max(err[1:]) <= TP_SHARDS_DECODE_REL,
+                    f"tp shards {name}: logits {err} of the largest from "
+                    "one process's on the whole cache")
+        for r, x in zip(ranks, per):
+            for dt in want:
+                y = x[dt]
+                require(y["finite"], f"tp shards {name}: rank {r['rank']}: "
+                        f"a {dt} logit not finite")
+                require(y["cache_bytes"] == [y["cache_reckoned"]]
+                        * (TP_SERVE_STEPS + 1)
+                        and y["cache_reckoned"] < x["whole_cache_bytes"],
+                        f"tp shards {name}: rank {r['rank']}'s {dt} cache "
+                        f"bytes {y['cache_bytes']}, reckoned "
+                        f"{y['cache_reckoned']} (whole "
+                        f"{x['whole_cache_bytes']})")
+                require(y["bytes_sent"] == want[dt], f"tp shards {name}: "
+                        f"rank {r['rank']} sent {y['bytes_sent']} ({dt}); "
+                        f"reckoned {want[dt]}")
+            require(not any(x["launches"].values()), f"tp shards {name}: "
+                    f"rank {r['rank']} launched {x['launches']}")
+        launches[name] = [x["launches"] for x in per]
+    emit({"tp": "shards part", "card": card, "rank_s": part_s,
+          "limit_s": 40.0})
+    return launches
 
 
 def block_numel(shape, spec, model: int) -> int:
@@ -6963,9 +7424,10 @@ def main() -> None:
         return
     if sys.argv[1:] not in ([], ["--mu-sweep"], ["--phase", "hybrid"],
                             ["--phase", "mesh"], ["--phase", "tp"],
-                            ["--phase", "fsdp_mesh"]):
+                            ["--phase", "fsdp_mesh"], ["--phase", "shards"]):
         fail(f"usage: {sys.argv[0]} [--mu-sweep | --phase hybrid | "
-             "--phase mesh | --phase tp | --phase fsdp_mesh]")
+             "--phase mesh | --phase tp | --phase fsdp_mesh | "
+             "--phase shards]")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -7032,6 +7494,18 @@ def main() -> None:
                               lambda name: tp_extra(tp, name))
         finish(torch, kernels)
         return
+    if sys.argv[1:] == ["--phase", "shards"]:
+        tp = phase_tp(torch, card, parts=("moe", "shards"))
+        paths = dict.fromkeys(SOURCES, "tp moe, deepseek-v3 FSDP (2 steps) "
+                              "in rank 0 of 2 x 2 x 2")
+        kernels = kernel_rows(
+            main_rows, tp["moe"]["deepseek-v3"][0], paths,
+            lambda name: {f"tp_{part}_launches_per_rank": {
+                arch: [x[name] for x in per_rank]
+                for arch, per_rank in tp[part].items()}
+                for part in ("moe", "shards")})
+        finish(torch, kernels)
+        return
     if sys.argv[1:] == ["--phase", "fsdp_mesh"]:
         fm = phase_fsdp_mesh(torch, card)
         paths = dict.fromkeys(SOURCES, "fsdp_mesh, gemma3-12b FSDP (2 steps, "
@@ -7062,7 +7536,8 @@ def main() -> None:
     moe_launches = phase_moe(torch, card)
     hybrid = phase_hybrid(torch, card)
     mesh = phase_mesh(torch, card, fsdp=True)
-    tp = phase_tp(torch, card, parts=("tp", "fsdp", "fam", "moe", "serve"))
+    tp = phase_tp(torch, card, parts=("tp", "fsdp", "fam", "moe", "serve",
+                                      "shards"))
     fm = fsdp_mesh_report(torch, card, mesh.pop("ranks"), tp.pop("ranks"))
     paths = {"sign_pack": "paper task, fused/flat (30 steps)",
              "vote_update": "paper task, fused/flat (30 steps)",
@@ -7110,13 +7585,14 @@ def tp_extra(tp: dict, name: str) -> dict:
     ``tp_moe_launches_per_rank`` and ``tp_fam_launches_per_rank``: per
     config, each rank's launches of ``name`` in its run over the model
     axis (the moe part's FSDP, the fam part's replicated);
-    ``tp_serve_launches_per_rank``: the serve part's, each config's."""
+    ``tp_serve_launches_per_rank`` and ``tp_shards_launches_per_rank``:
+    the serve and shards parts', each config's."""
     return {"tp_launches_per_rank": mesh_extra(tp, name)[
         "mesh_launches_per_rank"],
         **{f"tp_{part}_launches_per_rank": {
             arch: [x[name] for x in per_rank]
             for arch, per_rank in tp[part].items()}
-           for part in ("moe", "fam", "serve") if part in tp}}
+           for part in ("moe", "fam", "serve", "shards") if part in tp}}
 
 
 def kernel_rows(main_rows: dict, launches: dict, paths: dict,

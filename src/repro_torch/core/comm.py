@@ -48,7 +48,15 @@ all-gather of the sign words in ``votes.py``): explicit
     rows are split) in batch order, pod-major (the MoE's top-k expert
     ids), an all-gather over the data group then one over the pod
     group, counted as ``gather_batch_data`` and ``gather_batch_pod``:
-    the mesh has no batch group of its own, and these two compose it.
+    the mesh has no batch group of its own, and these two compose it;
+    over the data group, where the data ranks hold shards of the weights
+    or of the cache's length (``models.build``'s gather layout and
+    ``len_axis``): :func:`gather_shards` again, counted as
+    ``gather_serve`` (each layer's shards gathered into its compute
+    block at every call), and :func:`combine_softmax` -- the
+    split-length attention's partial softmaxes gathered and folded in
+    data order (``combine_data``), so every data rank holds the same
+    bits.
     A model sum is one all-reduce, in float32 for a narrower float
     (rounded back once).  Its order of addition is the algorithm's, not
     the one-process order, but every model rank gets the same bits:
@@ -85,9 +93,11 @@ from repro_torch.core.topology import Topology
 OPS = ("gather_devices", "gather_pods", "sum_devices", "gather_shards",
        "scatter_shards", "sum_model", "copy_to_model", "max_model",
        "gather_model", "all_gather_model", "reduce_scatter_model",
-       "gather_batch_data", "gather_batch_pod", "broadcast_pods")
+       "gather_batch_data", "gather_batch_pod", "broadcast_pods",
+       "gather_serve", "combine_data")
 GROUPS = {"data": ("gather_devices", "sum_devices", "gather_shards",
-                   "scatter_shards", "gather_batch_data"),
+                   "scatter_shards", "gather_batch_data", "gather_serve",
+                   "combine_data"),
           "pod": ("gather_pods", "gather_batch_pod", "broadcast_pods"),
           "model": ("sum_model", "copy_to_model", "max_model",
                     "gather_model", "all_gather_model",
@@ -222,15 +232,44 @@ def sum_devices(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def gather_shards(topo: Topology | None, x: torch.Tensor,
-                  dim: int) -> torch.Tensor:
+def gather_shards(topo: Topology | None, x: torch.Tensor, dim: int,
+                  op: str = "gather_shards") -> torch.Tensor:
     """All-gather over the data group along ``dim``: the data ranks'
-    shards of a leaf, in data order, side by side (no gradient)."""
+    shards of a leaf, in data order, side by side (no gradient); counted
+    under ``op`` (``"gather_serve"`` when serving)."""
     m = _mesh(topo)
     if m is None or m.data == 1:
         return x
-    _count("gather_shards", x, m.data - 1)
+    _count(op, x, m.data - 1)
     return _gather(m, "data", x.detach(), dim)
+
+
+def combine_softmax(topo: Topology | None, m_r: torch.Tensor,
+                    l_r: torch.Tensor, o_r: torch.Tensor) -> torch.Tensor:
+    """The softmax-weighted values over a length split across the data
+    group, from each rank's partial softmax over its block: the row max
+    ``m_r`` [..., 1], the sum ``l_r`` [..., 1] of ``exp(s - m_r)`` and the
+    values weighted by those, ``o_r`` [..., e], all float32.  The three
+    are all-gathered as one tensor and folded in data order, ``o = sum_r
+    exp(m_r - M) o_r / sum_r exp(m_r - M) l_r`` with ``M`` the largest
+    ``m_r``, so every data rank gets the same bits.  A rank with nothing
+    to add hands in ``l_r`` and ``o_r`` zero, which adds exactly zero.
+    Without a data group above one rank, ``o_r / l_r``."""
+    m = _mesh(topo)
+    if m is None or m.data == 1:
+        return o_r / l_r
+    part = torch.cat([m_r, l_r, o_r], dim=-1).to(torch.float32)[None]
+    _count("combine_data", part, m.data - 1)
+    parts = _gather(m, "data", part, 0)
+    big = parts[..., :1].amax(0)
+    num = den = None
+    for r in range(m.data):
+        scale = torch.exp(parts[r, ..., :1] - big)
+        num = (scale * parts[r, ..., 2:] if num is None
+               else num + scale * parts[r, ..., 2:])
+        den = (scale * parts[r, ..., 1:2] if den is None
+               else den + scale * parts[r, ..., 1:2])
+    return num / den
 
 
 def scatter_shards(topo: Topology | None, x: torch.Tensor) -> torch.Tensor:

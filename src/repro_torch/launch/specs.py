@@ -16,15 +16,17 @@ all; a state taken mid-round is served as edge 0 too, on every pod (a
 rank of pod 0 serves its own row, the other pods receive that row once
 over the pod group).  Cast only when a ``dtype`` is given; the cast is
 then the only copy.  :func:`serve_params_from_tree` does the same for a
-tree-layout state's ``[P, *leaf]`` edge models (on a rank, its blocks) -- the FSDP
-regime's masters, which an FSDP config within
-``build.SERVE_RESIDENT_BUDGET`` serves resident in one process.
+tree-layout state's ``[P, *leaf]`` edge models (on a rank, its blocks)
+-- the FSDP regime's masters, which an FSDP config within
+``build.SERVE_RESIDENT_BUDGET`` serves resident in one process, and
+which in the gather layout (``built.serve_layout == "gather"``) are
+served as they are stored: on a rank of a mesh its data shard of every
+leaf, ``[P_loc, *shard]``, as ``run_training`` leaves them, gathered a
+layer at a time by the serve itself (``build.ServeGatherPlan``).
 :func:`serve_param_specs` (JAX's ``serve_param_shardings``) and
 :func:`serve_params_abstract` give the rank's spec tree and shapes.
 
-Not ported yet: the dry run's input and state specs (ROADMAP item 16),
-and serving FSDP-stored shards over a mesh (the gather layout, item
-17d, part two).
+Not ported yet: the dry run's input and state specs (ROADMAP item 16).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core import comm, flatbuf, pytree, shardflat
+from repro_torch.core import comm, device_axis, flatbuf, pytree, shardflat
 from repro_torch.models import build as build_mod
 from repro_torch.models.build import BuiltModel
 
@@ -89,27 +91,44 @@ def serve_params_from_tree(params: PyTree, dtype: torch.dtype | None = None,
     views, cast to ``dtype`` when one is given.  On a mesh with pods,
     ``built`` also names the pod group: pod rank 0's ranks serve views
     of their first edge, the other pods' receive it leaf by leaf
-    (``comm.broadcast_pods``), as :func:`serve_params_from_flat` does."""
+    (``comm.broadcast_pods``), as :func:`serve_params_from_flat` does.
+    In the gather layout (an FSDP ``built`` whose ``serve_layout`` is
+    ``"gather"``) the leaves are the rank's FSDP shards ``[P_loc,
+    *shard]`` and stay so -- no gather, no copy but the cast --, each
+    checked against :func:`serve_params_abstract`'s shape."""
     topo = None if built is None else built.topo
     tree = pytree.tree_map(lambda v: comm.broadcast_pods(topo, v[0]), params)
-    if built is not None:
+    if built is not None and built.serve_layout == "gather" \
+            and built.cfg.param_mode == "fsdp":
+        want = pytree.flatten_up_to(pytree.tree_flatten(tree)[1],
+                                    serve_params_abstract(built))
+        for got, w in zip(pytree.tree_flatten(tree)[0], want):
+            if got.shape != w.shape:
+                raise ValueError(
+                    f"a shard of shape {tuple(got.shape)} where "
+                    f"{built.cfg.name}'s gather layout holds "
+                    f"{tuple(w.shape)} on this rank")
+    elif built is not None:
         tree = shardflat.logical(built.topo, _rank_layout(built), tree)
     return _cast(tree, dtype)
 
 
 def serve_param_specs(built: BuiltModel) -> PyTree:
     """Each served leaf's spec (the JAX ``serve_param_shardings``): the
-    compute specs when the weights are resident, the FSDP master specs
-    in the gather layout (item 17d, part two)."""
+    compute specs when the weights are resident, the master specs in the
+    gather layout (an FSDP config's data-sharded ones)."""
     return (built.bundle.specs if built.serve_layout == "resident"
             else built.bundle.master_specs)
 
 
 def serve_params_abstract(built: BuiltModel) -> PyTree:
     """The rank's serve tree's shapes and dtypes, on the meta device: each
-    leaf its block at ``built.topo``'s model axis (the whole leaf
-    without one), its floating leaves bfloat16, as they are served."""
-    sizes = {"pod": 1, "data": 1, "model": built.topo.model_shards}
+    leaf its block under :func:`serve_param_specs` -- resident, its block
+    at ``built.topo``'s model axis (the whole leaf without one); in the
+    gather layout, its FSDP shard over the data ranks too --, its
+    floating leaves bfloat16, as they are served."""
+    sizes = {"pod": 1, "data": device_axis.data_ranks(built.topo),
+             "model": built.topo.model_shards}
 
     def block(a, spec):
         shape = build_mod.block_shape(tuple(a.shape), tuple(spec or ()),
@@ -118,4 +137,4 @@ def serve_params_abstract(built: BuiltModel) -> PyTree:
                            dtype=torch.bfloat16 if a.dtype.is_floating_point
                            else a.dtype)
     return pytree.tree_map(block, built.abstract_params(),
-                           built.bundle.specs)
+                           serve_param_specs(built))

@@ -64,6 +64,17 @@ cache; MLA's latent ``ckv`` and rope key ``kr`` are whole on every
 model rank, and the rank's heads take their absorbed ``wuk`` and
 ``wuv`` columns over it.  ``wo``'s row-parallel product is summed over
 the model group at prefill and at every decode step.
+
+A cache split by length (``seq``: the topology whose data ranks each
+hold a block of it, long_500k's layout, ``build.make_cache(...,
+len_axis="data")``): data rank r holds global positions ``[r*Lb,
+(r+1)*Lb)`` of GQA's offset cache and of MLA's latent caches.  A write
+(prefill's ``[0, t)``, a decode step's ``[pos, pos+t)``) lands on the
+rank or ranks that own its positions, checked against the global
+length; a decode step scores the rank's block under the global mask and
+combines the ranks' partial softmaxes over the data group
+(``comm.combine_softmax``: flash-decoding's combine, in float32).  A
+window layer's cache, and the recurrent states, stay whole.
 """
 from __future__ import annotations
 
@@ -126,10 +137,11 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_rep, dim=-2)
 
 
-def _attend(q, k, v, mask):
+def _attend(q, k, v, mask, seq=None):
     """q: [*, b, tq, h, hd]; k, v: [*, b, tk, h, hd]; mask: [tq, tk] bool
     (shared by every replica and row) or None.  q and k meet in their
-    promoted dtype."""
+    promoted dtype.  ``seq``: k and v are the rank's block of a length
+    split over its data ranks (:func:`_split_softmax`)."""
     dt = torch.promote_types(q.dtype, k.dtype)
     q, k = q.to(dt), k.to(dt)
     scores = torch.matmul(q.transpose(-3, -2), k.permute(
@@ -137,8 +149,35 @@ def _attend(q, k, v, mask):
     scores = scores / layers.scalar(scores, math.sqrt(q.shape[-1]))
     if mask is not None:
         scores = torch.where(mask, scores, layers.scalar(scores, NEG_INF))
+    if seq is not None:
+        out = _split_softmax(scores, v.transpose(-3, -2), seq)
+        return out.to(v.dtype).transpose(-3, -2)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.matmul(w, v.transpose(-3, -2)).transpose(-3, -2)
+
+
+def _split_softmax(scores, values, seq):
+    """softmax(scores) @ values over a length split across ``seq``'s data
+    ranks: scores [..., tq, s] float32, masked with ``NEG_INF``, and
+    values [..., s, e] the rank's block of the slots; float32 [..., tq,
+    e].  The rank's row max, sum and weighted values, in float32, are
+    combined over the data group (``comm.combine_softmax``); a row whose
+    slots are all masked on this rank hands in zeros."""
+    m_r = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m_r)
+    live = m_r > NEG_INF
+    l_r = torch.where(live, p.sum(dim=-1, keepdim=True), 0.0)
+    o_r = torch.where(live, torch.matmul(p, values.to(torch.float32)), 0.0)
+    return comm.combine_softmax(seq, m_r, l_r, o_r)
+
+
+def _length_block(seq, length: int) -> tuple[int, int]:
+    """(the first global slot of the rank's block, the global length) of
+    a cache of ``length`` slots on the rank; without ``seq`` the cache is
+    whole, (0, length)."""
+    if seq is None:
+        return 0, length
+    return seq.mesh.data_rank * length, seq.mesh.data * length
 
 
 def causal_mask(tq: int, tk: int, window: int = 0,
@@ -228,7 +267,7 @@ def _rank_kv(k, v, cfg, tp):
 
 def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
              mask_extra=None, cache=None, pos: int = 0,
-             prefill: bool = False, tp=None):
+             prefill: bool = False, tp=None, seq=None):
     """Causal GQA: x [*, b, t, d] -> [*, b, t, d] without a cache (train
     mode); with one, (out, new_cache).
 
@@ -248,7 +287,9 @@ def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
     would clamp it into the last slots).  ``tp``: the rank's heads, see
     the module docstring; with a cache, the rank's block of it
     (``gqa_cache_specs``: its kv heads, or all of them where they do not
-    split)."""
+    split).  ``seq``: the offset cache is the rank's block of a length
+    split over its data ranks (the module docstring); positions, the
+    overrun check and the mask are global."""
     tp = _tp_heads(cfg, tp)
     split_kv = _kv_split(cfg, tp)
     xq = comm.copy_to_model(tp, x)
@@ -282,21 +323,16 @@ def gqa_attn(p, x, positions, cfg, *, theta: float, window: int = 0,
                       valid.expand(t, window))
     else:
         at = 0 if prefill else pos
-        if at + t > length:
-            raise ValueError(
-                f"writing {t} positions at {at} overruns the cache's "
-                f"{length} (max_len)")
-        ck = torch.cat([ck[..., :at, :, :], kc, ck[..., at + t:, :, :]],
-                       dim=-3)
-        cv = torch.cat([cv[..., :at, :, :], vc, cv[..., at + t:, :, :]],
-                       dim=-3)
+        lo, total = _length_block(seq, length)
+        ck = _write(ck, kc, at, -3, lo, total)
+        cv = _write(cv, vc, at, -3, lo, total)
         if not prefill:
-            kj = torch.arange(length, device=x.device)
+            kj = lo + torch.arange(length, device=x.device)
             valid = kj <= pos
             if window:
                 valid &= kj > pos - window
             out = _attend(q, *_rank_kv(ck, cv, cfg, tp),
-                          valid.expand(t, length))
+                          valid.expand(t, length), seq)
     return comm.sum_model(tp, _merge_heads(out, p["wo"])), {"k": ck, "v": cv}
 
 
@@ -388,19 +424,28 @@ def init_mla(gen, cfg, device) -> dict:
     }
 
 
-def _write(cache: torch.Tensor, new: torch.Tensor, at: int) -> torch.Tensor:
-    """cache [b, L, f] with new [b, t, f] (cast to the cache's dtype) at
-    offset ``at``; past the cache's end raises ``ValueError``."""
-    t, length = new.shape[-2], cache.shape[-2]
-    if at + t > length:
+def _write(cache: torch.Tensor, new: torch.Tensor, at: int, dim: int = -2,
+           lo: int = 0, total: int | None = None) -> torch.Tensor:
+    """cache with new (cast to the cache's dtype) at offset ``at`` along
+    the length dim ``dim``; past the end raises ``ValueError``.  Where
+    the cache is a rank's block of a split length (``lo`` its first
+    global slot, ``total`` the global length) only the positions that
+    fall in the block are written (the cache itself where none do)."""
+    t, length = new.shape[dim], cache.shape[dim]
+    total = length if total is None else total
+    if at + t > total:
         raise ValueError(f"writing {t} positions at {at} overruns the "
-                         f"cache's {length} (max_len)")
-    return torch.cat([cache[..., :at, :], new.to(cache.dtype),
-                      cache[..., at + t:, :]], dim=-2)
+                         f"cache's {total} (max_len)")
+    a, b = max(at, lo), min(at + t, lo + length)
+    if a >= b:
+        return cache
+    return torch.cat([cache.narrow(dim, 0, a - lo),
+                      new.narrow(dim, a - at, b - a).to(cache.dtype),
+                      cache.narrow(dim, b - lo, lo + length - b)], dim=dim)
 
 
 def mla_attn(p, x, positions, cfg, *, cache=None, pos: int = 0,
-             prefill: bool = False, tp=None):
+             prefill: bool = False, tp=None, seq=None):
     """MLA: x [*, b, t, d] -> [*, b, t, d] without a cache (train mode);
     with one (``{"ckv": [b, L, r], "kr": [b, L, rope]}``,
     ``mla_cache_init``), (out, new_cache): ``prefill`` attends causally
@@ -408,7 +453,9 @@ def mla_attn(p, x, positions, cfg, *, cache=None, pos: int = 0,
     writes t tokens at ``pos`` (a host int) and attends over the cache
     through the absorbed keys, masking ``kj <= pos``.  ``tp``: the
     rank's heads, see the module docstring; the latent cache is whole on
-    every rank (``mla_cache_specs``)."""
+    every model rank (``mla_cache_specs``).  ``seq``: the latent caches
+    are the rank's blocks of a length split over its data ranks (the
+    module docstring), the absorbed scores combined over them."""
     if tp is not None and cfg.n_heads % tp.model_shards:
         tp = None                           # the heads whole on every rank
     m = cfg.mla
@@ -431,20 +478,26 @@ def mla_attn(p, x, positions, cfg, *, cache=None, pos: int = 0,
         out = attend_causal(torch.cat([q_nope, q_rope], dim=-1), k, v)
         if cache is None:
             return comm.sum_model(tp, _merge_heads(out, p["wo"]))
-        new_cache = {"ckv": _write(cache["ckv"], ckv, 0),
-                     "kr": _write(cache["kr"], k_rope, 0)}
+    lo, total = _length_block(seq, cache["ckv"].shape[-2])
+    if prefill:
+        new_cache = {"ckv": _write(cache["ckv"], ckv, 0, -2, lo, total),
+                     "kr": _write(cache["kr"], k_rope, 0, -2, lo, total)}
         return comm.sum_model(tp, _merge_heads(out, p["wo"])), new_cache
-    cc = _write(cache["ckv"], ckv, pos)
-    cr = _write(cache["kr"], k_rope, pos)
+    cc = _write(cache["ckv"], ckv, pos, -2, lo, total)
+    cr = _write(cache["kr"], k_rope, pos, -2, lo, total)
     q_abs = torch.einsum("bthk,rhk->bthr", q_nope, p["wuk"])
     scores = (torch.einsum("bthr,bsr->bhts", q_abs, cc.to(q_abs.dtype))
               + torch.einsum("bthk,bsk->bhts", q_rope,
                              cr.to(q_rope.dtype))).to(torch.float32)
     scores = scores / layers.scalar(scores, math.sqrt(nope + rdim))
-    valid = torch.arange(cc.shape[-2], device=x.device) <= pos
+    valid = lo + torch.arange(cc.shape[-2], device=x.device) <= pos
     scores = torch.where(valid, scores, layers.scalar(scores, NEG_INF))
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    o_lat = torch.einsum("bhts,bsr->bthr", w, cc.to(x.dtype))
+    if seq is not None:
+        o_lat = _split_softmax(scores, cc[:, None], seq).to(
+            x.dtype).transpose(1, 2)
+    else:
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhts,bsr->bthr", w, cc.to(x.dtype))
     out = torch.einsum("bthr,rhk->bthk", o_lat, p["wuv"])
     return (comm.sum_model(tp, _merge_heads(out, p["wo"])),
             {"ckv": cc, "kr": cr})

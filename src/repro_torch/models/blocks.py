@@ -35,7 +35,12 @@ rule ``la = None if window else len_ax`` and the cross keys ``ek``/``ev``
 by kv heads included.  ``Ctx.batch``, when serving over a process mesh,
 is the topology whose pod and data ranks split the request rows: the
 MoE routes by the whole call's groups across them
-(``models.moe.moe_block``).
+(``models.moe.moe_block``).  ``Ctx.seq``, when serving one request from
+a cache split by length (``len_axis="data"``), is the topology whose
+data ranks hold its blocks: a block whose ``cache_specs`` put
+``len_ax`` on its length (an attention without a window, MLA) passes it
+to its mixer; a window layer's cache and the recurrent states stay
+whole.
 """
 from __future__ import annotations
 
@@ -65,6 +70,9 @@ class Ctx:
     batch: object | None = None              # serving over a mesh: the
                                              # topology whose pod and
                                              # data ranks split the rows
+    seq: object | None = None                # serving with the caches'
+                                             # length split over the
+                                             # data ranks: their topology
 
 
 @dataclasses.dataclass
@@ -118,7 +126,7 @@ def dense_block(cfg: LMConfig, model_shards: int = 0, *, window: int = 0,
                               window=window,
                               cache=None if cache is None else cache["self"],
                               pos=ctx.pos, prefill=ctx.mode == "prefill",
-                              tp=ctx.tp)
+                              tp=ctx.tp, seq=None if window else ctx.seq)
             if cache is not None:
                 a, new_cache["self"] = a
             x = x + a
@@ -184,11 +192,12 @@ def moe_block(cfg: LMConfig, model_shards: int = 0, *,
         prefill = ctx.mode == "prefill"
         if use_mla:
             a = attn.mla_attn(p["attn"], h, ctx.positions, cfg, cache=cache,
-                              pos=ctx.pos, prefill=prefill, tp=ctx.tp)
+                              pos=ctx.pos, prefill=prefill, tp=ctx.tp,
+                              seq=ctx.seq)
         else:
             a = attn.gqa_attn(p["attn"], h, ctx.positions, cfg,
                               theta=cfg.rope_theta, cache=cache, pos=ctx.pos,
-                              prefill=prefill, tp=ctx.tp)
+                              prefill=prefill, tp=ctx.tp, seq=ctx.seq)
         if cache is not None:
             a, new_cache = a
         x = x + a
@@ -228,7 +237,7 @@ def mla_dense_block(cfg: LMConfig, d_ff: int, model_shards: int = 0,
         h = layers.rms_norm(p["n1"], x, cfg.norm_eps)
         a = attn.mla_attn(p["attn"], h, ctx.positions, cfg, cache=cache,
                           pos=ctx.pos, prefill=ctx.mode == "prefill",
-                          tp=ctx.tp)
+                          tp=ctx.tp, seq=ctx.seq)
         if cache is not None:
             a, new_cache = a
         x = x + a

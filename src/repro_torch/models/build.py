@@ -84,10 +84,22 @@ are gathered over the model group, so a rank returns the whole [b_loc,
 1, V] logits of its rows; whisper's encoder and a vlm's patches run as
 in training.
 
-Not ported yet (each raises ``NotImplementedError`` naming item 17d,
-part two): the ``"gather"`` serve layout of the FSDP configs above the
-budget (``ServeGatherPlan``) and a cache sharded by length
-(``len_axis``, long_500k's layout).
+The ``"gather"`` serve layout (:class:`ServeGatherPlan`, the FSDP
+configs past the budget, or any FSDP config whose caller asks for it):
+the parameters stay as the FSDP regime stores them, each rank its data
+shard of every leaf (:func:`master_specs`), and each layer's shards --
+the embedding's and the head's too -- are gathered over the data group
+into the rank's compute block at every call, just before they are used,
+and dropped after (``comm.gather_shards``, counted ``gather_serve``); a
+tied block's once a call.  Without a mesh the gather is the identity.
+
+One request (``rows="replicated"``): the batch of 1 is the same on
+every pod and data rank, as the JAX package lays out ``b == 1`` (its
+``ba = None``): each rank's cache holds the whole batch dim and the MoE
+routes the call's own tokens.  With ``len_axis="data"`` (long_500k's
+layout, one request) each data rank holds a block of the length of
+every cache whose spec names ``"data"`` there, and the attention
+combines the ranks' partial softmaxes (``models.attention``).
 """
 from __future__ import annotations
 
@@ -524,12 +536,24 @@ def block_shape(shape: tuple, spec: tuple, sizes: dict) -> tuple:
     return tuple(out)
 
 
+LEN_AXES = (None, "data")    # a cache's length whole, or split over
+                             # the data ranks (long_500k's layout)
+
+
 def _cache_leaves(arch: ArchDef, b: int, max_len: int,
                   topo: Topology | None, len_axis=None) -> dict:
     """Each block's cache slice shapes at this rank: {block: tree of
     (n_occurrences, *block shape)}."""
+    if len_axis not in LEN_AXES:
+        raise ValueError(f"len_axis must be one of {LEN_AXES}, not "
+                         f"{len_axis!r}")
+    if len_axis is not None and b != 1:
+        raise ValueError(f"a cache split by length holds one request, not "
+                         f"{b} (the batch would split over the same axis)")
     sizes = axis_sizes(topo)
-    specs = cache_specs(arch, SERVE_BATCH_AXES, len_axis)["stacks"]
+    # a single request is whole on every batch rank (JAX's ``ba = None``)
+    specs = cache_specs(arch, SERVE_BATCH_AXES if b > 1 else None,
+                        len_axis)["stacks"]
     out = {}
     for name, n in occurrence_counts(arch.segments).items():
         bd = arch.blocks[name]
@@ -541,17 +565,6 @@ def _cache_leaves(arch: ArchDef, b: int, max_len: int,
     return out
 
 
-def _refuse_len_axis(arch: ArchDef, len_axis) -> None:
-    if len_axis is None:
-        return
-    for sp in pytree.tree_flatten(cache_specs(arch, None, len_axis))[0]:
-        if len_axis in sp:
-            raise NotImplementedError(
-                f"{arch.cfg.name}: a cache sharded by length over "
-                f"{len_axis!r} (long_500k's layout): ROADMAP item 17d, part "
-                "two")
-
-
 def make_cache(arch: ArchDef, b: int, max_len: int,
                device: str | torch.device | None = None,
                topo: Topology | None = None, len_axis=None) -> dict:
@@ -561,15 +574,19 @@ def make_cache(arch: ArchDef, b: int, max_len: int,
     training starts it at ones: the JAX package's ``make_cache`` does
     the same (ROADMAP queue 3).  Over a mesh (``topo``) ``b`` is the
     global batch and the cache is this rank's block of it
-    (:func:`cache_specs` over ``SERVE_BATCH_AXES``): its batch rows, and
-    its heads or inner-dim slice where a spec names the model axis;
-    ``len_axis``, the length-sharded layout, raises (item 17d, part
-    two)."""
-    _refuse_len_axis(arch, len_axis)
+    (:func:`cache_specs` over ``SERVE_BATCH_AXES``): its batch rows (all
+    of a single request), and its heads or inner-dim slice where a
+    spec names the model axis.  ``len_axis="data"`` (one request,
+    long_500k's layout): data rank r holds positions ``[r*L/data,
+    (r+1)*L/data)`` of each leaf whose spec names ``"data"`` on its
+    length (the global layers' k and v, zamba2's shared attention's,
+    MLA's ckv and kr); window caches and recurrent states stay whole; a
+    length the data ranks do not divide raises ``ValueError``."""
     stacks = {name: pytree.tree_map(
         lambda shape: torch.zeros(shape, dtype=torch.bfloat16,
                                   device=device), tree)
-        for name, tree in _cache_leaves(arch, b, max_len, topo).items()}
+        for name, tree in _cache_leaves(arch, b, max_len, topo,
+                                        len_axis).items()}
     return {"stacks": stacks, "pos": 0}
 
 
@@ -579,12 +596,14 @@ STATE_LEAVES = frozenset({"ssm", "C", "n", "m", "c", "h"})   # float32 once
 
 def cache_bytes(arch: ArchDef, b: int, max_len: int,
                 topo: Topology | None = None,
-                compute_dtype: torch.dtype | None = None) -> int:
+                compute_dtype: torch.dtype | None = None,
+                len_axis=None) -> int:
     """The bytes of a rank's cache, reckoned from the specs: as
     :func:`make_cache` allocates it (bfloat16) without a
     ``compute_dtype``; with one, as prefill and decode return it --
     the recurrent states (``STATE_LEAVES``) float32, the conv states in
-    the compute dtype, the attention caches bfloat16."""
+    the compute dtype, the attention caches bfloat16.  ``len_axis``: as
+    :func:`make_cache` splits the length."""
     def nbytes(key, shape):
         if compute_dtype is None:
             size = 2
@@ -599,7 +618,7 @@ def cache_bytes(arch: ArchDef, b: int, max_len: int,
     def walk(tree):
         return sum(walk(v) if isinstance(v, dict) else nbytes(k, v)
                    for k, v in tree.items())
-    return walk(_cache_leaves(arch, b, max_len, topo))
+    return walk(_cache_leaves(arch, b, max_len, topo, len_axis))
 
 
 def cache_specs(arch: ArchDef, batch_ax, len_axis=None) -> dict:
@@ -616,14 +635,40 @@ def cache_specs(arch: ArchDef, batch_ax, len_axis=None) -> dict:
     return {"stacks": stacks, "pos": ()}
 
 
-class ServeGatherPlan(ReplicatedPlan):
-    """The serving plan for FSDP-stored parameters (a per-layer
-    all-gather): ROADMAP item 17d, part two."""
+def gather_serve(topo: Topology | None, tree: PyTree,
+                 specs: PyTree) -> PyTree:
+    """A tree of FSDP shards (``specs``: its master specs) -> the rank's
+    compute blocks: each leaf whose spec names ``"data"`` gathered over
+    the data group along that dim (``comm.gather_shards``, counted
+    ``gather_serve``), the rest as they are.  The FSDP layout has no
+    padded shard (the regime refuses a model axis that would leave one),
+    so the gathered block is the compute block as it is; without a
+    data group above one rank, the tree itself."""
+    if device_axis.data_ranks(topo) == 1:
+        return tree
+    return pytree.tree_map(
+        lambda x, sp: x if device_axis.data_dim(sp) is None
+        else comm.gather_shards(topo, x, device_axis.data_dim(sp),
+                                op="gather_serve"), tree, specs)
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ServeGatherPlan (serving FSDP-stored parameters): ROADMAP "
-            "item 17d, part two")
+
+class ServeGatherPlan(ReplicatedPlan):
+    """The serving plan for FSDP-stored parameters (the JAX plan, which
+    constrains each layer's shards to its block's compute specs): each
+    layer's leaves arrive as the rank's shards and are gathered over the
+    data group into the block's compute block (:func:`gather_serve`)
+    just before the block runs; ``layer_specs`` are the per-layer master
+    specs (:func:`layer_specs`).  ``engine.run_segments`` asks for a
+    tied block's once a call."""
+
+    def __init__(self, cfg: LMConfig, topo: Topology | None,
+                 layer_specs: dict):
+        super().__init__(cfg, remat=False)
+        self.topo = topo
+        self.layer_specs = layer_specs
+
+    def layer(self, name: str, lp):
+        return gather_serve(self.topo, lp, self.layer_specs[name])
 
 
 def serve_layout(cfg: LMConfig, topo: Topology, n_params: int) -> str:
@@ -631,56 +676,101 @@ def serve_layout(cfg: LMConfig, topo: Topology, n_params: int) -> str:
     compute layout) for the replicated regime and for an FSDP config
     whose bf16 weights on a card, ``2 * n_params`` bytes over the model
     axis' shards, fit ``SERVE_RESIDENT_BUDGET``; ``"gather"``
-    (FSDP-stored weights gathered a layer at a time, ROADMAP item 17d,
-    part two) otherwise."""
+    (FSDP-stored weights gathered a layer at a time,
+    :class:`ServeGatherPlan`) otherwise."""
     if cfg.param_mode != "fsdp":
         return "resident"
     per_card = 2.0 * n_params / max(topo.model_shards, 1)
     return "resident" if per_card <= SERVE_RESIDENT_BUDGET else "gather"
 
 
+def serve_master_specs(arch: ArchDef, devices: int, model: int) -> PyTree:
+    """The FSDP master specs the gather layout serves from: the
+    regime's layout at the global D ``devices`` and model axis
+    ``model``."""
+    return master_specs(arch, compute_specs(arch, model),
+                        init_params(arch, None, "meta"), devices, model,
+                        True)
+
+
+SERVE_ROWS = ("split", "replicated")
+
+
 def make_serve_fns(arch: ArchDef, topo: Topology | None = None,
-                   layout: str = "resident"):
-    """(prefill, decode_step) as the module docstring gives them; the
-    ``"gather"`` layout raises (ROADMAP item 17d, part two).  Over a
-    mesh (``topo``) each rank serves its rows of the batch with its
-    blocks of the parameters (the module docstring)."""
+                   layout: str = "resident", rows: str = "split",
+                   len_axis=None):
+    """(prefill, decode_step) as the module docstring gives them.
+
+    ``layout``: ``"resident"`` (the parameters in the compute layout) or
+    ``"gather"`` (an FSDP config's parameters as the rank's FSDP shards,
+    gathered a layer at a time, :class:`ServeGatherPlan`; a replicated
+    config's masters are its compute blocks, so it serves them as
+    resident).  Over a mesh (``topo``) each rank serves with its blocks
+    of the parameters; ``rows="split"``: its rows of the batch (the
+    module docstring), ``"replicated"``: one request, the same on every
+    batch rank.  ``len_axis="data"`` (with ``"replicated"``): the
+    caches' length split over the data ranks (:func:`make_cache`)."""
     cfg = arch.cfg
-    plan = ReplicatedPlan(cfg, remat=False)
+    if layout not in ("resident", "gather"):
+        raise ValueError(f"layout must be 'resident' or 'gather', not "
+                         f"{layout!r}")
+    if rows not in SERVE_ROWS:
+        raise ValueError(f"rows must be one of {SERVE_ROWS}, not {rows!r}")
+    if len_axis is not None and rows != "replicated":
+        raise ValueError("a cache split by length serves one request, "
+                         "replicated over the batch ranks "
+                         "(rows='replicated')")
     tp = topo if topo is not None and topo.model_shards > 1 else None
     tp_vocab = tp if tp is not None and layers.vocab_sharded(
         cfg.vocab, tp.model_shards) else None
-    batch_topo = topo if topo is not None and topo.mesh is not None else None
+    mesh_topo = topo if topo is not None and topo.mesh is not None else None
+    batch_topo = mesh_topo if rows == "split" else None
     n_batch = moe_mod.batch_ranks(batch_topo)[0]
+    seq = (mesh_topo if len_axis is not None
+           and device_axis.data_ranks(mesh_topo) > 1 else None)
+    if cfg.param_mode == "fsdp" and layout == "gather":
+        mspecs = serve_master_specs(
+            arch, topo.devices_per_pod if topo is not None else 1,
+            topo.model_shards if topo is not None else 1)
+        per_layer = layer_specs(arch, mspecs)
+        for name, spec in mspecs.get("enc_stacks", {}).items():
+            per_layer[name] = pytree.tree_map(lambda sp: tuple(sp[1:]), spec)
+        plan = ServeGatherPlan(cfg, mesh_topo, per_layer)
 
-    def check_layout():
-        if layout != "resident":
-            raise NotImplementedError(
-                f"serving {cfg.name} in the {layout!r} layout (FSDP-stored "
-                "weights gathered a layer at a time, the gather serve "
-                "layout): ROADMAP item 17d, part two")
+        def whole(params, name):
+            return gather_serve(mesh_topo, params[name], mspecs[name])
+    else:
+        plan = ReplicatedPlan(cfg, remat=False)
 
-    def logits_of(params, x):
+        def whole(params, name):
+            return params[name]
+
+    def logits_of(head, embed_p, x):
         """The head's logits [b, 1, V] of x [b, 1, d], the vocab blocks
         gathered over the model group."""
         return comm.gather_model(tp_vocab, _logits(
-            cfg, params["head"], params["embed"], x, tp_vocab), -1)
+            cfg, head, embed_p, x, tp_vocab), -1)
+
+    def global_rows(tokens) -> int:
+        b = tokens.shape[0]
+        if rows == "replicated" and b != 1:
+            raise ValueError(f"rows='replicated' serves one request, not {b}")
+        return b * n_batch
 
     def prefill(params, batch, max_len: int):
         """The whole prompt: (the last position's logits [b, 1, V], the
         cache).  whisper's encoder runs in train mode first; a vlm's
         patches go before the tokens."""
-        check_layout()
         tokens = batch["tokens"]
-        b = tokens.shape[0]
+        b_all = global_rows(tokens)
         with torch.no_grad():
-            x = layers.embed(params["embed"], tokens, cfg.embed_scale,
-                             tp_vocab)
+            embed_p = whole(params, "embed")
+            x = layers.embed(embed_p, tokens, cfg.embed_scale, tp_vocab)
             enc_out = None
             if arch.enc_segments:
                 frames = batch["frames"].to(x.dtype)
                 ex = layers.linear(frames,
-                                   params["adapter"]["w"].to(x.dtype))
+                                   whole(params, "adapter")["w"].to(x.dtype))
                 ectx = Ctx(cfg, "train", positions=torch.arange(
                     frames.shape[-2], device=frames.device), tp=tp)
                 enc_out, _ = engine.run_segments(
@@ -688,31 +778,34 @@ def make_serve_fns(arch: ArchDef, topo: Topology | None = None,
                     ex, ectx)
             x, _ = _patches_first(cfg, x, batch)
             t = x.shape[-2]
-            cache = make_cache(arch, b * n_batch, max_len, tokens.device,
-                               batch_topo)
+            cache = make_cache(arch, b_all, max_len, tokens.device,
+                               mesh_topo, len_axis)
             ctx = Ctx(cfg, "prefill",
                       positions=torch.arange(t, device=tokens.device),
-                      pos=0, enc_out=enc_out, tp=tp, batch=batch_topo)
+                      pos=0, enc_out=enc_out, tp=tp, batch=batch_topo,
+                      seq=seq)
             x, stacks = engine.run_segments(
                 plan, arch, arch.segments, params["stacks"], x, ctx,
                 caches=cache["stacks"])
-            logits = logits_of(params, x[..., -1:, :])
+            logits = logits_of(whole(params, "head"), embed_p,
+                               x[..., -1:, :])
         return logits, {"stacks": stacks, "pos": t}
 
     def decode_step(params, cache, tokens):
         """One step: tokens [b, 1] at ``cache["pos"]`` -> (logits [b, 1,
         V], the next cache)."""
-        check_layout()
+        global_rows(tokens)
         pos, t = cache["pos"], tokens.shape[-1]
         with torch.no_grad():
-            x = layers.embed(params["embed"], tokens, cfg.embed_scale,
-                             tp_vocab)
+            embed_p = whole(params, "embed")
+            x = layers.embed(embed_p, tokens, cfg.embed_scale, tp_vocab)
             ctx = Ctx(cfg, "decode", positions=pos + torch.arange(
-                t, device=tokens.device), pos=pos, tp=tp, batch=batch_topo)
+                t, device=tokens.device), pos=pos, tp=tp, batch=batch_topo,
+                seq=seq)
             x, stacks = engine.run_segments(
                 plan, arch, arch.segments, params["stacks"], x, ctx,
                 caches=cache["stacks"])
-            logits = logits_of(params, x)
+            logits = logits_of(whole(params, "head"), embed_p, x)
         return logits, {"stacks": stacks, "pos": pos + t}
 
     return prefill, decode_step
@@ -730,10 +823,11 @@ class BuiltModel:
     decode_step: Callable          # (params, cache, tokens) -> logits, cache
     make_cache: Callable           # (b, max_len, device) -> the rank's cache
     cache_specs: Callable          # (batch_ax, len_axis=None) -> specs
-    serve_layout: str = "resident"  # or "gather" (item 17d, part two)
+    serve_layout: str = "resident"  # or "gather" (ServeGatherPlan)
 
 
-def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
+def build_model(cfg: LMConfig, topo: Topology,
+                layout: str | None = None) -> BuiltModel:
     """The model's entry points; an FSDP config (``param_mode="fsdp"``)
     gets ``loss=None`` and a ``loss_master`` (:func:`make_loss_master`).
     The bundle carries the compute specs at ``topo``'s model axis and
@@ -741,11 +835,15 @@ def build_model(cfg: LMConfig, topo: Topology) -> BuiltModel:
     (:func:`master_specs` at ``topo``'s global D: the replicated
     regime's masters are laid out as computed, an FSDP config's
     data-sharded as in the JAX ``build_master_specs``); over a model
-    axis above 1 the loss and serving are tensor-parallel."""
+    axis above 1 the loss and serving are tensor-parallel.  Serving is
+    in ``layout``, by default the reference's rule (:func:`serve_layout`);
+    a caller may ask for ``"gather"`` below the budget, as the JAX
+    ``make_serve_fns`` serves by default."""
     m = topo.model_shards
     arch = make_archdef(cfg, m)
     abstract = init_params(arch, None, "meta")
-    layout = serve_layout(cfg, topo, param_count(abstract))
+    if layout is None:
+        layout = serve_layout(cfg, topo, param_count(abstract))
     prefill, decode_step = make_serve_fns(arch, topo, layout)
     fsdp = cfg.param_mode == "fsdp"
     cspecs = compute_specs(arch, m)

@@ -33,8 +33,10 @@ directly, so the lift's backward votes once, on the summed cotangent --
 the paper's per-coordinate semantics.  A tied block's cache has a slice
 per occurrence, on its own cursor.
 
-Not ported yet: the serving plan that gathers FSDP shards (ROADMAP item
-17d, part two).
+Serving FSDP-stored parameters (``models.build.ServeGatherPlan``, the
+gather layout): each layer's shards are gathered into its compute block
+just before its block runs (``plan.layer``) and dropped after it; a
+tied block's once a call.
 """
 from __future__ import annotations
 
@@ -96,6 +98,11 @@ class ReplicatedPlan:
 
     def __init__(self, cfg: LMConfig, remat: bool):
         self.remat = remat and cfg.remat
+
+    def layer(self, name: str, lp):
+        """The parameters block ``name``'s layer runs on: ``lp`` as it
+        is (the gather layout's plan gathers its shards)."""
+        return lp
 
     def block(self, bd: BlockDef, lp, x, ctx: Ctx, cache=None):
         if cache is not None:
@@ -170,7 +177,7 @@ def run_segments(plan, arch: ArchDef, segments, stacks,
              if name not in tied} if fsdp else None)
     shared = {name: plan.lift_block(name, stacks[name], dstacks[name])
               if fsdp
-              else stacks[name] for name in tied}
+              else plan.layer(name, stacks[name]) for name in tied}
     cursors = dict.fromkeys(stacks, 0)        # occurrences of each block
     old = ({name: _per_layer(tree, 0) for name, tree in caches.items()}
            if caches is not None else None)
@@ -190,7 +197,7 @@ def run_segments(plan, arch: ArchDef, segments, stacks,
                                           ld=dper[bname][at], name=bname)
                     else:
                         lp = (shared[bname] if bname in shared
-                              else per_layer[bname][at])
+                              else plan.layer(bname, per_layer[bname][at]))
                         if old is None:
                             x, a = plan.block(bd, lp, x, ctx)
                         else:

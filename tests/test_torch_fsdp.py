@@ -358,7 +358,8 @@ def test_cli_reaches_the_fsdp_regime(capsys):
 def test_unported_parts_of_fsdp_raise_with_their_item():
     """An FSDP config serves resident where its bf16 weights fit
     ``SERVE_RESIDENT_BUDGET`` (the reference's rule), else in the gather
-    layout, which stays item 17; the vlm and moe pieces of the FSDP loss
+    layout (item 17d, part two), which serves gemma3-12b whole at its
+    full shapes (meta tensors); the vlm and moe pieces of the FSDP loss
     (patches, MTP) build."""
     cfg = smoke12()[1]
     one = Topology(1, 1, "cpu")
@@ -369,9 +370,9 @@ def test_unported_parts_of_fsdp_raise_with_their_item():
     full = build.build_model(configs.get_config("gemma3_12b"),
                              Topology(1, 1, "cpu"))
     assert full.serve_layout == "gather"
-    with pytest.raises(NotImplementedError, match="item 17"):
-        full.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
-                     4)
+    logits, _ = full.prefill(full.abstract_params(), {
+        "tokens": torch.zeros((1, 2), dtype=torch.long, device="meta")}, 4)
+    assert logits.shape == (1, 1, full.cfg.vocab)
     for name in ("internvl2_76b", "deepseek_v3_671b"):
         built = build.build_model(dataclasses.replace(
             configs.get_smoke(name), param_mode="fsdp"),

@@ -552,9 +552,12 @@ def test_refusals_name_their_part_of_item_17(tmp_path):
     from repro_torch.models import build
     gemma12 = build.build_model(configs.get_config("gemma3_12b"),
                                 Topology(1, 1, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 17d"):
-        gemma12.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
-                        4)
+    # its gather layout serves (item 17d, part two): at the full shapes
+    # on meta tensors
+    assert gemma12.serve_layout == "gather"
+    logits, _ = gemma12.prefill(gemma12.abstract_params(), {
+        "tokens": torch.zeros((1, 2), dtype=torch.long, device="meta")}, 4)
+    assert logits.shape == (1, 1, gemma12.cfg.vocab)
     with pytest.raises(ValueError, match="backend"):
         mesh.make_host_topology(1, 1, backend="mpi", device="cpu")
     with pytest.raises(ValueError, match="divide"):

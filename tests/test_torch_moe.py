@@ -470,8 +470,9 @@ def test_new_families_build_without_jax():
 def test_serve_layout_is_the_reference_rule(name):
     """Every buildable config, full and smoke, replicated and FSDP (an
     encoder-decoder trains replicated only): the port's layout is JAX's
-    ``serve_layout`` on one device; a ``gather`` layout's prefill raises
-    naming item 17."""
+    ``serve_layout`` on one device; a ``gather`` layout's prefill and a
+    decode step run at the full config's shapes (meta tensors: no
+    memory), the logits [1, 1, V]."""
     encdec = configs.get_config(name).family in ("encdec", "audio")
     for getter, jgetter in ((configs.get_config, jconfigs.get_config),
                             (configs.get_smoke, jconfigs.get_smoke)):
@@ -484,9 +485,18 @@ def test_serve_layout_is_the_reference_rule(name):
             assert build.serve_layout(cfg, CPU, n) == want \
                 == built.serve_layout
             if want == "gather":
-                with pytest.raises(NotImplementedError, match="item 17"):
-                    built.prefill({}, {"tokens": torch.zeros(
-                        (1, 2), dtype=torch.long)}, 4)
+                params = built.abstract_params()
+                batch = {"tokens": torch.zeros((1, 2), dtype=torch.long,
+                                               device="meta")}
+                if cfg.n_patches:
+                    batch["patches"] = torch.zeros(
+                        (1, cfg.n_patches, cfg.d_model), device="meta")
+                logits, cache = built.prefill(params, batch,
+                                              4 + cfg.n_patches)
+                assert logits.shape == (1, 1, cfg.vocab)
+                logits, _ = built.decode_step(params, cache, torch.zeros(
+                    (1, 1), dtype=torch.long, device="meta"))
+                assert logits.shape == (1, 1, cfg.vocab)
 
 
 @pytest.mark.parametrize("name", NEW)

@@ -37,8 +37,9 @@ it; one case served in bfloat16; the port's own prefill/decode
 consistency at the JAX test's 2e-2 (``tests/test_arch_smoke.py``); the
 zero-copy views of ``launch.specs``; serving the flat state a
 ``run_training`` run leaves; the ``ValueError`` past ``max_len`` (where
-JAX would clamp the write); the ``NotImplementedError`` of what is not
-ported; the serving requests; and the example, in a subprocess.
+JAX would clamp the write); the gather layout and a cache split by
+length on one process; the serving requests; and the example, in a
+subprocess.
 """
 import dataclasses
 import functools
@@ -365,29 +366,57 @@ def test_serving_the_flat_state_a_training_run_leaves():
 
 
 def test_unported_serving_raises():
-    """The gather layout (an FSDP config whose bf16 weights pass the
-    budget: gemma3-12b whole), ``ServeGatherPlan`` and a cache sharded
-    by length stay item 17d, part two; the caches' specs are JAX's."""
+    """What item 17d, part two refused now serves.  gemma3-12b whole
+    passes the budget at M = 1, so it builds in the gather layout; its
+    smoke config set to FSDP serves in that layout (one process: the
+    gather is the identity) bitwise its resident serve, and one request
+    on a cache split by length (``len_axis="data"``: whole on one
+    process) bitwise the unsplit one; the caches' specs are JAX's.  What
+    still raises is a ``ValueError``: a split length with more than one
+    request, or the replicated rows with more."""
     gemma12 = build.build_model(configs.get_config("gemma3_12b"), CPU)
     n = build.param_count(gemma12.abstract_params())
     assert build.serve_layout(gemma12.cfg, CPU, n) == "gather" \
         == gemma12.serve_layout
-    with pytest.raises(NotImplementedError, match="item 17d"):
-        gemma12.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
-                        4)
-    with pytest.raises(NotImplementedError, match="item 17d"):
-        gemma12.decode_step({}, {"stacks": {}, "pos": 0},
-                            torch.zeros((1, 1), dtype=torch.long))
     from repro.models import build as jbuild
     jarch = jbuild.make_archdef(jconfigs.get_config("gemma3_12b"), 1)
     want = jax.tree.map(tuple, jbuild.cache_specs(jarch, "data", "data"),
                         is_leaf=lambda v: isinstance(v, jax.sharding
                                                      .PartitionSpec))
     assert build.cache_specs(gemma12.arch, "data", "data") == want
-    with pytest.raises(NotImplementedError, match="item 17d"):
+    cfg = dataclasses.replace(configs.get_smoke("gemma3_12b"),
+                              param_mode="fsdp")
+    gather = build.build_model(cfg, CPU, layout="gather")
+    resident = build.build_model(cfg, CPU, layout="resident")
+    assert gather.serve_layout == "gather"
+    assert isinstance(build.ServeGatherPlan(cfg, CPU, {}),
+                      build.ServeGatherPlan)
+    params = gather.init_params(torch.Generator().manual_seed(0))
+    batch = torch_batch(requests(cfg, 6, 2))
+    lg, cg = gather.prefill(params, batch, 10)
+    lr, cr = resident.prefill(params, batch, 10)
+    assert torch.equal(lg, lr)
+    tok = torch.argmax(lg, dim=-1)
+    assert torch.equal(gather.decode_step(params, cg, tok)[0],
+                       resident.decode_step(params, cr, tok)[0])
+    one = {k: v[:1] for k, v in batch.items()}
+    prefill, decode = build.make_serve_fns(gather.arch, CPU, "gather",
+                                           rows="replicated",
+                                           len_axis="data")
+    ls, cs = prefill(params, one, 10)
+    lr, cr = resident.prefill(params, one, 10)
+    assert torch.equal(ls, lr)
+    for a, b in zip(pytree.tree_flatten(cs["stacks"])[0],
+                    pytree.tree_flatten(cr["stacks"])[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(decode(params, cs, tok[:1])[0],
+                       resident.decode_step(params, cr, tok[:1])[0])
+    split = gather.make_cache(1, 8, len_axis="data")
+    assert split["stacks"]["global"]["self"]["k"].shape[2] == 8
+    with pytest.raises(ValueError, match="one request"):
         gemma12.make_cache(2, 8, len_axis="data")
-    with pytest.raises(NotImplementedError, match="item 17d"):
-        build.ServeGatherPlan(gemma12.cfg, CPU)
+    with pytest.raises(ValueError, match="one request"):
+        prefill(params, batch, 10)
     cfg1 = configs.get_config("gemma3_1b")
     assert build.serve_layout(cfg1, CPU, 10**12) == "resident"
 

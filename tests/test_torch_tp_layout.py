@@ -13,7 +13,8 @@ make_archdef(cfg, M), M)`` leaf for leaf, and a rank's bucket
 (``convert.local_params``) must be its slice of JAX's global buffer
 (its block of the experts), for the smoke trees of gemma3-1b,
 deepseek-v3, arctic, internvl2, xlstm, zamba2 and whisper at M = 2 and
-4.  Then the production grids, the refusals of ROADMAP items 17d and 17e
+4.  Then the production grids, the refusal of ROADMAP item 17e and a
+data rank's block of a cache split by length (item 17d, part two)
 (every family builds over a model axis, the ssm, hybrid and encdec ones
 at the production grid's 16 too; the FSDP regime over a model axis
 builds for every family that runs it), and a
@@ -299,15 +300,27 @@ def test_refusals_name_their_part_of_item_17(tmp_path):
         assert fsdp.bundle.loss_master is not None and fsdp.bundle.specs
     # serving over a model axis (item 17d, part one): gemma3 serves
     # resident, its caches laid out by JAX's specs (the single kv head
-    # whole on every model rank); a cache sharded by length is part two
+    # whole on every model rank); a cache split by length (part two)
+    # gives a data rank its block of the global layers' length, the
+    # window layers' whole
     gemma = build.build_model(configs.get_smoke("gemma3_1b"), topo)
     assert gemma.serve_layout == "resident"
     assert gemma.cache_specs("data") == jax_cache_specs("gemma3_1b", 2,
                                                          "data", smoke=True)
     assert gemma.cache_specs("data")["stacks"]["global"]["self"]["k"] == (
         None, "data", None, None, None)
-    with pytest.raises(NotImplementedError, match="item 17d"):
-        gemma.make_cache(2, 8, len_axis="data")
+    two = Topology(2, 2, "cpu", mesh=dataclasses.replace(fake_mesh(),
+                                                         data=2))
+    cfg = gemma.cfg
+    st = build.make_cache(gemma.arch, 1, 12, topo=two,
+                          len_axis="data")["stacks"]
+    hkv = (cfg.n_kv_heads, cfg.hd)
+    assert st["global"]["self"]["k"].shape == (1, 1, 6) + hkv
+    assert st["local"]["self"]["k"].shape[1:] == (1, cfg.window) + hkv
+    assert build.cache_bytes(gemma.arch, 1, 12, two, len_axis="data") == \
+        sum(x.numel() * 2 for x in pytree.tree_flatten(st)[0])
+    with pytest.raises(ValueError, match="does not split"):
+        build.make_cache(gemma.arch, 1, 13, topo=two, len_axis="data")
     with pytest.raises(NotImplementedError, match="item 17e"):
         train.run_training(configs.get_smoke("gemma3_1b"), topo,
                            hier.AlgoConfig(), train.RunCfg(
