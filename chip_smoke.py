@@ -11,7 +11,10 @@ chip_smoke.py --phase hybrid`` builds the kernels, runs phase 2's
 kernel checks and the ``hybrid`` phase, and prints the ``kernels`` line
 with the hybrid path's launches and the ``ok`` line; ``--phase mesh``
 and ``--phase tp`` do the same for the ``mesh`` and ``tp`` phases,
-``--phase fsdp_mesh`` for the FSDP regime across their ranks.
+``--phase fsdp_mesh`` for the FSDP regime across their ranks, ``--phase
+ckpt`` for the checkpoints under a process mesh (the ``mesh`` phase with
+its ckpt part, then the ``tp`` phase's 8 ranks running only the FSDP
+run, which saves).
 ``--mesh-rank RANK DIR`` and ``--tp-rank RANK DIR`` are one rank of
 those phases, which each starts itself.)
 
@@ -260,10 +263,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      gradients are), every loss finite, the local steps' mean below
      step 0's, 3 + 3 launches a rank, each rank's local and prologue
      step ms,
-     bytes gathered and peak beside ``reckon_mesh_peak``.  JSON lines
-     ``{"mesh": "one-process references" | "reckoned rank peak" |
-     "before the ranks" | "toy" | "transport" | "lm" | "phase"}``; the
-     kernels line gains ``mesh_launches_per_rank``.
+     bytes gathered and peak beside ``reckon_mesh_peak``.  Then the
+     ckpt part (item 17e, checkpoints under a process mesh): run B, the
+     same run with the mesh checkpoint (one file, the JAX store's, rank
+     0 its writer) saved every ``MESH_CKPT_EVERY`` steps to
+     ``build/mesh_ckpt/`` (the disk checked first to hold
+     ``MESH_CKPT_KEEP`` + 1 of them, removed after), a nan at step 2
+     restored (rank 0's choice, each rank reading its rows) and
+     replayed: its final rows bitwise run A's, 4 + 4 launches a rank,
+     each save's device growth at most the rank's block; then here,
+     after the ranks, its step-2 and final checkpoints restored into one
+     process (P=2 x D=2: another shape), the final rows bitwise run A's
+     and the step-2 state the digests each rank printed of its rows;
+     save and restore seconds a rank, bytes, the writer's host peak.
+     JSON lines ``{"mesh": "one-process references" | "reckoned rank
+     peak" | "before the ranks" | "ckpt disk" | "toy" | "transport" |
+     "lm" | "ckpt" | "ckpt part" | "phase"}``; the kernels line gains
+     ``mesh_launches_per_rank`` (run B's under ``"ckpt"``).
  15. ``tp``: the model axis across processes (``core.shardflat``, every
      family tensor-parallel) on the one card: 8
      ranks, 2 pods x 2 data x 2 model, over gloo, each a [1, 1] block of
@@ -366,7 +382,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      gemma3-1b (2 layers) FSDP over the 8 ranks, 3 steps fused/tree,
      against the replicated regime's ag_packed/tree run on the same
      ranks from the same parameters and tokens: 0 differing coordinates
-     over the ranks' shards, the losses equal.  gemma3-12b at full
+     over the ranks' shards, the losses equal; in the whole script that
+     run saves its final state (item 17e) to ``build/tp_fsdp_ckpt/``,
+     which the tp phase restores here into one process (M = 1, data 1),
+     every rank's shard of every master and correction held against the
+     digest the rank printed (``{"tp": "fsdp ckpt", ...}``; the kernels
+     line gains ``tp_fsdp_ckpt_launches_per_rank``).  gemma3-12b at full
      width cut to 2 layers (a local and a global one) over the 4 ranks
      (2 pods x 2 data, a [1, 1] block each), DC, mu 1e-3, rho 0.2,
      T_E=3, bf16 compute, f32
@@ -3825,6 +3846,10 @@ MESH_LM_STEPS = 3                # gemma3-1b over the ranks (mesh, tp):
                                  # steps -- a gloo prologue costs 25-40
                                  # local steps, so no second one
 MESH_JOIN_S = 600                # the ranks' join limit
+MESH_CKPT_EVERY = 2              # run B (the ckpt part): saved at 2, a
+MESH_CKPT_NAN = 2                # nan at 2 restored and replayed, saved
+MESH_CKPT_KEEP = 2               # at the end: the two steps the store keeps
+CKPT_SLOTS = ("params", "delta", "delta_next")   # DC's slots (f32 on disk)
 SHM = "/dev/shm"                 # where the ranks' shared slots go
 SHM_NEED_PER_RANK = 256 << 20    # 3 slots of 64 MiB a rank, and room
 MESH_TOY = {"w": (16, 64), "b": (33,), "w2": (64, 33)}   # the parity toy
@@ -3986,11 +4011,27 @@ def mesh_tokens(torch, cfg):
         devices_per_pod=MESH_D, seed=0))(0)["tokens"]
 
 
-def row_digests(torch, buf) -> list:
+def digest(torch, x) -> str:
+    """The sha256 of a tensor's bytes (bfloat16 as its 16-bit words)."""
     import hashlib
 
-    return [hashlib.sha256(r.cpu().numpy().tobytes()).hexdigest()
-            for r in buf]
+    x = x.contiguous()
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+
+
+def digests(torch, xs) -> list:
+    """:func:`digest` of each tensor of ``xs``, on a pool of threads (the
+    copies to the host and sha256 release the GIL)."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda x: digest(torch, x), xs))
+
+
+def row_digests(torch, buf) -> list:
+    return digests(torch, list(buf))
 
 
 def mesh_lm_rank(torch, topo, tmp: str) -> dict:
@@ -4169,6 +4210,209 @@ def mesh_rank_work(torch, topo, job: dict, tmp: str, res: dict) -> None:
     t1 = time.perf_counter()
     res["lm"] = mesh_lm_rank(torch, topo, tmp)
     res["lm"]["s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    res["ckpt"] = mesh_ckpt_rank(torch, topo, job["ckpt_dir"], tmp)
+    res["ckpt"]["s"] = time.perf_counter() - t1
+
+
+def host_resident_gb() -> float:
+    """This process's resident host memory now (GB), from /proc."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+class save_meter:
+    """Within it, each ``AsyncSaver.submit`` of this process timed, its
+    device memory growth measured (the peak over the call, less what was
+    allocated before it) and its host memory growth (resident after the
+    call less before: on the writer the global copy it queued), appended
+    to ``saves`` as ``{"step", "s", "growth_gb", "host_growth_gb"}``."""
+
+    def __init__(self, torch, saves: list):
+        self.torch, self.saves = torch, saves
+
+    def __enter__(self):
+        from repro_torch.checkpoint.async_ckpt import AsyncSaver
+
+        torch, saves, real = self.torch, self.saves, AsyncSaver.submit
+        self.real = real
+
+        def submit(saver, step, tree):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            host = host_resident_gb()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            real(saver, step, tree)
+            torch.cuda.synchronize()
+            saves.append({"step": step, "s": time.perf_counter() - t0,
+                          "growth_gb": (torch.cuda.max_memory_allocated()
+                                        - before) / 1e9,
+                          "host_growth_gb": host_resident_gb() - host})
+        AsyncSaver.submit = submit
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.checkpoint.async_ckpt import AsyncSaver
+
+        AsyncSaver.submit = self.real
+        return False
+
+
+def mesh_ckpt_rank(torch, topo, root: str, tmp: str) -> dict:
+    """Run B of the mesh phase's ckpt part (item 17e) on this rank: run
+    A's run (MESH_LM_STEPS steps of DC fused/flat) with checkpoints in
+    ``root`` every MESH_CKPT_EVERY steps and a nan at MESH_CKPT_NAN,
+    restored and replayed, the kernels' counters and ``comm.traffic``
+    set to 0 just before it: the digests of the rank's rows of each
+    slot at the step-2 save, its final rows against run A's (data
+    column 0, ``tmp/lm_row{q}.npy``), its launches, each save's seconds
+    and device and host growth (the device's beside the rank's block),
+    the restore's seconds and the bytes it sent the writer (received,
+    on rank 0)."""
+    import numpy as np
+
+    from repro_torch.core import comm
+    from repro_torch.launch.train import run_training
+    from repro_torch.runtime.chaos import ChaosEvent, FaultInjector
+
+    cfg, _, params, algo, run = mesh_lm_setup(torch, topo)
+    run = dataclasses.replace(run, ckpt_dir=root, ckpt_every=MESH_CKPT_EVERY,
+                              ckpt_keep=MESH_CKPT_KEEP)
+    rows, events, saves = {}, [], []
+
+    def on_state(step, state):
+        if state.step == MESH_CKPT_EVERY and not rows:
+            rows.update(zip(CKPT_SLOTS, ([d] for d in digests(torch, [
+                getattr(state, name).buf[0] for name in CKPT_SLOTS]))))
+
+    zero_launches()
+    comm.reset_traffic()
+    with save_meter(torch, saves):
+        state, history = run_training(
+            cfg, topo, algo, run, params=params,
+            fault_injector=FaultInjector([ChaosEvent(MESH_CKPT_NAN, "nan")]),
+            log=lambda line: None, on_checkpoint=events.append,
+            on_state=on_state)
+    torch.cuda.synchronize()
+    res = {"digests": rows, "events": events, "saves": saves,
+           "steps": [h["step"] for h in history],
+           "losses": [h["loss"] for h in history],
+           "launches": counted_launches(),
+           "traffic": dict(comm.traffic["checkpoint"]),
+           "block_gb": sum(getattr(state, n).buf.numel()
+                           * getattr(state, n).buf.element_size()
+                           for n in CKPT_SLOTS) / 1e9}
+    if topo.mesh.data_rank == 0:
+        row = np.load(pathlib.Path(tmp) / f"lm_row{topo.pod_offset}.npy")
+        res["rows_differing"] = int(
+            (state.params.buf[0].cpu().numpy().view(np.int32)
+             != row.view(np.int32)).sum())
+    del state, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_ckpt_check(torch, card: str, root, tmp, ranks: list,
+                    ckpt_bytes: int) -> dict:
+    """The parent's half of the ckpt part, once the ranks have joined:
+    run B's step-2 and final checkpoints restored into one process
+    (P=2 x D=2 on the card: another shape than the 2 x 2 ranks'), the
+    final rows held bitwise against run A's on the ranks
+    (``tmp/lm_row{q}.npy``), the step-2 state against the digests each
+    rank printed of its rows; then the ranks' readings and the checks
+    (one line ``{"mesh": "ckpt", ...}``).  Returns the ranks'
+    launches in run B."""
+    import numpy as np
+
+    from repro_torch.checkpoint import store
+    from repro_torch.core import hier
+    from repro_torch.core.topology import Topology
+
+    steps = store.available_steps(root)
+    require(steps == [MESH_CKPT_EVERY, MESH_LM_STEPS],
+            f"mesh ckpt: the store holds steps {steps}")
+    one = Topology(MESH_P, MESH_D, "cuda")
+    cfg, built, params, algo, _ = mesh_lm_setup(torch, one)
+    init_fn, _ = hier.make_hier_step(one, algo, built.bundle)
+    like = init_fn(params, 0)
+    del params, built
+    t0 = time.perf_counter()
+    final = store.restore(root, MESH_LM_STEPS, like)
+    torch.cuda.synchronize()
+    final_s = time.perf_counter() - t0
+    final_differ = [int((final.params.buf[q].cpu().numpy().view(np.int32)
+                         != np.load(pathlib.Path(tmp) / f"lm_row{q}.npy")
+                         .view(np.int32)).sum()) for q in range(MESH_P)]
+    del final
+    t0 = time.perf_counter()
+    saved = store.restore(root, MESH_CKPT_EVERY, like)
+    torch.cuda.synchronize()
+    saved_s = time.perf_counter() - t0
+    flat = digests(torch, [r for name in CKPT_SLOTS
+                           for r in getattr(saved, name).buf])
+    want = {name: flat[i * MESH_P:(i + 1) * MESH_P]
+            for i, name in enumerate(CKPT_SLOTS)}
+    del saved, like
+    torch.cuda.empty_cache()
+    digests_differ = {f"{r['coords'][0]},{r['coords'][1]}": [
+        name for name in CKPT_SLOTS
+        if r["ckpt"]["digests"][name] != want[name][r["coords"][0]:
+                                                     r["coords"][0] + 1]]
+        for r in ranks}
+    ck = [r["ckpt"] for r in ranks]
+    emit({"mesh": "ckpt", "card": card, "grid": list(MESH_GRID),
+          "checkpoint_gb_reckoned": ckpt_bytes / 1e9,
+          "bytes": [rec.get("bytes") for rec in ck[0]["events"]
+                    if rec["event"] == "save"],
+          "events_rank0": ck[0]["events"],
+          "steps_run": ck[0]["steps"], "losses": ck[0]["losses"],
+          "submit_s_per_rank": [[x["s"] for x in c["saves"]] for c in ck],
+          "save_s_writer": [rec.get("save_s") for rec in ck[0]["events"]
+                            if rec["event"] == "save"],
+          "restore_s_per_rank": [[e["restore_s"] for e in c["events"]
+                                  if e["event"] == "restore"] for c in ck],
+          "device_growth_gb_per_rank": [[x["growth_gb"] for x in c["saves"]]
+                                        for c in ck],
+          "block_gb_per_rank": [c["block_gb"] for c in ck],
+          "sent_gb_per_rank": [c["traffic"]["sent"] / 1e9 for c in ck],
+          "writer_received_gb": ck[0]["traffic"]["received"] / 1e9,
+          "host_growth_gb_per_rank": [[x["host_growth_gb"]
+                                       for x in c["saves"]] for c in ck],
+          "writer_host_gb_reckoned": ckpt_bytes / 1e9,
+          "launches_per_rank": [c["launches"] for c in ck],
+          "run_b_s_per_rank": [c["s"] for c in ck],
+          "rows_differing_per_rank": [c.get("rows_differing") for c in ck],
+          "one_process_final_rows_differing": final_differ,
+          "one_process_restore_s": {"final": final_s, "step 2": saved_s},
+          "step2_digests_differing": digests_differ})
+    executed = MESH_LM_STEPS + 1          # step 2 runs twice
+    for c in ck:
+        require([e["event"] for e in c["events"]]
+                == ["restore", "save", "save"]
+                and c["events"][0]["step"] == MESH_CKPT_EVERY,
+                f"mesh ckpt: events {c['events']}")
+        require(c["launches"] == {"sign_pack": executed,
+                                  "vote_update": executed,
+                                  "tally_acc": 0, "ternary_quant": 0},
+                f"mesh ckpt: launches {c['launches']}")
+        require(c.get("rows_differing", 0) == 0,
+                "mesh ckpt: run B's final rows are not run A's")
+        for x in c["saves"]:
+            require(x["growth_gb"] <= c["block_gb"],
+                    f"mesh ckpt: a save grew the card's memory by "
+                    f"{x['growth_gb']} GB, more than the rank's block "
+                    f"{c['block_gb']} GB")
+    require(final_differ == [0] * MESH_P,
+            f"mesh ckpt: the final checkpoint's rows differ from run A's: "
+            f"{final_differ}")
+    require(all(not v for v in digests_differ.values()),
+            f"mesh ckpt: the step-2 checkpoint differs from the ranks' "
+            f"blocks: {digests_differ}")
+    return [c["launches"] for c in ck]
 
 
 def mesh_spawn(torch, tmp: str, world: int = MESH_GRID[0] * MESH_GRID[1],
@@ -4359,10 +4603,24 @@ def phase_mesh(torch, card: str, fsdp: bool = False) -> dict:
           "reserved_gb": torch.cuda.memory_reserved() / 1e9,
           "free_gb": torch.cuda.mem_get_info()[0] / 1e9})
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    # the ckpt part's run B keeps MESH_CKPT_KEEP checkpoints of params,
+    # delta and delta_next, [P, n_pad] each, f32 on disk
+    ckpt_bytes = len(CKPT_SLOTS) * MESH_P * n_pad * 4
+    ckpt_root = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    ckpt_root.mkdir(parents=True)
+    free = shutil.disk_usage(ckpt_root).free
+    emit({"mesh": "ckpt disk", "card": card, "dir": str(ckpt_root),
+          "free_gb": free / 1e9, "checkpoint_gb_reckoned": ckpt_bytes / 1e9,
+          "keep": MESH_CKPT_KEEP})
+    require(free >= (MESH_CKPT_KEEP + 1) * ckpt_bytes,
+            f"{free / 1e9:.2f} GB free cannot hold {MESH_CKPT_KEEP + 1} "
+            f"checkpoints of {ckpt_bytes / 1e9:.2f} GB")
     try:
         with open(pathlib.Path(tmp) / "job.pkl", "wb") as f:
             pickle.dump({"n_pad": n_pad, "parts": ("mesh", "fsdp")
-                         if fsdp else ("mesh",)}, f)
+                         if fsdp else ("mesh",),
+                         "ckpt_dir": str(ckpt_root)}, f)
         t1 = time.perf_counter()
         ranks = mesh_spawn(torch, tmp)
         ranks_s = time.perf_counter() - t1
@@ -4373,9 +4631,15 @@ def phase_mesh(torch, card: str, fsdp: bool = False) -> dict:
             traj[q] = {"differing": int((row.view(np.int32)
                                          != ref.view(np.int32)).sum()),
                        "max_abs_diff": float(np.abs(row - ref).max())}
+        del lm_ref["rows"]
+        t1 = time.perf_counter()
+        ckpt_launches = mesh_ckpt_check(torch, card, ckpt_root, tmp, ranks,
+                                        ckpt_bytes)
+        emit({"mesh": "ckpt part", "parent_s": time.perf_counter() - t1,
+              "rank_s": [r["ckpt"]["s"] for r in ranks]})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del lm_ref["rows"]
+        shutil.rmtree(ckpt_root, ignore_errors=True)
 
     # 3. the checks
     for r in ranks:
@@ -4480,7 +4744,7 @@ def phase_mesh(torch, card: str, fsdp: bool = False) -> dict:
           "ranks_s": ranks_s, "rank_init_s": [r["init_s"] for r in ranks],
           "exchange": [r["exchange"] for r in ranks]})
     return {"toy": toy_launches, "lm": [x["launches"] for x in lm],
-            "ranks": ranks}
+            "ckpt": ckpt_launches, "ranks": ranks}
 
 
 TP_GRID = (2, 2, 2)              # pods x data x model ranks, a [1, 1] block
@@ -4825,7 +5089,7 @@ def tp_rank_main(tmp: str, rank: int) -> None:
         tp_rank_work(torch, topo, res)
     if "fsdp" in job["parts"]:
         t1 = time.perf_counter()
-        res["fsdp_tp"] = fsdp_tp_rank(torch, topo)
+        res["fsdp_tp"] = fsdp_tp_rank(torch, topo, job.get("fsdp_ckpt"))
         res["fsdp_tp_s"] = time.perf_counter() - t1
     masters = {}
     if "fam" in job["parts"]:
@@ -4877,6 +5141,97 @@ def tp_rank_work(torch, topo, res: dict) -> None:
     t1 = time.perf_counter()
     res["lm"] = tp_lm_rank(torch, topo)
     res["lm"]["s"] = time.perf_counter() - t1
+
+
+def fsdp_ckpt_check(torch, card: str, root, ranks: list,
+                    ckpt_bytes: int) -> list:
+    """The parent's half of the tp phase's FSDP checkpoint (item 17e),
+    once the ranks have joined: the 2 x 2 x 2 ranks' final FSDP state
+    restored into one process (P=2 x D=2 on the card, M = 1, data 1: the
+    masters whole), each rank's shard of every leaf of each slot cut from
+    it (``hier.fsdp_index``, the model block by ``flatbuf.slot_block``)
+    and held against the digest the rank printed of its own; the ranks'
+    save readings and the checks (one line ``{"tp": "fsdp ckpt",
+    ...}``).  Returns the ranks' launches in that run."""
+    from repro_torch.checkpoint import store
+    from repro_torch.core import device_axis, flatbuf, hier, pytree
+    from repro_torch.core.topology import ProcessMesh, Topology
+    from repro_torch.models import build
+
+    steps = store.available_steps(root)
+    require(steps == [FSDP_TP_STEPS], f"tp fsdp ckpt: the store holds steps "
+            f"{steps}")
+    pods, data, model = TP_GRID
+    one = Topology(pods, data, "cuda")
+    cfg, _, abstract, layout = tp_gemma(torch, one)
+    cfg = dataclasses.replace(cfg, param_mode="fsdp")
+    _, _, algo = lm_setup(torch, state_layout="tree")
+    built = build.build_model(cfg, one)
+    init_fn, _ = hier.make_hier_step(one, algo, built.bundle)
+    like = init_fn(built.init_params(torch.Generator(
+        device="cuda").manual_seed(0)), 0)
+    del built
+    t0 = time.perf_counter()
+    state = store.restore(root, FSDP_TP_STEPS, like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del like
+    differ = {}
+    for r in ranks:
+        a, b, m = r["coords"]
+        topo_r = Topology(pods, data, "cuda", mesh=ProcessMesh(
+            pods=pods, data=data, pod_rank=a, data_rank=b, pod_group=None,
+            data_group=None, backend="gloo", model=model, model_rank=m))
+        specs = build.build_model(cfg, topo_r).bundle.master_specs
+        names, cuts = [], []
+        for name in r["fsdp_tp"]["ckpt"]["digests"]:
+            leaves, td = pytree.tree_flatten(getattr(state, name))
+            for i, (x, spec, slot) in enumerate(zip(
+                    leaves, pytree.flatten_up_to(td, specs), layout.slots)):
+                x = x[hier.fsdp_index(topo_r, spec, tuple(x.shape))]
+                if slot.shard_dim not in (None, device_axis.data_dim(spec)):
+                    x = flatbuf.slot_block(slot, x, m, layout.shards, 1)
+                names.append((name, i))
+                cuts.append(x)
+        want = r["fsdp_tp"]["ckpt"]["digests"]
+        differ[f"{a},{b},{m}"] = [
+            f"{name}[{i}]" for (name, i), got in zip(names,
+                                                     digests(torch, cuts))
+            if got != want[name][i]]
+    del state
+    torch.cuda.empty_cache()
+    ck = [r["fsdp_tp"]["ckpt"] for r in ranks]
+    launches = [r["fsdp_tp"]["launches"] for r in ranks]
+    emit({"tp": "fsdp ckpt", "card": card, "grid": list(TP_GRID),
+          "checkpoint_gb_reckoned_at_most": ckpt_bytes / 1e9,
+          "bytes": [e.get("bytes") for e in ck[0]["events"]],
+          "submit_s_per_rank": [[x["s"] for x in c["saves"]] for c in ck],
+          "save_s_writer": [e.get("save_s") for e in ck[0]["events"]],
+          "device_growth_gb_per_rank": [[x["growth_gb"] for x in c["saves"]]
+                                        for c in ck],
+          "block_gb_per_rank": [c["block_gb"] for c in ck],
+          "sent_gb_per_rank": [c["traffic"]["sent"] / 1e9 for c in ck],
+          "writer_received_gb": ck[0]["traffic"]["received"] / 1e9,
+          "host_growth_gb_per_rank": [[x["host_growth_gb"]
+                                       for x in c["saves"]] for c in ck],
+          "one_process_restore_s": restore_s,
+          "launches_per_rank": launches,
+          "shards_differing": differ})
+    for c in ck:
+        require([e["event"] for e in c["events"]] == ["save"],
+                f"tp fsdp ckpt: events {c['events']}")
+        for x in c["saves"]:
+            require(x["growth_gb"] <= c["block_gb"],
+                    f"tp fsdp ckpt: a save grew the card's memory by "
+                    f"{x['growth_gb']} GB, more than the rank's block "
+                    f"{c['block_gb']} GB")
+    require(all(not v for v in differ.values()),
+            f"tp fsdp ckpt: shards differ from the one-process restore: "
+            f"{differ}")
+    for x in launches:
+        require(x["sign_pack"] > 0 and x["vote_update"] > 0,
+                f"tp fsdp ckpt: launches {x}")
+    return launches
 
 
 def tp_spawn(torch, tmp: str, meanwhile=None) -> list:
@@ -5007,19 +5362,51 @@ def phase_tp(torch, card: str,
         (trees / "ready").touch()
         emit({"tp": "parameters written", "card": card, **written})
 
+    ckpt_root = ROOT / "build" / "tp_fsdp_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    job = {"parts": tuple(parts), "trees": str(trees)}
+    if "fsdp" in parts:
+        # the FSDP run's one save: at most params, delta and delta_next,
+        # [P, *leaf] each, f32 on disk
+        from repro_torch.core import pytree
+        from repro_torch.core.topology import Topology
+
+        abstract = tp_gemma(torch, Topology(TP_GRID[0], TP_GRID[1],
+                                            "cuda"))[2]
+        n = sum(x.numel() for x in pytree.tree_flatten(abstract)[0])
+        ckpt_bytes = len(CKPT_SLOTS) * TP_GRID[0] * n * 4
+        ckpt_root.mkdir(parents=True)
+        free = shutil.disk_usage(ckpt_root).free
+        emit({"tp": "fsdp ckpt disk", "card": card, "dir": str(ckpt_root),
+              "free_gb": free / 1e9,
+              "checkpoint_gb_reckoned_at_most": ckpt_bytes / 1e9})
+        require(free >= 2 * ckpt_bytes, f"{free / 1e9:.2f} GB free cannot "
+                f"hold 2 checkpoints of {ckpt_bytes / 1e9:.2f} GB")
+        job["fsdp_ckpt"] = str(ckpt_root)
+    fsdp_ckpt = None
     try:
         emit({"tp": "before the ranks",
               "allocated_gb": torch.cuda.memory_allocated() / 1e9,
               "free_gb": torch.cuda.mem_get_info()[0] / 1e9})
         with open(pathlib.Path(tmp) / "job.pkl", "wb") as f:
-            pickle.dump({"parts": tuple(parts), "trees": str(trees)}, f)
+            pickle.dump(job, f)
         t1 = time.perf_counter()
         ranks = tp_spawn(torch, tmp, write_trees if cells else None)
         ranks_s = time.perf_counter() - t1
+        if "fsdp" in parts:
+            t1 = time.perf_counter()
+            fsdp_ckpt = fsdp_ckpt_check(torch, card, ckpt_root, ranks,
+                                        ckpt_bytes)
+            emit({"tp": "fsdp ckpt part",
+                  "parent_s": time.perf_counter() - t1,
+                  "rank_s": [r["fsdp_tp_s"] for r in ranks]})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(trees, ignore_errors=True)
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     out = {"ranks": ranks}
+    if fsdp_ckpt is not None:
+        out["fsdp_ckpt"] = fsdp_ckpt
     if "tp" in parts:
         out.update(tp_report(torch, card, ranks, refs))
     if "moe" in parts:
@@ -5381,15 +5768,18 @@ def fsdp_mesh_lm_rank(torch, topo) -> dict:
     return res
 
 
-def fsdp_tp_rank(torch, topo) -> dict:
+def fsdp_tp_rank(torch, topo, ckpt_dir: str | None = None) -> dict:
     """gemma3-1b (2 layers, full width) over the tp phase's ranks (2 pods
     x 2 data x 2 model) from the same parameters and tokens: FSDP_TP_STEPS
     steps of the replicated regime (ag_packed/tree), then of the FSDP
     regime (fused/tree, its launches counted), and the coordinates where
     the rank's FSDP shard of each master differs from the same shard of
     its replicated block (so every coordinate is counted once over the
-    ranks)."""
-    from repro_torch.core import device_axis, pytree
+    ranks).  With ``ckpt_dir`` (item 17e) the FSDP run saves its final
+    state there (the mesh checkpoint, one file), each save's seconds and
+    device growth measured, and the rank's shard of every leaf of each
+    slot comes back as a digest (``"ckpt"``)."""
+    from repro_torch.core import comm, device_axis, pytree
     from repro_torch.launch.train import RunCfg, run_training
     from repro_torch.models import build
 
@@ -5405,9 +5795,28 @@ def fsdp_tp_rank(torch, topo) -> dict:
         algo, transport="ag_packed"), run, params=params,
         log=lambda line: None)
     zero_launches()
-    fsdp, hf = run_training(cfg_f, topo, algo, run, params=params,
-                            log=lambda line: None)
+    comm.reset_traffic()
+    events, saves = [], []
+    with save_meter(torch, saves):
+        fsdp, hf = run_training(
+            cfg_f, topo, algo, dataclasses.replace(run, ckpt_dir=ckpt_dir),
+            params=params, log=lambda line: None,
+            on_checkpoint=events.append)
     launches = counted_launches()
+    ckpt = None
+    if ckpt_dir:
+        ckpt = {"events": events, "saves": saves,
+                "traffic": dict(comm.traffic["checkpoint"]),
+                "block_gb": 0.0,
+                "digests": {}}
+        for name in CKPT_SLOTS:
+            slot = getattr(fsdp, name)
+            if slot is None:
+                continue
+            leaves = pytree.tree_flatten(slot)[0]
+            ckpt["digests"][name] = digests(torch, leaves)
+            ckpt["block_gb"] += sum(x.numel() * x.element_size()
+                                    for x in leaves) / 1e9
     leaves, td = pytree.tree_flatten(fsdp.params)
     specs = pytree.flatten_up_to(td, built_f.bundle.master_specs)
     differ = total = 0
@@ -5422,7 +5831,7 @@ def fsdp_tp_rank(torch, topo) -> dict:
            "losses_replicated": [h["loss"] for h in hr],
            "ms_fsdp": [h["ms"] for h in hf],
            "ms_replicated": [h["ms"] for h in hr],
-           "launches": launches,
+           "launches": launches, "ckpt": ckpt,
            "leaf_layers": len(lift_rows(built_f.abstract_params()))}
     del repl, fsdp, params
     torch.cuda.empty_cache()
@@ -7424,10 +7833,11 @@ def main() -> None:
         return
     if sys.argv[1:] not in ([], ["--mu-sweep"], ["--phase", "hybrid"],
                             ["--phase", "mesh"], ["--phase", "tp"],
-                            ["--phase", "fsdp_mesh"], ["--phase", "shards"]):
+                            ["--phase", "fsdp_mesh"], ["--phase", "shards"],
+                            ["--phase", "ckpt"]):
         fail(f"usage: {sys.argv[0]} [--mu-sweep | --phase hybrid | "
              "--phase mesh | --phase tp | --phase fsdp_mesh | "
-             "--phase shards]")
+             "--phase shards | --phase ckpt]")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -7506,6 +7916,19 @@ def main() -> None:
                 for part in ("moe", "shards")})
         finish(torch, kernels)
         return
+    if sys.argv[1:] == ["--phase", "ckpt"]:
+        mesh = phase_mesh(torch, card)
+        tp = phase_tp(torch, card, parts=("fsdp",))
+        paths = dict.fromkeys(SOURCES, "mesh, gemma3-1b run B (3 steps, a "
+                              "nan at 2 restored and replayed) in rank 0 "
+                              "of 2 x 2")
+        kernels = kernel_rows(
+            main_rows, mesh["ckpt"][0], paths,
+            lambda name: {**mesh_extra(mesh, name),
+                          "tp_fsdp_ckpt_launches_per_rank": [
+                              x[name] for x in tp["fsdp_ckpt"]]})
+        finish(torch, kernels)
+        return
     if sys.argv[1:] == ["--phase", "fsdp_mesh"]:
         fm = phase_fsdp_mesh(torch, card)
         paths = dict.fromkeys(SOURCES, "fsdp_mesh, gemma3-12b FSDP (2 steps, "
@@ -7560,6 +7983,8 @@ def main() -> None:
         "hybrid_launches": {regime: hybrid[regime].get(name, 0)
                             for regime in hybrid},
         **mesh_extra(mesh, name), **tp_extra(tp, name),
+        "tp_fsdp_ckpt_launches_per_rank": [x[name]
+                                           for x in tp["fsdp_ckpt"]],
         **fsdp_mesh_extra(fm, name)})
     finish(torch, kernels)
 
@@ -7573,10 +7998,12 @@ def mesh_rank0_launches(mesh: dict) -> dict:
 
 def mesh_extra(mesh: dict, name: str) -> dict:
     """The kernels line's ``mesh_launches_per_rank``: per rank, the toy's
-    cells' and the LM run's launches of ``name``."""
+    cells', the LM run's and (``"ckpt"``) run B's launches of ``name``."""
     return {"mesh_launches_per_rank": [
         {"toy": sum(cell[r][name] for cell in mesh["toy"].values()),
-         "lm": mesh["lm"][r][name]} for r in range(len(mesh["lm"]))]}
+         "lm": mesh["lm"][r][name],
+         **({"ckpt": mesh["ckpt"][r][name]} if "ckpt" in mesh else {})}
+        for r in range(len(mesh["lm"]))]}
 
 
 def tp_extra(tp: dict, name: str) -> dict:

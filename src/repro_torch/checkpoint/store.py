@@ -39,7 +39,8 @@ Flat state (``core.flatbuf.FlatState``): a FlatState node is saved as
 its single buffer array plus a ``manifest["flat_state"]`` entry
 recording the FlatLayout (slot table with per-slot LOGICAL global
 shapes, n/n_pad, buffer dtype, model-shard count, per-slot shard dims
-and uneven ``shard_pad`` tails; the port's layouts are unsharded).
+and uneven ``shard_pad`` tails: a mesh checkpoint's global buffer is
+the sharded layout's, one bucket a model rank).
 Restore converts both ways: a flat checkpoint loads into a tree-state
 ``like`` (the buffer is sliced per slot -- sharded slots of a JAX
 checkpoint reassemble their per-bucket blocks along ``shard_dim`` and
@@ -51,9 +52,18 @@ validated against the ``like`` layout; when the tables differ but every
 logical leaf agrees (same keys, same global shapes -- e.g. a JAX
 checkpoint of a model-sharded layout), restore goes through the tree
 form.  Anything else raises naming the offending leaf and field.
+
+Under a process mesh (below :func:`restore_latest`) a run's checkpoint
+is still one file, the JAX store's of the global state: rank 0 writes
+it from the blocks the other ranks send it (:func:`gather_to_writer`,
+``async_ckpt.AsyncSaver(..., topo=)``), and a restore is rank 0's
+choice of step, each rank reading its block of the memory-mapped file
+(:func:`restore_latest_mesh`, :func:`restore_block`).  The directory
+must be one every rank reads: one host, or a file system they share.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import io
 import json
 import os
@@ -68,11 +78,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core import flatbuf, pytree
+from repro_torch import convert
+from repro_torch.core import comm, flatbuf, pytree
 
 PyTree = Any
 SEP = "/"
 CRC_CHUNK = 1 << 24                # bytes read at a time for the CRC
+LANDING_THREADS = 8                # the mesh writer's copies of blocks
 
 
 def _is_flat(x) -> bool:
@@ -138,19 +150,21 @@ def _leaf_keys(layout: flatbuf.FlatLayout) -> list[str]:
 
 def _layout_meta(fs: flatbuf.FlatState) -> dict:
     """JSON-able FlatLayout record stored in the manifest (the JAX
-    package's fields; the port's layouts hold one model shard)."""
+    package's fields: a mesh checkpoint's global multi-bucket layout
+    records its model-shard count and each slot's shard dim, zero tail
+    and logical global shape)."""
     lay = fs.layout
     return {
         "n": lay.n,
         "n_pad": lay.n_pad,
-        "shards": 1,
+        "shards": lay.shards,
         "dtype": _dtype_name(lay.dtype),
         "batch_dims": fs.batch_dims,
         "slots": [{"key": key, "shape": list(s.shape),
-                   "global_shape": list(s.shape),
+                   "global_shape": list(s.global_shape(lay.shards)),
                    "dtype": _dtype_name(s.dtype),
                    "size": s.size, "padded": s.padded, "offset": s.offset,
-                   "shard_dim": None, "shard_pad": 0}
+                   "shard_dim": s.shard_dim, "shard_pad": s.shard_pad}
                   for key, s in zip(_leaf_keys(lay), lay.slots)],
     }
 
@@ -172,9 +186,9 @@ def _slot_mismatch(meta: dict, like_fs: flatbuf.FlatState) -> str | None:
     """First difference between the saved slot table and the target's,
     as an actionable per-leaf message (None when they match exactly)."""
     layout = like_fs.layout
-    if meta.get("shards", 1) != 1:
+    if meta.get("shards", 1) != layout.shards:
         return (f"shards: checkpoint has {meta.get('shards', 1)}, target "
-                f"layout has 1")
+                f"layout has {layout.shards}")
     if meta["n_pad"] != layout.n_pad:
         return (f"n_pad: checkpoint has {meta['n_pad']}, target layout "
                 f"has {layout.n_pad}")
@@ -194,8 +208,8 @@ def _slot_mismatch(meta: dict, like_fs: flatbuf.FlatState) -> str | None:
                 ("size", slot.size, saved["size"]),
                 ("padded", slot.padded, saved["padded"]),
                 ("offset", slot.offset, saved["offset"]),
-                ("shard_dim", None, saved.get("shard_dim")),
-                ("shard_pad", 0, saved.get("shard_pad", 0))):
+                ("shard_dim", slot.shard_dim, saved.get("shard_dim")),
+                ("shard_pad", slot.shard_pad, saved.get("shard_pad", 0))):
             if ours != theirs:
                 return (f"leaf {key!r}, field {field!r}: checkpoint has "
                         f"{theirs!r}, target layout has {ours!r}")
@@ -262,14 +276,36 @@ def to_host(tree: PyTree) -> PyTree:
     return _map(tree, host)
 
 
+def _read_crc(path: pathlib.Path, out: np.ndarray | None = None) -> int:
+    """``zlib.crc32`` of a file's bytes (the value over the whole file at
+    once), read ``CRC_CHUNK`` at a time, each chunk's CRC taken on a
+    helper thread while the next chunk is read (``zlib`` and the reads
+    release the GIL): into ``out``, a uint8 array of the file's size,
+    or through two buffers taken in turn."""
+    spare = ([bytearray(CRC_CHUNK), bytearray(CRC_CHUNK)] if out is None
+             else None)
+    with open(path, "rb", buffering=0) as f, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        size = os.fstat(f.fileno()).st_size
+        futs = [pool.submit(int, 0)]
+        for k, i in enumerate(range(0, size, CRC_CHUNK)):
+            if out is None:
+                if k >= 2:               # the buffer's last chunk is done
+                    futs[k - 1].result()
+                view = memoryview(spare[k % 2])
+            else:
+                view = memoryview(out)[i:i + CRC_CHUNK]
+            n = f.readinto(view)
+            futs.append(pool.submit(
+                lambda v, prev: zlib.crc32(v, prev.result()), view[:n],
+                futs[-1]))
+        return futs[-1].result()
+
+
 def crc32_file(path: pathlib.Path) -> int:
-    """``zlib.crc32`` of a file's bytes, read ``CRC_CHUNK`` at a time
-    (the same value as over the whole file at once)."""
-    crc = 0
-    with open(path, "rb") as f:
-        while chunk := f.read(CRC_CHUNK):
-            crc = zlib.crc32(chunk, crc)
-    return crc
+    """``zlib.crc32`` of a file's bytes, never the whole file in memory
+    (:func:`_read_crc`)."""
+    return _read_crc(path)
 
 
 class _CrcWriter:
@@ -278,16 +314,25 @@ class _CrcWriter:
     its data (a data descriptor, which ``np.load`` and every zip reader
     take) instead of going back to its header, so the bytes written, in
     order, are the file and their CRC the file's -- ``np.savez``'s
-    archive, without reading the file back for the CRC."""
+    archive, without reading the file back for the CRC.  Each write's
+    CRC is taken on ``pool``'s one thread while the file takes the
+    bytes (``b`` is not changed until the save ends: a header's bytes
+    or a view of a saved array)."""
 
-    def __init__(self, f):
-        self._f, self._pos, self.crc = f, 0, 0
+    def __init__(self, f, pool):
+        self._f, self._pos, self._pool = f, 0, pool
+        self._crc = pool.submit(int, 0)
 
     def write(self, b) -> int:
+        self._crc = self._pool.submit(
+            lambda prev: zlib.crc32(b, prev.result()), self._crc)
         n = self._f.write(b)
-        self.crc = zlib.crc32(b, self.crc)
         self._pos += n
         return n
+
+    @property
+    def crc(self) -> int:
+        return self._crc.result()
 
     def tell(self) -> int:
         return self._pos
@@ -297,6 +342,20 @@ class _CrcWriter:
 
     def flush(self) -> None:
         self._f.flush()
+
+
+def _write_member(z: zipfile.ZipFile, key: str, arr: np.ndarray) -> None:
+    """``arr`` as the ``.npy`` member ``key``: ``np.save``'s bytes (a
+    version 1.0 header), its data written from a view of the array
+    ``CRC_CHUNK`` at a time, not copied first."""
+    if not arr.flags.c_contiguous:
+        arr = np.array(arr, order="C")
+    with z.open(key + ".npy", "w", force_zip64=True) as fid:
+        np.lib.format.write_array_header_1_0(
+            fid, np.lib.format.header_data_from_array_1_0(arr))
+        data = memoryview(arr.reshape(-1)).cast("B")
+        for i in range(0, data.nbytes, CRC_CHUNK):
+            fid.write(data[i:i + CRC_CHUNK])
 
 
 def save(ckpt_dir: str | pathlib.Path, step: int, tree: PyTree,
@@ -309,16 +368,17 @@ def save(ckpt_dir: str | pathlib.Path, step: int, tree: PyTree,
         shutil.rmtree(tmp)
     tmp.mkdir()
     arrays, flat_meta, seeds = _flatten(tree)
-    with open(tmp / "arrays.npz", "wb") as f:
-        out = _CrcWriter(f)
+    with open(tmp / "arrays.npz", "wb") as f, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        out = _CrcWriter(f, pool)
         with zipfile.ZipFile(out, mode="w", compression=zipfile.ZIP_STORED,
                              allowZip64=True) as z:
             for key, arr in arrays.items():
-                with z.open(key + ".npy", "w", force_zip64=True) as fid:
-                    np.lib.format.write_array(fid, arr, allow_pickle=False)
+                _write_member(z, key, arr)
+        crc = out.crc
     manifest = {
         "step": step,
-        "crc32": out.crc,
+        "crc32": crc,
         "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
                    for k, v in arrays.items()},
     }
@@ -409,12 +469,10 @@ def _read_verified(path: pathlib.Path):
     (the same value as :func:`crc32_file`'s)."""
     try:
         manifest = json.loads((path / "manifest.json").read_text())
-        buf = np.fromfile(path / "arrays.npz", dtype=np.uint8)
+        buf = np.empty(os.path.getsize(path / "arrays.npz"), np.uint8)
+        crc = _read_crc(path / "arrays.npz", buf)
     except (OSError, ValueError):
         return None
-    crc, view = 0, memoryview(buf)
-    for i in range(0, len(view), CRC_CHUNK):
-        crc = zlib.crc32(view[i:i + CRC_CHUNK], crc)
     if crc != manifest.get("crc32"):
         return None
     return manifest, _Members(path / "arrays.npz", buf)
@@ -450,8 +508,10 @@ def _expand_flat_buf(buf: np.ndarray, meta: dict) -> dict:
 
 def _pack_flat_buf(arrs: dict, like_fs: flatbuf.FlatState,
                    where: str) -> np.ndarray:
-    """{slot key: LOGICAL leaf array} -> the target layout's buffer.
-    Raises naming the leaf on a missing key or a shape mismatch."""
+    """{slot key: LOGICAL leaf array} -> the target layout's buffer:
+    zero-padded block per bucket for sharded slots, copies into every
+    bucket otherwise.  Raises naming the leaf on a missing key or a
+    global-shape mismatch."""
     lay = like_fs.layout
     bd = like_fs.batch_dims
     batch = None
@@ -463,20 +523,33 @@ def _pack_flat_buf(arrs: dict, like_fs: flatbuf.FlatState,
                 f"checkpoint is missing leaf {k!r} for flat-state "
                 f"target {where!r}")
         arr = arrs[rel]
-        if tuple(arr.shape[bd:]) != tuple(slot.shape):
+        want = slot.global_shape(lay.shards)
+        if tuple(arr.shape[bd:]) != tuple(want):
             raise IOError(
                 f"flat-state leaf {k!r} has shape {arr.shape}, slot "
-                f"expects {tuple(slot.shape)} after {bd} batch dims")
+                f"expects {tuple(want)} after {bd} batch dims")
         _check_batch(arr.shape, like_fs, k)
         if batch is None:
             batch = arr.shape[:bd]
         parts.append((slot, arr))
     np_dtype = (np.float32 if lay.dtype == torch.bfloat16
-                 else torch.empty(0, dtype=lay.dtype).numpy().dtype)
+                else torch.empty(0, dtype=lay.dtype).numpy().dtype)
     buf = np.zeros(batch + (lay.n_pad,), np_dtype)
+    bp = lay.bucket_pad
     for slot, arr in parts:
-        buf[..., slot.offset:slot.offset + slot.size] = arr.reshape(
-            batch + (slot.size,))
+        if slot.shard_dim is None:    # a copy in every bucket
+            blocks = [arr.reshape(batch + (slot.size,))] * lay.shards
+        else:
+            ax = bd + slot.shard_dim
+            if slot.shard_pad:        # uneven: the zero shard tail
+                pads = [(0, 0)] * arr.ndim
+                pads[ax] = (0, slot.shard_pad)
+                arr = np.pad(np.asarray(arr), pads)
+            blocks = [b.reshape(batch + (slot.size,)) for b in np.split(
+                arr, lay.shards, axis=ax)]
+        for m, blk in enumerate(blocks):
+            off = m * bp + slot.offset
+            buf[..., off:off + slot.size] = blk
     return buf
 
 
@@ -548,7 +621,8 @@ def _tensor(arr: np.ndarray, like: torch.Tensor, key: str) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def _put(arr, leaf, key: str, manifest: dict, where: pathlib.Path):
+def _put(arr, leaf, key: str, manifest: dict, where: pathlib.Path,
+         raw: bool = False):
     if isinstance(leaf, torch.Generator):
         if key in manifest.get("torch_seed", ()):
             hi, lo = (int(x) for x in np.asarray(arr, np.uint64))
@@ -560,14 +634,26 @@ def _put(arr, leaf, key: str, manifest: dict, where: pathlib.Path):
             f"target's generator (seed {leaf.initial_seed()})", stacklevel=3)
         return leaf
     if isinstance(leaf, torch.Tensor):
-        return _tensor(arr, leaf, key)
+        return _raw(arr, leaf, key) if raw else _tensor(arr, leaf, key)
     if isinstance(leaf, int):
         return int(arr)
     return np.asarray(arr)
 
 
+def _raw(arr: np.ndarray, like: torch.Tensor, key: str) -> np.ndarray:
+    """A saved array as it is (a view of the file where it can be),
+    checked against ``like``'s shape."""
+    if tuple(arr.shape) != tuple(like.shape):
+        raise IOError(f"leaf {key!r} has shape {tuple(arr.shape)}, target "
+                      f"expects {tuple(like.shape)}")
+    return arr
+
+
 def _restore_verified(path: pathlib.Path, like: PyTree, manifest: dict,
-                      data: _Members) -> PyTree:
+                      data: _Members, raw: bool = False) -> PyTree:
+    """``like`` filled from the checkpoint; ``raw``: every tensor as the
+    numpy array the checkpoint gives it (a view of the file, or what the
+    layout conversion made), its shape checked, not yet a tensor."""
     flat_meta = manifest.get("flat_state", {})
     keyed = [(SEP.join(p), leaf) for p, leaf in _items_with_path(like)]
     expanded = _slice_flat(data, manifest, dict(keyed))
@@ -584,11 +670,12 @@ def _restore_verified(path: pathlib.Path, like: PyTree, manifest: dict,
                         data[key], flat_meta[key], key, leaf, mismatch)
             else:                             # tree ckpt -> flat run
                 arr = _assemble_flat(data, key, leaf)
-            new[key] = leaf.replace(_tensor(arr, leaf.buf, key))
+            new[key] = leaf.replace(_put(arr, leaf.buf, key, manifest,
+                                         path, raw))
         elif key in data.files and key not in flat_meta:
-            new[key] = _put(data[key], leaf, key, manifest, path)
+            new[key] = _put(data[key], leaf, key, manifest, path, raw)
         elif key in expanded:                 # flat ckpt -> tree run
-            new[key] = _put(expanded[key], leaf, key, manifest, path)
+            new[key] = _put(expanded[key], leaf, key, manifest, path, raw)
         else:
             raise IOError(f"checkpoint is missing leaf {key!r}")
     return _map(like, lambda key, _leaf: new[key])
@@ -622,3 +709,147 @@ def restore_latest(ckpt_dir: str | pathlib.Path, like: PyTree
         if got is not None:
             return step, _restore_verified(path, like, *got)
     return None
+
+
+# -- under a process mesh ---------------------------------------------------------
+#
+# A mesh run's checkpoint is the one file the JAX store writes for the
+# global state: one writer (rank 0) assembles it on the host from the
+# blocks the ranks send it and writes it; a restore's step is chosen by
+# rank 0 and each rank reads only its block of the file.  The directory
+# must be one every rank reads: one host, or a file system they share.
+
+
+def gather_to_writer(state, topo, layout=None, master_specs=None):
+    """The global state of a mesh run on the writer's host, for
+    :func:`save`: a collective of every rank of ``topo.mesh``.  Each rank
+    sends rank 0 only the blocks it alone holds (``convert.state_pieces``:
+    the per-edge slots from data rank 0 of each pod, the per-voter slots
+    from every rank, each model rank's bucket or block, under FSDP each
+    data rank's shard), a chunk at a time through host memory
+    (``comm.send_block``); rank 0 receives the rest from every rank at
+    once while it copies its own from the card into the global host
+    tensors, of ``global_like``'s shapes (bfloat16 widened to float32,
+    as :func:`save` writes it: a block received in another dtype or
+    into a non-contiguous view crosses through a host copy of its own),
+    and returns the global ``TrainState`` with flat slots under their
+    global (multi-bucket) layouts, its step and generator the rank's.
+    Every other rank returns None: only the writer holds the global
+    copy.
+    ``layout``, ``master_specs``: as for ``convert.gather_train_state``."""
+    glike = convert.global_like(state, topo, layout, master_specs)
+    m = topo.mesh
+    if m.rank != 0:
+        for piece in convert.state_pieces(state, topo, glike, layout,
+                                          master_specs):
+            comm.send_block(topo, piece.block)
+        return None
+
+    def host(x):
+        dt = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+        return torch.empty(x.shape, dtype=dt)
+
+    out = {"step": state.step, "rng": state.rng}
+    for name in convert.SLOTS:
+        g = getattr(glike, name)
+        out[name] = (None if g is None
+                     else g.replace(host(g.buf)) if _is_flat(g)
+                     else pytree.tree_map(host, g))
+    glob = type(state)(**out)
+
+    def target(piece):
+        g = getattr(glob, piece.slot)
+        if piece.leaf is None:
+            return g.buf[piece.index]
+        return pytree.tree_flatten(g)[0][piece.leaf][piece.index]
+
+    # every rank's blocks arrive side by side while rank 0 copies its own
+    landing = [comm.recv_block(topo, target(piece), r, piece.block.dtype)
+               for r in range(1, m.size)
+               for piece in convert.state_pieces(
+                   state, convert.rank_view(topo, r), glike, layout,
+                   master_specs)]
+    for piece in convert.state_pieces(state, topo, glike, layout,
+                                      master_specs):
+        target(piece).copy_(piece.block)
+    # the received blocks land in the global tensors on several threads
+    # (a cast or a strided copy each, the first touch of their pages)
+    with concurrent.futures.ThreadPoolExecutor(LANDING_THREADS) as pool:
+        list(pool.map(lambda land: land(), landing))
+    return glob
+
+
+def _verify(path: pathlib.Path) -> bool:
+    """Whether the checkpoint at ``path`` has its manifest's CRC (the file
+    read a chunk at a time, never whole)."""
+    try:
+        manifest = json.loads((path / "manifest.json").read_text())
+        return crc32_file(path / "arrays.npz") == manifest.get("crc32")
+    except (OSError, ValueError):
+        return False
+
+
+def restore_block(ckpt_dir: str | pathlib.Path, step: int, like, topo,
+                  layout=None, master_specs=None):
+    """This rank's block of checkpoint ``step``, in ``like``'s layout,
+    dtypes and device (``like``: the rank's state of a mesh run, its
+    ``init_fn``'s).  The file is memory-mapped, not read: where its
+    layout is the run's global one (the same model-shard count and slot
+    table, or a tree of the same leaves), only the rank's blocks are
+    read (``convert.train_state_from_numpy``'s cuts).  Another layout
+    -- another model-shard count, a one-process flat checkpoint into a
+    run of model shards, a tree checkpoint into a flat run -- goes
+    through the tree form, as :func:`restore` does: each converted slot
+    is assembled whole on this rank's host (its global size, once a
+    slot) before its block is cut.  The CRC is not checked here (rank 0
+    checked it, :func:`restore_latest_mesh`)."""
+    path = pathlib.Path(ckpt_dir) / f"step_{step:010d}"
+    manifest = json.loads((path / "manifest.json").read_text())
+    mapped = np.memmap(path / "arrays.npz", dtype=np.uint8, mode="r")
+    glike = convert.global_like(like, topo, layout, master_specs)
+    glob = _restore_verified(path, glike, manifest,
+                             _Members(path / "arrays.npz", mapped), raw=True)
+    state = convert.train_state_from_numpy(glob, like, topo, layout,
+                                           master_specs)
+    return state._replace(rng=glob.rng)
+
+
+def restore_latest_mesh(ckpt_dir: str | pathlib.Path, like, topo,
+                        layout=None, master_specs=None):
+    """The mesh counterpart of :func:`restore_latest`, a collective of
+    every rank: rank 0 checks the CRCs and chooses the newest intact
+    step, every rank hears its choice (``comm.agree``), so no two ranks
+    restore different steps, and each reads its block
+    (:func:`restore_block`).  Returns ``(step, state)``, or None when no
+    intact checkpoint exists.  The directory must be one every rank
+    reads (one host, or a file system they share): a rank that cannot
+    read the chosen step raises ``IOError`` naming its path, and so does
+    every other rank, at once.  Drain every rank's saver before (the
+    trainer does): a step still being written is not yet listed, but a
+    restore should not race the next save."""
+    chosen = -1
+    if topo.mesh.rank == 0:
+        for step in reversed(available_steps(ckpt_dir)):
+            if _verify(pathlib.Path(ckpt_dir) / f"step_{step:010d}"):
+                chosen = step
+                break
+    chosen = comm.agree(topo, [chosen])[0][0]
+    if chosen < 0:
+        return None
+    path = pathlib.Path(ckpt_dir) / f"step_{chosen:010d}"
+    err = None
+    try:
+        state = restore_block(ckpt_dir, chosen, like, topo, layout,
+                              master_specs)
+    except (OSError, ValueError) as e:
+        err = e
+    failed = [r for r, (bad,) in enumerate(comm.agree(topo, [err is not None]))
+              if bad]
+    if err is not None:
+        raise IOError(f"rank {topo.mesh.rank} cannot restore {path}, the "
+                      f"step rank 0 chose (is {ckpt_dir} on a file system "
+                      f"every rank reads?): {err}") from err
+    if failed:
+        raise IOError(f"ranks {failed} cannot restore {path}, the step "
+                      "rank 0 chose")
+    return chosen, state

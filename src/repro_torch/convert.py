@@ -19,7 +19,10 @@ the JAX package's ``built.prefill``'s second output) carries over with
 Over a process mesh a rank takes its block of a global state
 (``train_state_from_numpy(..., topo=)``, the blocks of
 ``hier.state_blocks``) and :func:`gather_train_state` brings the ranks'
-blocks back to the global numpy state, on every rank.  With a model
+blocks back to the global numpy state, on every rank; a mesh
+checkpoint's writer takes from each rank only the blocks no other rank
+hands it (:func:`state_pieces`, into the shapes of
+:func:`global_like`).  With a model
 axis the global state of a flat slot is the JAX sharded layout's
 multi-bucket buffer (each model rank's bucket side by side), and of a
 tree slot the logical leaves (each sharded leaf's blocks concatenated,
@@ -29,6 +32,7 @@ parameter tree).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -268,6 +272,163 @@ def gather_train_state(state: hier.TrainState, topo: Topology,
                 tree = shardflat.gather(topo, lay, tree, batch)
             out[name] = params_to_numpy(tree)
     return hier.TrainState(**out)
+
+
+def rank_view(topo: Topology, rank: int) -> Topology:
+    """``topo`` as rank ``rank`` of its mesh sees it: the same grid and
+    groups at that rank's coordinates (for the block indices of another
+    rank; no collective may run on it)."""
+    m = topo.mesh
+    rest, model_rank = divmod(rank, m.model)
+    pod_rank, data_rank = divmod(rest, m.data)
+    return dataclasses.replace(topo, mesh=dataclasses.replace(
+        m, pod_rank=pod_rank, data_rank=data_rank, model_rank=model_rank))
+
+
+def _model_dim(slot: flatbuf.LeafSlot | None, data_dim: int | None):
+    """The leaf dim the model axis splits on its own (the sharded
+    layout's ``shard_dim``, unless an FSDP spec splits that dim over
+    model and data together), or None."""
+    if slot is None or slot.shard_dim is None or slot.shard_dim == data_dim:
+        return None
+    return slot.shard_dim
+
+
+def _fsdp_blocks(spec, topo: Topology) -> int:
+    """How many ranks' shards tile a leaf's data-sharded dim: the data
+    group's, times the model group's where the spec names both."""
+    dim = device_axis.data_dim(spec)
+    m = topo.mesh
+    return m.data * (m.model if isinstance(spec[dim], tuple) else 1)
+
+
+def global_like(state: hier.TrainState, topo: Topology,
+                layout: flatbuf.FlatLayout | None = None,
+                master_specs: PyTree | None = None) -> hier.TrainState:
+    """The global state of a mesh run, as meta tensors: what
+    :func:`gather_train_state` assembles, by shape and dtype, without
+    moving a byte.  Each flat slot is a :class:`flatbuf.FlatState` of
+    the global ``[P, (D*K,) n_pad]`` buffer under the global layout (the
+    multi-bucket one under a model axis); each tree leaf has its logical
+    global shape (``[P, (D*K,) *leaf]``: a model-split dim at its logical
+    extent, an FSDP shard's data dim whole).  ``step`` and ``rng`` are
+    the rank's own (every rank holds them whole).  ``layout``,
+    ``master_specs``: as for :func:`gather_train_state`."""
+    lay = _shard_layout(state, topo, layout)
+    k = _clients(state, topo)
+    out = {"step": state.step, "rng": state.rng}
+    for name in SLOTS:
+        slot = getattr(state, name)
+        if slot is None:
+            out[name] = None
+            continue
+        lead = (topo.pods,) + ((topo.devices_per_pod * k,)
+                               if name in hier.PER_VOTER else ())
+        if isinstance(slot, flatbuf.FlatState):
+            glay = (slot.layout.sharded(topo.model_shards) if lay is not None
+                    else slot.layout)
+            out[name] = flatbuf.FlatState(torch.empty(
+                lead + (glay.n_pad,), dtype=slot.buf.dtype, device="meta"),
+                glay, slot.batch_dims)
+            continue
+        leaves, td = pytree.tree_flatten(slot)
+        fsdp = master_specs is not None and name not in hier.PER_VOTER
+        specs = (pytree.flatten_up_to(td, master_specs) if fsdp
+                 else [None] * len(leaves))
+        shapes = []
+        for i, (x, spec) in enumerate(zip(leaves, specs)):
+            shape = list(x.shape[len(lead):])
+            dim = device_axis.data_dim(spec)
+            if dim is not None:
+                shape[dim] *= _fsdp_blocks(spec, topo)
+            s = lay.slots[i] if lay is not None else None
+            sd = _model_dim(s, dim)
+            if sd is not None:
+                shape[sd] = s.global_shape(lay.shards)[sd]
+            shapes.append(torch.empty(lead + tuple(shape), dtype=x.dtype,
+                                      device="meta"))
+        out[name] = pytree.tree_unflatten(td, shapes)
+    return hier.TrainState(**out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Piece:
+    """A block of a global slot that one rank hands the writer of a mesh
+    checkpoint: ``slot``, the leaf's position in the slot's flatten order
+    (None for a flat slot's buffer), ``index`` (a tuple of slices into
+    the global leaf) and ``block``, the rank's tensor of that shape."""
+    slot: str
+    leaf: int | None
+    index: tuple
+    block: torch.Tensor
+
+
+def _index(ndim: int, at: dict) -> tuple:
+    return tuple(at.get(i, slice(None)) for i in range(ndim))
+
+
+def state_pieces(state: hier.TrainState, topo: Topology,
+                 glike: hier.TrainState,
+                 layout: flatbuf.FlatLayout | None = None,
+                 master_specs: PyTree | None = None) -> list[Piece]:
+    """The blocks of this rank's ``state`` that the global state
+    ``glike`` (:func:`global_like`) takes from it, each exactly once
+    across the mesh: a per-voter slot's block from every rank; a
+    per-edge slot's rows from data rank 0 of each pod (the data ranks
+    hold the same rows), under FSDP each data rank's shard (a leaf the
+    master specs keep whole from data rank 0); with a model axis each
+    model rank's bucket of a flat slot and its block of a tree slot's
+    split leaf, cut to the leaf's logical extent (a leaf every model
+    rank holds whole from model rank 0).  On :func:`rank_view` of
+    another rank the pieces are that rank's (their ``block`` has the
+    right shape and dtype; its values are this rank's)."""
+    lay = _shard_layout(state, topo, layout)
+    m = topo.mesh
+    k = _clients(state, topo)
+    blocks = hier.state_blocks(topo, k)
+    flat_blocks = hier.state_blocks(topo, k, lay)
+    out = []
+    for name in SLOTS:
+        slot = getattr(state, name)
+        if slot is None:
+            continue
+        voter = name in hier.PER_VOTER
+        if isinstance(slot, flatbuf.FlatState):
+            if voter or m.data_rank == 0:
+                out.append(Piece(name, None, getattr(flat_blocks, name),
+                                 slot.buf))
+            continue
+        leaves, td = pytree.tree_flatten(slot)
+        gleaves = pytree.flatten_up_to(td, getattr(glike, name))
+        fsdp = master_specs is not None and not voter
+        specs = (pytree.flatten_up_to(td, master_specs) if fsdp
+                 else [None] * len(leaves))
+        lead = 2 if voter else 1
+        for i, (x, g, spec) in enumerate(zip(leaves, gleaves, specs)):
+            dim = device_axis.data_dim(spec)
+            if fsdp:
+                at = dict(enumerate(hier.fsdp_index(topo, spec,
+                                                    tuple(g.shape))))
+                by_data = dim is not None
+                by_model = by_data and isinstance(spec[dim], tuple)
+            else:
+                at = dict(enumerate(getattr(blocks, name)))
+                by_data, by_model = voter, False
+            s = lay.slots[i] if lay is not None else None
+            sd = _model_dim(s, dim)
+            if sd is not None:
+                ax = lead + sd
+                w = s.shape[sd]
+                keep = s.local_extent(lay.shards, m.model_rank)
+                if keep == 0:
+                    continue
+                x = x.narrow(ax, 0, keep)
+                at[ax] = slice(m.model_rank * w, m.model_rank * w + keep)
+                by_model = True
+            if ((by_data or m.data_rank == 0)
+                    and (by_model or m.model_rank == 0)):
+                out.append(Piece(name, i, _index(x.dim(), at), x))
+    return out
 
 
 def _like(name: str, a, ref: torch.Tensor) -> torch.Tensor:

@@ -64,6 +64,17 @@ all-gather of the sign words in ``votes.py``): explicit
     (the tests and ``chip_smoke.py`` check every copy bitwise across
     the model group).
 
+A mesh checkpoint's (``checkpoint.store``), over every rank of the mesh
+and through host memory: :func:`send_block` / :func:`recv_block` -- a
+rank's block of the state to the one writer, ``CHUNK_BYTES`` at a time,
+the writer receiving from every rank at once (counted ``checkpoint``:
+sent by the others, received by the writer) --
+and :func:`agree`, every rank's few integers on every rank (the saver's
+error flag and generator seed, the restore's chosen step; counted
+``checkpoint_control``).  They run on the default group where its
+backend is gloo, else on a gloo group of every rank
+(:func:`host_group`).
+
 Without a mesh (``topo`` None, or its ``mesh`` None, or on an axis of
 size 1) each is the identity and no process group is touched.  Each call adds the bytes this rank sent and
 received to :data:`traffic` (per operation: calls, ``sent``,
@@ -94,7 +105,7 @@ OPS = ("gather_devices", "gather_pods", "sum_devices", "gather_shards",
        "scatter_shards", "sum_model", "copy_to_model", "max_model",
        "gather_model", "all_gather_model", "reduce_scatter_model",
        "gather_batch_data", "gather_batch_pod", "broadcast_pods",
-       "gather_serve", "combine_data")
+       "gather_serve", "combine_data", "checkpoint", "checkpoint_control")
 GROUPS = {"data": ("gather_devices", "sum_devices", "gather_shards",
                    "scatter_shards", "gather_batch_data", "gather_serve",
                    "combine_data"),
@@ -404,3 +415,83 @@ def all_gather_model(topo: Topology | None, x: torch.Tensor, dim: int,
     m = _model(topo)
     return x if m is None else _AllGatherModel.apply(x, m, dim % x.dim(),
                                                      grad)
+
+
+# -- the mesh checkpoint's, over every rank -------------------------------------
+
+CHUNK_BYTES = 1 << 26            # a block crosses 64 MiB at a time
+_host_groups: dict = {}
+
+
+def host_group(topo: Topology):
+    """The group a mesh checkpoint's host tensors cross: the default
+    group (None) where its backend is gloo, else a gloo group of every
+    rank, made on the first call for this mesh -- a collective, so every
+    rank makes that call at the same point (``checkpoint.async_ckpt.
+    AsyncSaver`` does, when it is made)."""
+    m = topo.mesh
+    if m.backend == "gloo":
+        return None
+    got = _host_groups.get(id(m))
+    if got is None or got[0] is not m:
+        got = _host_groups[id(m)] = (m, dist.new_group(backend="gloo"))
+    return got[1]
+
+
+def agree(topo: Topology, values: list) -> list:
+    """Every rank's ``values`` (a few int64s, the same count on every
+    rank) on every rank, in rank order: an all-gather over the host
+    group."""
+    m = topo.mesh
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64)
+    _count("checkpoint_control", t, m.size - 1)
+    parts = [torch.empty_like(t) for _ in range(m.size)]
+    dist.all_gather(parts, t, group=host_group(topo))
+    return [p.tolist() for p in parts]
+
+
+def send_block(topo: Topology, x: torch.Tensor, dst: int = 0) -> None:
+    """Send ``x`` (on any device) to rank ``dst``, its bytes
+    ``CHUNK_BYTES`` at a time through host memory, the next chunk leaving
+    the card while the last one is sent: this rank holds two chunks on
+    the host at a time (and, for a non-contiguous ``x`` on the card, one
+    contiguous copy of ``x`` there)."""
+    raw = x.detach().contiguous().view(-1).view(torch.uint8)
+    rec = traffic["checkpoint"]
+    rec["calls"] += 1
+    rec["sent"] += raw.numel()
+    group = host_group(topo)
+    pending = []
+    for i in range(0, raw.numel(), CHUNK_BYTES):
+        chunk = raw[i:i + CHUNK_BYTES].to("cpu")
+        pending.append((dist.isend(chunk, dst, group=group), chunk))
+        if len(pending) > 1:
+            pending.pop(0)[0].wait()
+    for work, _ in pending:
+        work.wait()
+
+
+def recv_block(topo: Topology, out: torch.Tensor, src: int,
+               dtype: torch.dtype):
+    """Post the receive of :func:`send_block`'s tensor of ``out``'s shape
+    and the sender's ``dtype`` from rank ``src`` into the host tensor
+    ``out`` (a view of a larger one, or of another dtype: then through
+    one contiguous host copy, cast into ``out``), and return the call
+    that waits for it and lands it.  Receives posted from several ranks
+    before the first wait arrive side by side."""
+    direct = out.is_contiguous() and out.dtype == dtype
+    buf = out if direct else torch.empty(out.shape, dtype=dtype)
+    raw = buf.view(-1).view(torch.uint8)
+    rec = traffic["checkpoint"]
+    rec["calls"] += 1
+    rec["received"] += raw.numel()
+    group = host_group(topo)
+    works = [dist.irecv(raw[i:i + CHUNK_BYTES], src, group=group)
+             for i in range(0, raw.numel(), CHUNK_BYTES)]
+
+    def land():
+        for work in works:
+            work.wait()
+        if not direct:
+            out.copy_(buf)
+    return land

@@ -28,12 +28,19 @@ gloo on the CPU and for ranks that share a card, NCCL with a card a
 rank.  ``--multi_pod`` lays the production grid (2 pods x 16 data x 16
 model, ``mesh.make_topology``) over 512 ranks: P = 2 x D = 16, the
 dense, vlm and moe families tensor-parallel over the model axis
-(``ValueError`` on another world size).  ``--ckpt`` under a mesh (item
-17e) raises ``NotImplementedError``.
+(``ValueError`` on another world size).  ``--ckpt DIR`` under a mesh
+saves and resumes the mesh run's one checkpoint, the JAX store's file of
+the global state (rank 0 writes it from the ranks' blocks and chooses
+the step a restore reads, each rank reading its block); ``DIR`` must be
+one every rank reads (one host, or a shared file system).
 
-  PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \
-      --device cpu --arch gemma3_1b --smoke --steps 6 --t_e 3 --pods 2 \
+  PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+      --device cpu --arch gemma3_1b --smoke --steps 6 --t_e 3 --pods 2 \\
       --devices_per_pod 2
+  rm -rf build/ckpt_mesh
+  PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+      --device cpu --arch gemma3_1b --smoke --steps 12 --t_e 3 --pods 2 \\
+      --devices_per_pod 2 --ckpt build/ckpt_mesh --chaos 3
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch gemma3_1b --smoke --steps 6 --t_e 3
@@ -97,7 +104,8 @@ from repro_torch import configs
 from repro_torch.checkpoint import store
 from repro_torch.checkpoint.async_ckpt import AsyncSaver
 from repro_torch.core import clients as vclients
-from repro_torch.core import hier, schedule, signs, votes
+from repro_torch.core import (comm, hier, pytree, schedule, shardflat, signs,
+                              votes)
 from repro_torch.core.topology import Topology, resolve_device
 from repro_torch.data import cluster, emnist_like, synthetic
 from repro_torch.launch import mesh
@@ -310,6 +318,26 @@ class RunCfg:
     seed: int = 0
 
 
+def checkpoint_args(topo: Topology, bundle: hier.ModelBundle, params,
+                    master_dtype=torch.float32) -> tuple:
+    """What a mesh run's checkpoint needs to know of its state beyond
+    the state (``AsyncSaver``'s and ``store.restore_latest_mesh``'s
+    ``layout`` and ``master_specs``): the master's sharded layout where
+    a model axis splits a leaf (None otherwise: a flat slot carries it)
+    and, in the FSDP regime, the bundle's master specs.  ``params``: one
+    replica's parameters, or anything of their shapes."""
+    layout = master_specs = None
+    if topo.mesh is None:
+        return layout, master_specs
+    if topo.model_shards > 1 and bundle.specs is not None:
+        layout = shardflat.param_layout(topo, bundle.specs, pytree.tree_map(
+            lambda x: torch.empty((1,) + tuple(x.shape), dtype=master_dtype,
+                                  device="meta"), params), batch_dims=1)
+    if bundle.param_mode == "fsdp":
+        master_specs = bundle.master_specs
+    return layout, master_specs
+
+
 def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
                  fault_injector: chaos.FaultInjector | None = None,
                  on_metrics=None, params=None, log=print,
@@ -346,17 +374,25 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
     trains tensor-parallel on each rank's blocks (``models.build``).  An
     FSDP config holds each master's shard on each rank (``core.hier``),
     over a model axis its model block's.
-    Checkpoints under a mesh are ROADMAP item 17e
-    (``NotImplementedError``)."""
-    if run.ckpt_dir and topo.mesh is not None:
-        raise NotImplementedError(
-            "checkpoints and restore under a process mesh (each rank's "
-            "block of the store): ROADMAP item 17e")
+
+    Checkpoints under a mesh are the JAX store's file of the global
+    state, one a step, in ``run.ckpt_dir``, which every rank must read
+    (one host, or a file system they share): rank 0 writes it from the
+    blocks the ranks send it (``AsyncSaver`` under a mesh,
+    ``store.gather_to_writer``); a resume or a restore is rank 0's
+    choice of the newest intact step, heard by every rank, each reading
+    its block (``store.restore_latest_mesh``), after every rank drained
+    its saver.  The non-finite loss is rank 0's reading, heard by every
+    rank, so every rank takes the same branch.  A run resumes from a
+    checkpoint of another mesh shape, or of one process, as well."""
     built = build.build_model(cfg, topo)
     init_fn, step_fn = hier.make_hier_step(topo, algo, built.bundle)
     if params is None:
         params = built.init_params(
             torch.Generator(device=topo.device).manual_seed(run.seed))
+    mesh_run = topo.mesh is not None
+    layout, master_specs = checkpoint_args(topo, built.bundle, params,
+                                           algo.master_dtype)
     state = init_fn(params, run.seed + 1)
     del params
     stream = synthetic.make_stream(synthetic.LMStreamCfg(
@@ -374,13 +410,16 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
     member = elastic.Membership(topo.pods, topo.devices_per_pod,
                                 clients=algo.clients)
     detector = failures.FailureDetector()
-    saver = (AsyncSaver(run.ckpt_dir, keep=run.ckpt_keep) if run.ckpt_dir
-             else None)
+    saver = (AsyncSaver(run.ckpt_dir, keep=run.ckpt_keep, topo=topo,
+                        layout=layout, master_specs=master_specs)
+             if run.ckpt_dir else None)
     notify = on_checkpoint or (lambda event: None)
 
     def restore():
         t0 = time.perf_counter()
-        restored = store.restore_latest(run.ckpt_dir, state)
+        restored = (store.restore_latest_mesh(run.ckpt_dir, state, topo,
+                                              layout, master_specs)
+                    if mesh_run else store.restore_latest(run.ckpt_dir, state))
         return restored, time.perf_counter() - t0
 
     start = saved = 0
@@ -413,7 +452,10 @@ def run_training(cfg, topo: Topology, algo: hier.AlgoConfig, run: RunCfg,
         detector.record_step(dt)
         if fault_injector is not None and fault_injector.nan_due(step):
             loss = float("nan")                   # injected blow-up
-        if not detector.check_loss(loss):
+        finite = detector.check_loss(loss)
+        if mesh_run and run.ckpt_dir:             # rank 0's reading
+            finite = bool(comm.agree(topo, [finite])[0][0])
+        if not finite:
             if saver:
                 saver.wait()
             restored, secs = (restore() if run.ckpt_dir else (None, 0.0))
@@ -497,7 +539,7 @@ def lm_main(argv=None):
     ap.add_argument("--ckpt", default=None, metavar="DIR",
                     help="checkpoint directory: resume from its newest "
                          "intact checkpoint, save every 20 steps and at "
-                         "the end")
+                         "the end (under torchrun: one every rank reads)")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
                     help="run under a seeded fault schedule "
                          "(runtime.chaos.FaultInjector.seeded: client/"

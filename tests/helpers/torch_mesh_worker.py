@@ -26,6 +26,8 @@ The job (a dict of numpy arrays and plain values):
     see other batch counts;
   * ``lm`` -- a :func:`lm_run` spec: ``launch.train.run_training`` of a
     smoke LM config over the mesh;
+  * ``lm_ckpt`` -- the same with a checkpoint directory, stopped and run
+    again on it (:func:`lm_ckpt_run`);
   * ``paper`` -- name -> ``FedBenchCfg`` fields: the paper task
     (``launch.train.run_paper_task``) over the mesh (:func:`paper_run`).
 
@@ -143,6 +145,8 @@ def _rank_main(tmp: str, rank: int) -> None:
         res["grads"] = step0_grads(topo, job["grads"])
     if "lm" in job:
         res["lm"] = lm_run(topo, job["lm"])
+    if "lm_ckpt" in job:
+        res["lm_ckpt"] = lm_ckpt_run(topo, job["lm_ckpt"], tmp)
     if "paper" in job:
         res["paper"] = {name: paper_run(topo, fields)
                         for name, fields in job["paper"].items()}
@@ -240,6 +244,32 @@ def lm_run(topo: Topology, spec: dict) -> dict:
     return {"losses": [h["loss"] for h in history],
             "params": pytree.tree_map(tensor_to_numpy,
                                       hier.edge_params(state, topo))}
+
+
+def lm_ckpt_run(topo: Topology, spec: dict, tmp: str) -> dict:
+    """:func:`lm_run`'s run with a checkpoint directory: stopped at step
+    ``spec["stop"]`` (saved there) and run again on the directory to
+    ``spec["steps"]``: the two parts' losses, the checkpoint events and
+    the final gathered [P, *leaf] edge models."""
+    from repro_torch import configs
+    from repro_torch.launch.train import RunCfg, run_training
+
+    algo = hier.AlgoConfig(
+        t_e=spec["t_e"], transport="fused", state_layout="flat",
+        compute_dtype=torch.float32)
+    out = {"losses": [], "events": []}
+    for steps in (spec["stop"], spec["steps"]):
+        state, history = run_training(
+            configs.get_smoke(spec["arch"]), topo, algo,
+            RunCfg(steps=steps, batch_per_device=spec["batch"],
+                   seq_len=spec["seq"], log_every=0,
+                   ckpt_every=spec["stop"],
+                   ckpt_dir=str(pathlib.Path(tmp) / "lm_ckpt")),
+            log=lambda line: None, on_checkpoint=out["events"].append)
+        out["losses"].append([h["loss"] for h in history])
+    out["params"] = pytree.tree_map(tensor_to_numpy,
+                                    hier.edge_params(state, topo))
+    return out
 
 
 def paper_run(topo: Topology, fields: dict) -> dict:

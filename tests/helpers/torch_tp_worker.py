@@ -27,7 +27,9 @@ The job:
   * ``dense`` -- name -> :func:`dense_grads` spec: an LM smoke config's
     (any tensor-parallel family's, fields overridden) loss and per-device
     gradients on each rank's blocks;
-  * ``lm`` -- ``launch.train.run_training`` of a smoke config;
+  * ``lm`` -- ``launch.train.run_training`` of a smoke config; ``lm_ckpt``
+    the same with a checkpoint directory, stopped and run again on it
+    (``torch_mesh_worker.lm_ckpt_run``);
   * ``production`` -- ``launch.mesh.make_topology`` on this world, for
     each ``multi_pod`` value listed (the error it raises);
   * ``identity`` -- names of ``core.comm``'s model collectives that the
@@ -155,6 +157,8 @@ def _rank_main(tmp: str, rank: int) -> None:
                     for name, spec in job.get("dense", {}).items()}
     if "lm" in job:
         res["lm"] = MW.lm_run(topo, job["lm"])
+    if "lm_ckpt" in job:
+        res["lm_ckpt"] = MW.lm_ckpt_run(topo, job["lm_ckpt"], tmp)
     res["production"] = {}
     for multi_pod in job.get("production", ()):
         try:

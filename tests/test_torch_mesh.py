@@ -24,8 +24,11 @@ ranks' blocks of global numpy inputs is bitwise the JAX ``votes.*``
 function on the whole inputs.  On the 2 x 2 mesh the MLP trajectory
 (autograd gradients) is within atol 1e-5 of JAX's
 ``ref_fed.global_round`` and, with injected gradients, the sign methods
-are bitwise JAX's oracle.  Then the refusals of the parts of ROADMAP
-item 17 still to come, and a one-process topology that touches no
+are bitwise JAX's oracle.  Then what the parts of ROADMAP item 17 once
+refused (the production grids, the FSDP regime over a mesh, and
+checkpoints under one: ``run_training`` over the 1 x 2 mesh stopped and
+run again on its directory, bitwise the uninterrupted run), and a
+one-process topology that touches no
 process group (the model axis: ``tests/test_torch_tp_*.py``).
 """
 import concurrent.futures
@@ -67,6 +70,7 @@ SHAPES = {"2x2": (2, 2, (1, 1), 2, 2), "2x2-D4": (2, 2, (1, 2), 2, 4),
           "1x2": (1, 2, (2, 1), 2, 2)}
 TOY = {"w": (16, 64), "b": (33,), "w2": (64, 33)}
 LM = {"arch": "gemma3_1b", "steps": 4, "t_e": 2, "seq": 16, "batch": 2}
+LM_CKPT = dict(LM, stop=2)      # the same run stopped at 2 and resumed
 PAPER = {   # run_paper_task at Q=2 x D=2: DC, and K=2 streamed clients
     "dc": dict(q_edges=2, devices_per_edge=2, rounds=2, t_e=2, batch=16,
                n_train=800),
@@ -234,6 +238,7 @@ def mesh_job(shape: str) -> dict:
         job["cells"][f"{name}/resumed"] = dict(base, start=start["state"])
     if shape == "1x2":
         job["lm"] = LM
+        job["lm_ckpt"] = LM_CKPT
         job["paper"] = PAPER
     if shape == "2x2":
         job["cells"]["mlp/dc"] = spec("dc_hier_signsgd", "fused", "flat",
@@ -523,7 +528,7 @@ def fake_mesh(pods=2, data=1) -> ProcessMesh:
                        pod_group=None, data_group=None, backend="gloo")
 
 
-def test_refusals_name_their_part_of_item_17(tmp_path):
+def test_refusals_name_their_part_of_item_17():
     # the model axis (item 17b) is ported: the production grids are
     # shapes, and laying one needs its 256 or 512 ranks
     assert mesh.make_production_mesh(multi_pod=True) == (
@@ -545,10 +550,16 @@ def test_refusals_name_their_part_of_item_17(tmp_path):
     with pytest.raises(ValueError, match="replicated regime"):
         hier.make_hier_step(topo, hier.AlgoConfig(state_layout="flat"),
                             hier.ModelBundle(loss=None, param_mode="fsdp"))
-    with pytest.raises(NotImplementedError, match="item 17e"):
-        train.run_training(configs.get_smoke("gemma3_1b"), topo,
-                           hier.AlgoConfig(), train.RunCfg(
-                               steps=1, ckpt_dir=str(tmp_path)))
+    # checkpoints under a mesh (item 17e): run_training over the 1 x 2
+    # mesh stopped at step 2 (saved there) and run again on its
+    # directory resumes and ends bitwise the uninterrupted run
+    got, want = mesh_run("1x2")["lm_ckpt"], mesh_run("1x2")["lm"]
+    assert [e["event"] for e in got["events"]] == ["save", "resume", "save"]
+    assert got["events"][1]["step"] == LM_CKPT["stop"]
+    assert got["losses"][0] + got["losses"][1] == want["losses"]
+    for a, b in zip(jax.tree.leaves(got["params"]),
+                    jax.tree.leaves(want["params"])):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
     from repro_torch.models import build
     gemma12 = build.build_model(configs.get_config("gemma3_12b"),
                                 Topology(1, 1, "cpu"))

@@ -13,8 +13,10 @@ make_archdef(cfg, M), M)`` leaf for leaf, and a rank's bucket
 (``convert.local_params``) must be its slice of JAX's global buffer
 (its block of the experts), for the smoke trees of gemma3-1b,
 deepseek-v3, arctic, internvl2, xlstm, zamba2 and whisper at M = 2 and
-4.  Then the production grids, the refusal of ROADMAP item 17e and a
-data rank's block of a cache split by length (item 17d, part two)
+4.  Then the production grids, checkpoints under a model axis (ROADMAP
+item 17e: ``run_training`` on 1 x 1 x 2 CPU ranks stopped and resumed,
+bitwise the uninterrupted run) and a data rank's block of a cache split
+by length (item 17d, part two)
 (every family builds over a model axis, the ssm, hybrid and encdec ones
 at the production grid's 16 too; the FSDP regime over a model axis
 builds for every family that runs it), and a
@@ -22,6 +24,8 @@ one-process topology that touches no process group at any model axis.
 """
 import dataclasses
 import inspect
+import pathlib
+import sys
 import warnings
 
 import jax
@@ -40,6 +44,9 @@ from repro_torch.core.topology import ProcessMesh, Topology
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import mesh, train
 from repro_torch.models import attention, build
+
+sys.path.insert(0, str(pathlib.Path(__file__).parent / "helpers"))
+import torch_tp_worker as TW  # noqa: E402
 
 TOY_SPECS = {"w": (None, "model"), "b": (None,), "w2": ("model", None)}
 JTOY_SPECS = {"w": jax.sharding.PartitionSpec(None, "model"),
@@ -287,7 +294,7 @@ def jax_cache_specs(arch: str, m: int, batch_ax, smoke: bool = False):
         is_leaf=lambda v: isinstance(v, jax.sharding.PartitionSpec))
 
 
-def test_refusals_name_their_part_of_item_17(tmp_path):
+def test_refusals_name_their_part_of_item_17():
     topo = Topology(2, 2, "cpu", mesh=fake_mesh())
     # the FSDP regime over a model axis (item 17c) builds for the dense,
     # moe and vlm families (item 17f, part one)
@@ -321,10 +328,18 @@ def test_refusals_name_their_part_of_item_17(tmp_path):
         sum(x.numel() * 2 for x in pytree.tree_flatten(st)[0])
     with pytest.raises(ValueError, match="does not split"):
         build.make_cache(gemma.arch, 1, 13, topo=two, len_axis="data")
-    with pytest.raises(NotImplementedError, match="item 17e"):
-        train.run_training(configs.get_smoke("gemma3_1b"), topo,
-                           hier.AlgoConfig(), train.RunCfg(
-                               steps=1, ckpt_dir=str(tmp_path)))
+    # checkpoints under a model axis (item 17e): on 1 x 1 x 2 CPU ranks
+    # run_training stopped at step 2 (saved there) and run again on its
+    # directory resumes and ends bitwise the uninterrupted run
+    lm = {"arch": "gemma3_1b", "steps": 4, "t_e": 2, "seq": 8, "batch": 1}
+    ranks = TW.run_mesh(1, 1, 2, (2, 2), {"lm": lm,
+                                          "lm_ckpt": dict(lm, stop=2)})
+    got, want = ranks["lm_ckpt"], ranks["lm"]
+    assert [e["event"] for e in got["events"]] == ["save", "resume", "save"]
+    assert got["losses"][0] + got["losses"][1] == want["losses"]
+    for a, b in zip(pytree.tree_flatten(got["params"])[0],
+                    pytree.tree_flatten(want["params"])[0]):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
     # MLA serves its heads over the model axis from a latent cache whole
     # on every model rank
     dcfg = configs.get_smoke("deepseek_v3_671b")
