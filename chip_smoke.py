@@ -14,7 +14,8 @@ and ``--phase tp`` do the same for the ``mesh`` and ``tp`` phases,
 ``--phase fsdp_mesh`` for the FSDP regime across their ranks, ``--phase
 ckpt`` for the checkpoints under a process mesh (the ``mesh`` phase with
 its ckpt part, then the ``tp`` phase's 8 ranks running only the FSDP
-run, which saves).
+run, which saves), ``--phase dryrun`` for the dry run (phase 2's kernel
+checks, the ``lm`` phase and the ``dryrun`` phase).
 ``--mesh-rank RANK DIR`` and ``--tp-rank RANK DIR`` are one rank of
 those phases, which each starts itself.)
 
@@ -402,6 +403,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      kernels line gains ``fsdp_mesh_launches_per_rank``.  ``--phase
      fsdp_mesh`` runs phase 2's kernel checks, then only these parts of
      the two phases' ranks.
+ 17. ``dryrun`` (item 16; run right after ``lm``): the dry run
+     (``launch.dryrun``) held against the card.  The ``lm`` phase's
+     configuration (gemma3-1b, 6 layers, P=2 x D=3, 1 x 1152 tokens a
+     device, bf16 compute, DC, fused/flat) takes one sync step (the
+     prologue) and one local step on the card; the caching allocator's
+     requested bytes (unrounded) give each step's arguments -- what the
+     state, batch and weights hold at the call, counted from before
+     they were made -- and its peak from the same start, and the
+     launches are counted; then the same two steps dry, on fake CUDA
+     tensors: each step's argument bytes equal the card's, each peak
+     within ``DRY_PEAK_SLACK`` bytes of the card's, the fake calls equal
+     to the launches.  Then stablelm-3b's smoke config
+     (two layers: the quickest to trace) on a fake 2 x 2 x 2 grid
+     (``mesh.dry_grid``), K=2 streamed clients and ``hier_local_qsgd``
+     (the fake paths of ``tally_acc`` and ``ternary_quant``), a sync
+     step each on fake CUDA and on fake CPU tensors: the records equal
+     in every number but the device and the host seconds.  No kernel
+     launches in any dry run (the real counters unchanged).  JSON lines
+     ``{"dryrun": ...}``; the kernels line gains ``dryrun``; the phase's
+     seconds against ``DRY_BUDGET_S``.
 
 The ``ternary`` cases of phase 2 include the QSGD step's per-row form:
 rows of the MLP's leaf lengths 10, 64, 640 and 50176, R = 20 and 40 rows
@@ -1917,6 +1938,140 @@ def phase_lm(torch) -> dict:
     torch.cuda.empty_cache()
     emit({"lm": "phase", "wall_s": time.perf_counter() - t_phase})
     return {"dc": dc_launches, "qsgd": qsgd_launches, "peak_gb": peaks}
+
+
+DRY_PEAK_SLACK = 2**16       # bytes: a dry run's peak against the card's
+                             # (readings 0 bytes in 53 GB; one of the lm
+                             # config's activations is 16 MB)
+DRY_BUDGET_S = 20.0          # the dryrun phase's seconds
+DRY_GRID = (2, 2, 2)         # the smoke config's fake grid
+DRY_SMOKE_ARCH = "stablelm_3b"   # two layers: the quickest to trace
+DRY_SMOKE = {   # name -> AlgoConfig fields (the wrapper it reaches)
+    "stream": dict(transport="fused", state_layout="flat", t_e=3),
+    "qsgd": dict(method="hier_local_qsgd", transport="fused",
+                 state_layout="flat", t_e=3)}
+
+
+def dry_record(rec: dict) -> dict:
+    """A dry record without its host seconds (the one number the device
+    may change)."""
+    return {k: v for k, v in rec.items() if k != "trace_s"}
+
+
+def phase_dryrun(torch, card: str) -> dict:
+    """The dry run held against the card (the module docstring's phase
+    17): each step's peak beside the card's, the fake calls beside the
+    launches, fake CUDA beside fake CPU.  Returns the real launches and
+    the fake calls of each step."""
+    from repro_torch import configs
+    from repro_torch.core import hier
+    from repro_torch.core.clients import ClientConfig
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.models import build
+    from repro_torch.models.config import ShapeCfg
+
+    def requested(stat: str) -> int:
+        return torch.cuda.memory_stats()[f"requested_bytes.all.{stat}"]
+
+    t_phase = time.perf_counter()
+    cfg, topo, algo = lm_setup(torch)
+    built = build.build_model(cfg, topo)
+    init_fn, step = hier.make_hier_step(topo, algo, built.bundle)
+    torch.cuda.synchronize()
+    start = requested("current")      # before the steps' inputs are made
+    params = built.init_params(torch.Generator(device="cuda").manual_seed(0))
+    state = init_fn(params, 1)
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"train": {"tokens": torch.randint(
+        0, cfg.vocab, (LM_P, LM_D, 1, LM_SEQ), device="cuda",
+        generator=gen)}}
+    weights = (torch.full((LM_P,), 1.0 / LM_P, device="cuda"),
+               torch.full((LM_P, LM_D), 1.0 / LM_D, device="cuda"),
+               torch.ones((LM_P, LM_D), device="cuda"))
+    labels = (("sync_step", "always"), ("local_step", "never"))
+    real = {}
+    for label, _ in labels:
+        zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        require(requested("peak") == requested("current"),
+                "dryrun: the allocator's requested peak was not reset")
+        args = requested("current") - start
+        state, metrics = step(state, batch, *weights)
+        torch.cuda.synchronize()
+        real[label] = {
+            "peak_bytes": requested("peak") - start,
+            "argument_bytes": args, "launches": counted_launches(),
+            "loss": float(metrics["loss"])}
+        del metrics
+        require(math.isfinite(real[label]["loss"]),
+                f"dryrun: the card's {label} loss {real[label]['loss']}")
+    del state, batch, weights
+    torch.cuda.empty_cache()
+    t_real = time.perf_counter() - t_phase
+
+    launched = counted_launches()
+    shape = ShapeCfg("lm", "train", LM_SEQ, LM_P * LM_D)
+    dry = {label: dryrun.analyze(dryrun.lower_train(
+        built, topo, algo, shape, sync), label, verbose=False)
+        for label, sync in labels}
+    for label, _ in labels:
+        mem, want = dry[label]["memory"], real[label]
+        off = mem["peak_bytes"] - want["peak_bytes"]
+        emit({"dryrun": label, "card": card,
+              "dry_peak_bytes": mem["peak_bytes"],
+              "card_peak_bytes": want["peak_bytes"], "peak_off_bytes": off,
+              "peak_rel": abs(off) / want["peak_bytes"],
+              "dry_argument_bytes": mem["argument_bytes"],
+              "card_argument_bytes": want["argument_bytes"],
+              "dry_calls": dry[label]["launches"],
+              "card_launches": want["launches"],
+              "trace_s": dry[label]["trace_s"], "loss": want["loss"]})
+        require(mem["argument_bytes"] == want["argument_bytes"],
+                f"dryrun {label}: the dry arguments {mem['argument_bytes']} "
+                f"bytes, the card's {want['argument_bytes']}")
+        require(abs(off) <= DRY_PEAK_SLACK, f"dryrun {label}: the dry peak "
+                f"{mem['peak_bytes']} is {off} bytes off the card's "
+                f"{want['peak_bytes']} (limit {DRY_PEAK_SLACK})")
+        require(dry[label]["launches"] == want["launches"],
+                f"dryrun {label}: fake calls {dry[label]['launches']}, "
+                f"the card launched {want['launches']}")
+    t_lm = time.perf_counter() - t_phase - t_real
+
+    smoke = configs.get_smoke(DRY_SMOKE_ARCH)
+    sshape = ShapeCfg("smoke", "train", 8, 2 * DRY_GRID[0] * DRY_GRID[1])
+    devices = {}
+    for name, kw in DRY_SMOKE.items():
+        if name == "stream":
+            kw = dict(kw, clients=ClientConfig(count=2, mode="stream"))
+        recs = {}
+        for device in ("cuda", "cpu"):
+            with mesh.dry_grid(*DRY_GRID, device=device) as dtopo:
+                dbuilt = build.build_model(smoke, dtopo)
+                recs[device] = dry_record(dryrun.analyze(dryrun.lower_train(
+                    dbuilt, dtopo, hier.AlgoConfig(**kw), sshape, "always"),
+                    name, verbose=False))
+        reached = "tally_acc" if name == "stream" else "ternary_quant"
+        emit({"dryrun": f"smoke {name}", "calls": recs["cuda"]["launches"],
+              "peak_bytes": recs["cuda"]["memory"]["peak_bytes"],
+              "groups": recs["cuda"]["comm"]["groups"],
+              "cuda_equals_cpu": recs["cuda"] == recs["cpu"]})
+        require(recs["cuda"] == recs["cpu"], f"dryrun smoke {name}: the "
+                f"fake CUDA record differs from the fake CPU one:\n"
+                f"{recs['cuda']}\n{recs['cpu']}")
+        require(recs["cuda"]["launches"][reached] > 0,
+                f"dryrun smoke {name}: {reached}'s fake path not reached")
+        devices[name] = recs["cuda"]["launches"]
+    require(counted_launches() == launched,
+            f"a dry run launched kernels: {launched} -> {counted_launches()}")
+    wall = time.perf_counter() - t_phase
+    emit({"dryrun": "phase", "wall_s": wall, "card_steps_s": t_real,
+          "lm_dry_s": t_lm, "smoke_dry_s": wall - t_real - t_lm,
+          "budget_s": DRY_BUDGET_S, "within_budget": wall <= DRY_BUDGET_S})
+    return {"real": {label: real[label]["launches"] for label, _ in labels},
+            "fake": {label: dry[label]["launches"] for label, _ in labels},
+            "smoke_fake": devices}
 
 
 FAMILIES = (("xlstm_350m", 1, 576),      # (arch, batch, tokens) a device:
@@ -7834,10 +7989,10 @@ def main() -> None:
     if sys.argv[1:] not in ([], ["--mu-sweep"], ["--phase", "hybrid"],
                             ["--phase", "mesh"], ["--phase", "tp"],
                             ["--phase", "fsdp_mesh"], ["--phase", "shards"],
-                            ["--phase", "ckpt"]):
+                            ["--phase", "ckpt"], ["--phase", "dryrun"]):
         fail(f"usage: {sys.argv[0]} [--mu-sweep | --phase hybrid | "
              "--phase mesh | --phase tp | --phase fsdp_mesh | "
-             "--phase shards | --phase ckpt]")
+             "--phase shards | --phase ckpt | --phase dryrun]")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -7929,6 +8084,17 @@ def main() -> None:
                               x[name] for x in tp["fsdp_ckpt"]]})
         finish(torch, kernels)
         return
+    if sys.argv[1:] == ["--phase", "dryrun"]:
+        lm_launches = phase_lm(torch)
+        dry = phase_dryrun(torch, card)
+        launches = {name: lm_launches["dc"].get(name, 0)
+                    + lm_launches["qsgd"].get(name, 0) for name in SOURCES}
+        paths = dict.fromkeys(SOURCES, "lm, gemma3-1b fused/flat (6 steps) "
+                              "and hier_local_qsgd K=2 stream (2 steps)")
+        kernels = kernel_rows(main_rows, launches, paths,
+                              lambda name: dryrun_extra(dry, name))
+        finish(torch, kernels)
+        return
     if sys.argv[1:] == ["--phase", "fsdp_mesh"]:
         fm = phase_fsdp_mesh(torch, card)
         paths = dict.fromkeys(SOURCES, "fsdp_mesh, gemma3-12b FSDP (2 steps, "
@@ -7952,6 +8118,7 @@ def main() -> None:
     launches["ternary_quant"] = (
         methods["hier_local_qsgd"]["launches"]["ternary_quant"])
     lm_launches = phase_lm(torch)
+    dry = phase_dryrun(torch, card)
     fam_launches = phase_families(torch)
     ft = phase_fault_tolerant(torch, lm_launches["peak_gb"], card)
     serve_launches = phase_serve(torch, card)
@@ -7985,8 +8152,19 @@ def main() -> None:
         **mesh_extra(mesh, name), **tp_extra(tp, name),
         "tp_fsdp_ckpt_launches_per_rank": [x[name]
                                            for x in tp["fsdp_ckpt"]],
-        **fsdp_mesh_extra(fm, name)})
+        **fsdp_mesh_extra(fm, name), **dryrun_extra(dry, name)})
     finish(torch, kernels)
+
+
+def dryrun_extra(dry: dict, name: str) -> dict:
+    """The kernels line's ``dryrun``: the lm configuration's launches of
+    ``name`` on the card and its dry run's fake calls, a step each, and
+    the smoke dry runs' fake calls (none of which launched)."""
+    return {"dryrun": {
+        "card_launches": {k: v[name] for k, v in dry["real"].items()},
+        "fake_calls": {k: v[name] for k, v in dry["fake"].items()},
+        "smoke_fake_calls": {k: v[name]
+                             for k, v in dry["smoke_fake"].items()}}}
 
 
 def mesh_rank0_launches(mesh: dict) -> dict:

@@ -12,6 +12,15 @@ ints ``c_int``, scalars ``c_float``, and every entry point returns
 No PyTorch header is compiled (a source that includes them takes
 minutes to build), and nothing here runs at import time: the CPU tests
 import every module on a machine with no ``nvcc``.
+
+A dry run (``launch.dryrun``) hands the wrappers fake tensors
+(``torch._subclasses.FakeTensorMode``'s: a shape, a dtype and a device,
+no data): :func:`is_fake` tells them apart, and a wrapper given one
+returns its output's shape and dtype (its in-place form the tensor it
+writes), launches nothing on any device and records the call with
+:func:`fake_call`: one in its entry of :data:`fake_calls`, the dry
+run's own tally -- ``<wrapper>.launches`` counts real launches only --,
+and the bytes its kernel would move in :data:`fake_bytes`.
 """
 from __future__ import annotations
 
@@ -131,6 +140,33 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+KERNELS = ("sign_pack", "vote_update", "tally_acc", "ternary_quant")
+fake_calls = dict.fromkeys(KERNELS, 0)    # a dry run's calls of each wrapper
+fake_bytes = dict.fromkeys(KERNELS, 0)    # ... and their kernels' bytes
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (a dry run's: no storage to read or
+    write, and ``data_ptr()`` 0), which no kernel may be given."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+def fake_call(name: str, reads, writes) -> None:
+    """Record a wrapper's fake call: one call of ``name``, and the bytes
+    its kernel would move -- each tensor of ``reads`` read once, each of
+    ``writes`` written once (an in-place operand in both; ``None``
+    skipped)."""
+    fake_calls[name] += 1
+    fake_bytes[name] += sum(t.numel() * t.element_size()
+                            for t in (*reads, *writes) if t is not None)
+
+
+def reset_fake_calls() -> None:
+    for name in KERNELS:
+        fake_calls[name] = fake_bytes[name] = 0
 
 
 ALIGN = 16      # bytes: the address granularity of a bulk async copy

@@ -119,6 +119,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and starting on a 16-byte boundary (copied if
     not): the kernel reads it as 16-byte vectors."""
     t = t.contiguous()
+    if build.is_fake(t):       # a dry run's: no address, taken as aligned
+        return t
     return t.clone() if t.data_ptr() % build.ALIGN else t
 
 

@@ -10,7 +10,9 @@ both must be 16-byte aligned, with n a multiple of 128
 
 CPU tensors take the plain version (``ref.sign_pack_ref``); CUDA tensors
 launch the kernel or raise -- there is no fallback.  ``sign_pack.launches``
-counts kernel launches (plain-version calls are not counted).
+counts kernel launches (plain-version calls are not counted).  A fake
+tensor (a dry run's, ``build.is_fake``) gets the words' shape and dtype
+on either device, no launch, and a count in ``build.fake_call``.
 """
 from __future__ import annotations
 
@@ -67,12 +69,17 @@ def sign_pack(u: torch.Tensor, delta: torch.Tensor | None = None,
     _check(u, delta)
     if not rho:
         delta = None
+    p, d, n = u.shape
+    if build.is_fake(u):
+        words = torch.empty((p, d, n // PACK), dtype=torch.int32,
+                            device=u.device)
+        build.fake_call("sign_pack", (u, delta), (words,))
+        return words
     if u.device.type == "cpu":
         return ref.sign_pack_ref(u, delta, rho)
     if u.device.type != "cuda":
         raise ValueError(f"sign_pack: unsupported device {u.device}")
     check_kernel_inputs(u, delta)
-    p, d, n = u.shape
     words = torch.empty((p, d, n // PACK), dtype=torch.int32, device=u.device)
     lib = build.load()
     fn = (lib.repro_sign_pack_f32 if u.dtype == torch.float32

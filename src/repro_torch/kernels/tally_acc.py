@@ -17,6 +17,8 @@ old values must clone first.
 CPU tensors take the plain version (``ref.tally_acc_ref``, whose result
 is copied into ``tally``); CUDA tensors launch the kernel or raise --
 there is no fallback.  ``tally_acc.launches`` counts kernel launches.
+Fake tensors (a dry run's, ``build.is_fake``) get ``tally`` back on
+either device, with no launch and a count in ``build.fake_call``.
 """
 from __future__ import annotations
 
@@ -79,6 +81,9 @@ def tally_acc(u: torch.Tensor, delta: torch.Tensor | None, rho: float,
     _check(u, delta, weights, tally)
     if not rho:
         delta = None
+    if build.is_fake(u):
+        build.fake_call("tally_acc", (u, delta, weights, tally), (tally,))
+        return tally
     if u.device.type == "cpu":
         return tally.copy_(ref.tally_acc_ref(u, delta, rho, weights, tally))
     if u.device.type != "cuda":

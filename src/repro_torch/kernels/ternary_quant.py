@@ -15,7 +15,10 @@ more rows over several launches).
 
 CPU tensors take the plain version (``ref.ternary_quant_ref``); CUDA
 tensors launch the kernel or raise -- there is no fallback.
-``ternary_quant.launches`` counts kernel launches.
+``ternary_quant.launches`` counts kernel launches.  Fake tensors (a dry
+run's, ``build.is_fake``) get ``out``, or a new tensor of x's shape and
+dtype, on either device, with no launch and a count in
+``build.fake_call``.
 """
 from __future__ import annotations
 
@@ -79,6 +82,10 @@ def ternary_quant(x: torch.Tensor, u: torch.Tensor,
                             or not out.is_contiguous()):
         raise ValueError(f"ternary_quant: out must be a contiguous "
                          f"{tuple(x.shape)} {x.dtype} tensor on {x.device}")
+    if build.is_fake(x):
+        out = torch.empty_like(x) if out is None else out
+        build.fake_call("ternary_quant", (x, u, norm), (out,))
+        return out
     if x.device.type == "cpu":
         q = ref.ternary_quant_ref(x, u, norm)
         return q if out is None else out.copy_(q)

@@ -16,7 +16,9 @@ writes the [P, n] int8 vote instead (the vote-only form).
 
 CPU tensors take the plain version (``ref.vote_update_ref``); CUDA
 tensors launch the kernel or raise -- there is no fallback.
-``vote_update.launches`` counts kernel launches.
+``vote_update.launches`` counts kernel launches.  Fake tensors (a dry
+run's, ``build.is_fake``) get ``v`` back, or the vote's shape and dtype,
+on either device, with no launch and a count in ``build.fake_call``.
 """
 from __future__ import annotations
 
@@ -83,13 +85,18 @@ def vote_update(words: torch.Tensor, v: torch.Tensor | None, mu: float,
     empty quorum votes 0, which leaves its row of v unchanged but for
     subnormal coordinates."""
     _check(words, v, weights)
+    p, d, w = words.shape
+    if build.is_fake(words):
+        out = v if v is not None else torch.empty(
+            (p, w * PACK), dtype=torch.int8, device=words.device)
+        build.fake_call("vote_update", (words, v, weights), (out,))
+        return out
     if words.device.type == "cpu":
         out = ref.vote_update_ref(words, v, mu, weights)
         return out if v is None else v.copy_(out)
     if words.device.type != "cuda":
         raise ValueError(f"vote_update: unsupported device {words.device}")
     check_kernel_inputs(words, v)
-    p, d, w = words.shape
     wt, as_bool = None, False
     if weights is not None:
         as_bool = weights.dtype == torch.bool     # read as bytes, no cast

@@ -24,9 +24,21 @@ production grids (``(16, 16)`` over ``("data", "model")``, and ``(2,
 ranks.  The backend is the caller's choice: ``"gloo"`` for the CPU and
 for ranks that share one card (NCCL refuses two ranks on one GPU),
 ``"nccl"`` for one GPU a rank.
+
+:func:`dry_topology` (and :func:`dry_grid` for any grid) is the dry
+run's (``launch.dryrun``): the production grid laid over a *fake*
+default group of 256 or 512 ranks in this one process, at the rank the
+caller chooses -- torch's fake backend, whose collectives move nothing,
+so every collective of the rank's step runs ``core.comm``'s normal path
+and is counted in ``comm.traffic`` as a real run's is, while the
+tensors it is given are fake (``torch._subclasses.FakeTensorMode``).
+It refuses to start over a process group already initialised and
+destroys its own when it ends; :func:`make_host_topology` refuses the
+fake backend.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 
@@ -35,6 +47,7 @@ import torch.distributed as dist
 from repro_torch.core.topology import ProcessMesh, Topology
 
 BACKENDS = ("gloo", "nccl")
+FAKE_BACKEND = "fake"        # the dry run's alone (dry_grid)
 TIMEOUT = datetime.timedelta(seconds=60)   # a peer that died fails a
                                            # collective within a minute
 PRODUCTION = {False: ((16, 16), ("data", "model")),
@@ -104,6 +117,13 @@ def make_host_topology(pods: int, data: int, model: int = 1, *,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (choose from "
                          f"{', '.join(BACKENDS)})")
+    return _lay_grid(pods, data, model, backend=backend, device=device,
+                     block=block, shared_dir=shared_dir)
+
+
+def _lay_grid(pods: int, data: int, model: int, *, backend: str, device,
+              block: tuple = (1, 1), shared_dir=None) -> Topology:
+    """:func:`make_host_topology` past its check of the backend."""
     if not dist.is_initialized():
         raise RuntimeError("make_host_topology needs the default process "
                            "group: call torch.distributed."
@@ -150,3 +170,53 @@ def make_host_topology(pods: int, data: int, model: int = 1, *,
                        model_rank=model_rank, model_group=model_group,
                        exchange=exchange)
     return Topology(pods * block[0], data * block[1], device, mesh=mesh)
+
+
+def _register_fake_backend() -> None:
+    """torch's fake process group ("fake"), registered by importing the
+    module that defines it (once a process)."""
+    try:
+        import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(f"this torch has no fake process group "
+                           f"(torch.testing._internal.distributed.fake_pg): "
+                           f"{e}") from e
+
+
+@contextlib.contextmanager
+def dry_grid(pods: int, data: int, model: int = 1, *, rank: int = 0,
+             device="cuda"):
+    """The topology of rank ``rank`` on a ``pods x data x model`` grid
+    laid over a fake default group of ``pods * data * model`` ranks in
+    this process (torch's fake backend: a collective on it moves nothing
+    and writes nothing, and ``core.comm`` counts it as it counts a real
+    one), a [1, 1] block a rank, for the ``with`` block; the group is
+    destroyed when the block ends.  ``RuntimeError`` if a default group
+    is already initialised: a dry run never runs on a real process
+    group."""
+    world = pods * data * model
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not on a {pods} x {data} x "
+                         f"{model} grid of {world} ranks")
+    if dist.is_initialized():
+        raise RuntimeError(
+            "a dry run lays its grid over a fake default group of its own, "
+            "and a default process group is already initialised (backend "
+            f"{dist.get_backend()!r}): run it in a process of its own")
+    _register_fake_backend()
+    dist.init_process_group(FAKE_BACKEND, store=dist.HashStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield _lay_grid(pods, data, model, backend=FAKE_BACKEND,
+                        device=device)
+    finally:
+        dist.destroy_process_group()
+
+
+def dry_topology(*, multi_pod: bool = False, rank: int = 0, device="cuda"):
+    """:func:`dry_grid` of the production grid (:func:`make_topology`'s
+    P = 1 or 2 pods x D = 16 x a 16-way model axis, a [1, 1] block a
+    rank) over 256 or 512 fake ranks, at ``rank``: a context manager."""
+    shape, _ = make_production_mesh(multi_pod=multi_pod)
+    pods, data, model = (1,) * (3 - len(shape)) + tuple(shape)
+    return dry_grid(pods, data, model, rank=rank, device=device)
