@@ -15,7 +15,8 @@ and ``--phase tp`` do the same for the ``mesh`` and ``tp`` phases,
 ckpt`` for the checkpoints under a process mesh (the ``mesh`` phase with
 its ckpt part, then the ``tp`` phase's 8 ranks running only the FSDP
 run, which saves), ``--phase dryrun`` for the dry run (phase 2's kernel
-checks, the ``lm`` phase and the ``dryrun`` phase).
+checks, the ``lm`` phase and the ``dryrun`` phase), ``--phase
+families`` for phase 2's kernel checks and the ``families`` phase.
 ``--mesh-rank RANK DIR`` and ``--tp-rank RANK DIR`` are one rank of
 those phases, which each starts itself.)
 
@@ -116,7 +117,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the kernels' device time beside their byte bounds, the device's
      busy time, the top device ops), the same on ag_packed/tree (bitwise
      the same edge models, no launch), the mean loss of round 2 below
-     step 0's, the peaks beside ``reckon_peak``'s reckoning.
+     step 0's, the peaks beside ``reckon_peak``'s reckoning.  Then one
+     xlstm local step at 4 x 128 tokens a device on the card and dry on
+     fake CUDA tensors (``launch.dryrun``, as the ``dryrun`` phase holds
+     the lm configuration): arguments equal, peaks within 64 KiB, the
+     fake calls the launches (``fam_dry_step``).
   9. ``fault_tolerant``: first the oracle check -- the paper task at full
      width (Q=4 x D=5, B=400, 2 rounds of T_E=15) under a compiled chaos
      schedule of the parity harness's kinds (a client killed mid-round,
@@ -1958,6 +1963,76 @@ def dry_record(rec: dict) -> dict:
     return {k: v for k, v in rec.items() if k != "trace_s"}
 
 
+def card_steps(torch, built, topo, algo, batch: int, seq: int,
+               labels) -> dict:
+    """``labels``' (label, sync) train steps on the card, in order from
+    ``init_fn``'s state (seed-0 parameters, seed-1 tokens [P, D, batch,
+    seq]): each step's requested-bytes peak and its arguments, both
+    counted from before the steps' inputs are made, its launches and
+    its loss."""
+    from repro_torch.core import hier
+
+    def requested(stat: str) -> int:
+        return torch.cuda.memory_stats()[f"requested_bytes.all.{stat}"]
+
+    init_fn, step = hier.make_hier_step(topo, algo, built.bundle)
+    torch.cuda.synchronize()
+    start = requested("current")      # before the steps' inputs are made
+    params = built.init_params(torch.Generator(device="cuda").manual_seed(0))
+    state = init_fn(params, 1)
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = {"train": {"tokens": torch.randint(
+        0, built.cfg.vocab, (LM_P, LM_D, batch, seq), device="cuda",
+        generator=gen)}}
+    weights = (torch.full((LM_P,), 1.0 / LM_P, device="cuda"),
+               torch.full((LM_P, LM_D), 1.0 / LM_D, device="cuda"),
+               torch.ones((LM_P, LM_D), device="cuda"))
+    real = {}
+    for label, _ in labels:
+        zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        require(requested("peak") == requested("current"),
+                f"{label}: the allocator's requested peak was not reset")
+        args = requested("current") - start
+        state, metrics = step(state, tokens, *weights)
+        torch.cuda.synchronize()
+        real[label] = {
+            "peak_bytes": requested("peak") - start,
+            "argument_bytes": args, "launches": counted_launches(),
+            "loss": float(metrics["loss"])}
+        del metrics
+        require(math.isfinite(real[label]["loss"]),
+                f"{label}: the card's loss {real[label]['loss']}")
+    del state, tokens, weights
+    torch.cuda.empty_cache()
+    return real
+
+
+def hold_dry(head: dict, tag: str, dry: dict, want: dict) -> None:
+    """Emit ``head`` with a dry record's memory and calls beside the
+    card's step (``card_steps``), then hold them: the arguments equal,
+    the peak within ``DRY_PEAK_SLACK``, the fake calls the launches."""
+    mem = dry["memory"]
+    off = mem["peak_bytes"] - want["peak_bytes"]
+    emit({**head, "dry_peak_bytes": mem["peak_bytes"],
+          "card_peak_bytes": want["peak_bytes"], "peak_off_bytes": off,
+          "peak_rel": abs(off) / want["peak_bytes"],
+          "dry_argument_bytes": mem["argument_bytes"],
+          "card_argument_bytes": want["argument_bytes"],
+          "dry_calls": dry["launches"], "card_launches": want["launches"],
+          "trace_s": dry["trace_s"], "loss": want["loss"]})
+    require(mem["argument_bytes"] == want["argument_bytes"],
+            f"{tag}: the dry arguments {mem['argument_bytes']} bytes, the "
+            f"card's {want['argument_bytes']}")
+    require(abs(off) <= DRY_PEAK_SLACK, f"{tag}: the dry peak "
+            f"{mem['peak_bytes']} is {off} bytes off the card's "
+            f"{want['peak_bytes']} (limit {DRY_PEAK_SLACK})")
+    require(dry["launches"] == want["launches"], f"{tag}: fake calls "
+            f"{dry['launches']}, the card launched {want['launches']}")
+
+
 def phase_dryrun(torch, card: str) -> dict:
     """The dry run held against the card (the module docstring's phase
     17): each step's peak beside the card's, the fake calls beside the
@@ -1970,45 +2045,11 @@ def phase_dryrun(torch, card: str) -> dict:
     from repro_torch.models import build
     from repro_torch.models.config import ShapeCfg
 
-    def requested(stat: str) -> int:
-        return torch.cuda.memory_stats()[f"requested_bytes.all.{stat}"]
-
     t_phase = time.perf_counter()
     cfg, topo, algo = lm_setup(torch)
     built = build.build_model(cfg, topo)
-    init_fn, step = hier.make_hier_step(topo, algo, built.bundle)
-    torch.cuda.synchronize()
-    start = requested("current")      # before the steps' inputs are made
-    params = built.init_params(torch.Generator(device="cuda").manual_seed(0))
-    state = init_fn(params, 1)
-    del params
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    batch = {"train": {"tokens": torch.randint(
-        0, cfg.vocab, (LM_P, LM_D, 1, LM_SEQ), device="cuda",
-        generator=gen)}}
-    weights = (torch.full((LM_P,), 1.0 / LM_P, device="cuda"),
-               torch.full((LM_P, LM_D), 1.0 / LM_D, device="cuda"),
-               torch.ones((LM_P, LM_D), device="cuda"))
     labels = (("sync_step", "always"), ("local_step", "never"))
-    real = {}
-    for label, _ in labels:
-        zero_launches()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        require(requested("peak") == requested("current"),
-                "dryrun: the allocator's requested peak was not reset")
-        args = requested("current") - start
-        state, metrics = step(state, batch, *weights)
-        torch.cuda.synchronize()
-        real[label] = {
-            "peak_bytes": requested("peak") - start,
-            "argument_bytes": args, "launches": counted_launches(),
-            "loss": float(metrics["loss"])}
-        del metrics
-        require(math.isfinite(real[label]["loss"]),
-                f"dryrun: the card's {label} loss {real[label]['loss']}")
-    del state, batch, weights
-    torch.cuda.empty_cache()
+    real = card_steps(torch, built, topo, algo, 1, LM_SEQ, labels)
     t_real = time.perf_counter() - t_phase
 
     launched = counted_launches()
@@ -2017,26 +2058,8 @@ def phase_dryrun(torch, card: str) -> dict:
         built, topo, algo, shape, sync), label, verbose=False)
         for label, sync in labels}
     for label, _ in labels:
-        mem, want = dry[label]["memory"], real[label]
-        off = mem["peak_bytes"] - want["peak_bytes"]
-        emit({"dryrun": label, "card": card,
-              "dry_peak_bytes": mem["peak_bytes"],
-              "card_peak_bytes": want["peak_bytes"], "peak_off_bytes": off,
-              "peak_rel": abs(off) / want["peak_bytes"],
-              "dry_argument_bytes": mem["argument_bytes"],
-              "card_argument_bytes": want["argument_bytes"],
-              "dry_calls": dry[label]["launches"],
-              "card_launches": want["launches"],
-              "trace_s": dry[label]["trace_s"], "loss": want["loss"]})
-        require(mem["argument_bytes"] == want["argument_bytes"],
-                f"dryrun {label}: the dry arguments {mem['argument_bytes']} "
-                f"bytes, the card's {want['argument_bytes']}")
-        require(abs(off) <= DRY_PEAK_SLACK, f"dryrun {label}: the dry peak "
-                f"{mem['peak_bytes']} is {off} bytes off the card's "
-                f"{want['peak_bytes']} (limit {DRY_PEAK_SLACK})")
-        require(dry[label]["launches"] == want["launches"],
-                f"dryrun {label}: fake calls {dry[label]['launches']}, "
-                f"the card launched {want['launches']}")
+        hold_dry({"dryrun": label, "card": card}, f"dryrun {label}",
+                 dry[label], real[label])
     t_lm = time.perf_counter() - t_phase - t_real
 
     smoke = configs.get_smoke(DRY_SMOKE_ARCH)
@@ -2121,21 +2144,36 @@ def reckon_peak(cfg, n: int, batch: int, seq: int, p: int = LM_P,
               kept for the backward, and their gradients: ten alive, 40
               bytes an entry; ``ssd_entries``), or whisper's encoder
               scores [b, h, f, f], five float32 and two bf16 (24 bytes an
-              entry).
+              entry);
+      slstm   the ssm family's sLSTM blocks (not recomputed), kept from
+              the forward to their backward: a block keeps 52 bytes a row,
+              position and model dim -- seven float32 [b, H, hd] a
+              position (the recurrent product's operand h, c, n, tanh(z),
+              sigmoid(o), max(n, 1) and c over it: 28), the norm's and
+              gated FFN's bf16 and float32 activations (about 22) and the
+              gates' [b, H] scalars -- and one float32 copy of its bf16
+              ``wr`` a [P, D] copy (16 H hd^2 bytes; the product reads it
+              in place and never expands it to the rows).
 
-    peak = state + max(anchor, grads + max(logits, block))."""
+    peak = state + max(anchor, grads + slstm + max(logits, block))."""
     rows = p * d * batch
+    slstm = 0
     if cfg.family == "ssm":
         block = 40 * rows * cfg.n_heads * seq ** 2
+        hd = cfg.d_model // cfg.n_heads
+        slstm = cfg.n_layers // (cfg.xlstm.m_per_s + 1) * (
+            52 * rows * seq * cfg.d_model + p * d * 16 * cfg.n_heads * hd ** 2)
     elif cfg.family == "hybrid":
         block = 40 * rows * ssd_entries(cfg, seq)
     else:
         block = 24 * rows * cfg.n_heads * cfg.encoder_frames ** 2
     terms = {"state": 8 * p * n, "anchor": 6 * p * d * n,
              "grads": 4 * p * d * n,
-             "logits": 18 * rows * seq * cfg.vocab, "block": block}
-    peak = terms["state"] + max(terms["anchor"], terms["grads"] + max(
-        terms["logits"], terms["block"]))
+             "logits": 18 * rows * seq * cfg.vocab, "block": block,
+             "slstm": slstm}
+    peak = terms["state"] + max(terms["anchor"], terms["grads"]
+                                + terms["slstm"] + max(terms["logits"],
+                                                       terms["block"]))
     return {"peak_gb": peak / 1e9,
             **{f"{k}_gb": v / 1e9 for k, v in terms.items()}}
 
@@ -2251,12 +2289,51 @@ def phase_families(torch) -> dict:
         emit({"families": "memory", "arch": cfg.name,
               "peak_gb_fused_flat": fused["peak_gb"],
               "peak_gb_ag_packed_tree": tree["peak_gb"],
-              "reckoned_gb": reckoned["peak_gb"]})
+              "reckoned_gb": reckoned["peak_gb"],
+              "reckoned_slstm_gb": reckoned["slstm_gb"]})
         launches[arch] = fused["launches"]
         del fused, tree, params, built
         torch.cuda.empty_cache()
+        if cfg.family == "ssm":
+            fam_dry_step(torch, cfg, topo, algo)
     emit({"families": "phase", "wall_s": time.perf_counter() - t_phase})
     return launches
+
+
+FAM_DRY_BATCH, FAM_DRY_SEQ = 4, 128   # the xlstm step held against its
+                         # dry run, a device: 128 positions through the
+                         # sLSTM loop, on 4 rows (at 1 the product's rows
+                         # are the P x D copies, which wr carries too)
+
+
+def fam_dry_step(torch, cfg, topo, algo) -> None:
+    """The families phase's xlstm (its cut, P x D, ``FAM_DRY_BATCH`` x
+    ``FAM_DRY_SEQ`` tokens a device): a sync and a local step on the
+    card (``card_steps``), the local step dry on fake CUDA tensors
+    (``launch.dryrun``) and held against the card's as ``phase_dryrun``
+    holds the lm configuration's (``hold_dry``).  What it checks that
+    the lm configuration does not: the accounting of the sLSTM's loop,
+    which keeps its operands a position for the backward."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build
+    from repro_torch.models.config import ShapeCfg
+
+    t0 = time.perf_counter()
+    built = build.build_model(cfg, topo)
+    real = card_steps(torch, built, topo, algo, FAM_DRY_BATCH, FAM_DRY_SEQ,
+                      (("sync_step", "always"), ("local_step", "never")))
+    t_card = time.perf_counter() - t0
+    launched = counted_launches()
+    dry = dryrun.analyze(dryrun.lower_train(
+        built, topo, algo, ShapeCfg(cfg.name, "train", FAM_DRY_SEQ,
+                                    LM_P * LM_D * FAM_DRY_BATCH), "never"),
+        "local_step", verbose=False)
+    require(counted_launches() == launched, f"families dry: the dry run "
+            f"launched kernels: {launched} -> {counted_launches()}")
+    hold_dry({"families": "dry", "arch": cfg.name, "batch": FAM_DRY_BATCH,
+              "seq": FAM_DRY_SEQ, "card_s": t_card,
+              "wall_s": time.perf_counter() - t0},
+             "families dry local_step", dry, real["local_step"])
 
 
 FT_KEEP = 2                          # checkpoints the phase's runs keep
@@ -7989,10 +8066,12 @@ def main() -> None:
     if sys.argv[1:] not in ([], ["--mu-sweep"], ["--phase", "hybrid"],
                             ["--phase", "mesh"], ["--phase", "tp"],
                             ["--phase", "fsdp_mesh"], ["--phase", "shards"],
-                            ["--phase", "ckpt"], ["--phase", "dryrun"]):
+                            ["--phase", "ckpt"], ["--phase", "dryrun"],
+                            ["--phase", "families"]):
         fail(f"usage: {sys.argv[0]} [--mu-sweep | --phase hybrid | "
              "--phase mesh | --phase tp | --phase fsdp_mesh | "
-             "--phase shards | --phase ckpt | --phase dryrun]")
+             "--phase shards | --phase ckpt | --phase dryrun | "
+             "--phase families]")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -8093,6 +8172,18 @@ def main() -> None:
                               "and hier_local_qsgd K=2 stream (2 steps)")
         kernels = kernel_rows(main_rows, launches, paths,
                               lambda name: dryrun_extra(dry, name))
+        finish(torch, kernels)
+        return
+    if sys.argv[1:] == ["--phase", "families"]:
+        fam_launches = phase_families(torch)
+        paths = dict.fromkeys(SOURCES, "families, xlstm-350m (8 blocks) and "
+                              "whisper-base fused/flat (4 steps each)")
+        kernels = kernel_rows(
+            main_rows, {name: sum(fam.get(name, 0)
+                                  for fam in fam_launches.values())
+                        for name in SOURCES}, paths,
+            lambda name: {"families_launches": {
+                arch: fam.get(name, 0) for arch, fam in fam_launches.items()}})
         finish(torch, kernels)
         return
     if sys.argv[1:] == ["--phase", "fsdp_mesh"]:

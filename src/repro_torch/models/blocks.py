@@ -306,8 +306,12 @@ def mlstm_block(cfg: LMConfig, model_shards: int = 0) -> BlockDef:
 def slstm_block(cfg: LMConfig, model_shards: int = 0) -> BlockDef:
     """Not recomputed: its loop of small launches a position is what its
     step waits on (on the card the host issues them), and a recompute
-    would run it twice; the activations it keeps are [b, H, hd] a
-    position.  The values are the same either way."""
+    would run it twice.  What it keeps a position is seven float32
+    [b, H, hd] tensors, 28·b·d bytes (the recurrent product's operand h;
+    c and n; tanh(z) and sigmoid(o); max(n, 1) and c over it) and a few
+    [b, H] gate scalars; ``wr`` is never copied to the rows.  The norm
+    and the gated FFN keep their [b, t, ...] activations once, about
+    8.3·b·t·d values in float32.  The values are the same either way."""
     return _mixer_block(cfg, "slstm", ssm.init_slstm, ssm.slstm_block,
                         ssm.slstm_state_init,
                         ssm.slstm_specs(cfg, model_shards),

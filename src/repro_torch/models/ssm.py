@@ -517,6 +517,12 @@ def slstm_block(p, x, cfg, state=None, tp=None):
     n = 1, or from a ``state`` (``slstm_state_init``'s keys, cast to
     float32), and then (y, the final carry).
 
+    The recurrent product is the JAX package's ``jnp.einsum("bhp,hpq->
+    bhq", h, p["wr"])`` (``src/repro/models/ssm.py:376``) with the lead
+    dims in front: ``wr`` is read as ``[*lead, H, hd, 4hd]`` (float32)
+    and never expanded to the rows, so a position keeps only its
+    ``[*lead, b, H, hd]`` operand for the backward.
+
     ``tp`` (``slstm_specs``' blocks): ``wx`` is replicated,
     so the gates are formed whole and marked, and each rank runs the
     recurrence of its own heads (``wr``, ``fb``) with no collective in
@@ -536,10 +542,12 @@ def slstm_block(p, x, cfg, state=None, tp=None):
     if tp is not None:
         xg = xg[..., tp.model_rank * h_loc:(tp.model_rank + 1) * h_loc, :]
     xg = xg.to(F32)                                         # [.., t, H, 4hd]
-    # the loop's operands laid out once: wr [*lead, 1, H, hd, 4hd] for a
-    # batched [1, hd] @ [hd, 4hd] product a head; the gates' per-head
-    # scalars kept as [..., H, 1] so they broadcast over hd unsqueezed
-    wr = p["wr"].to(F32).unsqueeze(-4)
+    # wr [*lead, H, hd, 4hd] as it is: the einsum runs a [b, hd] @ [hd,
+    # 4hd] GEMM a lead index and head (a matmul against wr unsqueezed to
+    # the rows would copy it a row and position, each copy kept for the
+    # backward); the gates' per-head scalars kept as [..., H, 1] so they
+    # broadcast over hd unsqueezed
+    wr = p["wr"].to(F32)
     fb = p["fb"].to(F32)
     fb = fb.reshape(fb.shape[:-1] + (1,) * (xg.dim() - 2 - fb.dim())
                     + (h_loc, 1))
@@ -555,7 +563,7 @@ def slstm_block(p, x, cfg, state=None, tp=None):
     one = scalar(n, 1.0)
     hs = []
     for xt in xg.unbind(-3):
-        g = xt + torch.matmul(h.unsqueeze(-2), wr).squeeze(-2)
+        g = xt + torch.einsum("...bhp,...hpq->...bhq", h, wr)
         ih, fh, zh, oh = torch.split(g, hd, dim=-1)
         i_pre = torch.mean(ih, dim=-1, keepdim=True)          # a gate a head
         f_pre = torch.mean(fh, dim=-1, keepdim=True) + fb

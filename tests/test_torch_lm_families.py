@@ -172,6 +172,77 @@ def test_xlstm_blocks(kind):
     block_case(jb, tb, JXCFG, XCFG, (2, 16, XCFG.d_model))
 
 
+SLSTM_LEAVES = ("wx", "wr", "fb", "norm", "up", "down")
+
+
+def test_slstm_gradients_match_jax():
+    """The sLSTM mixer's gradients against ``jax.grad`` of the JAX block:
+    x, wx, wr, fb and the FFN's norm, up and down, on [2, 3] replicas,
+    each with its own parameters, input [2, 16, d] and cotangent (the
+    recurrent product runs a GEMM a replica and head, the rows its M
+    dimension): 1e-5."""
+    n = int(np.prod(LEAD))
+    shape = (2, 16, XCFG.d_model)
+    args = [(jparams(lambda key: jssm.init_slstm(key, JXCFG), i),
+             rand(shape, 120 + i), rand(shape, 130 + i)) for i in range(n)]
+
+    @jax.jit
+    def jgrad(p, x, ct):
+        return jax.grad(lambda p, x: jnp.sum(
+            jssm.slstm_block(p, x, JXCFG)[0] * ct), argnums=(0, 1))(p, x)
+
+    p = pytree.tree_map(lambda a: a.requires_grad_(True),
+                        stack([a[0] for a in args]))
+    x, ct = (t(np.stack([a[k] for a in args])).reshape(LEAD + shape)
+             for k in (1, 2))
+    x.requires_grad_(True)
+    leaves = [x] + [p[k] for k in SLSTM_LEAVES]
+    got = torch.autograd.grad((ssm.slstm_block(p, x, XCFG) * ct).sum(),
+                              leaves)
+    for i in range(n):
+        jp, jx = jgrad(*args[i])
+        idx = np.unravel_index(i, LEAD)
+        for g, want in zip(got, [jx] + [jp[k] for k in SLSTM_LEAVES]):
+            close(g[idx], want, 1e-5)
+
+
+def test_slstm_keeps_no_copy_of_wr():
+    """One training forward of ``ssm.slstm_block`` at LEAD [2, 3], b = 4,
+    t = 32, its saved tensors seen through ``saved_tensors_hooks``: no
+    storage saved a position holds rows·H·hd·4hd elements or more (a
+    matmul that expands ``wr`` to the rows saves exactly that a
+    position), and the distinct storages it saves, beside the caller's
+    parameters and x, come to at most 16 float32 [rows, H, hd] tensors
+    a position plus the gates ``xg`` [rows, t, 4d].  The sequence-wide
+    activations [*LEAD, b, t, ...] count in the total but not in the
+    size check: the FFN's up-projection [rows, t, 8d/3] outgrows
+    rows·H·hd·4hd at this t, and it is saved once, not a position."""
+    b, tt, d, heads = 4, 32, XCFG.d_model, XCFG.n_heads
+    hd, rows = d // heads, int(np.prod(LEAD)) * b
+    p = pytree.tree_map(lambda a: a.requires_grad_(True),
+                        stack([jparams(lambda key: jssm.init_slstm(
+                            key, JXCFG), i) for i in range(6)]))
+    x = t(rand(LEAD + (b, tt, d), 140)).requires_grad_(True)
+    saved = {}
+    per_position = []
+
+    def pack(a):
+        st = a.untyped_storage()
+        saved[st.data_ptr()] = st.nbytes()
+        if tuple(a.shape[:len(LEAD) + 2]) != LEAD + (b, tt):
+            per_position.append((st.data_ptr(), st.nbytes() // 4))
+        return a
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda a: a):
+        ssm.slstm_block(p, x, XCFG)
+    held = {a.untyped_storage().data_ptr()
+            for a in [x, *pytree.tree_flatten(p)[0]]}
+    sizes = [n for ptr, n in per_position if ptr not in held]
+    assert sizes and max(sizes) < rows * heads * hd * 4 * hd
+    total = sum(nb for ptr, nb in saved.items() if ptr not in held)
+    assert total <= 4 * (16 * tt * rows * heads * hd + rows * tt * 4 * d)
+
+
 @pytest.mark.parametrize("cross", [False, True], ids=["encoder", "decoder"])
 def test_whisper_blocks(cross):
     """Whisper's bidirectional encoder block (no mask, no rope) and its
